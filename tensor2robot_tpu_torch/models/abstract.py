@@ -1,0 +1,173 @@
+"""Model protocol (serving subset): specs, preprocessor, network, and the
+session-decode seam.
+
+Counterpart of `tensor2robot_tpu.models.abstract`. A model provides
+feature/label specs and `create_module()`, an `nn.Module` whose
+`forward(features, mode)` returns a mapping of inference outputs. The
+module's own parameters only give the structure: every forward runs on a
+parameter dict (a `state_dict`) through `torch.func.functional_call`, so
+a predictor can swap parameters without touching the module, as the JAX
+package applies one flax module to any param tree.
+
+bfloat16 policy: with `use_bfloat16`, the preprocessor is wrapped in
+`Bfloat16DevicePolicy`, features are cast to bfloat16, and float32
+parameters are cast to bfloat16 for the forward.
+"""
+
+from __future__ import annotations
+
+import abc
+import math
+from typing import Callable, Dict, Mapping, Optional
+
+import torch
+from torch import nn
+
+from tensor2robot_tpu_torch import specs as specs_lib
+from tensor2robot_tpu_torch.preprocessors import base as preprocessors_lib
+
+__all__ = ["T2RModel"]
+
+Params = Dict[str, torch.Tensor]
+
+
+def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+  """flax's default Dense kernel init: variance_scaling(1, fan_in,
+  truncated_normal), i.e. a normal truncated at two standard deviations
+  and rescaled to variance 1/fan_in. `weight` is torch's [out, in]."""
+  fan_in = weight.shape[1]
+  std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+  nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                        generator=generator)
+
+
+class T2RModel(abc.ABC):
+  """Base model: specs + network module + session-decode seam."""
+
+  def __init__(self, preprocessor_cls: Optional[Callable] = None,
+               use_bfloat16: bool = False):
+    self._preprocessor_cls = preprocessor_cls
+    self._use_bfloat16 = use_bfloat16
+    self._preprocessor: Optional[preprocessors_lib.AbstractPreprocessor] = None
+    self._module: Optional[nn.Module] = None
+
+  @property
+  def use_bfloat16(self) -> bool:
+    return self._use_bfloat16
+
+  @property
+  def preprocessor(self) -> preprocessors_lib.AbstractPreprocessor:
+    """Preprocessor wired to this model's specs; bfloat16-wrapped under
+    the bfloat16 policy."""
+    if self._preprocessor is None:
+      cls = self._preprocessor_cls or preprocessors_lib.NoOpPreprocessor
+      preprocessor = cls(
+          model_feature_specification_fn=self.get_feature_specification,
+          model_label_specification_fn=self.get_label_specification)
+      if self._use_bfloat16:
+        preprocessor = preprocessors_lib.Bfloat16DevicePolicy(preprocessor)
+      self._preprocessor = preprocessor
+    return self._preprocessor
+
+  @property
+  def module(self) -> nn.Module:
+    if self._module is None:
+      self._module = self.create_module()
+    return self._module
+
+  # -- abstract model surface ----------------------------------------------
+
+  @abc.abstractmethod
+  def get_feature_specification(self, mode: str) -> specs_lib.SpecStruct:
+    ...
+
+  @abc.abstractmethod
+  def get_label_specification(self, mode: str) -> specs_lib.SpecStruct:
+    ...
+
+  @abc.abstractmethod
+  def create_module(self) -> nn.Module:
+    """The network; `forward(features, mode)` returns a mapping of
+    inference outputs."""
+
+  def create_export_outputs_fn(self, features, inference_outputs
+                               ) -> Dict[str, torch.Tensor]:
+    """Serving outputs; defaults to all inference outputs."""
+    if isinstance(inference_outputs, Mapping):
+      return dict(inference_outputs.items())
+    return {"output": inference_outputs}
+
+  # -- parameters and forward -----------------------------------------------
+
+  def init_params(self, generator: torch.Generator) -> Params:
+    """Fresh parameters with flax's default initializers (Dense: lecun
+    normal kernel, zero bias; LayerNorm: unit scale, zero bias), drawn
+    from `generator` on the CPU."""
+    params: Params = {}
+    for name, module in self.module.named_modules():
+      prefix = f"{name}." if name else ""
+      if isinstance(module, nn.Linear):
+        weight = torch.empty_like(module.weight, device="cpu")
+        _lecun_normal_(weight, generator)
+        params[prefix + "weight"] = weight
+        params[prefix + "bias"] = torch.zeros_like(module.bias, device="cpu")
+      elif isinstance(module, nn.LayerNorm):
+        params[prefix + "weight"] = torch.ones_like(module.weight,
+                                                    device="cpu")
+        params[prefix + "bias"] = torch.zeros_like(module.bias, device="cpu")
+    missing = set(self.module.state_dict()) - set(params)
+    if missing:
+      raise NotImplementedError(
+          f"no initializer for parameters {sorted(missing)}")
+    return params
+
+  def inference_network_fn(self, params: Params, features,
+                           mode: str) -> Mapping[str, torch.Tensor]:
+    """Pure forward pass of the module on `params`."""
+    if self._use_bfloat16:
+      # bf16 compute: float32 parameters are cast for the forward, so the
+      # projections run in bf16 like the activations.
+      params = {k: v.to(self.compute_dtype) if v.dtype == torch.float32
+                else v for k, v in params.items()}
+    return torch.func.functional_call(self.module, params, (features,),
+                                      {"mode": mode})
+
+  @property
+  def compute_dtype(self) -> torch.dtype:
+    return torch.bfloat16 if self._use_bfloat16 else torch.float32
+
+  def cast_features_for_compute(self, features):
+    """float32 -> bfloat16 on the way into the network under the bfloat16
+    policy."""
+    if not self._use_bfloat16:
+      return features
+    return specs_lib.cast_float32_to_bfloat16(features)
+
+  # -- session-decode seam ---------------------------------------------------
+
+  @property
+  def supports_sessions(self) -> bool:
+    """True when the model has `init_session_state` / `decode_step_fn`."""
+    return False
+
+  def init_session_state(self, batch_size: int, device=None):
+    raise NotImplementedError(
+        f"{type(self).__name__} has no session-decode seam.")
+
+  def decode_step_fn(self):
+    """A pure `fn(state, session_state, features) -> (new_session_state,
+    outputs)` advancing every session row one tick."""
+    raise NotImplementedError(
+        f"{type(self).__name__} has no session-decode seam.")
+
+  @property
+  def supports_decode_kernel(self) -> bool:
+    """True when the model has `decode_arena_step_fn`."""
+    return False
+
+  def decode_arena_step_fn(self):
+    """A `fn(state, arena, slots, features, mask) -> (arena, outputs)`
+    advancing the masked lanes one tick against the whole session arena
+    (leaves [max_sessions + 1, ...], slot 0 the null slot), IN PLACE."""
+    raise NotImplementedError(
+        f"{type(self).__name__} has no fused-arena decode seam.")

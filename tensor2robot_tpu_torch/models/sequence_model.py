@@ -1,0 +1,255 @@
+"""The causal-attention sequence policy and its session-decode seam.
+
+Counterpart of `tensor2robot_tpu.models.sequence_model`
+(`SequenceRegressionModel`): a stack of pre-LN causal attention + MLP
+blocks, [B, T, obs] -> [B, T, action]. Module names follow flax's
+(`embed`, `ln_attn_{i}`, `attn_{i}.{q,k,v,out}_proj`, `ln_mlp_{i}`,
+`mlp_in_{i}`, `mlp_out_{i}`, `head`), so `bridge.py` maps a flax param
+tree onto this `state_dict` by name.
+
+The decode path is plain functions over the same parameter dict the full
+forward runs on:
+
+* `decode_step_fn` — one tick per session row against per-session KV
+  caches (`cached_attention`), pure: it returns new caches.
+* `decode_arena_step_fn` — one tick of a bucket of lanes against the
+  WHOLE serving arena: each block's cached attention and KV append is one
+  `fused_decode_attention` launch that updates the arena in place, and
+  the tick index advances in place once per tick.
+
+LayerNorm eps is 1e-6 (flax's), and gelu is the tanh approximation
+(flax's `nn.gelu`).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tensor2robot_tpu_torch import modes as modes_lib
+from tensor2robot_tpu_torch.layers import attention_layers
+from tensor2robot_tpu_torch.models import abstract as abstract_model
+from tensor2robot_tpu_torch.ops import attention as attention_ops
+from tensor2robot_tpu_torch.ops import decode_kernels
+from tensor2robot_tpu_torch.specs import SpecStruct, TensorSpec
+from tensor2robot_tpu_torch.utils import config
+
+__all__ = ["SequenceRegressionModel"]
+
+LAYERNORM_EPS = 1e-6  # flax nn.LayerNorm's default, not torch's 1e-5
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+  return F.gelu(x, approximate="tanh")
+
+
+def _dense(params, name: str, x: torch.Tensor) -> torch.Tensor:
+  return F.linear(x, params[f"{name}.weight"], params[f"{name}.bias"])
+
+
+def _layernorm(params, name: str, x: torch.Tensor) -> torch.Tensor:
+  return F.layer_norm(x, (x.shape[-1],), params[f"{name}.weight"],
+                      params[f"{name}.bias"], eps=LAYERNORM_EPS)
+
+
+class _AttentionTrunk(nn.Module):
+  """embed -> N x (pre-LN causal MHA + pre-LN MLP, residual) -> head."""
+
+  def __init__(self, obs_size: int, action_size: int, hidden_size: int,
+               num_blocks: int, num_heads: int, backend: str):
+    super().__init__()
+    self.num_blocks = num_blocks
+    self.embed = nn.Linear(obs_size, hidden_size)
+    head_dim = hidden_size // num_heads
+    for i in range(num_blocks):
+      self.add_module(f"ln_attn_{i}",
+                      nn.LayerNorm(hidden_size, eps=LAYERNORM_EPS))
+      self.add_module(f"attn_{i}", attention_layers.MultiHeadAttention(
+          hidden_size, num_heads=num_heads, head_dim=head_dim, causal=True,
+          backend=backend))
+      self.add_module(f"ln_mlp_{i}",
+                      nn.LayerNorm(hidden_size, eps=LAYERNORM_EPS))
+      self.add_module(f"mlp_in_{i}", nn.Linear(hidden_size, 2 * hidden_size))
+      self.add_module(f"mlp_out_{i}", nn.Linear(2 * hidden_size, hidden_size))
+    self.head = nn.Linear(hidden_size, action_size)
+
+  def forward(self, features, mode: str = modes_lib.PREDICT):
+    x = self.embed(features["observation"])  # [B, T, hidden]
+    for i in range(self.num_blocks):
+      y = getattr(self, f"ln_attn_{i}")(x)
+      x = x + getattr(self, f"attn_{i}")(y)
+      y = getattr(self, f"ln_mlp_{i}")(x)
+      y = getattr(self, f"mlp_out_{i}")(_gelu(getattr(self, f"mlp_in_{i}")(y)))
+      x = x + y
+    action = self.head(x)  # [B, T, act]
+    return SpecStruct({"action": action, "inference_output": action})
+
+
+@config.configurable
+class SequenceRegressionModel(abstract_model.T2RModel):
+  """[B, T, obs] -> [B, T, action] causal regression; the attention
+  backend is 'reference' (plain attention) or 'flash' (the kernel)."""
+
+  def __init__(self, obs_size: int = 16, action_size: int = 7,
+               sequence_length: int = 32, hidden_size: int = 64,
+               num_blocks: int = 2, num_heads: int = 4,
+               attention_backend: str = "reference", **kwargs):
+    super().__init__(**kwargs)
+    if attention_backend not in ("reference", "flash", "ring", "ulysses"):
+      raise ValueError(f"Unknown attention_backend {attention_backend!r}")
+    if hidden_size % num_heads:
+      raise ValueError(f"hidden_size {hidden_size} is not divisible by "
+                       f"num_heads {num_heads}")
+    self._obs_size = obs_size
+    self._action_size = action_size
+    self._sequence_length = sequence_length
+    self._hidden_size = hidden_size
+    self._num_blocks = num_blocks
+    self._num_heads = num_heads
+    self._attention_backend = attention_backend
+
+  @property
+  def head_dim(self) -> int:
+    return self._hidden_size // self._num_heads
+
+  def get_feature_specification(self, mode):
+    return SpecStruct({
+        "observation": TensorSpec(
+            shape=(self._sequence_length, self._obs_size),
+            dtype=np.float32, name="observation"),
+    })
+
+  def get_label_specification(self, mode):
+    return SpecStruct({
+        "action": TensorSpec(
+            shape=(self._sequence_length, self._action_size),
+            dtype=np.float32, name="action"),
+    })
+
+  def create_module(self) -> nn.Module:
+    return _AttentionTrunk(
+        obs_size=self._obs_size, action_size=self._action_size,
+        hidden_size=self._hidden_size, num_blocks=self._num_blocks,
+        num_heads=self._num_heads, backend=self._attention_backend)
+
+  # -- session-decode seam ---------------------------------------------------
+
+  @property
+  def supports_sessions(self) -> bool:
+    return True
+
+  @property
+  def decode_observation_spec(self) -> SpecStruct:
+    """Per-tick wire layout: the feature spec minus the time dim."""
+    return SpecStruct({
+        "observation": TensorSpec(shape=(self._obs_size,),
+                                  dtype=np.float32, name="observation"),
+    })
+
+  @property
+  def decode_max_ticks(self) -> int:
+    """Decode horizon == KV capacity. A tick at index >= T would write
+    past the slot; the engine refuses it with SessionHorizonError."""
+    return self._sequence_length
+
+  def init_session_state(self, batch_size: int, device=None
+                         ) -> Dict[str, torch.Tensor]:
+    """Zeroed KV caches [B, T, H, D] per block (T-major) plus the [B]
+    int32 tick index, on `device`."""
+    kv_shape = (batch_size, self._sequence_length, self._num_heads,
+                self.head_dim)
+    state = {"index": torch.zeros((batch_size,), dtype=torch.int32,
+                                  device=device)}
+    for i in range(self._num_blocks):
+      state[f"k_{i}"] = torch.zeros(kv_shape, dtype=torch.float32,
+                                    device=device)
+      state[f"v_{i}"] = torch.zeros(kv_shape, dtype=torch.float32,
+                                    device=device)
+    return state
+
+  def decode_step_fn(self):
+    """Pure per-tick forward: embed -> N x (pre-LN cached attention +
+    pre-LN MLP, residual) -> head, appending this tick's K/V at each
+    session's own index. Returns new caches; the inputs are left alone."""
+    num_blocks, num_heads, head_dim = (self._num_blocks, self._num_heads,
+                                       self.head_dim)
+
+    def decode_step(state, session_state, features):
+      params = state.eval_params()
+      obs = features["observation"]  # [B, obs]
+      b = obs.shape[0]
+      index = session_state["index"]
+      rows = torch.arange(b, device=obs.device)
+      x = _dense(params, "embed", obs)
+      new_state = {"index": index + 1}
+      for i in range(num_blocks):
+        y = _layernorm(params, f"ln_attn_{i}", x)
+        q = _dense(params, f"attn_{i}.q_proj", y).reshape(b, num_heads,
+                                                          head_dim)
+        k_t = _dense(params, f"attn_{i}.k_proj", y).reshape(b, num_heads,
+                                                            head_dim)
+        v_t = _dense(params, f"attn_{i}.v_proj", y).reshape(b, num_heads,
+                                                            head_dim)
+        k_cache = session_state[f"k_{i}"].clone()
+        v_cache = session_state[f"v_{i}"].clone()
+        k_cache[rows, index.long()] = k_t
+        v_cache[rows, index.long()] = v_t
+        new_state[f"k_{i}"] = k_cache
+        new_state[f"v_{i}"] = v_cache
+        out = attention_ops.cached_attention(q, k_cache, v_cache, index)
+        x = x + _dense(params, f"attn_{i}.out_proj",
+                       out.reshape(b, num_heads * head_dim))
+        y = _layernorm(params, f"ln_mlp_{i}", x)
+        x = x + _dense(params, f"mlp_out_{i}",
+                       _gelu(_dense(params, f"mlp_in_{i}", y)))
+      action = _dense(params, "head", x)
+      return new_state, {"action": action, "inference_output": action}
+
+    return decode_step
+
+  @property
+  def supports_decode_kernel(self) -> bool:
+    """The arena layout ([S, T, H, D] per block) is what
+    `fused_decode_attention` streams."""
+    return True
+
+  def decode_arena_step_fn(self):
+    """Per-tick forward against the whole arena, in place: the same math
+    as `decode_step_fn`, with each block's cached attention and KV append
+    as one `fused_decode_attention` launch. The lanes' tick indices are
+    read before the index leaf advances (pad lanes add 0 on the null
+    slot)."""
+    num_blocks, num_heads, head_dim = (self._num_blocks, self._num_heads,
+                                       self.head_dim)
+
+    def decode_arena_step(state, arena, slots, features, mask):
+      params = state.eval_params()
+      obs = features["observation"]  # [B, obs]
+      b = obs.shape[0]
+      index = arena["index"][slots]  # a copy: read before the advance
+      arena["index"].index_add_(0, slots, mask.to(arena["index"].dtype))
+      x = _dense(params, "embed", obs)
+      for i in range(num_blocks):
+        y = _layernorm(params, f"ln_attn_{i}", x)
+        q = _dense(params, f"attn_{i}.q_proj", y).reshape(b, num_heads,
+                                                          head_dim)
+        k_t = _dense(params, f"attn_{i}.k_proj", y).reshape(b, num_heads,
+                                                            head_dim)
+        v_t = _dense(params, f"attn_{i}.v_proj", y).reshape(b, num_heads,
+                                                            head_dim)
+        out, _, _ = decode_kernels.fused_decode_attention(
+            q, k_t, v_t, arena[f"k_{i}"], arena[f"v_{i}"], slots, index,
+            mask)
+        x = x + _dense(params, f"attn_{i}.out_proj",
+                       out.reshape(b, num_heads * head_dim))
+        y = _layernorm(params, f"ln_mlp_{i}", x)
+        x = x + _dense(params, f"mlp_out_{i}",
+                       _gelu(_dense(params, f"mlp_in_{i}", y)))
+      action = _dense(params, "head", x)
+      return arena, {"action": action, "inference_output": action}
+
+    return decode_arena_step

@@ -1,0 +1,402 @@
+"""Spec type system: the subset of `tensor2robot_tpu.specs` the serving
+path uses, for PyTorch.
+
+* `TensorSpec` — a frozen dataclass of shape/dtype/name plus the
+  data-pipeline attributes (is_optional, is_sequence, ...).
+* `SpecStruct` — an ordered mapping that is both flat (`'a/b/c'` path
+  keys) and hierarchical (indexing an intermediate path returns a live
+  view onto the parent store).
+* The spec algebra the preprocessor contract needs: flatten / pack /
+  validate / filter / sequence-length specs / dtype rewrites.
+* `make_random_numpy`, with the same numpy RNG stream as the JAX package,
+  so one seed gives one batch in both.
+
+dtypes: numpy has no bfloat16, so a bfloat16 spec carries
+`torch.bfloat16`; every other dtype is a `np.dtype`. A torch tensor's
+dtype is mapped onto the same scale before it is compared with a spec.
+"""
+
+from __future__ import annotations
+
+import bisect
+import dataclasses
+from collections import OrderedDict
+from typing import Any, Iterator, Mapping, MutableMapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+__all__ = [
+    "TensorSpec",
+    "SpecStruct",
+    "flatten_spec_structure",
+    "pack_flat_sequence_to_spec_structure",
+    "validate",
+    "validate_and_pack",
+    "validate_and_flatten",
+    "filter_required",
+    "add_sequence_length_specs",
+    "replace_dtype",
+    "cast_float32_to_bfloat16",
+    "make_random_numpy",
+]
+
+_VALID_IMAGE_FORMATS = ("jpeg", "jpg", "png", "bmp", "gif")
+
+
+def _canonical_dtype(dtype: Any) -> Any:
+  """A dtype-like as a `np.dtype`, or `torch.bfloat16` for bfloat16."""
+  if dtype == "bfloat16" or dtype is torch.bfloat16:
+    return torch.bfloat16
+  if isinstance(dtype, torch.dtype):
+    # torch dtypes other than bfloat16 have a numpy twin.
+    return np.dtype(torch.empty((), dtype=dtype).numpy().dtype)
+  return np.dtype(dtype)
+
+
+def _dtype_name(dtype: Any) -> str:
+  return "bfloat16" if dtype is torch.bfloat16 else dtype.name
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+  """Shape/dtype spec with data-pipeline metadata. Shapes are tuples with
+  `None` for unknown dims; batch dims are not part of model specs."""
+
+  shape: Tuple[Optional[int], ...]
+  dtype: Any = np.float32
+  name: Optional[str] = None
+  is_optional: bool = False
+  is_sequence: bool = False
+  is_extracted: bool = False
+  data_format: Optional[str] = None
+  dataset_key: str = ""
+  varlen_default_value: Optional[float] = None
+
+  def __post_init__(self):
+    object.__setattr__(self, "shape", tuple(self.shape))
+    object.__setattr__(self, "dtype", _canonical_dtype(self.dtype))
+    if self.data_format is not None:
+      fmt = self.data_format.lower()
+      if fmt not in _VALID_IMAGE_FORMATS:
+        raise ValueError(
+            f"Unsupported data_format {self.data_format!r}; expected one of "
+            f"{_VALID_IMAGE_FORMATS}.")
+      object.__setattr__(self, "data_format", fmt)
+
+  def replace(self, **overrides) -> "TensorSpec":
+    return dataclasses.replace(self, **overrides)
+
+  @property
+  def is_image(self) -> bool:
+    return self.data_format is not None
+
+  def is_compatible_with(self, array: Any, ignore_batch: bool = False) -> bool:
+    shape = tuple(array.shape) if hasattr(array, "shape") \
+        else tuple(np.shape(array))
+    if hasattr(array, "dtype"):
+      dtype = _canonical_dtype(array.dtype)
+    else:
+      dtype = _canonical_dtype(np.asarray(array).dtype)
+    if ignore_batch:
+      if not shape:
+        return False
+      shape = shape[1:]
+    if len(shape) != len(self.shape):
+      return False
+    for dim, spec_dim in zip(shape, self.shape):
+      if spec_dim is not None and dim != spec_dim:
+        return False
+    return dtype == self.dtype
+
+  def __repr__(self) -> str:
+    extras = []
+    for field in ("name", "is_optional", "is_sequence", "data_format",
+                  "dataset_key", "varlen_default_value"):
+      value = getattr(self, field)
+      if value not in (None, False, ""):
+        extras.append(f"{field}={value!r}")
+    extra = (", " + ", ".join(extras)) if extras else ""
+    return f"TensorSpec({self.shape}, {_dtype_name(self.dtype)}{extra})"
+
+
+_PATH_SEP = "/"
+
+
+def _normalize_key(key: str) -> str:
+  if not isinstance(key, str):
+    raise TypeError(f"SpecStruct keys must be str, got {type(key)}")
+  key = key.replace(".", _PATH_SEP).strip(_PATH_SEP)
+  if not key:
+    raise KeyError("Empty SpecStruct key.")
+  return key
+
+
+class SpecStruct(MutableMapping):
+  """Flat/hierarchical dual-view ordered mapping: values live under flat
+  `'a/b/c'` keys; an intermediate path returns a live view sharing the
+  parent's storage."""
+
+  def __init__(self, *args, **kwargs):
+    object.__setattr__(self, "_store", OrderedDict())
+    object.__setattr__(self, "_index", [])  # sorted flat keys, shared by views
+    object.__setattr__(self, "_prefix", "")
+    for arg in args:
+      if isinstance(arg, Mapping):
+        for key, value in arg.items():
+          self[key] = value
+      elif arg is not None:
+        raise TypeError(f"Cannot build SpecStruct from {type(arg)}")
+    for key, value in kwargs.items():
+      self[key] = value
+
+  @classmethod
+  def _view(cls, parent: "SpecStruct", prefix: str) -> "SpecStruct":
+    view = cls.__new__(cls)
+    object.__setattr__(view, "_store", parent._store)
+    object.__setattr__(view, "_index", parent._index)
+    object.__setattr__(view, "_prefix", prefix)
+    return view
+
+  def _children(self, child_prefix: str) -> list:
+    i = bisect.bisect_left(self._index, child_prefix)
+    out = []
+    while i < len(self._index) and self._index[i].startswith(child_prefix):
+      out.append(self._index[i])
+      i += 1
+    return out
+
+  def _insert(self, full: str, value: Any) -> None:
+    if full not in self._store:
+      bisect.insort(self._index, full)
+    self._store[full] = value
+
+  def _remove(self, full: str) -> None:
+    del self._store[full]
+    self._index.pop(bisect.bisect_left(self._index, full))
+
+  def __getitem__(self, key: str) -> Any:
+    full = self._prefix + _normalize_key(key)
+    if full in self._store:
+      return self._store[full]
+    if self._children(full + _PATH_SEP):
+      return SpecStruct._view(self, full + _PATH_SEP)
+    raise KeyError(key)
+
+  def __setitem__(self, key: str, value: Any) -> None:
+    full = self._prefix + _normalize_key(key)
+    child_prefix = full + _PATH_SEP
+    if isinstance(value, Mapping):
+      if not value:
+        raise ValueError(
+            f"Cannot assign an empty mapping to {full!r}: ambiguous between "
+            "delete and empty subtree. Use `del` to remove a subtree.")
+      for k in self._children(child_prefix):
+        self._remove(k)
+      if full in self._store:
+        self._remove(full)
+      for sub_key, sub_value in value.items():
+        SpecStruct._view(self, child_prefix)[sub_key] = sub_value
+      return
+    if self._children(child_prefix):
+      raise KeyError(
+          f"Cannot assign a leaf to {full!r}: it is an intermediate node.")
+    parts = full.split(_PATH_SEP)
+    for i in range(1, len(parts)):
+      ancestor = _PATH_SEP.join(parts[:i])
+      if ancestor in self._store:
+        raise KeyError(
+            f"Cannot assign {full!r}: ancestor {ancestor!r} is a leaf.")
+    self._insert(full, value)
+
+  def __delitem__(self, key: str) -> None:
+    full = self._prefix + _normalize_key(key)
+    if full in self._store:
+      self._remove(full)
+      return
+    children = self._children(full + _PATH_SEP)
+    if not children:
+      raise KeyError(key)
+    for k in children:
+      self._remove(k)
+
+  def __iter__(self) -> Iterator[str]:
+    plen = len(self._prefix)
+    for k in list(self._store):
+      if k.startswith(self._prefix):
+        yield k[plen:]
+
+  def __len__(self) -> int:
+    return sum(1 for _ in self)
+
+  def __contains__(self, key: object) -> bool:
+    try:
+      self[key]  # type: ignore[index]
+      return True
+    except (KeyError, TypeError):
+      return False
+
+  def __getattr__(self, name: str) -> Any:
+    if name.startswith("_"):
+      raise AttributeError(name)
+    try:
+      return self[name]
+    except KeyError as e:
+      raise AttributeError(name) from e
+
+  def __setattr__(self, name: str, value: Any) -> None:
+    if name.startswith("_"):
+      object.__setattr__(self, name, value)
+    else:
+      self[name] = value
+
+  def __repr__(self) -> str:
+    items = ", ".join(f"{k!r}: {v!r}" for k, v in self.items())
+    return f"SpecStruct({{{items}}})"
+
+
+SpecStructLike = Union[SpecStruct, Mapping[str, Any]]
+
+
+def flatten_spec_structure(structure: SpecStructLike) -> SpecStruct:
+  """Flattens any nested mapping (or SpecStruct) into a flat SpecStruct."""
+  if not isinstance(structure, Mapping):
+    raise TypeError(f"Cannot flatten {type(structure)}")
+  out = SpecStruct()
+  for key, value in structure.items():
+    out[key] = value  # __setitem__ recurses into mappings
+  return out
+
+
+def pack_flat_sequence_to_spec_structure(
+    spec_structure: SpecStructLike,
+    flat_values: Mapping[str, Any]) -> SpecStruct:
+  """Packs flat values into the layout of `spec_structure`; optional specs
+  with no value are left out, values not in the spec are dropped."""
+  specs = flatten_spec_structure(spec_structure)
+  values = flatten_spec_structure(flat_values)
+  packed = SpecStruct()
+  for key, spec in specs.items():
+    if key in values and values[key] is not None:
+      packed[key] = values[key]
+    elif isinstance(spec, TensorSpec) and spec.is_optional:
+      continue
+    else:
+      raise ValueError(
+          f"Required spec {key!r} has no matching value. Available: "
+          f"{sorted(values.keys())}")
+  return packed
+
+
+def validate(spec_structure: SpecStructLike,
+             values: SpecStructLike,
+             ignore_batch: bool = False) -> None:
+  """Validates values against specs; raises ValueError on any mismatch."""
+  specs = flatten_spec_structure(spec_structure)
+  flat_values = flatten_spec_structure(values)
+  errors = []
+  for key, spec in specs.items():
+    if not isinstance(spec, TensorSpec):
+      raise TypeError(f"Spec leaf {key!r} is not a TensorSpec: {spec!r}")
+    value = flat_values[key] if key in flat_values else None
+    if value is None:
+      if not spec.is_optional:
+        errors.append(f"missing required value for {key!r} (spec {spec!r})")
+      continue
+    if not spec.is_compatible_with(value, ignore_batch=ignore_batch):
+      errors.append(
+          f"value for {key!r} with shape {tuple(value.shape)} dtype "
+          f"{value.dtype} is incompatible with {spec!r} "
+          f"(ignore_batch={ignore_batch})")
+  if errors:
+    raise ValueError("Spec validation failed:\n  " + "\n  ".join(errors))
+
+
+def validate_and_pack(spec_structure: SpecStructLike,
+                      values: SpecStructLike,
+                      ignore_batch: bool = False) -> SpecStruct:
+  packed = pack_flat_sequence_to_spec_structure(spec_structure, values)
+  validate(spec_structure, packed, ignore_batch=ignore_batch)
+  return packed
+
+
+def validate_and_flatten(spec_structure: SpecStructLike,
+                         values: SpecStructLike,
+                         ignore_batch: bool = False) -> SpecStruct:
+  validate(spec_structure, values, ignore_batch=ignore_batch)
+  return pack_flat_sequence_to_spec_structure(
+      spec_structure, flatten_spec_structure(values))
+
+
+def filter_required(spec_structure: SpecStructLike) -> SpecStruct:
+  """Drops optional specs."""
+  out = SpecStruct()
+  for key, spec in flatten_spec_structure(spec_structure).items():
+    if not spec.is_optional:
+      out[key] = spec
+  return out
+
+
+def add_sequence_length_specs(spec_structure: SpecStructLike) -> SpecStruct:
+  """Adds `<key>_length` int64 scalar specs for every sequence spec."""
+  out = SpecStruct()
+  for key, spec in flatten_spec_structure(spec_structure).items():
+    out[key] = spec
+    if spec.is_sequence:
+      out[key + "_length"] = TensorSpec(
+          shape=(), dtype=np.int64, name=(spec.name or key) + "_length",
+          dataset_key=spec.dataset_key)
+  return out
+
+
+def replace_dtype(spec_structure: SpecStructLike,
+                  from_dtype: Any,
+                  to_dtype: Any) -> SpecStruct:
+  from_dtype = _canonical_dtype(from_dtype)
+  out = SpecStruct()
+  for key, spec in flatten_spec_structure(spec_structure).items():
+    if spec.dtype == from_dtype:
+      spec = spec.replace(dtype=to_dtype)
+    out[key] = spec
+  return out
+
+
+def cast_float32_to_bfloat16(values: SpecStructLike) -> SpecStruct:
+  """float32 tensors -> bfloat16; every other leaf as it is."""
+  out = SpecStruct()
+  for key, value in flatten_spec_structure(values).items():
+    if isinstance(value, torch.Tensor) and value.dtype == torch.float32:
+      value = value.to(torch.bfloat16)
+    out[key] = value
+  return out
+
+
+def _concrete_shape(spec: TensorSpec, batch_size: Optional[int],
+                    unknown_dim: int = 1) -> Tuple[int, ...]:
+  shape = tuple(unknown_dim if d is None else d for d in spec.shape)
+  if batch_size is not None:
+    shape = (batch_size,) + shape
+  return shape
+
+
+def make_random_numpy(spec_structure: SpecStructLike,
+                      batch_size: Optional[int] = None,
+                      sequence_length: int = 3,
+                      seed: Optional[int] = None) -> SpecStruct:
+  """Random numpy data matching a spec structure: the JAX package's
+  generator, draw for draw."""
+  rng = np.random.RandomState(seed)
+  out = SpecStruct()
+  for key, spec in filter_required(spec_structure).items():
+    if spec.dtype is torch.bfloat16:
+      raise ValueError(f"{key!r}: numpy has no bfloat16; make float32 "
+                       "data and cast it on the device.")
+    shape = _concrete_shape(spec, batch_size, unknown_dim=sequence_length)
+    if np.issubdtype(spec.dtype, np.integer):
+      high = 255 if spec.is_image else 10
+      out[key] = rng.randint(0, high, size=shape).astype(spec.dtype)
+    elif spec.dtype == np.bool_:
+      out[key] = rng.rand(*shape) > 0.5
+    else:
+      out[key] = rng.rand(*shape).astype(spec.dtype)
+  return out

@@ -1,0 +1,150 @@
+"""The port stands apart from the JAX package and from the CPU.
+
+* No file of `tensor2robot_tpu_torch/` (nor `chip_smoke.py`) imports
+  jax, flax or tensor2robot_tpu (AST scan), and every module imports with
+  those blocked.
+* Entry points raise without a CUDA device unless asked for the CPU.
+* `chip_smoke.py` exits non-zero and prints no result where there is no
+  CUDA device, and in a directory that holds nothing else of the repo.
+* The port's session config parses and binds the long-context widths.
+"""
+
+import ast
+import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tensor2robot_tpu_torch.models import sequence_model
+from tensor2robot_tpu_torch.predictors import predictors
+from tensor2robot_tpu_torch.serving import session
+from tensor2robot_tpu_torch.utils import config
+from tensor2robot_tpu_torch.utils import device as device_lib
+
+# The port's tests run in the same worker processes as the JAX suite;
+# one torch thread keeps torch from starting its OpenMP and MKL thread
+# pools beside XLA's CPU threads.
+torch.set_num_threads(1)
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO_ROOT / "tensor2robot_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensor2robot_tpu")
+
+
+def _port_files():
+  return sorted(PORT.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]
+
+
+def _port_modules():
+  return sorted(
+      ".".join(p.relative_to(REPO_ROOT).with_suffix("").parts).removesuffix(
+          ".__init__")
+      for p in PORT.rglob("*.py"))
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+  offenders = []
+  for path in _port_files():
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+      if isinstance(node, ast.Import):
+        names = [alias.name for alias in node.names]
+      elif isinstance(node, ast.ImportFrom) and node.level == 0:
+        names = [node.module or ""]
+      else:
+        continue
+      for name in names:
+        if name.split(".")[0] in FORBIDDEN:
+          offenders.append(f"{path.relative_to(REPO_ROOT)}:{node.lineno} "
+                           f"imports {name}")
+  assert not offenders, offenders
+  assert len(_port_files()) > 20
+
+
+def test_every_port_module_imports_with_jax_blocked():
+  code = (
+      "import importlib, sys\n"
+      f"for name in {FORBIDDEN!r}:\n"
+      "  sys.modules[name] = None\n"
+      f"for module in {_port_modules()!r}:\n"
+      "  importlib.import_module(module)\n"
+      "print('imported', len(sys.modules))\n")
+  result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=120)
+  assert result.returncode == 0, result.stderr
+  assert "imported" in result.stdout
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+  model = sequence_model.SequenceRegressionModel(
+      obs_size=4, action_size=2, sequence_length=8, hidden_size=32,
+      num_heads=4)
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    device_lib.resolve_device()
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    device_lib.resolve_device("cuda")
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    predictors.CheckpointPredictor(model=model)
+  predictor = predictors.CheckpointPredictor(model=model, device="cpu")
+  predictor.init_randomly()
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    session.SessionEngine(predictor=predictor)
+  engine = session.SessionEngine(predictor=predictor, device="cpu")
+  sid = engine.open()
+  out = engine.step(sid, {"observation": np.zeros(4, np.float32)})
+  assert out["action"].shape == (2,)
+
+
+def _run_chip_smoke(cwd):
+  env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+  return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                        capture_output=True, text=True, timeout=120)
+
+
+def _prints_a_result(stdout):
+  for line in stdout.splitlines():
+    try:
+      if "ok" in json.loads(line):
+        return True
+    except (ValueError, TypeError):
+      continue
+  return False
+
+
+def test_chip_smoke_fails_without_a_card():
+  result = _run_chip_smoke(REPO_ROOT)
+  assert result.returncode != 0
+  assert not _prints_a_result(result.stdout)
+
+
+def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
+  shutil.copy(REPO_ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+  result = _run_chip_smoke(tmp_path)
+  assert result.returncode != 0
+  assert not _prints_a_result(result.stdout)
+
+
+def test_session_config_binds_the_long_context_widths():
+  try:
+    config.parse_config_file(
+        str(PORT / "configs" / "serve_session.gin"))
+    model = sequence_model.SequenceRegressionModel()
+    assert (model._obs_size, model._action_size, model.decode_max_ticks,
+            model._hidden_size, model._num_blocks, model._num_heads,
+            model.head_dim, model._attention_backend) == (
+                16, 7, 4096, 512, 2, 8, 64, "flash")
+    assert config.query_parameter("SessionEngine.max_sessions") == 64
+    assert config.query_parameter("SessionEngine.max_tick_batch") == 8
+    assert config.query_parameter("SessionEngine.admission") == "evict_lru"
+  finally:
+    config.clear_config()
