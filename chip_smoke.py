@@ -7,14 +7,20 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 1. Device: the card's name and power limit (nvidia-smi); the CUDA kernels
-   built from `tensor2robot_tpu_torch/csrc/` with nvcc.
+   built from `tensor2robot_tpu_torch/csrc/` with nvcc, one process per
+   source, all started together.
 2. Kernels against their plain PyTorch versions at the served shapes:
    the decode tick on an f32 [65, 4096, 8, 64] arena (B = 1 and 8, indices
    0, tile edges, mixed progress and 4095, pad lanes on the null slot; the
-   update must be in place and every untouched row bit-identical), and the
+   update must be in place and every untouched row bit-identical), the
    flash forward (B = 2, H = 8, D = 64, T = 4096 and a non-tiling 1000,
-   causal and not, f32 and bf16; O and lse).
-3. The slice: the causal sequence policy at the long-context widths of
+   causal and not, f32 and bf16; O and lse), and the flash backward's dQ
+   and dK/dV kernels at the same shapes, and at D = 16, 32 and 128 (T =
+   1000, causal), against `_flash_backward_plain` (each must launch once
+   per call); then, in f32 at T = 1000, the
+   gradients through `flash_attention`'s autograd Function against torch
+   autograd through the plain `attention`.
+3. The serving slice: the causal sequence policy at the long-context widths of
    `tensor2robot_tpu_torch/configs/serve_session.gin`, random weights
    from seed 0, served CheckpointPredictor -> SessionEngine ->
    SessionBatcher -> SessionRegressionPolicy: 16 concurrent episodes of 48
@@ -22,21 +28,35 @@ and prints no result):
    must match the stateless flash predict of the same sequence; its
    4097th tick must raise SessionHorizonError. One bf16 predict must be
    finite. Both kernels' launch counts must grow during this phase.
-4. Timings with CUDA events (L2 flushed before every timed call) of each
-   kernel, its plain version and, for the flash forward,
-   `scaled_dot_product_attention` as a yardstick the port never calls;
-   each kernel's bound: max(bytes / 3.35 TB/s, flops / peak rate of the
-   dtype) with the H100 SXM data-sheet peaks.
+4. The training slice: `tensor2robot_tpu_torch/configs/train_longcontext_flash.gin`
+   (T 4096, hidden 512, 2 blocks, 8 heads, batch 2, bf16 on f32 masters)
+   run through `train_eval_model` for 20 steps with a checkpoint every 10,
+   in a fresh model_dir under `_smoke_runs/` (removed at the end). Every
+   logged loss must be finite; each flash kernel must launch exactly
+   blocks x steps times; checkpoints 10 and 20 must verify; a second call
+   must resume at 20 and reach 30. Then one f32 step's loss and gradients
+   with attention_backend 'flash' against 'reference' on the same
+   parameters and batch, and `CheckpointPredictor(model_dir=...)` at the
+   serving widths restores step 30 and serves session ticks that match
+   its stateless predict.
+5. Timings with CUDA events (L2 flushed before every timed call) of each
+   kernel, its plain version and a PyTorch yardstick the port never calls
+   (`scaled_dot_product_attention` for the flash forward, its
+   `torch.autograd.grad` for the backward); each kernel's bound: max(bytes
+   / 3.35 TB/s, flops / peak rate of the dtype) with the H100 SXM
+   data-sheet peaks; and the median full-width bf16 train step.
 
-Output: a `kernels` JSON line, a `slice` JSON line, the card line, and as
-the last line `{"ok": true, "device": {...}}`. The same numbers go to
-`chiprun_out/chip_smoke_report.json`.
+Output: a `train` JSON line, a `slice` JSON line, a `kernels` JSON line,
+the card line, and as the last line `{"ok": true, "device": {...}}`. The
+same numbers go to `chiprun_out/chip_smoke_report.json`.
 """
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -51,9 +71,30 @@ F32_TOL = 1e-4
 #   3.9e-3), and the kernel rounds P to bf16 before the PV product as the
 #   TPU kernel does; outputs of order 1 then differ by a few 1e-3.
 BF16_TOL = 3e-2
+# The backward in bf16, on max|err| / max(1, max|ref|): P, dP and dS stay
+#   f32 on both sides and only dQ, dK and dV are rounded to bf16 at the
+#   end, so sound runs read at most 3.86e-4; 3e-3 is about 8x that.
+BWD_BF16_TOL = 3e-3
+# Every output of the flash kernels, both dtypes, on the relative 2-norm
+#   |got - want| / |want|: a kernel that wrote zeros or wrong values for
+#   part of the rows or keys reads the share it got wrong. Rounding alone
+#   is under one bf16 step (2^-8 = 3.9e-3) on every element.
+REL_NORM_TOL = 1e-2
 
+# The backward against autograd through the plain attention (both f32 on
+# the card; different summation orders over T = 1000 keys), and the flash
+# train step against the reference one: loss relative, gradients against
+# max(1, max|g|).
+GRAD_TOL = 1e-4
+LOSS_RTOL = 1e-5
+
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 SESSION_CONFIG = "tensor2robot_tpu_torch/configs/serve_session.gin"
+TRAIN_CONFIG = "tensor2robot_tpu_torch/configs/train_longcontext_flash.gin"
+RUNS_DIR = "_smoke_runs"
 REPORT = "chiprun_out/chip_smoke_report.json"
+WIDTHS = dict(obs_size=16, action_size=7, sequence_length=4096,
+              hidden_size=512, num_blocks=2, num_heads=8)
 
 
 def log(msg: str) -> None:
@@ -150,8 +191,17 @@ def check_decode(torch, decode_kernels, device, gen) -> float:
   return worst
 
 
+def _rel_norm_err(got, want) -> float:
+  """|got - want| / |want|, 2-norms over the whole tensor."""
+  got, want = got.double(), want.double()
+  return float((got - want).norm() / want.norm())
+
+
 def check_flash(torch, attention_ops, device, gen):
+  """Returns the worst max |err| (O and lse) and the worst relative
+  2-norm error of O, per dtype."""
   worst = {"float32": 0.0, "bfloat16": 0.0}
+  rel = {"float32": 0.0, "bfloat16": 0.0}
   b, h, d = 2, 8, 64
   for t in (4096, 1000):
     for causal in (True, False):
@@ -170,16 +220,102 @@ def check_flash(torch, attention_ops, device, gen):
         want_out, want_lse = attention_ops._flash_forward_plain(
             q3, k3, v3, causal, t)
         err = max(max_abs(out[:, :t], want_out[:, :t]), max_abs(lse, want_lse))
+        rel_err = _rel_norm_err(out[:, :t], want_out[:, :t])
         name = str(dtype).replace("torch.", "")
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-        log(f"flash fwd T={t} causal={causal} {name}: max |err| {err:.3e}")
-        if not err <= tol:
+        log(f"flash fwd T={t} causal={causal} {name}: max |err| {err:.3e}, "
+            f"|err| / |ref| of O {rel_err:.3e}")
+        if not (err <= tol and rel_err <= REL_NORM_TOL):
           raise RuntimeError(f"flash forward disagrees with its plain "
-                             f"version: {err} > {tol}")
+                             f"version: max |err| {err} (limit {tol}), "
+                             f"relative norm {rel_err} (limit {REL_NORM_TOL})")
         if t_pad != t and bool(lse[:, t:].ne(0).any()):
           raise RuntimeError("padded rows must carry lse = 0")
         worst[name] = max(worst[name], err)
-  return worst
+        rel[name] = max(rel[name], rel_err)
+  return worst, rel
+
+
+def _scaled_err(got, want) -> float:
+  """max |got - want| over max(1, max |want|)."""
+  return max_abs(got, want) / max(1.0, float(want.float().abs().max()))
+
+
+def check_flash_bwd(torch, attention_ops, device, gen):
+  """dQ and dK/dV kernels against `_flash_backward_plain`, then the
+  autograd Function against autograd through `attention` (f32, T 1000).
+  Returns, per kernel ('dq'; 'dkv' for dK and dV together), the worst
+  absolute f32 error, and per kernel and dtype the worst scaled and
+  relative-norm errors."""
+  worst = {"dq": 0.0, "dkv": 0.0}
+  scaled = {kernel: {"float32": 0.0, "bfloat16": 0.0} for kernel in worst}
+  rel = {kernel: {"float32": 0.0, "bfloat16": 0.0} for kernel in worst}
+  b, h, d = 2, 8, 64
+  fb = attention_ops.flash_backward
+  dtypes = (torch.float32, torch.bfloat16)
+  # (BH, T, D, causal, dtype): the train step's B x H and D, then the
+  # other head dims FLASH_HEAD_DIMS admits (D = 128 needs the largest
+  # shared-memory opt-in, 162 KiB for dK/dV).
+  cases = [(b * h, t, d, causal, dtype) for t in (4096, 1000)
+           for causal in (True, False) for dtype in dtypes]
+  cases += [(4, 1000, hd, True, dtype) for hd in (16, 32, 128)
+            for dtype in dtypes]
+  for bh, t, hd, causal, dtype in cases:
+    t_pad = -(-t // 64) * 64
+    pad = (0, 0, 0, t_pad - t)
+    q3, k3, v3, do3 = (torch.nn.functional.pad(torch.randn(
+        (bh, t, hd), generator=gen, device=device).to(dtype), pad)
+                       for _ in range(4))
+    out, lse = attention_ops.flash_forward(q3, k3, v3, causal, t)
+    before = (fb.launches_dq, fb.launches_dkv)
+    grads = attention_ops.flash_backward(q3, k3, v3, out, lse, do3, causal,
+                                         t)
+    torch.cuda.synchronize()
+    if (fb.launches_dq, fb.launches_dkv) != (before[0] + 1, before[1] + 1):
+      raise RuntimeError("flash backward did not launch both kernels")
+    want = attention_ops._flash_backward_plain(q3, k3, v3, out, lse, do3,
+                                               causal, t)
+    name = str(dtype).replace("torch.", "")
+    tol = F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
+    errs = [_scaled_err(g, w) for g, w in zip(grads, want)]
+    rels = [_rel_norm_err(g[:, :t], w[:, :t]) for g, w in zip(grads, want)]
+    log(f"flash bwd BH={bh} T={t} D={hd} causal={causal} {name}: max |err| "
+        f"/ max(1, max|ref|) dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+        f"{errs[2]:.3e}; |err| / |ref| dq {rels[0]:.3e} dk {rels[1]:.3e} "
+        f"dv {rels[2]:.3e}")
+    if not (max(errs) <= tol and max(rels) <= REL_NORM_TOL):
+      raise RuntimeError(f"flash backward disagrees with its plain "
+                         f"version: scaled {errs} (limit {tol}), relative "
+                         f"norm {rels} (limit {REL_NORM_TOL})")
+    for kernel, outs in (("dq", (0,)), ("dkv", (1, 2))):
+      scaled[kernel][name] = max(scaled[kernel][name],
+                                 *(errs[i] for i in outs))
+      rel[kernel][name] = max(rel[kernel][name], *(rels[i] for i in outs))
+    if dtype == torch.float32:
+      worst["dq"] = max(worst["dq"], max_abs(grads[0], want[0]))
+      worst["dkv"] = max(worst["dkv"], max_abs(grads[1], want[1]),
+                         max_abs(grads[2], want[2]))
+  t = 1000
+  for causal in (True, False):
+    q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device=device)
+                   for _ in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = (fb.launches_dq, fb.launches_dkv)
+    got = torch.autograd.grad(attention_ops.flash_attention(
+        *leaves, causal=causal), leaves, do)
+    if fb.launches_dq == before[0] or fb.launches_dkv == before[1]:
+      raise RuntimeError("flash_attention's backward did not launch the "
+                         "kernels")
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(attention_ops.attention(
+        *leaves, causal=causal), leaves, do)
+    errs = [_scaled_err(g, w) for g, w in zip(got, want)]
+    log(f"flash_attention grads vs autograd T={t} causal={causal} f32: "
+        f"{['%.3e' % e for e in errs]}")
+    if not max(errs) <= GRAD_TOL:
+      raise RuntimeError(f"flash_attention gradients disagree with "
+                         f"autograd through attention: {errs}")
+  return worst, scaled, rel
 
 
 # -- phase 3: the slice --------------------------------------------------------
@@ -301,7 +437,167 @@ def run_slice(torch, np, port):
   }
 
 
-# -- phase 4: timings ----------------------------------------------------------
+# -- phase 4: the training slice -----------------------------------------------
+
+def _logged_losses(model_dir: str):
+  path = os.path.join(model_dir, "train", "metrics.jsonl")
+  with open(path) as f:
+    return [(r["step"], r.get("loss")) for r in map(json.loads, f)]
+
+
+def _check_losses(logged, first: int, last: int) -> None:
+  import math
+
+  steps = [step for step, _ in logged]
+  if steps != list(range(first, last + 1)):
+    raise RuntimeError(f"logged steps {steps}, want {first}..{last}")
+  bad = [(step, loss) for step, loss in logged
+         if loss is None or not math.isfinite(loss)]
+  if bad:  # the summary writer drops a non-finite loss: None here
+    raise RuntimeError(f"non-finite losses at {bad}")
+
+
+def run_train(torch, np, port, device):
+  (config, sequence_model, predictors, session, attention_ops, train_eval,
+   checkpoints, train_step, input_generators) = port
+  fwd, bwd = attention_ops.flash_forward, attention_ops.flash_backward
+  os.makedirs(os.path.join(REPO_DIR, RUNS_DIR), exist_ok=True)
+  model_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  try:
+    config.clear_config()
+    config.parse_config_file(os.path.join(REPO_DIR, TRAIN_CONFIG))
+    for binding in (f"train_eval_model.model_dir = '{model_dir}'",
+                    "train_eval_model.max_train_steps = 20",
+                    "train_eval_model.checkpoint_every_n_steps = 10",
+                    "train_eval_model.log_every_n_steps = 1"):
+      config.parse_config(binding)
+    blocks = config.query_parameter("SequenceRegressionModel.num_blocks")
+
+    # The main path: counts to 0 just before, read just after.
+    fwd.launches = bwd.launches_dq = bwd.launches_dkv = 0
+    start = time.perf_counter()
+    train_eval.train_eval_model()
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - start
+    launches = {"flash_fwd": fwd.launches, "flash_bwd_dq": bwd.launches_dq,
+                "flash_bwd_dkv": bwd.launches_dkv}
+    log(f"20 train steps in {first_wall:.2f} s (kernel builds loaded, "
+        f"checkpoints included); launches {launches}")
+    if launches != {k: blocks * 20 for k in launches}:
+      raise RuntimeError(f"each flash kernel must launch {blocks} x 20 "
+                         f"times, got {launches}")
+    logged = _logged_losses(model_dir)
+    _check_losses(logged, 1, 20)
+    manager = checkpoints.CheckpointManager(
+        os.path.join(model_dir, checkpoints.CHECKPOINT_DIRNAME))
+    if manager.all_steps() != [10, 20] or not all(
+        manager.verify_step(s) is True for s in (10, 20)):
+      raise RuntimeError(f"checkpoints {manager.all_steps()} do not verify")
+
+    config.parse_config("train_eval_model.max_train_steps = 30")
+    train_eval.train_eval_model()
+    resumed = _logged_losses(model_dir)[len(logged):]
+    _check_losses(resumed, 21, 30)
+    if manager.all_steps() != [10, 20, 30] or manager.verify_step(30) is not True:
+      raise RuntimeError(f"resume did not write a verified step 30: "
+                         f"{manager.all_steps()}")
+    log(f"resumed at 20 and reached 30; losses {logged[0][1]:.4f} (step 1) "
+        f"-> {resumed[-1][1]:.4f} (step 30)")
+
+    # One f32 step, flash against reference, same parameters and batch.
+    config.clear_config()
+    models = {backend: sequence_model.SequenceRegressionModel(
+        attention_backend=backend, **WIDTHS) for backend in ("flash",
+                                                             "reference")}
+    params = {k: v.to(device) for k, v in models["flash"].init_params(
+        torch.Generator().manual_seed(1)).items()}
+    generator = input_generators.DefaultRandomInputGenerator(batch_size=2,
+                                                             seed=3)
+    generator.set_specification_from_model(models["flash"], "train")
+    batch = next(generator.create_dataset("train"))
+    features = {k: v.to(device) for k, v in batch["features"].items()}
+    labels = {k: v.to(device) for k, v in batch["labels"].items()}
+    results = {backend: train_step.loss_and_grads(model, params, features,
+                                                  labels)
+               for backend, model in models.items()}
+    (loss_f, _, grads_f), (loss_r, _, grads_r) = (results["flash"],
+                                                  results["reference"])
+    loss_err = abs(float(loss_f) - float(loss_r)) / abs(float(loss_r))
+    grad_err = max(_scaled_err(grads_f[k], grads_r[k]) for k in grads_r)
+    log(f"f32 train step flash vs reference: loss {float(loss_f):.6f} vs "
+        f"{float(loss_r):.6f} (rel {loss_err:.3e}); worst gradient "
+        f"{grad_err:.3e}")
+    if not (loss_err <= LOSS_RTOL and grad_err <= GRAD_TOL):
+      raise RuntimeError(f"flash and reference train steps disagree: loss "
+                         f"{loss_err}, gradients {grad_err}")
+    del results, grads_f, grads_r, params
+
+    # The trained checkpoint, served at the serving config's widths.
+    config.clear_config()
+    config.parse_config_file(os.path.join(REPO_DIR, SESSION_CONFIG))
+    predictor = predictors.CheckpointPredictor(
+        model=sequence_model.SequenceRegressionModel(), model_dir=model_dir)
+    if not predictor.restore() or predictor.global_step != 30:
+      raise RuntimeError(f"the predictor did not restore step 30 "
+                         f"(global_step {predictor.global_step})")
+    engine = session.SessionEngine(predictor=predictor, max_sessions=1,
+                                   max_tick_batch=1)
+    t_max = WIDTHS["sequence_length"]
+    ticks = min(64, t_max)
+    seq = np.zeros((1, t_max, WIDTHS["obs_size"]), np.float32)
+    seq[0, :ticks] = np.random.RandomState(4).randn(
+        ticks, WIDTHS["obs_size"]).astype(np.float32)
+    full = predictor.predict({"observation": seq})["action"][0, :ticks]
+    sid = engine.open()
+    outs = np.stack([engine.step(sid, {"observation": seq[0, i]})["action"]
+                     for i in range(ticks)])
+    engine.close()
+    serve_err = float(np.abs(outs - full).max())
+    log(f"restored step 30: {ticks} session ticks vs stateless predict, max "
+        f"|err| {serve_err:.3e}")
+    if not (np.isfinite(outs).all() and serve_err <= F32_TOL):
+      raise RuntimeError(f"restored predictor's ticks disagree with its "
+                         f"predict: {serve_err}")
+  finally:
+    config.clear_config()
+    shutil.rmtree(model_dir, ignore_errors=True)
+  return {"launches": launches, "steps_20_wall_s": first_wall,
+          "loss_step_1": logged[0][1], "loss_step_30": resumed[-1][1],
+          "flash_vs_reference_loss_rel_err": loss_err,
+          "flash_vs_reference_grad_scaled_err": grad_err,
+          "restored_ticks_max_abs_err": serve_err}
+
+
+def time_train_step(torch, train_step, sequence_model, input_generators,
+                    device, steps: int = 10):
+  """Median wall time of the full-width bf16 train step (host clock
+  around a step that ends in a synchronize), fresh parameters."""
+  model = sequence_model.SequenceRegressionModel(
+      attention_backend="flash", use_bfloat16=True, **WIDTHS)
+  state = train_step.create_train_state(
+      model, torch.Generator().manual_seed(0), device)
+  generator = input_generators.DefaultRandomInputGenerator(batch_size=2,
+                                                           seed=5)
+  generator.set_specification_from_model(model, "train")
+  batch = next(generator.create_dataset("train"))
+  features = {k: v.to(device) for k, v in batch["features"].items()}
+  labels = {k: v.to(device) for k, v in batch["labels"].items()}
+  step_fn = train_step.make_train_step(model)
+  times = []
+  for i in range(steps + 3):
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    state, metrics = step_fn(state, features, labels)
+    torch.cuda.synchronize()
+    if i >= 3:
+      times.append(time.perf_counter() - start)
+  ms = 1e3 * sorted(times)[len(times) // 2]
+  return {"step_ms_median": ms, "examples_per_s": 2 / (ms / 1e3),
+          "steps_timed": steps, "batch": 2,
+          "shape": "B=2 T=4096 hidden=512 blocks=2 heads=8 bf16"}
+
+
+# -- phase 5: timings ----------------------------------------------------------
 
 def time_decode(torch, decode_kernels, device, gen, timer):
   """The served bucket of 8 lanes with mixed progress on the full arena."""
@@ -355,6 +651,46 @@ def time_flash(torch, attention_ops, device, gen, timer, b, dtype):
           "shape": f"B={b} H={h} T={t} D={d} causal {name}"}
 
 
+def time_flash_bwd(torch, attention_ops, device, gen, timer, b, dtype):
+  """The causal dQ and dK/dV kernels at the train step's shape, each
+  timed alone; the plain version and `torch.autograd.grad` of
+  `scaled_dot_product_attention` (backward only) cover both at once."""
+  h, t, d = 8, 4096, 64
+  q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device=device)
+                 .to(dtype) for _ in range(4))
+  q3, k3, v3, do3 = (x.reshape(b * h, t, d) for x in (q, k, v, do))
+  out, lse = attention_ops.flash_forward(q3, k3, v3, True, t)
+  delta = (do3.float() * out.float()).sum(dim=-1).contiguous()
+  args = (q3, k3, v3, do3, lse, delta, True, t)
+  dq_ms = timer.ms(lambda: attention_ops._launch_flash_bwd_dq(*args))
+  dkv_ms = timer.ms(lambda: attention_ops._launch_flash_bwd_dkv(*args))
+  plain_ms = timer.ms(lambda: attention_ops._flash_backward_plain(
+      q3, k3, v3, out, lse, do3, True, t), iters=5)
+  leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+  sdpa = torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                          is_causal=True)
+  library_ms = timer.ms(lambda: torch.autograd.grad(sdpa, leaves, do,
+                                                    retain_graph=True))
+  name = str(dtype).replace("torch.", "")
+  elem = 4 if dtype == torch.float32 else 2
+  product = 2 * b * h * t * t * d // 2  # one causal [T, T] x D product
+  rows = 2 * b * h * t * 4  # lse and delta, f32
+  shape = f"B={b} H={h} T={t} D={d} causal {name}"
+  out_rows = {}
+  for kernel, ms, products, tensors in (("flash_bwd_dq", dq_ms, 3, 5),
+                                        ("flash_bwd_dkv", dkv_ms, 4, 6)):
+    # q, k, v, dO read and dq (or dk, dv) written once; lse, delta read.
+    moved = tensors * b * h * t * d * elem + rows
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = products * product / PEAK_FLOPS[name]
+    out_rows[kernel] = {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, "shape": shape,
+        "plain_and_library_cover": "dq, dk and dv together"}
+  return out_rows
+
+
 def main() -> int:
   import torch
 
@@ -364,10 +700,14 @@ def main() -> int:
     return 1
   import numpy as np
 
+  from tensor2robot_tpu_torch import checkpoints
+  from tensor2robot_tpu_torch import train_eval
+  from tensor2robot_tpu_torch.data import input_generators
   from tensor2robot_tpu_torch.models import sequence_model
   from tensor2robot_tpu_torch.ops import _kernels
   from tensor2robot_tpu_torch.ops import attention as attention_ops
   from tensor2robot_tpu_torch.ops import decode_kernels
+  from tensor2robot_tpu_torch.parallel import train_step
   from tensor2robot_tpu_torch.policies import policies
   from tensor2robot_tpu_torch.predictors import predictors
   from tensor2robot_tpu_torch.serving import session
@@ -393,7 +733,9 @@ def main() -> int:
   # Phase 2: kernels against their plain versions.
   gen = torch.Generator(device=device).manual_seed(0)
   decode_err = check_decode(torch, decode_kernels, device, gen)
-  flash_err = check_flash(torch, attention_ops, device, gen)
+  flash_err, flash_rel = check_flash(torch, attention_ops, device, gen)
+  bwd_err, bwd_scaled, bwd_rel = check_flash_bwd(torch, attention_ops, device,
+                                                 gen)
   torch.cuda.empty_cache()
 
   # Phase 3: the slice.
@@ -402,15 +744,32 @@ def main() -> int:
                                        decode_kernels))
   torch.cuda.empty_cache()
 
-  # Phase 4: timings.
+  # Phase 4: the training slice.
+  train_report = run_train(torch, np, (
+      config, sequence_model, predictors, session, attention_ops, train_eval,
+      checkpoints, train_step, input_generators), device)
+  torch.cuda.empty_cache()
+
+  # Phase 5: timings.
   timer = Timer(torch, device)
   decode_t = time_decode(torch, decode_kernels, device, gen, timer)
   flash_t = time_flash(torch, attention_ops, device, gen, timer, 1,
                        torch.float32)
+  bwd_t = time_flash_bwd(torch, attention_ops, device, gen, timer, 2,
+                         torch.bfloat16)
   extra = {"flash_fwd bf16 B=1": time_flash(torch, attention_ops, device, gen,
                                             timer, 1, torch.bfloat16),
            "flash_fwd f32 B=2": time_flash(torch, attention_ops, device, gen,
-                                           timer, 2, torch.float32)}
+                                           timer, 2, torch.float32),
+           "flash_fwd bf16 B=2": time_flash(torch, attention_ops, device, gen,
+                                            timer, 2, torch.bfloat16)}
+  for name, row in time_flash_bwd(torch, attention_ops, device, gen, timer, 2,
+                                  torch.float32).items():
+    extra[f"{name} f32 B=2"] = row
+  torch.cuda.empty_cache()
+  train_report["step"] = time_train_step(torch, train_step, sequence_model,
+                                         input_generators, device)
+  log(f"train step: {train_report['step']}")
   kernels = [
       {"name": "decode_tick", "route": "cuda",
        "source": "tensor2robot_tpu_torch/csrc/decode_tick.cu",
@@ -422,13 +781,38 @@ def main() -> int:
        "replaces": "tensor2robot_tpu/ops/attention.py:139",
        "launches": slice_report["launches"]["flash_fwd"],
        "max_abs_err": flash_err["float32"], "max_err": flash_err["float32"],
-       "max_abs_err_bf16": flash_err["bfloat16"], **flash_t},
+       "max_abs_err_bf16": flash_err["bfloat16"],
+       "rel_norm_err_f32": flash_rel["float32"],
+       "rel_norm_err_bf16": flash_rel["bfloat16"],
+       "launches_train": train_report["launches"]["flash_fwd"], **flash_t},
+      {"name": "flash_bwd_dq", "route": "cuda",
+       "source": "tensor2robot_tpu_torch/csrc/flash_bwd.cu",
+       "replaces": "tensor2robot_tpu/ops/attention.py:186",
+       "launches": train_report["launches"]["flash_bwd_dq"],
+       "max_abs_err": bwd_err["dq"],
+       "max_scaled_err_f32": bwd_scaled["dq"]["float32"],
+       "max_scaled_err_bf16": bwd_scaled["dq"]["bfloat16"],
+       "rel_norm_err_f32": bwd_rel["dq"]["float32"],
+       "rel_norm_err_bf16": bwd_rel["dq"]["bfloat16"],
+       **bwd_t["flash_bwd_dq"]},
+      {"name": "flash_bwd_dkv", "route": "cuda",
+       "source": "tensor2robot_tpu_torch/csrc/flash_bwd.cu",
+       "replaces": "tensor2robot_tpu/ops/attention.py:223",
+       "launches": train_report["launches"]["flash_bwd_dkv"],
+       "max_abs_err": bwd_err["dkv"],
+       "max_scaled_err_f32": bwd_scaled["dkv"]["float32"],
+       "max_scaled_err_bf16": bwd_scaled["dkv"]["bfloat16"],
+       "rel_norm_err_f32": bwd_rel["dkv"]["float32"],
+       "rel_norm_err_bf16": bwd_rel["dkv"]["bfloat16"],
+       **bwd_t["flash_bwd_dkv"]},
   ]
   report = {"card": card, "build_s": build_s, "kernels": kernels,
-            "extra_timings": extra, "slice": slice_report}
+            "extra_timings": extra, "slice": slice_report,
+            "train": train_report}
   os.makedirs(os.path.dirname(REPORT), exist_ok=True)
   with open(REPORT, "w") as f:
     json.dump(report, f, indent=1)
+  print(json.dumps({"train": train_report}))
   print(json.dumps({"slice": slice_report, "extra_timings": extra}))
   print(json.dumps({"kernels": kernels}))
   print(card_line(), flush=True)

@@ -17,14 +17,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from tensor2robot_tpu_torch.models import sequence_model
+from tensor2robot_tpu_torch.obs import device_profile
 from tensor2robot_tpu_torch.predictors import predictors
 from tensor2robot_tpu_torch.serving import session
 from tensor2robot_tpu_torch.utils import config
@@ -33,37 +31,10 @@ _CONFIG = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configs", "serve_session.gin")
 
 
-def _device_events(prof):
-  """(name, device ms) of every device-side event (kernels, copies);
-  host-side ops are left out, as they carry their kernels' time too."""
-  out = []
-  for event in prof.key_averages():
-    if event.device_type != DeviceType.CUDA:
-      continue
-    ms = event.self_device_time_total / 1e3
-    if ms > 0:
-      out.append((event.key, ms))
-  return sorted(out, key=lambda kv: -kv[1])
-
-
 def _window(fn, count):
-  torch.cuda.synchronize()
-  start = time.perf_counter()
-  for _ in range(count):
-    fn()
-  torch.cuda.synchronize()
-  wall_ms = (time.perf_counter() - start) * 1e3
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    for _ in range(count):
-      fn()
-    torch.cuda.synchronize()
-  events = _device_events(prof)
-  busy_ms = sum(ms for _, ms in events)
-  return {"wall_ms_per_call": wall_ms / count,
-          "device_busy_ms_per_call": busy_ms / count,
-          "device_idle_share": 1.0 - busy_ms / wall_ms,
-          "top_device": [(name[:80], ms / count) for name, ms in events[:12]]}
+  report = device_profile.profile_window(fn, count)
+  del report["events"]
+  return report
 
 
 def main() -> None:

@@ -12,6 +12,13 @@ So `{"attn_0": {"q_proj": {"kernel", "bias"}}}` becomes
 `attn_0.q_proj.weight` / `attn_0.q_proj.bias`. A leaf this mapping does
 not know raises. Conv, BatchNorm and LSTM layouts come with the slices
 that port those layers.
+
+`train_state_from_jax` carries a whole JAX `TrainState` across — step,
+params, optax state and EMA — so a JAX run can continue in the port. The
+optax state is read by duck typing (no optax import): a NamedTuple
+becomes a dict of its fields (`count` as an int, param-shaped moments
+through `state_dict_from_flax`), EmptyState `{}`, a chain's tuple a
+tuple — the layout of `models.optimizers`.
 """
 
 from __future__ import annotations
@@ -21,7 +28,10 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax", "bridge_train_state"]
+from tensor2robot_tpu_torch.parallel import train_step as ts
+
+__all__ = ["state_dict_from_flax", "bridge_train_state",
+           "optimizer_state_from_optax", "train_state_from_jax"]
 
 
 def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -65,3 +75,46 @@ def bridge_train_state(params: Mapping[str, Any],
   `CheckpointPredictor.load_params`."""
   return (state_dict_from_flax(params),
           None if ema_params is None else state_dict_from_flax(ema_params))
+
+
+def _numpy_tree(tree: Any) -> Any:
+  if isinstance(tree, Mapping):
+    return {k: _numpy_tree(v) for k, v in tree.items()}
+  return np.asarray(tree)
+
+
+def optimizer_state_from_optax(state: Any) -> Any:
+  """An optax optimizer state (NamedTuples inside chain tuples, leaves
+  arrays) in the layout of `models.optimizers`. Raises on a field this
+  mapping does not know."""
+  if hasattr(state, "_fields"):  # an optax state NamedTuple
+    out = {}
+    for field in state._fields:
+      value = getattr(state, field)
+      if field == "count":
+        out[field] = int(np.asarray(value))
+      elif field in ("mu", "nu", "trace"):
+        out[field] = state_dict_from_flax(_numpy_tree(value))
+      else:
+        raise ValueError(f"no bridge for optax state field {field!r} of "
+                         f"{type(state).__name__}")
+    return out
+  if isinstance(state, (tuple, list)):
+    return tuple(optimizer_state_from_optax(s) for s in state)
+  raise ValueError(f"no bridge for optax state {type(state).__name__}")
+
+
+def train_state_from_jax(state: Any) -> ts.TrainState:
+  """A JAX `TrainState` (step, params, opt_state, ema_params; flax
+  mutable collections must be empty) as the port's, on the CPU: move it
+  with `TrainState.to(device)`."""
+  if getattr(state, "mutable_state", None):
+    raise ValueError("no bridge for flax mutable collections "
+                     f"{sorted(state.mutable_state)}")
+  ema = getattr(state, "ema_params", None)
+  return ts.TrainState(
+      step=int(np.asarray(state.step)),
+      params=state_dict_from_flax(_numpy_tree(state.params)),
+      ema_params=None if ema is None else state_dict_from_flax(
+          _numpy_tree(ema)),
+      opt_state=optimizer_state_from_optax(state.opt_state))

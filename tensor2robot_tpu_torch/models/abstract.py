@@ -1,9 +1,11 @@
-"""Model protocol (serving subset): specs, preprocessor, network, and the
+"""Model protocol: specs, preprocessor, network, loss, optimizer, and the
 session-decode seam.
 
 Counterpart of `tensor2robot_tpu.models.abstract`. A model provides
-feature/label specs and `create_module()`, an `nn.Module` whose
-`forward(features, mode)` returns a mapping of inference outputs. The
+feature/label specs, `create_module()`, an `nn.Module` whose
+`forward(features, mode)` returns a mapping of inference outputs,
+`model_train_fn` (loss and scalars) and `create_optimizer()` (a
+`models.optimizers.GradientTransformation`; Adam at 1e-4 by default). The
 module's own parameters only give the structure: every forward runs on a
 parameter dict (a `state_dict`) through `torch.func.functional_call`, so
 a predictor can swap parameters without touching the module, as the JAX
@@ -18,12 +20,14 @@ from __future__ import annotations
 
 import abc
 import math
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
+from tensor2robot_tpu_torch import modes as modes_lib
 from tensor2robot_tpu_torch import specs as specs_lib
+from tensor2robot_tpu_torch.models import optimizers as optimizers_lib
 from tensor2robot_tpu_torch.preprocessors import base as preprocessors_lib
 
 __all__ = ["T2RModel"]
@@ -42,18 +46,51 @@ def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
 
 
 class T2RModel(abc.ABC):
-  """Base model: specs + network module + session-decode seam."""
+  """Base model: specs + network module + loss/optimizer + session-decode
+  seam.
+
+  `use_ema` keeps EMA shadow parameters in the train state, updated as
+  `e * ema_decay + (1 - ema_decay) * p` after every step. `remat` and
+  `gradient_accumulation_steps > 1` are not ported yet and raise.
+  """
 
   def __init__(self, preprocessor_cls: Optional[Callable] = None,
-               use_bfloat16: bool = False):
+               optimizer_fn: Optional[Callable] = None,
+               use_bfloat16: bool = False,
+               use_ema: bool = False,
+               ema_decay: float = 0.9999,
+               remat: bool = False,
+               gradient_accumulation_steps: int = 1):
+    if remat:
+      raise NotImplementedError(
+          "remat is not ported yet (ROADMAP.md, Queue A: rematerialisation "
+          "of the train step)")
+    if gradient_accumulation_steps < 1:
+      raise ValueError("gradient_accumulation_steps must be >= 1, got "
+                       f"{gradient_accumulation_steps}")
+    if gradient_accumulation_steps > 1:
+      raise NotImplementedError(
+          "gradient_accumulation_steps > 1 is not ported yet (ROADMAP.md, "
+          "Queue A: gradient accumulation)")
     self._preprocessor_cls = preprocessor_cls
+    self._optimizer_fn = optimizer_fn
     self._use_bfloat16 = use_bfloat16
+    self._use_ema = use_ema
+    self._ema_decay = ema_decay
     self._preprocessor: Optional[preprocessors_lib.AbstractPreprocessor] = None
     self._module: Optional[nn.Module] = None
 
   @property
   def use_bfloat16(self) -> bool:
     return self._use_bfloat16
+
+  @property
+  def use_ema(self) -> bool:
+    return self._use_ema
+
+  @property
+  def ema_decay(self) -> float:
+    return self._ema_decay
 
   @property
   def preprocessor(self) -> preprocessors_lib.AbstractPreprocessor:
@@ -90,12 +127,36 @@ class T2RModel(abc.ABC):
     """The network; `forward(features, mode)` returns a mapping of
     inference outputs."""
 
+  @abc.abstractmethod
+  def model_train_fn(self, features, labels, inference_outputs, mode: str
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, scalars) of one batch; outputs arrive in float32."""
+
+  def model_eval_fn(self, features, labels, inference_outputs
+                    ) -> Dict[str, torch.Tensor]:
+    """Eval metric scalars; defaults to the train loss."""
+    loss, scalars = self.model_train_fn(features, labels, inference_outputs,
+                                        modes_lib.EVAL)
+    return {"loss": loss, **scalars}
+
   def create_export_outputs_fn(self, features, inference_outputs
                                ) -> Dict[str, torch.Tensor]:
     """Serving outputs; defaults to all inference outputs."""
     if isinstance(inference_outputs, Mapping):
       return dict(inference_outputs.items())
     return {"output": inference_outputs}
+
+  def create_optimizer(self) -> optimizers_lib.GradientTransformation:
+    """The optimizer; a configured `optimizer_fn` wins over Adam at 1e-4.
+    Subclasses may override; the train step calls `build_optimizer`."""
+    fn = self._optimizer_fn or optimizers_lib.create_adam_optimizer
+    return fn()
+
+  def build_optimizer(self) -> optimizers_lib.GradientTransformation:
+    """`create_optimizer` plus framework wrappers (gradient accumulation
+    in the JAX package, not ported yet) — the method the train step
+    calls. Override `create_optimizer`, not this one."""
+    return self.create_optimizer()
 
   # -- parameters and forward -----------------------------------------------
 

@@ -136,6 +136,11 @@ class SequenceRegressionModel(abstract_model.T2RModel):
         hidden_size=self._hidden_size, num_blocks=self._num_blocks,
         num_heads=self._num_heads, backend=self._attention_backend)
 
+  def model_train_fn(self, features, labels, inference_outputs, mode):
+    """Mean squared error over every action entry, reported as 'mse'."""
+    loss = torch.mean((inference_outputs["action"] - labels["action"]) ** 2)
+    return loss, {"mse": loss}
+
   # -- session-decode seam ---------------------------------------------------
 
   @property

@@ -28,16 +28,19 @@ from typing import Dict, List, Optional
 _PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
-SOURCES = ("decode_tick", "flash_fwd")
+SOURCES = ("decode_tick", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# Every pointer and the stream as c_void_p: ctypes would otherwise pass a
-# Python int as a 32-bit int and cut the pointer.
+# The launch functions of each library. Every pointer and the stream as
+# c_void_p: ctypes would otherwise pass a Python int as a 32-bit int and
+# cut the pointer. Each library also exports `t2r_<name>_error_string`.
 _SIGNATURES = {
-    "decode_tick": ("t2r_decode_tick", [_P] * 9 + [_I] * 4 + [_P]),
-    "flash_fwd": ("t2r_flash_fwd", [_P] * 5 + [_I] * 6 + [_P]),
+    "decode_tick": {"t2r_decode_tick": [_P] * 9 + [_I] * 4 + [_P]},
+    "flash_fwd": {"t2r_flash_fwd": [_P] * 5 + [_I] * 6 + [_P]},
+    "flash_bwd": {"t2r_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_P],
+                  "t2r_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_P]},
 }
 
 _lock = threading.Lock()
@@ -111,22 +114,23 @@ def library(name: str) -> ctypes.CDLL:
     lib = _libraries.get(name)
     if lib is None:
       lib = ctypes.CDLL(str(_library_path(name)))
-      symbol, argtypes = _SIGNATURES[name]
-      fn = getattr(lib, symbol)
-      fn.argtypes = argtypes
-      fn.restype = ctypes.c_int
-      err = getattr(lib, f"{symbol}_error_string")
+      for symbol, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+      err = getattr(lib, f"t2r_{name}_error_string")
       err.argtypes = [ctypes.c_int]
       err.restype = ctypes.c_char_p
       _libraries[name] = lib
   return lib
 
 
-def check(name: str, status: int) -> None:
-  """Raises when a launch function returned a CUDA error: a refused
-  launch never runs, and a later synchronize would not report it."""
+def check(name: str, status: int, symbol: Optional[str] = None) -> None:
+  """Raises when a launch function of library `name` returned a CUDA
+  error: a refused launch never runs, and a later synchronize would not
+  report it."""
   if status != 0:
-    symbol = _SIGNATURES[name][0]
-    text = getattr(library(name), f"{symbol}_error_string")(status)
+    symbol = symbol or f"t2r_{name}"
+    text = getattr(library(name), f"t2r_{name}_error_string")(status)
     raise RuntimeError(f"{symbol} failed: CUDA error {status} "
                        f"({text.decode() if text else 'unknown'})")

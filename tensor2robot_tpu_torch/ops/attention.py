@@ -1,5 +1,5 @@
 """Attention ops for the port: plain softmax attention, the one-tick
-cached attention, and the flash forward kernel.
+cached attention, and flash attention with its backward.
 
 Counterpart of `tensor2robot_tpu.ops.attention`. All functions take
 [batch, heads, seq, head_dim] ("BHTD") tensors.
@@ -7,11 +7,15 @@ Counterpart of `tensor2robot_tpu.ops.attention`. All functions take
 * `attention` — plain softmax attention (any device).
 * `cached_attention` — one decode tick against a per-session KV cache.
 * `flash_attention` — the wrapper: pads a sequence that does not tile to
-  the block multiple and masks it, then runs `flash_forward`.
+  the block multiple and masks it, then runs `FlashAttentionFunction`,
+  the `torch.autograd.Function` mirroring the JAX package's `_flash`
+  custom VJP: `flash_forward` forward, `flash_backward` backward.
 * `flash_forward` — (out, lse) over [batch*heads, T, D]: the hand-written
   CUDA kernel (`csrc/flash_fwd.cu`) on a CUDA tensor, its plain PyTorch
-  version (`_flash_forward_plain`) on a CPU tensor. Forward only; the
-  backward kernels come with the training slice.
+  version (`_flash_forward_plain`) on a CPU tensor.
+* `flash_backward` — (dq, dk, dv) over [batch*heads, T, D]: the dQ and
+  dK/dV kernels (`csrc/flash_bwd.cu`) on a CUDA tensor, its plain PyTorch
+  version (`_flash_backward_plain`) on a CPU tensor.
 
 Ring and Ulysses sequence parallelism are not ported yet.
 """
@@ -26,7 +30,7 @@ import torch
 from tensor2robot_tpu_torch.ops import _kernels
 
 __all__ = ["attention", "cached_attention", "flash_attention",
-           "flash_forward"]
+           "flash_forward", "flash_backward", "FlashAttentionFunction"]
 
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
 
@@ -71,6 +75,17 @@ def cached_attention(q_t: torch.Tensor, k_cache: torch.Tensor,
   return torch.einsum("bht,bthd->bhd", weights.to(q_t.dtype), v_cache)
 
 
+def _flash_valid(t: int, causal: bool, valid_len: int,
+                 device: torch.device) -> torch.Tensor:
+  """[T, T] score validity: the causal triangle and the key/row padding
+  mask of `valid_len`."""
+  pos = torch.arange(t, device=device)
+  valid = (pos[None, :] < valid_len) & (pos[:, None] < valid_len)
+  if causal:
+    valid = valid & (pos[:, None] >= pos[None, :])
+  return valid
+
+
 def _flash_forward_plain(q3: torch.Tensor, k3: torch.Tensor,
                          v3: torch.Tensor, causal: bool, valid_len: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -81,9 +96,7 @@ def _flash_forward_plain(q3: torch.Tensor, k3: torch.Tensor,
   scale = 1.0 / math.sqrt(d)
   scores = torch.einsum("bqd,bkd->bqk", q3.float(), k3.float()) * scale
   pos = torch.arange(t, device=q3.device)
-  valid = (pos[None, :] < valid_len) & (pos[:, None] < valid_len)
-  if causal:
-    valid = valid & (pos[:, None] >= pos[None, :])
+  valid = _flash_valid(t, causal, valid_len, q3.device)
   scores = scores.masked_fill(~valid, float("-inf"))
   row_valid = (pos < valid_len)[None, :, None]  # [1, T, 1]
   m = scores.amax(dim=-1, keepdim=True)
@@ -94,6 +107,34 @@ def _flash_forward_plain(q3: torch.Tensor, k3: torch.Tensor,
   lse = torch.where(row_valid, m + torch.log(l.clamp_min(1e-30)),
                     torch.zeros_like(m))
   return out.to(q3.dtype), lse
+
+
+def _check_flash_operands(name: str, tensors, valid_len: int) -> str:
+  """Validates [BH, T, D] operands of one shape and `valid_len`; returns
+  the device type ('cpu' or 'cuda'). On a CUDA device also checks what
+  the kernels take: f32 or bf16 of one dtype, head_dim in
+  FLASH_HEAD_DIMS."""
+  shape = tensors[0].shape
+  if len(shape) != 3 or any(x.shape != shape for x in tensors):
+    raise ValueError(f"{name} takes [BH, T, D] tensors of one shape, got "
+                     f"{[tuple(x.shape) for x in tensors]}")
+  if not 0 < valid_len <= shape[1]:
+    raise ValueError(f"valid_len {valid_len} outside (0, {shape[1]}]")
+  device = tensors[0].device
+  if device.type not in ("cpu", "cuda"):
+    raise ValueError(f"{name}: unsupported device {device}")
+  if any(x.device != device for x in tensors):
+    raise ValueError(f"{name}: operands on more than one device")
+  if device.type == "cuda":
+    dtype = tensors[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16) or any(
+        x.dtype != dtype for x in tensors):
+      raise ValueError(f"flash kernels take f32 or bf16 operands of one "
+                       f"dtype, got {[x.dtype for x in tensors]}")
+    if shape[2] not in FLASH_HEAD_DIMS:
+      raise ValueError(f"flash kernel head_dim must be one of "
+                       f"{FLASH_HEAD_DIMS}, got {shape[2]}")
+  return device.type
 
 
 def flash_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
@@ -107,23 +148,9 @@ def flash_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
   `csrc/flash_fwd.cu` or raises (f32 or bf16, head_dim in
   FLASH_HEAD_DIMS). `flash_forward.launches` counts kernel launches.
   """
-  if q3.shape != k3.shape or q3.shape != v3.shape or q3.dim() != 3:
-    raise ValueError(f"flash_forward takes three [BH, T, D] tensors of one "
-                     f"shape, got {q3.shape}, {k3.shape}, {v3.shape}")
-  if not 0 < valid_len <= q3.shape[1]:
-    raise ValueError(f"valid_len {valid_len} outside (0, {q3.shape[1]}]")
-  if q3.device.type == "cpu":
+  if _check_flash_operands("flash_forward", (q3, k3, v3), valid_len) == "cpu":
     return _flash_forward_plain(q3, k3, v3, causal, valid_len)
-  if q3.device.type != "cuda":
-    raise ValueError(f"flash_forward: unsupported device {q3.device}")
-  if not q3.dtype == k3.dtype == v3.dtype or q3.dtype not in (
-      torch.float32, torch.bfloat16):
-    raise ValueError(f"flash kernel takes f32 or bf16 q/k/v of one dtype, "
-                     f"got {q3.dtype}, {k3.dtype}, {v3.dtype}")
   bh, t, d = q3.shape
-  if d not in FLASH_HEAD_DIMS:
-    raise ValueError(f"flash kernel head_dim must be one of "
-                     f"{FLASH_HEAD_DIMS}, got {d}")
   q3, k3, v3 = q3.contiguous(), k3.contiguous(), v3.contiguous()
   out = torch.empty_like(q3)
   lse = torch.empty((bh, t, 1), dtype=torch.float32, device=q3.device)
@@ -139,6 +166,121 @@ def flash_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
 
 
 flash_forward.launches = 0
+
+
+def _flash_backward_plain(q3: torch.Tensor, k3: torch.Tensor,
+                          v3: torch.Tensor, out: torch.Tensor,
+                          lse: torch.Tensor, do: torch.Tensor, causal: bool,
+                          valid_len: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """The plain PyTorch version of the flash backward kernels, computed
+  all at once, with their numerics: S in f32 from the input dtype, dO
+  widened to f32, P, dP and dS in f32, masked entries P = 0 (masked
+  before the exp: padded rows carry lse = 0), and dq, dk, dv cast to the
+  input dtype at the end."""
+  t, d = q3.shape[1], q3.shape[2]
+  scale = 1.0 / math.sqrt(d)
+  qf, kf, vf, dof = q3.float(), k3.float(), v3.float(), do.float()
+  delta = (dof * out.float()).sum(dim=-1, keepdim=True)  # [BH, T, 1]
+  scores = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+  valid = _flash_valid(t, causal, valid_len, q3.device)
+  p = torch.exp(scores.masked_fill(~valid, float("-inf")) - lse)
+  dp = torch.einsum("bqd,bkd->bqk", dof, vf)
+  ds = p * (dp - delta) * scale
+  dq = torch.einsum("bqk,bkd->bqd", ds, kf)
+  dk = torch.einsum("bqk,bqd->bkd", ds, qf)
+  dv = torch.einsum("bqk,bqd->bkd", p, dof)
+  return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
+
+
+def flash_backward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                   out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                   causal: bool, valid_len: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """Flash attention backward over [batch*heads, T, D]: the forward's
+  operands, its out and lse [BH, T, 1] f32, and the cotangent `do` of
+  out. Returns (dq, dk, dv) in the input dtype.
+
+  delta = rowsum(dO * O) is a torch op, as in the JAX package. A CPU
+  tensor runs the plain version; a CUDA tensor launches the dQ and the
+  dK/dV kernels of `csrc/flash_bwd.cu` or raises.
+  `flash_backward.launches_dq` and `.launches_dkv` count launches.
+  """
+  if _check_flash_operands("flash_backward", (q3, k3, v3, out, do),
+                           valid_len) == "cpu":
+    return _flash_backward_plain(q3, k3, v3, out, lse, do, causal, valid_len)
+  bh, t, d = q3.shape
+  if lse.shape != (bh, t, 1) or lse.dtype != torch.float32:
+    raise ValueError(f"lse must be f32 [{bh}, {t}, 1], got {lse.dtype} "
+                     f"{tuple(lse.shape)}")
+  q3, k3, v3, do, lse = (x.contiguous() for x in (q3, k3, v3, do, lse))
+  delta = (do.float() * out.float()).sum(dim=-1).contiguous()  # [BH, T]
+  dq = _launch_flash_bwd_dq(q3, k3, v3, do, lse, delta, causal, valid_len)
+  dk, dv = _launch_flash_bwd_dkv(q3, k3, v3, do, lse, delta, causal,
+                                 valid_len)
+  return dq, dk, dv
+
+
+def _bwd_args(q3, k3, v3, do, lse, delta, causal, valid_len):
+  """The pointer operands and the trailing ints + stream of both
+  backward launch functions (inputs already validated, contiguous)."""
+  bh, t, d = q3.shape
+  operands = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+  common = (bh, t, d, int(valid_len), int(bool(causal)),
+            0 if q3.dtype == torch.float32 else 1,
+            torch.cuda.current_stream(q3.device).cuda_stream)
+  return operands, common
+
+
+def _launch_flash_bwd_dq(q3, k3, v3, do, lse, delta, causal, valid_len):
+  """Launches the dQ kernel of `csrc/flash_bwd.cu`; counts the launch."""
+  operands, common = _bwd_args(q3, k3, v3, do, lse, delta, causal, valid_len)
+  dq = torch.empty_like(q3)
+  status = _kernels.library("flash_bwd").t2r_flash_bwd_dq(
+      *operands, dq.data_ptr(), *common)
+  _kernels.check("flash_bwd", status, "t2r_flash_bwd_dq")
+  flash_backward.launches_dq += 1
+  return dq
+
+
+def _launch_flash_bwd_dkv(q3, k3, v3, do, lse, delta, causal, valid_len):
+  """Launches the dK/dV kernel of `csrc/flash_bwd.cu`; counts the launch."""
+  operands, common = _bwd_args(q3, k3, v3, do, lse, delta, causal, valid_len)
+  dk, dv = torch.empty_like(k3), torch.empty_like(v3)
+  status = _kernels.library("flash_bwd").t2r_flash_bwd_dkv(
+      *operands, dk.data_ptr(), dv.data_ptr(), *common)
+  _kernels.check("flash_bwd", status, "t2r_flash_bwd_dkv")
+  flash_backward.launches_dkv += 1
+  return dk, dv
+
+
+flash_backward.launches_dq = 0
+flash_backward.launches_dkv = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+  """Flash attention over padded [BH, T, D] operands with the flash
+  backward as its gradient: the counterpart of the JAX package's `_flash`
+  custom VJP. Returns (out, lse); lse is not differentiable. The forward
+  saves (q3, k3, v3, out, lse). No double backward."""
+
+  @staticmethod
+  def forward(ctx, q3, k3, v3, causal: bool, valid_len: int):
+    out, lse = flash_forward(q3, k3, v3, causal, valid_len)
+    ctx.save_for_backward(q3, k3, v3, out, lse)
+    ctx.causal, ctx.valid_len = causal, valid_len
+    ctx.mark_non_differentiable(lse)
+    return out, lse
+
+  @staticmethod
+  @torch.autograd.function.once_differentiable
+  def backward(ctx, dout, dlse):
+    del dlse  # lse is not differentiable
+    q3, k3, v3, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_backward(q3, k3, v3, out, lse, dout, ctx.causal,
+                                ctx.valid_len)
+    return dq, dk, dv, None, None
 
 
 def _next_pow2(n: int) -> int:
@@ -159,7 +301,8 @@ _KERNEL_TILE = 64
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, block_q: int = _KERNEL_TILE,
                     block_k: int = _KERNEL_TILE) -> torch.Tensor:
-  """Flash attention forward, [B, H, T, D].
+  """Flash attention, [B, H, T, D], differentiable on every device through
+  `FlashAttentionFunction` (the flash backward kernels on a CUDA tensor).
 
   Blocks are normalized to powers of two in [_MIN_BLOCK, next_pow2(T)],
   and a T that does not tile max(block_q, block_k) is padded to the next
@@ -181,7 +324,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q3 = torch.nn.functional.pad(q3, pad)
     k3 = torch.nn.functional.pad(k3, pad)
     v3 = torch.nn.functional.pad(v3, pad)
-  out, _ = flash_forward(q3, k3, v3, causal, t)
+  out, _ = FlashAttentionFunction.apply(q3, k3, v3, causal, t)
   if t_pad != t:
     out = out[:, :t]
   return out.reshape(b, h, t, d)

@@ -3,15 +3,16 @@
 
 Counterpart of `tensor2robot_tpu.predictors.predictors` (serving subset):
 `CheckpointPredictor` with random init from a seed, parameters carried
-over from the JAX package (`bridge.py`), and the two serving seams,
-`serving_bundle()` and `decode_bundle()`. Reading checkpoints from disk
-comes with the training slice's checkpoint module.
+over from the JAX package (`bridge.py`), the newest verified checkpoint a
+port trainer wrote to `model_dir`, and the two serving seams,
+`serving_bundle()` and `decode_bundle()`.
 """
 
 from __future__ import annotations
 
 import abc
 import functools
+import os
 import threading
 import time
 from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional
@@ -19,6 +20,7 @@ from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch import checkpoints as checkpoints_lib
 from tensor2robot_tpu_torch import modes as modes_lib
 from tensor2robot_tpu_torch import specs as specs_lib
 from tensor2robot_tpu_torch.obs import metrics as obs_metrics
@@ -88,17 +90,25 @@ class AbstractPredictor(abc.ABC):
 class CheckpointPredictor(AbstractPredictor):
   """Serves a model object's predict path on one device.
 
-  Parameters come from `init_randomly(seed)` or from `load_params(...)`
+  Parameters come from `init_randomly(seed)`, from `load_params(...)`
   (for example a JAX param tree carried over by `bridge.py`), which
-  stages them; `restore()` swaps staged parameters in. Sessions that an
-  engine holds keep their state across a swap: the bundles read the
-  state through a getter on every call.
+  stages them, or from the checkpoints a trainer wrote under `model_dir`.
+  `restore()` swaps staged parameters in, or else the newest verified
+  checkpoint (a corrupt newest step is quarantined and the next newest
+  serves). Sessions that an engine holds keep their state across a swap:
+  the bundles read the state through a getter on every call.
   """
 
-  def __init__(self, model=None, device=None):
+  def __init__(self, model=None, model_dir: Optional[str] = None,
+               device=None):
     if model is None:
       raise ValueError("model is required.")
     self._model = model
+    self._checkpoint_dir = None
+    if model_dir is not None:
+      nested = os.path.join(model_dir, checkpoints_lib.CHECKPOINT_DIRNAME)
+      self._checkpoint_dir = (nested if os.path.isdir(nested)
+                              or not os.path.isdir(model_dir) else model_dir)
     self._device = device_lib.resolve_device(device)
     self._state: Optional[ts.TrainState] = None
     self._staged: Optional[ts.TrainState] = None
@@ -157,10 +167,15 @@ class CheckpointPredictor(AbstractPredictor):
       self._staged = ts.TrainState(step=int(global_step), **staged)
 
   def restore(self) -> bool:
-    """Swaps in the parameters staged by `load_params`; False when none
-    are staged."""
+    """Swaps in the parameters staged by `load_params`, or else the newest
+    verified checkpoint under `model_dir`; False when there is neither."""
     with self._staged_lock:
       staged, self._staged = self._staged, None
+    if staged is None and self._checkpoint_dir is not None \
+        and os.path.isdir(self._checkpoint_dir):
+      manager = checkpoints_lib.CheckpointManager(self._checkpoint_dir)
+      if manager.latest_step() is not None:
+        staged = manager.restore(device=self._device).replace(opt_state=None)
     if staged is None:
       return False
     self._state = staged

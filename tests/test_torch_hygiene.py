@@ -1,12 +1,13 @@
 """The port stands apart from the JAX package and from the CPU.
 
 * No file of `tensor2robot_tpu_torch/` (nor `chip_smoke.py`) imports
-  jax, flax or tensor2robot_tpu (AST scan), and every module imports with
-  those blocked.
+  jax, flax, optax, orbax, absl or tensor2robot_tpu (AST scan), and every
+  module imports with those blocked.
 * Entry points raise without a CUDA device unless asked for the CPU.
 * `chip_smoke.py` exits non-zero and prints no result where there is no
   CUDA device, and in a directory that holds nothing else of the repo.
-* The port's session config parses and binds the long-context widths.
+* The port's session and training configs parse and bind the
+  long-context widths.
 """
 
 import ast
@@ -34,7 +35,8 @@ torch.set_num_threads(1)
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO_ROOT / "tensor2robot_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensor2robot_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "absl",
+             "tensor2robot_tpu")
 
 
 def _port_files():
@@ -148,3 +150,39 @@ def test_session_config_binds_the_long_context_widths():
     assert config.query_parameter("SessionEngine.admission") == "evict_lru"
   finally:
     config.clear_config()
+
+
+def test_train_config_binds_the_long_context_widths():
+  try:
+    config.parse_config_file(
+        str(PORT / "configs" / "train_longcontext_flash.gin"))
+    model = config.query_parameter("train_eval_model.model")
+    assert model is not None
+    model = sequence_model.SequenceRegressionModel()
+    assert (model._obs_size, model._action_size, model._sequence_length,
+            model._hidden_size, model._num_blocks, model._num_heads,
+            model.head_dim, model._attention_backend, model.use_bfloat16) == (
+                16, 7, 4096, 512, 2, 8, 64, "flash", True)
+    assert config.query_parameter("train_eval_model.mode") == "train"
+    assert config.query_parameter("train_eval_model.max_train_steps") == 1000
+    assert config.query_parameter(
+        "train_eval_model.checkpoint_every_n_steps") == 500
+    assert config.query_parameter(
+        "DefaultRandomInputGenerator.batch_size") == 2
+  finally:
+    config.clear_config()
+
+
+def test_trainer_raises_without_cuda(no_cuda, tmp_path):
+  from tensor2robot_tpu_torch import train_eval
+  from tensor2robot_tpu_torch.data import input_generators
+
+  model = sequence_model.SequenceRegressionModel(
+      obs_size=4, action_size=2, sequence_length=8, hidden_size=32,
+      num_heads=4)
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    train_eval.train_eval_model(
+        model=model, model_dir=str(tmp_path), mode="train",
+        input_generator_train=input_generators.DefaultRandomInputGenerator())
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    predictors.CheckpointPredictor(model=model, model_dir=str(tmp_path))
