@@ -8,18 +8,21 @@ and prints no result):
 
 1. Device: the card's name and power limit (nvidia-smi); the CUDA kernels
    built from `tensor2robot_tpu_torch/csrc/` with nvcc, one process per
-   source, all started together.
+   source, all started together, with ptxas' registers and spills; the
+   matrix instructions of every flash kernel (`cuobjdump -sass`): each
+   instantiation of the tensor-core kernels (the bf16 flash forward and
+   the bf16 dK/dV) must hold HGMMA (or HMMA) instructions.
 2. Kernels against their plain PyTorch versions at the served shapes:
    the decode tick on an f32 [65, 4096, 8, 64] arena (B = 1 and 8, indices
    0, tile edges, mixed progress and 4095, pad lanes on the null slot; the
-   update must be in place and every untouched row bit-identical), the
-   flash forward (B = 2, H = 8, D = 64, T = 4096 and a non-tiling 1000,
-   causal and not, f32 and bf16; O and lse), and the flash backward's dQ
-   and dK/dV kernels at the same shapes, and at D = 16, 32 and 128 (T =
-   1000, causal), against `_flash_backward_plain` (each must launch once
-   per call); then, in f32 at T = 1000, the
-   gradients through `flash_attention`'s autograd Function against torch
-   autograd through the plain `attention`.
+   update must be in place and every untouched row bit-identical); the
+   flash forward (O and lse) and the flash backward's dQ and dK/dV kernels
+   against `_flash_backward_plain`, f32 and bf16, causal and not, at
+   B x H = 16, D = 64 and T = 4096, 1000 (does not tile) and 1088 (tiles
+   by 64, not by 128), and at B x H = 4, D = 16, 32 and 128, T = 1000 and
+   1088 (each kernel must launch once per call); then, in f32 at T = 1000,
+   the gradients through `flash_attention`'s autograd Function against
+   torch autograd through the plain `attention`.
 3. The serving slice: the causal sequence policy at the long-context widths of
    `tensor2robot_tpu_torch/configs/serve_session.gin`, random weights
    from seed 0, served CheckpointPredictor -> SessionEngine ->
@@ -27,7 +30,8 @@ and prints no result):
    ticks, and one session run to the 4096-tick horizon whose every tick
    must match the stateless flash predict of the same sequence; its
    4097th tick must raise SessionHorizonError. One bf16 predict must be
-   finite. Both kernels' launch counts must grow during this phase.
+   finite. The decode tick, the f32 forward (the f32 predicts) and the
+   bf16 forward (the bf16 predict) must each launch during this phase.
 4. The training slice: `tensor2robot_tpu_torch/configs/train_longcontext_flash.gin`
    (T 4096, hidden 512, 2 blocks, 8 heads, batch 2, bf16 on f32 masters)
    run through `train_eval_model` for 20 steps with a checkpoint every 10,
@@ -46,13 +50,16 @@ and prints no result):
    / 3.35 TB/s, flops / peak rate of the dtype) with the H100 SXM
    data-sheet peaks; and the median full-width bf16 train step.
 
-Output: a `train` JSON line, a `slice` JSON line, a `kernels` JSON line,
-the card line, and as the last line `{"ok": true, "device": {...}}`. The
+Output: a `train` JSON line, a `slice` JSON line, a `kernels` JSON line
+(one row per kernel, with its `design`: "wgmma+tma" for the tensor-core
+kernels, "cuda-cores" for the others), the card line, and as the last
+line `{"ok": true, "device": {...}}`. The
 same numbers go to `chiprun_out/chip_smoke_report.json`.
 """
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -67,16 +74,30 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # f32: both sides accumulate in f32 and differ only in summation order
 #   and exp rounding, ~1e-6 relative on values of order 1-10.
 F32_TOL = 1e-4
-# bf16: inputs and outputs carry 8 mantissa bits (relative step 2^-8 =
-#   3.9e-3), and the kernel rounds P to bf16 before the PV product as the
-#   TPU kernel does; outputs of order 1 then differ by a few 1e-3.
+# bf16 forward: inputs and outputs carry 8 mantissa bits (relative step
+#   2^-8 = 3.9e-3), and the kernel rounds P to bf16 before the PV product
+#   as the TPU kernel does; outputs of order 1 then differ by a few 1e-3.
 BF16_TOL = 3e-2
-# The backward in bf16, on max|err| / max(1, max|ref|): P, dP and dS stay
-#   f32 on both sides and only dQ, dK and dV are rounded to bf16 at the
-#   end, so sound runs read at most 3.86e-4; 3e-3 is about 8x that.
-BWD_BF16_TOL = 3e-3
-# Every output of the flash kernels, both dtypes, on the relative 2-norm
-#   |got - want| / |want|: a kernel that wrote zeros or wrong values for
+# The bf16 backward, on max|err| / max(1, max|ref|): one bf16 output step
+#   of a value in [1, 2), 2^-7. P, dP and dS are f32 in the plain version;
+#   the tensor-core dK/dV kernel sums in another order, and one output
+#   rounding that lands the other way on a value near max|ref| = 2.5 reads
+#   2^-7 / 2.5 = 3.1e-3 alone. A CPU emulation (BH 4, T 2048, D 64,
+#   causal, against the f32 plain math) read:
+#     P and dS rounded once to bf16:  norm 2.49e-3 (dV) / 2.59e-3 (dK),
+#                                     scaled 3.40e-3 / 6.21e-3
+#     P and dS split into hi + lo:    norm 6.27e-5 / 1.51e-4,
+#                                     scaled 4.25e-4 / 3.11e-3
+#     f32 sums in 64-row chunks:      norm 4.57e-5 / 2.36e-5,
+#                                     scaled 4.25e-4 / 1.94e-4
+#   (tests/test_torch_flash_numerics.py repeats it at T 512.)
+BWD_BF16_TOL = 2.0 ** -7
+# ... and on the relative 2-norm |got - want| / |want|: 1e-3 sits between
+#   the split (<= 1.5e-4) and rounding P or dS once (>= 2.5e-3), so a
+#   kernel that rounds once fails it.
+BWD_BF16_REL_NORM_TOL = 1e-3
+# Every other flash output (the forward in both dtypes, the f32 backward)
+#   on the relative 2-norm: a kernel that wrote zeros or wrong values for
 #   part of the rows or keys reads the share it got wrong. Rounding alone
 #   is under one bf16 step (2^-8 = 3.9e-3) on every element.
 REL_NORM_TOL = 1e-2
@@ -135,6 +156,71 @@ class Timer:
 
 def max_abs(a, b) -> float:
   return float((a.float() - b.float()).abs().max())
+
+
+# -- phase 1: the built kernels' instructions --------------------------------
+
+# The tensor-core kernels, by the library that holds them. Every
+# instantiation (one per head_dim) must carry Hopper's warpgroup matrix
+# instructions (HGMMA), or at least warp-level ones (HMMA).
+TENSOR_CORE_KERNELS = {"flash_fwd": "flash_fwd_tc_kernel",
+                       "flash_bwd": "flash_bwd_dkv_tc_kernel"}
+
+
+def _cuobjdump() -> str:
+  found = shutil.which("cuobjdump")
+  if found:
+    return found
+  return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                      "cuobjdump")
+
+
+def _kernel_label(mangled: str):
+  """'flash_bwd_dq_kernel<bf16,64>' for a line holding a mangled kernel
+  name, None for any other line."""
+  match = re.search(r"\d([a-z_]*kernel)I(\w*?)Li(\d+)E", mangled)
+  if not match:
+    return None
+  dtype = {"f": "f32,", "13__nv_bfloat16": "bf16,"}.get(match.group(2), "")
+  return f"{match.group(1)}<{dtype}{match.group(3)}>"
+
+
+def sass_mma_counts(library_path) -> dict:
+  """{kernel<instantiation>: {"HGMMA": n, "HMMA": m}} over the SASS of a
+  built library (`cuobjdump -sass`)."""
+  sass = subprocess.run([_cuobjdump(), "-sass", str(library_path)],
+                        check=True, capture_output=True, text=True,
+                        timeout=300).stdout
+  counts, current = {}, None
+  for line in sass.splitlines():
+    if "Function :" in line:
+      current = _kernel_label(line)
+      if current:
+        counts[current] = {"HGMMA": 0, "HMMA": 0}
+    elif current and "HGMMA" in line:
+      counts[current]["HGMMA"] += 1
+    elif current and "HMMA" in line:
+      counts[current]["HMMA"] += 1
+  return counts
+
+
+def check_sass(_kernels) -> dict:
+  """Logs the matrix instructions of every flash kernel; fails if a
+  tensor-core kernel has none. Returns, per tensor-core kernel, its
+  counts per instantiation."""
+  out = {}
+  for library, kernel in TENSOR_CORE_KERNELS.items():
+    counts = sass_mma_counts(_kernels._library_path(library))
+    for name, c in sorted(counts.items()):
+      log(f"  {library} SASS {name}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
+    mine = {name: c for name, c in counts.items()
+            if name.startswith(kernel + "<")}
+    if len(mine) != 4 or any(c["HGMMA"] + c["HMMA"] == 0
+                             for c in mine.values()):
+      raise RuntimeError(f"{kernel}: expected 4 instantiations with "
+                         f"HGMMA or HMMA instructions, got {mine}")
+    out[kernel] = mine
+  return out
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -197,21 +283,33 @@ def _rel_norm_err(got, want) -> float:
   return float((got - want).norm() / want.norm())
 
 
+# (BH, T, D) of the flash checks: the train step's B x H and D at T 4096,
+# a T that does not tile (1000) and one that tiles by 64 but not by 128
+# (1088: a 128-row TMA tile of one head would read the next head), then
+# the other head dims FLASH_HEAD_DIMS admits (D 128 needs the largest
+# shared-memory opt-ins). Each runs causal and not, f32 and bf16.
+FLASH_SHAPES = ([(16, t, 64) for t in (4096, 1000, 1088)]
+                + [(4, t, hd) for hd in (16, 32, 128) for t in (1000, 1088)])
+
+
+def _padded_inputs(torch, gen, device, count, bh, t, d, dtype):
+  """`count` random [BH, T, D] operands padded to flash_attention's
+  64-row tile."""
+  t_pad = -(-t // 64) * 64
+  return [torch.nn.functional.pad(torch.randn(
+      (bh, t, d), generator=gen, device=device).to(dtype),
+                                  (0, 0, 0, t_pad - t)) for _ in range(count)]
+
+
 def check_flash(torch, attention_ops, device, gen):
   """Returns the worst max |err| (O and lse) and the worst relative
   2-norm error of O, per dtype."""
   worst = {"float32": 0.0, "bfloat16": 0.0}
   rel = {"float32": 0.0, "bfloat16": 0.0}
-  b, h, d = 2, 8, 64
-  for t in (4096, 1000):
+  for bh, t, d in FLASH_SHAPES:
     for causal in (True, False):
       for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (torch.randn((b, h, t, d), generator=gen, device=device)
-                   .to(dtype) for _ in range(3))
-        t_pad = -(-t // 64) * 64  # flash_attention's padding at its tile
-        pad = (0, 0, 0, t_pad - t)
-        q3, k3, v3 = (torch.nn.functional.pad(x.reshape(b * h, t, d), pad)
-                      for x in (q, k, v))
+        q3, k3, v3 = _padded_inputs(torch, gen, device, 3, bh, t, d, dtype)
         before = attention_ops.flash_forward.launches
         out, lse = attention_ops.flash_forward(q3, k3, v3, causal, t)
         torch.cuda.synchronize()
@@ -223,16 +321,17 @@ def check_flash(torch, attention_ops, device, gen):
         rel_err = _rel_norm_err(out[:, :t], want_out[:, :t])
         name = str(dtype).replace("torch.", "")
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-        log(f"flash fwd T={t} causal={causal} {name}: max |err| {err:.3e}, "
-            f"|err| / |ref| of O {rel_err:.3e}")
+        log(f"flash fwd BH={bh} T={t} D={d} causal={causal} {name}: max "
+            f"|err| {err:.3e}, |err| / |ref| of O {rel_err:.3e}")
         if not (err <= tol and rel_err <= REL_NORM_TOL):
           raise RuntimeError(f"flash forward disagrees with its plain "
                              f"version: max |err| {err} (limit {tol}), "
                              f"relative norm {rel_err} (limit {REL_NORM_TOL})")
-        if t_pad != t and bool(lse[:, t:].ne(0).any()):
+        if q3.shape[1] != t and bool(lse[:, t:].ne(0).any()):
           raise RuntimeError("padded rows must carry lse = 0")
         worst[name] = max(worst[name], err)
         rel[name] = max(rel[name], rel_err)
+        del q3, k3, v3, out, lse, want_out, want_lse
   return worst, rel
 
 
@@ -244,57 +343,51 @@ def _scaled_err(got, want) -> float:
 def check_flash_bwd(torch, attention_ops, device, gen):
   """dQ and dK/dV kernels against `_flash_backward_plain`, then the
   autograd Function against autograd through `attention` (f32, T 1000).
-  Returns, per kernel ('dq'; 'dkv' for dK and dV together), the worst
-  absolute f32 error, and per kernel and dtype the worst scaled and
-  relative-norm errors."""
-  worst = {"dq": 0.0, "dkv": 0.0}
+  Returns, per kernel ('dq'; 'dkv' for dK and dV together) and dtype, the
+  worst absolute, scaled and relative-norm errors."""
+  worst = {kernel: {"float32": 0.0, "bfloat16": 0.0}
+           for kernel in ("dq", "dkv")}
   scaled = {kernel: {"float32": 0.0, "bfloat16": 0.0} for kernel in worst}
   rel = {kernel: {"float32": 0.0, "bfloat16": 0.0} for kernel in worst}
-  b, h, d = 2, 8, 64
   fb = attention_ops.flash_backward
-  dtypes = (torch.float32, torch.bfloat16)
-  # (BH, T, D, causal, dtype): the train step's B x H and D, then the
-  # other head dims FLASH_HEAD_DIMS admits (D = 128 needs the largest
-  # shared-memory opt-in, 162 KiB for dK/dV).
-  cases = [(b * h, t, d, causal, dtype) for t in (4096, 1000)
-           for causal in (True, False) for dtype in dtypes]
-  cases += [(4, 1000, hd, True, dtype) for hd in (16, 32, 128)
-            for dtype in dtypes]
-  for bh, t, hd, causal, dtype in cases:
-    t_pad = -(-t // 64) * 64
-    pad = (0, 0, 0, t_pad - t)
-    q3, k3, v3, do3 = (torch.nn.functional.pad(torch.randn(
-        (bh, t, hd), generator=gen, device=device).to(dtype), pad)
-                       for _ in range(4))
-    out, lse = attention_ops.flash_forward(q3, k3, v3, causal, t)
-    before = (fb.launches_dq, fb.launches_dkv)
-    grads = attention_ops.flash_backward(q3, k3, v3, out, lse, do3, causal,
-                                         t)
-    torch.cuda.synchronize()
-    if (fb.launches_dq, fb.launches_dkv) != (before[0] + 1, before[1] + 1):
-      raise RuntimeError("flash backward did not launch both kernels")
-    want = attention_ops._flash_backward_plain(q3, k3, v3, out, lse, do3,
-                                               causal, t)
-    name = str(dtype).replace("torch.", "")
-    tol = F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
-    errs = [_scaled_err(g, w) for g, w in zip(grads, want)]
-    rels = [_rel_norm_err(g[:, :t], w[:, :t]) for g, w in zip(grads, want)]
-    log(f"flash bwd BH={bh} T={t} D={hd} causal={causal} {name}: max |err| "
-        f"/ max(1, max|ref|) dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
-        f"{errs[2]:.3e}; |err| / |ref| dq {rels[0]:.3e} dk {rels[1]:.3e} "
-        f"dv {rels[2]:.3e}")
-    if not (max(errs) <= tol and max(rels) <= REL_NORM_TOL):
-      raise RuntimeError(f"flash backward disagrees with its plain "
-                         f"version: scaled {errs} (limit {tol}), relative "
-                         f"norm {rels} (limit {REL_NORM_TOL})")
-    for kernel, outs in (("dq", (0,)), ("dkv", (1, 2))):
-      scaled[kernel][name] = max(scaled[kernel][name],
-                                 *(errs[i] for i in outs))
-      rel[kernel][name] = max(rel[kernel][name], *(rels[i] for i in outs))
-    if dtype == torch.float32:
-      worst["dq"] = max(worst["dq"], max_abs(grads[0], want[0]))
-      worst["dkv"] = max(worst["dkv"], max_abs(grads[1], want[1]),
-                         max_abs(grads[2], want[2]))
+  for bh, t, hd in FLASH_SHAPES:
+    for causal in (True, False):
+      for dtype in (torch.float32, torch.bfloat16):
+        q3, k3, v3, do3 = _padded_inputs(torch, gen, device, 4, bh, t, hd,
+                                         dtype)
+        out, lse = attention_ops.flash_forward(q3, k3, v3, causal, t)
+        before = (fb.launches_dq, fb.launches_dkv)
+        grads = attention_ops.flash_backward(q3, k3, v3, out, lse, do3,
+                                             causal, t)
+        torch.cuda.synchronize()
+        if (fb.launches_dq, fb.launches_dkv) != (before[0] + 1,
+                                                 before[1] + 1):
+          raise RuntimeError("flash backward did not launch both kernels")
+        want = attention_ops._flash_backward_plain(q3, k3, v3, out, lse, do3,
+                                                   causal, t)
+        name = str(dtype).replace("torch.", "")
+        f32 = dtype == torch.float32
+        tol = F32_TOL if f32 else BWD_BF16_TOL
+        rel_tol = REL_NORM_TOL if f32 else BWD_BF16_REL_NORM_TOL
+        errs = [_scaled_err(g, w) for g, w in zip(grads, want)]
+        rels = [_rel_norm_err(g[:, :t], w[:, :t]) for g, w in zip(grads, want)]
+        log(f"flash bwd BH={bh} T={t} D={hd} causal={causal} {name}: max "
+            f"|err| / max(1, max|ref|) dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+            f"{errs[2]:.3e}; |err| / |ref| dq {rels[0]:.3e} dk {rels[1]:.3e} "
+            f"dv {rels[2]:.3e}")
+        if not (max(errs) <= tol and max(rels) <= rel_tol):
+          raise RuntimeError(f"flash backward disagrees with its plain "
+                             f"version: scaled {errs} (limit {tol}), relative "
+                             f"norm {rels} (limit {rel_tol})")
+        for kernel, outs in (("dq", (0,)), ("dkv", (1, 2))):
+          scaled[kernel][name] = max(scaled[kernel][name],
+                                     *(errs[i] for i in outs))
+          rel[kernel][name] = max(rel[kernel][name], *(rels[i] for i in outs))
+        worst["dq"][name] = max(worst["dq"][name], max_abs(grads[0], want[0]))
+        worst["dkv"][name] = max(worst["dkv"][name], max_abs(grads[1], want[1]),
+                                 max_abs(grads[2], want[2]))
+        del q3, k3, v3, do3, out, lse, grads, want
+  b, h, d = 2, 8, 64
   t = 1000
   for causal in (True, False):
     q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device=device)
@@ -412,6 +505,9 @@ def run_slice(torch, np, port):
     predict_fn()
     predict_s.append(time.perf_counter() - start)
 
+  # Every forward so far was f32 (the CUDA-core kernel); the bf16 predict
+  # runs the tensor-core one.
+  f32_launches = attention_ops.flash_forward.launches
   bf16_model = sequence_model.SequenceRegressionModel(use_bfloat16=True)
   bf16_predictor = predictors.CheckpointPredictor(model=bf16_model)
   bf16_predictor.init_randomly(seed=0)
@@ -421,7 +517,9 @@ def run_slice(torch, np, port):
   log(f"bf16 predict finite; max |bf16 - f32| {np.abs(bf16_out - full).max():.3e}")
 
   launches = {"decode_tick": decode_kernels.fused_decode_attention.launches,
-              "flash_fwd": attention_ops.flash_forward.launches}
+              "flash_fwd": f32_launches,
+              "flash_fwd_bf16": attention_ops.flash_forward.launches
+                                - f32_launches}
   log(f"launches during the slice: {launches}")
   if min(launches.values()) <= 0:
     raise RuntimeError(f"a kernel of the path never launched: {launches}")
@@ -726,9 +824,13 @@ def main() -> int:
   build_s = _kernels.build()
   log(f"built {list(_kernels.SOURCES)} in {build_s:.1f} s")
   for name in _kernels.SOURCES:
+    kernel = name
     for line in (_kernels.build_log(name) or "").splitlines():
-      if "registers" in line or "spill" in line or "smem" in line:
-        log(f"  {name}: {line.strip()}")
+      if "Compiling entry function" in line:
+        kernel = _kernel_label(line) or name
+      elif "registers" in line or "spill" in line:
+        log(f"  {kernel}: {line.replace('ptxas info    :', '').strip()}")
+  sass = check_sass(_kernels)
 
   # Phase 2: kernels against their plain versions.
   gen = torch.Generator(device=device).manual_seed(0)
@@ -757,53 +859,66 @@ def main() -> int:
                        torch.float32)
   bwd_t = time_flash_bwd(torch, attention_ops, device, gen, timer, 2,
                          torch.bfloat16)
+  fwd_bf16_t = time_flash(torch, attention_ops, device, gen, timer, 2,
+                          torch.bfloat16)
   extra = {"flash_fwd bf16 B=1": time_flash(torch, attention_ops, device, gen,
                                             timer, 1, torch.bfloat16),
            "flash_fwd f32 B=2": time_flash(torch, attention_ops, device, gen,
-                                           timer, 2, torch.float32),
-           "flash_fwd bf16 B=2": time_flash(torch, attention_ops, device, gen,
-                                            timer, 2, torch.bfloat16)}
+                                           timer, 2, torch.float32)}
   for name, row in time_flash_bwd(torch, attention_ops, device, gen, timer, 2,
                                   torch.float32).items():
-    extra[f"{name} f32 B=2"] = row
+    extra[f"{name} f32 B=2"] = {**row, "design": "cuda-cores"}
   torch.cuda.empty_cache()
   train_report["step"] = time_train_step(torch, train_step, sequence_model,
                                          input_generators, device)
   log(f"train step: {train_report['step']}")
+  fwd_src = "tensor2robot_tpu_torch/csrc/flash_fwd.cu"
+  bwd_src = "tensor2robot_tpu_torch/csrc/flash_bwd.cu"
   kernels = [
-      {"name": "decode_tick", "route": "cuda",
+      {"name": "decode_tick", "route": "cuda", "design": "cuda-cores",
        "source": "tensor2robot_tpu_torch/csrc/decode_tick.cu",
        "replaces": "tensor2robot_tpu/ops/decode_kernels.py:111",
        "launches": slice_report["launches"]["decode_tick"],
        "max_abs_err": decode_err, "max_err": decode_err, **decode_t},
-      {"name": "flash_fwd", "route": "cuda",
-       "source": "tensor2robot_tpu_torch/csrc/flash_fwd.cu",
+      # The stateless f32 predict of the serving slice.
+      {"name": "flash_fwd", "route": "cuda", "design": "cuda-cores",
+       "source": f"{fwd_src} (flash_fwd_kernel)",
        "replaces": "tensor2robot_tpu/ops/attention.py:139",
        "launches": slice_report["launches"]["flash_fwd"],
        "max_abs_err": flash_err["float32"], "max_err": flash_err["float32"],
-       "max_abs_err_bf16": flash_err["bfloat16"],
-       "rel_norm_err_f32": flash_rel["float32"],
-       "rel_norm_err_bf16": flash_rel["bfloat16"],
-       "launches_train": train_report["launches"]["flash_fwd"], **flash_t},
-      {"name": "flash_bwd_dq", "route": "cuda",
-       "source": "tensor2robot_tpu_torch/csrc/flash_bwd.cu",
+       "rel_norm_err": flash_rel["float32"], **flash_t},
+      # The train step's forward (and the bf16 predict).
+      {"name": "flash_fwd_bf16", "route": "cuda", "design": "wgmma+tma",
+       "source": f"{fwd_src} (flash_fwd_tc_kernel)",
+       "replaces": "tensor2robot_tpu/ops/attention.py:139",
+       "launches": train_report["launches"]["flash_fwd"],
+       "launches_serving": slice_report["launches"]["flash_fwd_bf16"],
+       "max_abs_err": flash_err["bfloat16"],
+       "rel_norm_err": flash_rel["bfloat16"],
+       "sass_mma": sass["flash_fwd_tc_kernel"], **fwd_bf16_t},
+      {"name": "flash_bwd_dq", "route": "cuda", "design": "cuda-cores",
+       "source": f"{bwd_src} (flash_bwd_dq_kernel)",
        "replaces": "tensor2robot_tpu/ops/attention.py:186",
        "launches": train_report["launches"]["flash_bwd_dq"],
-       "max_abs_err": bwd_err["dq"],
+       "max_abs_err": bwd_err["dq"]["bfloat16"],
+       "max_abs_err_f32": bwd_err["dq"]["float32"],
        "max_scaled_err_f32": bwd_scaled["dq"]["float32"],
        "max_scaled_err_bf16": bwd_scaled["dq"]["bfloat16"],
        "rel_norm_err_f32": bwd_rel["dq"]["float32"],
        "rel_norm_err_bf16": bwd_rel["dq"]["bfloat16"],
        **bwd_t["flash_bwd_dq"]},
-      {"name": "flash_bwd_dkv", "route": "cuda",
-       "source": "tensor2robot_tpu_torch/csrc/flash_bwd.cu",
+      {"name": "flash_bwd_dkv", "route": "cuda", "design": "wgmma+tma",
+       "source": f"{bwd_src} (flash_bwd_dkv_tc_kernel; f32: "
+                 f"flash_bwd_dkv_kernel, cuda-cores)",
        "replaces": "tensor2robot_tpu/ops/attention.py:223",
        "launches": train_report["launches"]["flash_bwd_dkv"],
-       "max_abs_err": bwd_err["dkv"],
+       "max_abs_err": bwd_err["dkv"]["bfloat16"],
+       "max_abs_err_f32": bwd_err["dkv"]["float32"],
        "max_scaled_err_f32": bwd_scaled["dkv"]["float32"],
        "max_scaled_err_bf16": bwd_scaled["dkv"]["bfloat16"],
        "rel_norm_err_f32": bwd_rel["dkv"]["float32"],
        "rel_norm_err_bf16": bwd_rel["dkv"]["bfloat16"],
+       "sass_mma": sass["flash_bwd_dkv_tc_kernel"],
        **bwd_t["flash_bwd_dkv"]},
   ]
   report = {"card": card, "build_s": build_s, "kernels": kernels,

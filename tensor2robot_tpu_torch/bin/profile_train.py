@@ -9,7 +9,9 @@ then profiles `--steps` steps with `torch.profiler` (CPU + CUDA
 activity). Prints one JSON object: wall ms per step (timed without the
 profiler), examples/s, device-busy ms per step, the device's idle share,
 the device time per step of the flash kernels (forward, dQ, dK/dV) and
-their share of the step, and the device-time ranking of kernels. Also
+their share of the step (kernels matched by name prefix, both designs;
+a flash kernel that launched but matches no device event raises), and
+the device-time ranking of kernels. Also
 written to `chiprun_out/profile_train.json`.
 """
 
@@ -18,20 +20,46 @@ from __future__ import annotations
 import argparse
 import json
 import os
+from typing import Dict
 
 import torch
 
 from tensor2robot_tpu_torch.data import input_generators
 from tensor2robot_tpu_torch.models import sequence_model
 from tensor2robot_tpu_torch.obs import device_profile
+from tensor2robot_tpu_torch.ops import attention
 from tensor2robot_tpu_torch.parallel import train_step
 from tensor2robot_tpu_torch.utils import config
 
 _CONFIG = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configs", "train_longcontext_flash.gin")
-# Demangled kernel names of csrc/flash_fwd.cu and csrc/flash_bwd.cu.
-_FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                  "flash_bwd_dkv_kernel")
+# Prefixes of the device-kernel names of csrc/flash_fwd.cu and
+# csrc/flash_bwd.cu, shared by both designs of each (flash_fwd_kernel and
+# flash_fwd_tc_kernel; flash_bwd_dkv_kernel and flash_bwd_dkv_tc_kernel;
+# flash_bwd_dq_kernel).
+_FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _flash_launches() -> Dict[str, int]:
+  """The flash wrappers' launch counters, by `_FLASH_KERNELS` prefix."""
+  return {"flash_fwd": attention.flash_forward.launches,
+          "flash_bwd_dq": attention.flash_backward.launches_dq,
+          "flash_bwd_dkv": attention.flash_backward.launches_dkv}
+
+
+def flash_device_ms(events, launched: Dict[str, int]) -> Dict[str, float]:
+  """Device ms of each flash kernel among (name, ms) `events`, matched by
+  prefix. Raises if a kernel that `launched` says ran reads 0 ms: its
+  name no longer matches, and the flash share would silently drop."""
+  flash = {prefix: sum(ms for key, ms in events if prefix in key)
+           for prefix in _FLASH_KERNELS}
+  missing = [prefix for prefix in _FLASH_KERNELS
+             if launched.get(prefix, 0) > 0 and flash[prefix] <= 0]
+  if missing:
+    raise RuntimeError(f"flash kernels {missing} launched in the window but "
+                       f"no device event matched them; device kernels: "
+                       f"{[key for key, _ in events][:20]}")
+  return flash
 
 
 def main() -> None:
@@ -58,15 +86,17 @@ def main() -> None:
 
   for _ in range(3):
     one_step()
+  before = _flash_launches()
   report = device_profile.profile_window(one_step, args.steps)
   events = report.pop("events")
-  flash = {name: sum(ms for key, ms in events if name in key)
-           for name in _FLASH_KERNELS}
+  launched = {k: n - before[k] for k, n in _flash_launches().items()}
+  flash = flash_device_ms(events, launched)
   flash_ms = sum(flash.values())
   report.update({
       "card": torch.cuda.get_device_name(0),
       "examples_per_s": batch_size / (report["wall_ms_per_call"] / 1e3),
-      "flash_device_ms_per_step": flash, "flash_share_of_step":
+      "flash_device_ms_per_step": flash,
+      "flash_launches_in_window": launched, "flash_share_of_step":
       flash_ms / report["wall_ms_per_call"],
       "flash_share_of_device_busy":
       flash_ms / report["device_busy_ms_per_call"],

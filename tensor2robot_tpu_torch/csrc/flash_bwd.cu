@@ -13,36 +13,56 @@
 //                                 could overflow)
 //   dP = dO.V^T,   dS = P * (dP - delta) * scale,   delta = rowsum(dO * O)
 //   dQ = dS.K,     dK = dS^T.Q,  dV = P^T.dO.
-// Inputs are f32 or bf16; bf16 is widened to f32 on load, and P, dP and dS
-// stay f32 (the TPU kernels widen dO and keep P/dS in f32; unlike the
-// forward, nothing is rounded to bf16 before a product). dQ, dK and dV are
-// cast to the input dtype once, at the end. lse and delta are f32 [BH, T].
+// Inputs are f32 or bf16. P, dP and dS are kept to f32 accuracy (the TPU
+// kernels widen dO and keep P/dS in f32; unlike the forward, nothing is
+// rounded to bf16 once before a product). dQ, dK and dV are cast to the
+// input dtype once, at the end. lse and delta are f32 [BH, T].
 //
-// The FlashAttention-2 split of the TPU package: the dQ kernel is one thread
-// block per (BH, 64-row query tile) and loops over key tiles up to the
-// diagonal; the dK/dV kernel is one thread block per (BH, 64-key tile) and
-// loops over query tiles from the diagonal tile (the tile holding row
+// The FlashAttention-2 split of the TPU package: the dQ kernel loops over
+// key tiles per query tile up to the diagonal; the dK/dV kernel loops over
+// query tiles per key tile, from the diagonal tile (the tile holding row
 // k_start) to the last tile with a valid row. Each output element is
 // written by exactly one block: no atomics, deterministic results.
 //
 // What bounds them on an H100: operations. At the training shape (BH = 16,
 // T = 4096, D = 64, causal) dQ does 3 products (S, dP, dQ) and dK/dV 4
 // (S, dP, dV, dK) of 2*BH*T^2*D/2 = 17.2 GFLOP each, on ~45 MB of operands.
-// This first version runs the products on the f32 CUDA cores (67 TFLOP/s
-// peak), not the tensor cores, and like flash_fwd.cu it is limited by
-// shared-memory reads (about one per FMA).
 //
-// What the design does about it: 256 threads, four per tile row. Tiles are
-// staged in shared memory as f32 with a padded row stride (D + 1) so the
-// four threads of a row and the eight rows of a warp hit distinct banks.
-// Each thread scores 16 columns of its row (S and dP together, sharing the
-// loop over D), writes P or dS to a shared tile, and after a barrier
-// accumulates D/4 output columns in registers. Tensor-core products
-// (mma.sync / wgmma), TMA staging and a fused delta are later work.
+// Designs, chosen by kernel and dtype inside the launch functions:
+//
+// * bf16 dK/dV: tensor cores (`flash_bwd_dkv_tc_kernel`). One CTA per (BH,
+//   128-key tile), causal tile 0 (the longest) first; two consumer
+//   warpgroups own 64 keys each (one warpgroup and 64 keys at D 128, where
+//   the dK and dV accumulators take 128 registers a thread); one producer
+//   warp loads K and V once by TMA, then streams 64-row Q and dO tiles with
+//   their lse and delta through a 2-stage ring of full/empty mbarriers.
+//   Scores are computed transposed, keys as M: S^T = K.Q^T and
+//   dP^T = V.dO^T by `wgmma` m64n64k16 from shared memory, all K-major as
+//   stored. Their accumulators are already the A-operand register layout of
+//   dV += P^T.dO and dK += dS^T.Q (`wgmma` RS, dO and Q read MN-major
+//   through a second descriptor of the same buffer), so P^T and dS^T never
+//   go through shared memory. A bf16 product rounds its A operand, and
+//   rounding P or dS once moves dK and dV 18-33x further from the f32
+//   function than the split does (tests/test_torch_flash_numerics.py); so
+//   each is split into bf16 hi + lo (about 16 mantissa bits) and fed as two
+//   products. head_dim 16 and 32 are computed at 64 (TMA fills the missing
+//   columns with zeros).
+// * dQ (both dtypes) and f32 dK/dV: the f32 CUDA cores
+//   (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`), exact f32 products,
+//   which the f32 parity limit (1e-4) needs; bf16 is widened to f32 on load.
+//   One thread block of 256 threads per 64-row tile, four threads per tile
+//   row. Tiles are staged in shared memory as f32 with a padded row stride
+//   (D + 1) so the four threads of a row and the eight rows of a warp hit
+//   distinct banks. Each thread scores 16 columns of its row (S and dP
+//   together, sharing the loop over D), writes P or dS to a shared tile, and
+//   after a barrier accumulates D/4 output columns in registers. Shared-
+//   memory reads (about one per FMA) limit them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -329,13 +349,309 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+// -- bf16 dK/dV: tensor cores ------------------------------------------------------
+
+namespace tc {
+
+using namespace t2r_hopper;
+
+constexpr int kQRows = 64;   // query rows per streamed Q/dO tile
+constexpr int kStages = 2;   // Q/dO ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Two consumer warpgroups of 64 keys each; at D 128 one, so that its dK
+// and dV accumulators (64 floats each) fit a thread's registers.
+template <int D>
+struct DkvConfig {
+  static constexpr int kDP = D < 64 ? 64 : D;  // head_dim as computed
+  static constexpr int kHalves = kDP / 64;
+  static constexpr int kConsumers = kDP == 128 ? 1 : 2;
+  static constexpr int kKeys = 64 * kConsumers;
+  static constexpr int kThreads = 128 * kConsumers + 32;  // + producer warp
+  static constexpr int kHalfK = kKeys * 128;    // bytes of one 64-column half
+  static constexpr int kHalfQ = kQRows * 128;
+  static constexpr int kTileK = kHalves * kHalfK;
+  static constexpr int kTileQ = kHalves * kHalfQ;
+  static constexpr size_t kSmem = 1024 + 2 * kTileK + 2 * kStages * kTileQ
+                                  + 2 * kStages * kQRows * 4 + 64;
+};
+
+// dK and dV for one (BH, key tile). Warpgroup wg owns keys kw0 .. kw0+63;
+// this thread holds keys kw0 + r + 8i and, of each 8-query group j of a
+// streamed tile, queries 8j + c2 and 8j + c2 + 1.
+template <int D>
+__global__ void __launch_bounds__(DkvConfig<D>::kThreads, 1)
+flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int t_len,
+                        int valid_len, int causal, float scale,
+                        float scale_log2) {
+  using C = DkvConfig<D>;
+  constexpr int DP = C::kDP;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* s_k = smem;
+  uint8_t* s_v = s_k + C::kTileK;
+  uint8_t* s_q = s_v + C::kTileK;                  // [stage] tiles
+  uint8_t* s_do = s_q + kStages * C::kTileQ;
+  float* s_lse = reinterpret_cast<float*>(s_do + kStages * C::kTileQ);
+  float* s_delta = s_lse + kStages * kQRows;
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(s_delta + kStages * kQRows);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.x;
+  const int n0 = blockIdx.y * C::kKeys;  // causal: tile 0 is the longest
+  // Query tiles from the one holding row n0 (causal) to the last with a
+  // valid row; none for a tile of padded keys (dK = dV = 0).
+  const int first = causal ? n0 / kQRows : 0;
+  const int last = n0 >= valid_len ? first : (valid_len + kQRows - 1) / kQRows;
+  const int n_iters = last - first;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128 * C::kConsumers) {  // producer warp
+    const int lane = tid % 32;
+    if (n_iters == 0) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_kv, 2 * C::kTileK);
+      for (int h = 0; h < C::kHalves; ++h) {
+        for (int c = 0; c < C::kConsumers; ++c) {
+          const int off = h * C::kHalfK + c * 64 * 128;
+          tma_load_3d(s_k + off, &map_k, bar_kv, 64 * h, n0 + 64 * c, bh);
+          tma_load_3d(s_v + off, &map_v, bar_kv, 64 * h, n0 + 64 * c, bh);
+        }
+      }
+    }
+    const size_t rows = static_cast<size_t>(bh) * t_len;
+    for (int it = 0; it < n_iters; ++it) {
+      const int stage = it % kStages;
+      const int q0 = (first + it) * kQRows;
+      mbar_wait(&empty[stage], ((it / kStages) & 1) ^ 1);
+      // lse (to the log2 domain) and delta of the tile's rows; 0 on
+      // padded rows, whose entries are masked.
+      for (int rr = lane; rr < kQRows; rr += 32) {
+        const int row = q0 + rr;
+        const bool ok = row < valid_len;
+        s_lse[stage * kQRows + rr] = ok ? lse[rows + row] * kLog2e : 0.f;
+        s_delta[stage * kQRows + rr] = ok ? delta[rows + row] : 0.f;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[stage], 2 * C::kTileQ);
+        for (int h = 0; h < C::kHalves; ++h) {
+          const int off = stage * C::kTileQ + h * C::kHalfQ;
+          tma_load_3d(s_q + off, &map_q, &full[stage], 64 * h, q0, bh);
+          tma_load_3d(s_do + off, &map_do, &full[stage], 64 * h, q0, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int r = ((tid % 128) / 32) * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  const int kw0 = n0 + wg * 64;
+
+  float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) { dk_acc[i] = 0.f; dv_acc[i] = 0.f; }
+
+  // A operands: this warpgroup's 64 rows of the resident K and V tiles.
+  const uint32_t k_addr = smem_u32(s_k) + wg * 64 * 128;
+  const uint32_t v_addr = smem_u32(s_v) + wg * 64 * 128;
+  if (n_iters > 0) mbar_wait(bar_kv, 0);
+
+  for (int it = 0; it < n_iters; ++it) {
+    const int stage = it % kStages;
+    mbar_wait(&full[stage], (it / kStages) & 1);
+    const int q0 = (first + it) * kQRows;
+    const uint32_t q_addr = smem_u32(s_q) + stage * C::kTileQ;
+    const uint32_t do_addr = smem_u32(s_do) + stage * C::kTileQ;
+    const float* lse_t = s_lse + stage * kQRows;
+    const float* delta_t = s_delta + stage * kQRows;
+
+    // S^T = K.Q^T, [64 keys x 64 queries]; both operands K-major.
+    float st[kQRows / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < DP / 16; ++k) {
+      const int off = (k % 4) * 32;
+      wgmma_ss(st, desc_kmajor(k_addr + (k / 4) * C::kHalfK + off),
+               desc_kmajor(q_addr + (k / 4) * C::kHalfQ + off), k > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+
+    // P^T = exp(S^T * scale - lse[query]); masked entries are 0 before the
+    // exponential (padded rows carry lse = 0).
+    const bool need_mask = q0 + kQRows > valid_len || kw0 + 64 > valid_len ||
+                           (causal && q0 < kw0 + 63);
+#pragma unroll
+    for (int j = 0; j < kQRows / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + c2 + c;
+          bool ok = true;
+          if (need_mask) {
+            const int key = kw0 + r + 8 * i;
+            const int q_pos = q0 + col;
+            ok = q_pos < valid_len && key < valid_len && (!causal || key <= q_pos);
+          }
+          const int idx = 4 * j + 2 * i + c;
+          st[idx] = ok ? exp2f(fmaf(st[idx], scale_log2, -lse_t[col])) : 0.f;
+        }
+      }
+    }
+
+    // dV += P^T.dO as (P_hi + P_lo).dO, and dP^T = V.dO^T; dO is read
+    // MN-major for the first and K-major for the second.
+    uint32_t hi[kQRows / 16][4], lo[kQRows / 16][4];
+    acc_to_frag_split<kQRows>(st, hi, lo);
+    float dpt[kQRows / 2];
+    fence_frags(hi);
+    fence_frags(lo);
+    fence_regs(dv_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kQRows / 16; ++kk) {
+      const uint64_t b = desc_mnmajor(do_addr + kk * 16 * 128, C::kHalfQ);
+      wgmma_rs_tb(dv_acc, hi[kk], b);
+      wgmma_rs_tb(dv_acc, lo[kk], b);
+    }
+#pragma unroll
+    for (int k = 0; k < DP / 16; ++k) {
+      const int off = (k % 4) * 32;
+      wgmma_ss(dpt, desc_kmajor(v_addr + (k / 4) * C::kHalfK + off),
+               desc_kmajor(do_addr + (k / 4) * C::kHalfQ + off), k > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_frags(hi);
+    fence_frags(lo);
+    fence_regs(dv_acc);
+    fence_regs(dpt);
+
+    // dS^T = P^T * (dP^T - delta[query]) * scale, then dK += dS^T.Q as
+    // (dS_hi + dS_lo).Q, Q read MN-major.
+#pragma unroll
+    for (int j = 0; j < kQRows / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int idx = 4 * j + 2 * i + c;
+          dpt[idx] = st[idx] * (dpt[idx] - delta_t[8 * j + c2 + c]) * scale;
+        }
+      }
+    }
+    acc_to_frag_split<kQRows>(dpt, hi, lo);
+    fence_frags(hi);
+    fence_frags(lo);
+    fence_regs(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kQRows / 16; ++kk) {
+      const uint64_t b = desc_mnmajor(q_addr + kk * 16 * 128, C::kHalfQ);
+      wgmma_rs_tb(dk_acc, hi[kk], b);
+      wgmma_rs_tb(dk_acc, lo[kk], b);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_frags(hi);
+    fence_frags(lo);
+    fence_regs(dk_acc);
+    if (tid % 128 == 0) mbar_arrive(&empty[stage]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kw0 + r + 8 * i;
+    if (key >= t_len) continue;
+    const size_t base = (static_cast<size_t>(bh) * t_len + key) * D + c2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + base + 8 * j) =
+          __floats2bfloat162_rn(dk_acc[4 * j + 2 * i], dk_acc[4 * j + 2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + base + 8 * j) =
+          __floats2bfloat162_rn(dv_acc[4 * j + 2 * i], dv_acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv(const Args& a) {
+  using C = DkvConfig<D>;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  cudaError_t err;
+  if ((err = encode_bhtd(&map_q, a.q, a.bh, a.t_len, D, kQRows)) != cudaSuccess) return err;
+  if ((err = encode_bhtd(&map_k, a.k, a.bh, a.t_len, D, 64)) != cudaSuccess) return err;
+  if ((err = encode_bhtd(&map_v, a.v, a.bh, a.t_len, D, 64)) != cudaSuccess) return err;
+  if ((err = encode_bhtd(&map_do, a.dout, a.bh, a.t_len, D, kQRows)) != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(C::kSmem));
+  if (err != cudaSuccess) return err;
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  dim3 grid(a.bh, (a.t_len + C::kKeys - 1) / C::kKeys);
+  flash_bwd_dkv_tc_kernel<D><<<grid, C::kThreads, C::kSmem, a.stream>>>(
+      map_q, map_k, map_v, map_do, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.out0),
+      static_cast<__nv_bfloat16*>(a.out1), a.t_len, a.valid_len, a.causal,
+      scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv_dim(const Args& a, int d) {
+  switch (d) {
+    case 16: return launch_dkv<16>(a);
+    case 32: return launch_dkv<32>(a);
+    case 64: return launch_dkv<64>(a);
+    case 128: return launch_dkv<128>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
+template <bool kDq, typename T, int D>
+cudaError_t launch_cuda_cores(const Args& a) {
+  if constexpr (kDq) {
+    return launch_dq<T, D>(a);
+  } else {
+    return launch_dkv<T, D>(a);
+  }
+}
+
+// The CUDA-core kernels: dQ in both dtypes, dK/dV in f32.
 template <bool kDq, typename T>
 cudaError_t dispatch_dim(const Args& a, int d) {
   switch (d) {
-    case 16: return kDq ? launch_dq<T, 16>(a) : launch_dkv<T, 16>(a);
-    case 32: return kDq ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
-    case 64: return kDq ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-    case 128: return kDq ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+    case 16: return launch_cuda_cores<kDq, T, 16>(a);
+    case 32: return launch_cuda_cores<kDq, T, 32>(a);
+    case 64: return launch_cuda_cores<kDq, T, 64>(a);
+    case 128: return launch_cuda_cores<kDq, T, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -350,7 +666,11 @@ int dispatch(const Args& a, int head_dim, int dtype) {
   if (dtype == 0) {
     err = dispatch_dim<kDq, float>(a, head_dim);
   } else if (dtype == 1) {
-    err = dispatch_dim<kDq, __nv_bfloat16>(a, head_dim);
+    if constexpr (kDq) {
+      err = dispatch_dim<kDq, __nv_bfloat16>(a, head_dim);
+    } else {
+      err = tc::launch_dkv_dim(a, head_dim);
+    }
   } else {
     err = cudaErrorInvalidValue;
   }

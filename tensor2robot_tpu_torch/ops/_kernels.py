@@ -7,8 +7,9 @@ seconds), for `sm_90a`:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source, so an edited kernel is never
-served from a stale library. `build()` starts one nvcc per missing
+The file name carries a hash of the source and of every `csrc/*.cuh`
+header, so an edited kernel or header is never served from a stale
+library. `build()` starts one nvcc per missing
 library, all at once. Nothing here runs at import: every module of the
 port must import on a machine without nvcc, as the CPU tests do.
 """
@@ -61,9 +62,13 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> pathlib.Path:
-  digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-  return BUILD_DIR / f"{name}-{digest}.so"
+  """The library's path, named by a hash of its source, every header in
+  `csrc/` (any of them may be included) and the nvcc flags."""
+  digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+  for header in sorted(CSRC_DIR.glob("*.cuh")):
+    digest.update(header.name.encode() + b"\0" + header.read_bytes())
+  digest.update(" ".join(NVCC_FLAGS).encode())
+  return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> float:

@@ -294,7 +294,9 @@ def _pow2_floor(n: int) -> int:
 # Minimum block edge (the JAX package's hardware tile floor, kept so both
 # packages pad a given T to the same length).
 _MIN_BLOCK = 8
-# The CUDA kernel's query/key tile (csrc/flash_fwd.cu kBlockM / kBlockN).
+# The CUDA-core kernels' query/key tile (csrc/flash_fwd.cu kBlockM /
+# kBlockN). The tensor-core kernels' 128-row tiles take any T: their
+# TMA loads fill rows past T with zeros, per head.
 _KERNEL_TILE = 64
 
 

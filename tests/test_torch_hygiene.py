@@ -8,6 +8,8 @@
   CUDA device, and in a directory that holds nothing else of the repo.
 * The port's session and training configs parse and bind the
   long-context widths.
+* A kernel library's name changes with any `csrc/*.cuh` header, and
+  `profile_train` finds both designs of each flash kernel by name.
 """
 
 import ast
@@ -186,3 +188,38 @@ def test_trainer_raises_without_cuda(no_cuda, tmp_path):
         input_generator_train=input_generators.DefaultRandomInputGenerator())
   with pytest.raises(RuntimeError, match="no CUDA device"):
     predictors.CheckpointPredictor(model=model, model_dir=str(tmp_path))
+
+
+def test_library_path_follows_headers(monkeypatch, tmp_path):
+  from tensor2robot_tpu_torch.ops import _kernels
+
+  (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+  (tmp_path / "common.cuh").write_text("// v1\n")
+  monkeypatch.setattr(_kernels, "CSRC_DIR", tmp_path)
+  first = _kernels._library_path("k")
+  assert _kernels._library_path("k") == first
+  (tmp_path / "common.cuh").write_text("// v2\n")
+  second = _kernels._library_path("k")
+  assert second != first
+  (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edited\n')
+  assert _kernels._library_path("k") not in (first, second)
+
+
+def test_profile_train_matches_both_flash_designs():
+  from tensor2robot_tpu_torch.bin import profile_train
+
+  events = [
+      ("void (anonymous namespace)::tc::flash_fwd_tc_kernel<64>(...)", 3.0),
+      ("void (anonymous namespace)::flash_fwd_kernel<float, 64>(...)", 1.0),
+      ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, "
+       "64>(...)", 4.0),
+      ("void (anonymous namespace)::tc::flash_bwd_dkv_tc_kernel<64>(...)",
+       2.0),
+      ("ampere_bf16_s16816gemm", 5.0)]
+  launched = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+  assert profile_train.flash_device_ms(events, launched) == {
+      "flash_fwd": 4.0, "flash_bwd_dq": 4.0, "flash_bwd_dkv": 2.0}
+  with pytest.raises(RuntimeError, match="flash_bwd_dkv"):
+    profile_train.flash_device_ms(events[:3], launched)
+  assert profile_train.flash_device_ms(
+      events[:3], dict(launched, flash_bwd_dkv=0))["flash_bwd_dkv"] == 0
