@@ -10,8 +10,9 @@ and prints no result):
    built from `tensor2robot_tpu_torch/csrc/` with nvcc, one process per
    source, all started together, with ptxas' registers and spills; the
    matrix instructions of every flash kernel (`cuobjdump -sass`): each
-   instantiation of the tensor-core kernels (the bf16 flash forward and
-   the bf16 dK/dV) must hold HGMMA (or HMMA) instructions.
+   instantiation of the tensor-core kernels (the flash forward in bf16 and
+   in f32 by 3xTF32, the bf16 dQ and the bf16 dK/dV) must hold HGMMA (or
+   HMMA) instructions.
 2. Kernels against their plain PyTorch versions at the served shapes:
    the decode tick on an f32 [65, 4096, 8, 64] arena (B = 1 and 8, indices
    0, tile edges, mixed progress and 4095, pad lanes on the null slot; the
@@ -46,14 +47,17 @@ and prints no result):
 5. Timings with CUDA events (L2 flushed before every timed call) of each
    kernel, its plain version and a PyTorch yardstick the port never calls
    (`scaled_dot_product_attention` for the flash forward, its
-   `torch.autograd.grad` for the backward); each kernel's bound: max(bytes
+   `torch.autograd.grad` for the backward, with the device kernels a
+   yardstick call runs); each kernel's bound: max(bytes
    / 3.35 TB/s, flops / peak rate of the dtype) with the H100 SXM
-   data-sheet peaks; and the median full-width bf16 train step.
+   data-sheet peaks (f32: the faster of the CUDA cores and 3xTF32); and
+   the median full-width bf16 train step.
 
 Output: a `train` JSON line, a `slice` JSON line, a `kernels` JSON line
-(one row per kernel, with its `design`: "wgmma+tma" for the tensor-core
-kernels, "cuda-cores" for the others), the card line, and as the last
-line `{"ok": true, "device": {...}}`. The
+(one row per kernel, with its `design`: "wgmma+tma" for the bf16
+tensor-core kernels, "wgmma+tma, 3xtf32" for the f32 forward,
+"cuda-cores" for the others), the card line, and as the last line
+`{"ok": true, "device": {...}}`. The
 same numbers go to `chiprun_out/chip_smoke_report.json`.
 """
 
@@ -67,12 +71,16 @@ import tempfile
 import threading
 import time
 
-# H100 SXM data-sheet peaks (dense).
+# H100 SXM data-sheet peaks (dense). float32 is the CUDA cores' rate;
+# tf32 the tensor cores', per TF32 product.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 # Tolerances against the plain versions on the same inputs:
-# f32: both sides accumulate in f32 and differ only in summation order
-#   and exp rounding, ~1e-6 relative on values of order 1-10.
+# f32: both sides accumulate in f32 and differ in summation order, exp
+#   rounding and, in the tensor-core f32 forward, the 3xTF32 split (each
+#   operand as tf32 big + small, three products: ~2^-22 relative), ~1e-6
+#   on values of order 1-10. One TF32 product (2^-11) fails it: 8.8e-4 on
+#   O and 3.5e-4 on lse at T 512 (tests/test_torch_flash_numerics.py).
 F32_TOL = 1e-4
 # bf16 forward: inputs and outputs carry 8 mantissa bits (relative step
 #   2^-8 = 3.9e-3), and the kernel rounds P to bf16 before the PV product
@@ -90,7 +98,10 @@ BF16_TOL = 3e-2
 #                                     scaled 4.25e-4 / 3.11e-3
 #     f32 sums in 64-row chunks:      norm 4.57e-5 / 2.36e-5,
 #                                     scaled 4.25e-4 / 1.94e-4
-#   (tests/test_torch_flash_numerics.py repeats it at T 512.)
+#   and for dQ = dS.K (the tensor-core dQ kernel feeds dS as A):
+#     dS rounded once to bf16:        norm 2.65e-3, scaled 4.17e-3
+#     dS split into hi + lo:          norm 8.33e-5, scaled 5.21e-4
+#   (tests/test_torch_flash_numerics.py repeats both at T 512.)
 BWD_BF16_TOL = 2.0 ** -7
 # ... and on the relative 2-norm |got - want| / |want|: 1e-3 sits between
 #   the split (<= 1.5e-4) and rounding P or dS once (>= 2.5e-3), so a
@@ -163,8 +174,9 @@ def max_abs(a, b) -> float:
 # The tensor-core kernels, by the library that holds them. Every
 # instantiation (one per head_dim) must carry Hopper's warpgroup matrix
 # instructions (HGMMA), or at least warp-level ones (HMMA).
-TENSOR_CORE_KERNELS = {"flash_fwd": "flash_fwd_tc_kernel",
-                       "flash_bwd": "flash_bwd_dkv_tc_kernel"}
+TENSOR_CORE_KERNELS = {
+    "flash_fwd": ("flash_fwd_tc_kernel", "flash_fwd_tc_split_kernel"),
+    "flash_bwd": ("flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel")}
 
 
 def _cuobjdump() -> str:
@@ -175,14 +187,35 @@ def _cuobjdump() -> str:
                       "cuobjdump")
 
 
-def _kernel_label(mangled: str):
-  """'flash_bwd_dq_kernel<bf16,64>' for a line holding a mangled kernel
-  name, None for any other line."""
-  match = re.search(r"\d([a-z_]*kernel)I(\w*?)Li(\d+)E", mangled)
-  if not match:
+def _demangled_kernel(mangled: str, i: int):
+  """The label of the Itanium-mangled function name starting at
+  mangled[i:] (after its `_Z`), or None. The name's components are read
+  by their length prefixes (`<len><name>`), so a digit inside a name
+  does not cut it; the last component must end in `kernel` and take
+  template arguments (a type, optionally, then `Li<n>E`)."""
+  if mangled.startswith("N", i):
+    i += 1
+  name = None
+  while (prefix := re.match(r"\d+", mangled[i:])) is not None:
+    i += len(prefix.group())
+    name = mangled[i:i + int(prefix.group())]
+    i += len(name)
+  args = re.match(r"I(f|13__nv_bfloat16)?Li(\d+)E", mangled[i:])
+  if not (name and name.endswith("kernel") and args):
     return None
-  dtype = {"f": "f32,", "13__nv_bfloat16": "bf16,"}.get(match.group(2), "")
-  return f"{match.group(1)}<{dtype}{match.group(3)}>"
+  dtype = {"f": "f32,", "13__nv_bfloat16": "bf16,"}.get(args.group(1), "")
+  return f"{name}<{dtype}{args.group(2)}>"
+
+
+def _kernel_label(line: str):
+  """'flash_bwd_dq_tc_kernel<64>' (or, for a kernel templated on its
+  dtype, 'flash_bwd_dq_kernel<bf16,64>') for a line holding a mangled
+  kernel name, None for any other line."""
+  for match in re.finditer(r"_Z", line):
+    label = _demangled_kernel(line, match.end())
+    if label:
+      return label
+  return None
 
 
 def sass_mma_counts(library_path) -> dict:
@@ -209,17 +242,18 @@ def check_sass(_kernels) -> dict:
   tensor-core kernel has none. Returns, per tensor-core kernel, its
   counts per instantiation."""
   out = {}
-  for library, kernel in TENSOR_CORE_KERNELS.items():
+  for library, kernels in TENSOR_CORE_KERNELS.items():
     counts = sass_mma_counts(_kernels._library_path(library))
     for name, c in sorted(counts.items()):
       log(f"  {library} SASS {name}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
-    mine = {name: c for name, c in counts.items()
-            if name.startswith(kernel + "<")}
-    if len(mine) != 4 or any(c["HGMMA"] + c["HMMA"] == 0
-                             for c in mine.values()):
-      raise RuntimeError(f"{kernel}: expected 4 instantiations with "
-                         f"HGMMA or HMMA instructions, got {mine}")
-    out[kernel] = mine
+    for kernel in kernels:
+      mine = {name: c for name, c in counts.items()
+              if name.startswith(kernel + "<")}
+      if len(mine) != 4 or any(c["HGMMA"] + c["HMMA"] == 0
+                               for c in mine.values()):
+        raise RuntimeError(f"{kernel}: expected 4 instantiations with "
+                           f"HGMMA or HMMA instructions, got {mine}")
+      out[kernel] = mine
   return out
 
 
@@ -505,8 +539,8 @@ def run_slice(torch, np, port):
     predict_fn()
     predict_s.append(time.perf_counter() - start)
 
-  # Every forward so far was f32 (the CUDA-core kernel); the bf16 predict
-  # runs the tensor-core one.
+  # Every forward so far was f32 (the 3xTF32 kernel); the bf16 predict
+  # runs the bf16 one.
   f32_launches = attention_ops.flash_forward.launches
   bf16_model = sequence_model.SequenceRegressionModel(use_bfloat16=True)
   bf16_predictor = predictors.CheckpointPredictor(model=bf16_model)
@@ -697,6 +731,27 @@ def time_train_step(torch, train_step, sequence_model, input_generators,
 
 # -- phase 5: timings ----------------------------------------------------------
 
+def bound(moved_bytes: float, flops: float, dtype_name: str) -> dict:
+  """The least time the card could take for the work: max(bytes / HBM
+  rate, flops / peak), with `bound_by` the larger term and `bound_path`
+  the rate it used. f32-exact products have two ways on this card: the
+  f32 CUDA cores at 67 TFLOP/s, or 3xTF32 on the tensor cores (three TF32
+  products of 495 TFLOP/s per f32 product, 165 effective), which keeps
+  f32 accuracy to ~2^-22 (the f32 forward runs it); the least time takes
+  the faster."""
+  t_bytes = moved_bytes / HBM_BYTES_PER_S
+  if dtype_name == "float32":
+    t_ops, path = min((flops / PEAK_FLOPS["float32"], "f32 cuda cores"),
+                      (3 * flops / PEAK_FLOPS["tf32"], "3xtf32 tensor cores"))
+  else:
+    t_ops, path = flops / PEAK_FLOPS[dtype_name], f"{dtype_name} tensor cores"
+  if t_bytes >= t_ops:
+    return {"bound_ms": 1e3 * t_bytes, "bound_by": "bytes",
+            "bound_path": "hbm 3.35 TB/s"}
+  return {"bound_ms": 1e3 * t_ops, "bound_by": "operations",
+          "bound_path": path}
+
+
 def time_decode(torch, decode_kernels, device, gen, timer):
   """The served bucket of 8 lanes with mixed progress on the full arena."""
   s, t, h, d = 65, 4096, 8, 64
@@ -718,12 +773,22 @@ def time_decode(torch, decode_kernels, device, gen, timer):
   row = h * d * 4
   moved = 2 * sum(index_l) * row + 3 * b * row + b * row + 2 * b * row
   flops = 4 * sum(i + 1 for i in index_l) * h * d
-  bound_ms = 1e3 * max(moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"])
-  return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-          "bound_by": "bytes" if moved / HBM_BYTES_PER_S
-          >= flops / PEAK_FLOPS["float32"] else "operations",
+  return {"ms": kernel_ms, "plain_ms": plain_ms,
+          **bound(moved, flops, "float32"),
           "library_ms": None, "shape": f"B={b} index={index_l} arena "
           f"[{s},{t},{h},{d}] f32"}
+
+
+def library_kernels(torch, fn) -> list:
+  """Names of the device kernels one call of `fn` runs (torch.profiler):
+  which of PyTorch's kernels a `library_ms` timed."""
+  from tensor2robot_tpu_torch.obs import device_profile
+
+  activities = [torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=activities) as prof:
+    fn()
+    torch.cuda.synchronize()
+  return [name[:120] for name, _ in device_profile.device_events(prof)]
 
 
 def time_flash(torch, attention_ops, device, gen, timer, b, dtype):
@@ -735,17 +800,15 @@ def time_flash(torch, attention_ops, device, gen, timer, b, dtype):
   kernel_ms = timer.ms(lambda: attention_ops.flash_forward(q3, k3, v3, True, t))
   plain_ms = timer.ms(
       lambda: attention_ops._flash_forward_plain(q3, k3, v3, True, t), iters=5)
-  library_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-      q, k, v, is_causal=True))
+  sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+      q, k, v, is_causal=True)
+  library_ms = timer.ms(sdpa)
   name = str(dtype).replace("torch.", "")
   elem = 4 if dtype == torch.float32 else 2
   moved = 4 * b * h * t * d * elem + b * h * t * 4  # q, k, v read; o, lse written
   flops = 4 * b * h * t * t * d // 2  # causal: half the score matrix
-  t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[name]
-  return {"ms": kernel_ms, "plain_ms": plain_ms,
-          "bound_ms": 1e3 * max(t_bytes, t_ops),
-          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-          "library_ms": library_ms,
+  return {"ms": kernel_ms, "plain_ms": plain_ms, **bound(moved, flops, name),
+          "library_ms": library_ms, "library_kernels": library_kernels(torch, sdpa),
           "shape": f"B={b} H={h} T={t} D={d} causal {name}"}
 
 
@@ -779,11 +842,9 @@ def time_flash_bwd(torch, attention_ops, device, gen, timer, b, dtype):
                                         ("flash_bwd_dkv", dkv_ms, 4, 6)):
     # q, k, v, dO read and dq (or dk, dv) written once; lse, delta read.
     moved = tensors * b * h * t * d * elem + rows
-    t_bytes = moved / HBM_BYTES_PER_S
-    t_ops = products * product / PEAK_FLOPS[name]
     out_rows[kernel] = {
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "ms": ms, "plain_ms": plain_ms,
+        **bound(moved, products * product, name),
         "library_ms": library_ms, "shape": shape,
         "plain_and_library_cover": "dq, dk and dv together"}
   return out_rows
@@ -811,7 +872,11 @@ def main() -> int:
   from tensor2robot_tpu_torch.serving import session
   from tensor2robot_tpu_torch.utils import config
 
-  # f32 parity is checked below: no TF32 anywhere.
+  # f32 parity is checked below: no TF32 in PyTorch's own products. The
+  # f32 flash forward runs TF32 inside its kernel, split three ways
+  # (3xTF32, ~2^-22 relative); phase 2 holds it to F32_TOL against the
+  # plain version and phase 3's 4096-tick session against the stateless
+  # predict that runs it.
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   device = torch.device("cuda", 0)
@@ -863,8 +928,9 @@ def main() -> int:
                           torch.bfloat16)
   extra = {"flash_fwd bf16 B=1": time_flash(torch, attention_ops, device, gen,
                                             timer, 1, torch.bfloat16),
-           "flash_fwd f32 B=2": time_flash(torch, attention_ops, device, gen,
-                                           timer, 2, torch.float32)}
+           "flash_fwd f32 B=2": {**time_flash(torch, attention_ops, device,
+                                              gen, timer, 2, torch.float32),
+                                 "design": "wgmma+tma, 3xtf32"}}
   for name, row in time_flash_bwd(torch, attention_ops, device, gen, timer, 2,
                                   torch.float32).items():
     extra[f"{name} f32 B=2"] = {**row, "design": "cuda-cores"}
@@ -881,12 +947,13 @@ def main() -> int:
        "launches": slice_report["launches"]["decode_tick"],
        "max_abs_err": decode_err, "max_err": decode_err, **decode_t},
       # The stateless f32 predict of the serving slice.
-      {"name": "flash_fwd", "route": "cuda", "design": "cuda-cores",
-       "source": f"{fwd_src} (flash_fwd_kernel)",
+      {"name": "flash_fwd", "route": "cuda", "design": "wgmma+tma, 3xtf32",
+       "source": f"{fwd_src} (flash_fwd_tc_split_kernel)",
        "replaces": "tensor2robot_tpu/ops/attention.py:139",
        "launches": slice_report["launches"]["flash_fwd"],
        "max_abs_err": flash_err["float32"], "max_err": flash_err["float32"],
-       "rel_norm_err": flash_rel["float32"], **flash_t},
+       "rel_norm_err": flash_rel["float32"],
+       "sass_mma": sass["flash_fwd_tc_split_kernel"], **flash_t},
       # The train step's forward (and the bf16 predict).
       {"name": "flash_fwd_bf16", "route": "cuda", "design": "wgmma+tma",
        "source": f"{fwd_src} (flash_fwd_tc_kernel)",
@@ -896,8 +963,9 @@ def main() -> int:
        "max_abs_err": flash_err["bfloat16"],
        "rel_norm_err": flash_rel["bfloat16"],
        "sass_mma": sass["flash_fwd_tc_kernel"], **fwd_bf16_t},
-      {"name": "flash_bwd_dq", "route": "cuda", "design": "cuda-cores",
-       "source": f"{bwd_src} (flash_bwd_dq_kernel)",
+      {"name": "flash_bwd_dq", "route": "cuda", "design": "wgmma+tma",
+       "source": f"{bwd_src} (flash_bwd_dq_tc_kernel; f32: "
+                 f"flash_bwd_dq_kernel, cuda-cores)",
        "replaces": "tensor2robot_tpu/ops/attention.py:186",
        "launches": train_report["launches"]["flash_bwd_dq"],
        "max_abs_err": bwd_err["dq"]["bfloat16"],
@@ -906,6 +974,7 @@ def main() -> int:
        "max_scaled_err_bf16": bwd_scaled["dq"]["bfloat16"],
        "rel_norm_err_f32": bwd_rel["dq"]["float32"],
        "rel_norm_err_bf16": bwd_rel["dq"]["bfloat16"],
+       "sass_mma": sass["flash_bwd_dq_tc_kernel"],
        **bwd_t["flash_bwd_dq"]},
       {"name": "flash_bwd_dkv", "route": "cuda", "design": "wgmma+tma",
        "source": f"{bwd_src} (flash_bwd_dkv_tc_kernel; f32: "

@@ -30,33 +30,43 @@
 //
 // Designs, chosen by kernel and dtype inside the launch functions:
 //
-// * bf16 dK/dV: tensor cores (`flash_bwd_dkv_tc_kernel`). One CTA per (BH,
-//   128-key tile), causal tile 0 (the longest) first; two consumer
-//   warpgroups own 64 keys each (one warpgroup and 64 keys at D 128, where
-//   the dK and dV accumulators take 128 registers a thread); one producer
-//   warp loads K and V once by TMA, then streams 64-row Q and dO tiles with
-//   their lse and delta through a 2-stage ring of full/empty mbarriers.
-//   Scores are computed transposed, keys as M: S^T = K.Q^T and
-//   dP^T = V.dO^T by `wgmma` m64n64k16 from shared memory, all K-major as
-//   stored. Their accumulators are already the A-operand register layout of
-//   dV += P^T.dO and dK += dS^T.Q (`wgmma` RS, dO and Q read MN-major
-//   through a second descriptor of the same buffer), so P^T and dS^T never
-//   go through shared memory. A bf16 product rounds its A operand, and
-//   rounding P or dS once moves dK and dV 18-33x further from the f32
-//   function than the split does (tests/test_torch_flash_numerics.py); so
-//   each is split into bf16 hi + lo (about 16 mantissa bits) and fed as two
-//   products. head_dim 16 and 32 are computed at 64 (TMA fills the missing
-//   columns with zeros).
-// * dQ (both dtypes) and f32 dK/dV: the f32 CUDA cores
-//   (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`), exact f32 products,
-//   which the f32 parity limit (1e-4) needs; bf16 is widened to f32 on load.
-//   One thread block of 256 threads per 64-row tile, four threads per tile
-//   row. Tiles are staged in shared memory as f32 with a padded row stride
-//   (D + 1) so the four threads of a row and the eight rows of a warp hit
-//   distinct banks. Each thread scores 16 columns of its row (S and dP
-//   together, sharing the loop over D), writes P or dS to a shared tile, and
-//   after a barrier accumulates D/4 output columns in registers. Shared-
-//   memory reads (about one per FMA) limit them.
+// * bf16: tensor cores. Both kernels run their products as `wgmma` on two
+//   consumer warpgroups of 64 rows each (one at D 128, where the
+//   accumulators take 64 or 128 registers a thread), fed by a producer warp
+//   that issues TMA loads (3-D maps, so a tile never reads past its head):
+//   the kernel's own 64-row blocks once, the streamed operand through a
+//   2-stage ring of full/empty mbarriers. The two score products run from
+//   shared memory (SS), K-major as stored. Their accumulators are already
+//   the A-operand register layout of the next product (`wgmma` RS), whose
+//   B operand is a resident or streamed tile read MN-major through a second
+//   descriptor of the same buffer, so P and dS never go through shared
+//   memory. A bf16 product rounds its A operand, and rounding P or dS once
+//   moves dQ, dK and dV 18-33x further from the f32 function than the
+//   split does (tests/test_torch_flash_numerics.py); so each is split into
+//   bf16 hi + lo (about 16 mantissa bits) and fed as two products. head_dim
+//   16 and 32 are computed at 64 (TMA fills the missing columns with
+//   zeros).
+//   - dQ (`flash_bwd_dq_tc_kernel`): one CTA per (BH, 128-query tile; 64 at
+//     D 128), longest causal tiles first; Q and dO resident, the rows' lse
+//     (log2 domain) and delta in registers; K and V tiles of 64 keys
+//     streamed from key tile 0 to the diagonal. S = Q.K^T and dP = dO.V^T
+//     by m64n64k16 SS, dS = P * (dP - delta) * scale in registers, dQ +=
+//     (dS_hi + dS_lo).K with K read MN-major.
+//   - dK/dV (`flash_bwd_dkv_tc_kernel`): one CTA per (BH, 128-key tile; 64
+//     at D 128); K and V resident, 64-row Q and dO tiles with their lse and
+//     delta streamed. Scores are computed transposed, keys as M: S^T =
+//     K.Q^T and dP^T = V.dO^T, then dV += (P^T_hi + P^T_lo).dO and dK +=
+//     (dS^T_hi + dS^T_lo).Q, with dO and Q read MN-major.
+// * f32: the f32 CUDA cores (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`),
+//   exact f32 products. One thread block of 256 threads per 64-row tile,
+//   four threads per tile row. Tiles are staged in shared memory with a
+//   padded row stride (D + 1) so the four threads of a row and the eight
+//   rows of a warp hit distinct banks. Each thread scores 16 columns of its
+//   row (S and dP together, sharing the loop over D), writes P or dS to a
+//   shared tile, and after a barrier accumulates D/4 output columns in
+//   registers. Shared-memory reads (about one per FMA) limit them; the
+//   3xTF32 split of the f32 forward (csrc/flash_fwd.cu) is their way onto
+//   the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,24 +81,15 @@ constexpr int kSub = 4;                    // threads per tile row
 constexpr int kThreads = kTile * kSub;     // 256
 constexpr int kColsPerThread = kTile / kSub;  // 16 scored columns per thread
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // Stages rows [row0, row0 + kTile) of a [T, D] head into a shared tile of
-// stride D + 1, widened to f32; rows at or past t_len read as 0.
-template <typename T, int D>
-__device__ __forceinline__ void stage_tile(float* dst, const T* __restrict__ src,
+// stride D + 1; rows at or past t_len read as 0.
+template <int D>
+__device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ src,
                                            int row0, int t_len, int tid) {
   for (int i = tid; i < kTile * D; i += kThreads) {
     const int rr = i / D, dd = i % D;
     const int row = row0 + rr;
-    dst[rr * (D + 1) + dd] =
-        row < t_len ? to_f32(src[static_cast<size_t>(row) * D + dd]) : 0.f;
+    dst[rr * (D + 1) + dd] = row < t_len ? src[static_cast<size_t>(row) * D + dd] : 0.f;
   }
 }
 
@@ -103,14 +104,14 @@ constexpr size_t dq_smem_floats() {
          + static_cast<size_t>(kTile) * (kTile + 1);   // dS
 }
 
-// dQ for one (BH, query tile). Thread (r, sub) owns query row r: it scores
+// f32 dQ for one (BH, query tile). Thread (r, sub) owns query row r: it scores
 // keys sub + 4i of each key tile and accumulates dQ columns sub + 4c.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int t_len, int valid_len, int causal,
+                    float* __restrict__ dq, int t_len, int valid_len, int causal,
                     float scale) {
   extern __shared__ float smem[];
   float* sQ = smem;
@@ -128,8 +129,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t head = static_cast<size_t>(bh) * t_len * D;
   const size_t head_rows = static_cast<size_t>(bh) * t_len;
 
-  stage_tile<T, D>(sQ, q + head, q_tile * kTile, t_len, tid);
-  stage_tile<T, D>(sDO, dout + head, q_tile * kTile, t_len, tid);
+  stage_tile<D>(sQ, q + head, q_tile * kTile, t_len, tid);
+  stage_tile<D>(sDO, dout + head, q_tile * kTile, t_len, tid);
   const bool row_valid = q_row < valid_len;
   const float lse_r = row_valid ? lse[head_rows + q_row] : 0.f;
   const float delta_r = row_valid ? delta[head_rows + q_row] : 0.f;
@@ -146,8 +147,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int kt = 0; kt < num_tiles; ++kt) {
     __syncthreads();  // the previous tile's K and dS are consumed
-    stage_tile<T, D>(sK, k + head, kt * kTile, t_len, tid);
-    stage_tile<T, D>(sV, v + head, kt * kTile, t_len, tid);
+    stage_tile<D>(sK, k + head, kt * kTile, t_len, tid);
+    stage_tile<D>(sV, v + head, kt * kTile, t_len, tid);
     __syncthreads();
 
     float s[kColsPerThread], dp[kColsPerThread];
@@ -186,9 +187,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (q_row < t_len) {
-    T* dq_r = dq + head + static_cast<size_t>(q_row) * D + sub;
+    float* dq_r = dq + head + static_cast<size_t>(q_row) * D + sub;
 #pragma unroll
-    for (int c = 0; c < D / kSub; ++c) dq_r[kSub * c] = from_f32<T>(acc[c]);
+    for (int c = 0; c < D / kSub; ++c) dq_r[kSub * c] = acc[c];
   }
 }
 
@@ -199,15 +200,15 @@ constexpr size_t dkv_smem_floats() {
          + 2 * static_cast<size_t>(kTile);             // lse, delta
 }
 
-// dK and dV for one (BH, key tile). Thread (kr, sub) owns key row kr: it
+// f32 dK and dV for one (BH, key tile). Thread (kr, sub) owns key row kr: it
 // scores queries sub + 4m of each query tile and accumulates dK and dV
 // columns sub + 4c.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int t_len,
+                     float* __restrict__ dk, float* __restrict__ dv, int t_len,
                      int valid_len, int causal, float scale) {
   extern __shared__ float smem[];
   float* sK = smem;
@@ -228,8 +229,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t head = static_cast<size_t>(bh) * t_len * D;
   const size_t head_rows = static_cast<size_t>(bh) * t_len;
 
-  stage_tile<T, D>(sK, k + head, k_tile * kTile, t_len, tid);
-  stage_tile<T, D>(sV, v + head, k_tile * kTile, t_len, tid);
+  stage_tile<D>(sK, k + head, k_tile * kTile, t_len, tid);
+  stage_tile<D>(sV, v + head, k_tile * kTile, t_len, tid);
 
   // Query tiles from the diagonal (the tile holding row k_start) to the
   // last tile with a valid row; none for a tile of padded keys.
@@ -243,8 +244,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int qt = first; qt < last; ++qt) {
     __syncthreads();  // the previous tile's Q, dO, P^T and dS^T are consumed
-    stage_tile<T, D>(sQ, q + head, qt * kTile, t_len, tid);
-    stage_tile<T, D>(sDO, dout + head, qt * kTile, t_len, tid);
+    stage_tile<D>(sQ, q + head, qt * kTile, t_len, tid);
+    stage_tile<D>(sDO, dout + head, qt * kTile, t_len, tid);
     if (tid < kTile) {
       const int row = qt * kTile + tid;
       const bool ok = row < valid_len;
@@ -296,12 +297,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (k_row < t_len) {
-    T* dk_r = dk + head + static_cast<size_t>(k_row) * D + sub;
-    T* dv_r = dv + head + static_cast<size_t>(k_row) * D + sub;
+    float* dk_r = dk + head + static_cast<size_t>(k_row) * D + sub;
+    float* dv_r = dv + head + static_cast<size_t>(k_row) * D + sub;
 #pragma unroll
     for (int c = 0; c < D / kSub; ++c) {
-      dk_r[kSub * c] = from_f32<T>(acc_k[c]);
-      dv_r[kSub * c] = from_f32<T>(acc_v[c]);
+      dk_r[kSub * c] = acc_k[c];
+      dv_r[kSub * c] = acc_v[c];
     }
   }
 }
@@ -314,50 +315,268 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a) {
+template <int D>
+cudaError_t launch_dq_f32(const Args& a) {
   constexpr size_t smem = dq_smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   dim3 grid((a.t_len + kTile - 1) / kTile, a.bh);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.out0), a.t_len, a.valid_len, a.causal, scale);
+      static_cast<float*>(a.out0), a.t_len, a.valid_len, a.causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Args& a) {
+template <int D>
+cudaError_t launch_dkv_f32(const Args& a) {
   constexpr size_t smem = dkv_smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   dim3 grid((a.t_len + kTile - 1) / kTile, a.bh);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.t_len, a.valid_len,
+      static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.t_len, a.valid_len,
       a.causal, scale);
   return cudaGetLastError();
 }
 
-// -- bf16 dK/dV: tensor cores ------------------------------------------------------
+// -- bf16: tensor cores -------------------------------------------------------------
 
 namespace tc {
 
 using namespace t2r_hopper;
 
-constexpr int kQRows = 64;   // query rows per streamed Q/dO tile
-constexpr int kStages = 2;   // Q/dO ring depth
+constexpr int kQRows = 64;   // query rows per streamed Q/dO tile (dK/dV)
+constexpr int kStages = 2;   // ring depth
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Two consumer warpgroups of 64 queries each; at D 128 one, so that its dQ
+// accumulator (64 floats) beside S and dP fits a thread's registers.
+template <int D>
+struct DqConfig {
+  static constexpr int kDP = D < 64 ? 64 : D;  // head_dim as computed
+  static constexpr int kHalves = kDP / 64;
+  static constexpr int kConsumers = kDP == 128 ? 1 : 2;
+  static constexpr int kRows = 64 * kConsumers;  // query rows per CTA
+  static constexpr int kKeys = 64;               // keys per streamed K/V tile
+  static constexpr int kThreads = 128 * kConsumers + 32;  // + producer warp
+  static constexpr int kHalfQ = kRows * 128;     // bytes of one 64-column half
+  static constexpr int kHalfK = kKeys * 128;
+  static constexpr int kTileQ = kHalves * kHalfQ;
+  static constexpr int kTileK = kHalves * kHalfK;
+  static constexpr size_t kSmem = 1024 + 2 * kTileQ + 2 * kStages * kTileK + 64;
+};
+
+// dQ for one (BH, query tile). Warpgroup wg owns queries row_base ..
+// row_base+63; this thread holds rows row_base + r + 8i and, of each 8-key
+// group j of a streamed tile, keys 8j + c2 and 8j + c2 + 1.
+template <int D>
+__global__ void __launch_bounds__(DqConfig<D>::kThreads, 1)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int t_len,
+                       int valid_len, int causal, float scale,
+                       float scale_log2) {
+  using C = DqConfig<D>;
+  constexpr int DP = C::kDP;
+  constexpr int kKeys = C::kKeys;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* s_q = smem;
+  uint8_t* s_do = s_q + C::kTileQ;
+  uint8_t* s_k = s_do + C::kTileQ;                 // [stage] tiles
+  uint8_t* s_v = s_k + kStages * C::kTileK;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(s_v + kStages * C::kTileK);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.x;
+  const int q_tile = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
+  const int m0 = q_tile * C::kRows;
+  // Key tiles holding a valid key, up to the diagonal when causal; none
+  // for a tile of padded rows (dQ = 0).
+  int n_tiles = (valid_len + kKeys - 1) / kKeys;
+  if (causal) n_tiles = min(n_tiles, (m0 + C::kRows - 1) / kKeys + 1);
+  if (m0 >= valid_len) n_tiles = 0;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128 * C::kConsumers) {  // producer warp: one thread issues TMA
+    if (tid == 128 * C::kConsumers && n_tiles > 0) {
+      mbar_arrive_expect_tx(bar_q, 2 * C::kTileQ);
+      for (int h = 0; h < C::kHalves; ++h) {
+        tma_load_3d(s_q + h * C::kHalfQ, &map_q, bar_q, 64 * h, m0, bh);
+        tma_load_3d(s_do + h * C::kHalfQ, &map_do, bar_q, 64 * h, m0, bh);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int stage = it % kStages;
+        mbar_wait(&empty[stage], ((it / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[stage], 2 * C::kTileK);
+        for (int h = 0; h < C::kHalves; ++h) {
+          const int off = stage * C::kTileK + h * C::kHalfK;
+          tma_load_3d(s_k + off, &map_k, &full[stage], 64 * h, it * kKeys, bh);
+          tma_load_3d(s_v + off, &map_v, &full[stage], 64 * h, it * kKeys, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int r = ((tid % 128) / 32) * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  const int row_base = m0 + wg * 64;
+
+  // lse (to the log2 domain) and delta of this thread's two rows; 0 on
+  // padded rows, whose entries are masked.
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_base + r + 8 * i;
+    const bool ok = row < valid_len;
+    const size_t at = static_cast<size_t>(bh) * t_len + row;
+    lse_r[i] = ok ? lse[at] * kLog2e : 0.f;
+    delta_r[i] = ok ? delta[at] : 0.f;
+  }
+
+  float dq_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq_acc[i] = 0.f;
+
+  // A operands: this warpgroup's 64 rows of the resident Q and dO tiles.
+  const uint32_t q_addr = smem_u32(s_q) + wg * 64 * 128;
+  const uint32_t do_addr = smem_u32(s_do) + wg * 64 * 128;
+  if (n_tiles > 0) mbar_wait(bar_q, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it % kStages;
+    mbar_wait(&full[stage], (it / kStages) & 1);
+    const int n0 = it * kKeys;
+    // A causal tile past this warpgroup's last row adds nothing to its dQ.
+    if (!(causal && n0 > row_base + 63)) {
+      const uint32_t k_addr = smem_u32(s_k) + stage * C::kTileK;
+      const uint32_t v_addr = smem_u32(s_v) + stage * C::kTileK;
+
+      // S = Q.K^T and dP = dO.V^T, [64 queries x 64 keys]; all K-major.
+      float s[kKeys / 2], dp[kKeys / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < DP / 16; ++k) {
+        const int off = (k / 4) * C::kHalfK + (k % 4) * 32;
+        const int off_q = (k / 4) * C::kHalfQ + (k % 4) * 32;
+        wgmma_ss(s, desc_kmajor(q_addr + off_q), desc_kmajor(k_addr + off), k > 0);
+        wgmma_ss(dp, desc_kmajor(do_addr + off_q), desc_kmajor(v_addr + off), k > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P = exp(S * scale - lse), masked entries 0 before the exponential
+      // (padded rows carry lse = 0); dS = P * (dP - delta) * scale.
+      const bool need_mask = n0 + kKeys > valid_len || row_base + 64 > valid_len ||
+                             (causal && n0 + kKeys - 1 > row_base);
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            bool ok = true;
+            if (need_mask) {
+              const int key = n0 + 8 * j + c2 + c;
+              const int row = row_base + r + 8 * i;
+              ok = row < valid_len && key < valid_len && (!causal || key <= row);
+            }
+            const int idx = 4 * j + 2 * i + c;
+            const float p = ok ? exp2f(fmaf(s[idx], scale_log2, -lse_r[i])) : 0.f;
+            dp[idx] = p * (dp[idx] - delta_r[i]) * scale;
+          }
+        }
+      }
+
+      // dQ += (dS_hi + dS_lo).K, K read MN-major.
+      uint32_t hi[kKeys / 16][4], lo[kKeys / 16][4];
+      acc_to_frag_split<kKeys>(dp, hi, lo);
+      fence_frags(hi);
+      fence_frags(lo);
+      fence_regs(dq_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        const uint64_t b = desc_mnmajor(k_addr + kk * 16 * 128, C::kHalfK);
+        wgmma_rs_tb(dq_acc, hi[kk], b);
+        wgmma_rs_tb(dq_acc, lo[kk], b);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_frags(hi);
+      fence_frags(lo);
+      fence_regs(dq_acc);
+    }
+    if (tid % 128 == 0) mbar_arrive(&empty[stage]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_base + r + 8 * i;
+    if (row >= t_len) continue;
+    __nv_bfloat16* dq_row = dq + (static_cast<size_t>(bh) * t_len + row) * D + c2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dq_row + 8 * j) =
+          __floats2bfloat162_rn(dq_acc[4 * j + 2 * i], dq_acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq(const Args& a) {
+  using C = DqConfig<D>;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  cudaError_t err;
+  if ((err = encode_bhtd(&map_q, a.q, a.bh, a.t_len, D, C::kRows, 2)) != cudaSuccess) return err;
+  if ((err = encode_bhtd(&map_k, a.k, a.bh, a.t_len, D, C::kKeys, 2)) != cudaSuccess) return err;
+  if ((err = encode_bhtd(&map_v, a.v, a.bh, a.t_len, D, C::kKeys, 2)) != cudaSuccess) return err;
+  if ((err = encode_bhtd(&map_do, a.dout, a.bh, a.t_len, D, C::kRows, 2)) != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(C::kSmem));
+  if (err != cudaSuccess) return err;
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  dim3 grid(a.bh, (a.t_len + C::kRows - 1) / C::kRows);
+  flash_bwd_dq_tc_kernel<D><<<grid, C::kThreads, C::kSmem, a.stream>>>(
+      map_q, map_k, map_v, map_do, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.out0),
+      a.t_len, a.valid_len, a.causal, scale, scale * kLog2e);
+  return cudaGetLastError();
+}
 
 // Two consumer warpgroups of 64 keys each; at D 128 one, so that its dK
 // and dV accumulators (64 floats each) fit a thread's registers.
@@ -605,10 +824,10 @@ cudaError_t launch_dkv(const Args& a) {
   using C = DkvConfig<D>;
   CUtensorMap map_q, map_k, map_v, map_do;
   cudaError_t err;
-  if ((err = encode_bhtd(&map_q, a.q, a.bh, a.t_len, D, kQRows)) != cudaSuccess) return err;
-  if ((err = encode_bhtd(&map_k, a.k, a.bh, a.t_len, D, 64)) != cudaSuccess) return err;
-  if ((err = encode_bhtd(&map_v, a.v, a.bh, a.t_len, D, 64)) != cudaSuccess) return err;
-  if ((err = encode_bhtd(&map_do, a.dout, a.bh, a.t_len, D, kQRows)) != cudaSuccess) return err;
+  if ((err = encode_bhtd(&map_q, a.q, a.bh, a.t_len, D, kQRows, 2)) != cudaSuccess) return err;
+  if ((err = encode_bhtd(&map_k, a.k, a.bh, a.t_len, D, 64, 2)) != cudaSuccess) return err;
+  if ((err = encode_bhtd(&map_v, a.v, a.bh, a.t_len, D, 64, 2)) != cudaSuccess) return err;
+  if ((err = encode_bhtd(&map_do, a.dout, a.bh, a.t_len, D, kQRows, 2)) != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(C::kSmem));
@@ -623,38 +842,15 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-cudaError_t launch_dkv_dim(const Args& a, int d) {
-  switch (d) {
-    case 16: return launch_dkv<16>(a);
-    case 32: return launch_dkv<32>(a);
-    case 64: return launch_dkv<64>(a);
-    case 128: return launch_dkv<128>(a);
-    default: return cudaErrorInvalidValue;
-  }
+// The tensor-core kernels (bf16) or the CUDA-core ones (f32).
+template <bool kDq, int D>
+cudaError_t launch_dtype(const Args& a, int dtype) {
+  if (dtype == 0) return kDq ? launch_dq_f32<D>(a) : launch_dkv_f32<D>(a);
+  if (dtype == 1) return kDq ? launch_dq<D>(a) : launch_dkv<D>(a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace tc
-
-template <bool kDq, typename T, int D>
-cudaError_t launch_cuda_cores(const Args& a) {
-  if constexpr (kDq) {
-    return launch_dq<T, D>(a);
-  } else {
-    return launch_dkv<T, D>(a);
-  }
-}
-
-// The CUDA-core kernels: dQ in both dtypes, dK/dV in f32.
-template <bool kDq, typename T>
-cudaError_t dispatch_dim(const Args& a, int d) {
-  switch (d) {
-    case 16: return launch_cuda_cores<kDq, T, 16>(a);
-    case 32: return launch_cuda_cores<kDq, T, 32>(a);
-    case 64: return launch_cuda_cores<kDq, T, 64>(a);
-    case 128: return launch_cuda_cores<kDq, T, 128>(a);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 template <bool kDq>
 int dispatch(const Args& a, int head_dim, int dtype) {
@@ -663,16 +859,12 @@ int dispatch(const Args& a, int head_dim, int dtype) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err;
-  if (dtype == 0) {
-    err = dispatch_dim<kDq, float>(a, head_dim);
-  } else if (dtype == 1) {
-    if constexpr (kDq) {
-      err = dispatch_dim<kDq, __nv_bfloat16>(a, head_dim);
-    } else {
-      err = tc::launch_dkv_dim(a, head_dim);
-    }
-  } else {
-    err = cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 16: err = tc::launch_dtype<kDq, 16>(a, dtype); break;
+    case 32: err = tc::launch_dtype<kDq, 32>(a, dtype); break;
+    case 64: err = tc::launch_dtype<kDq, 64>(a, dtype); break;
+    case 128: err = tc::launch_dtype<kDq, 128>(a, dtype); break;
+    default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

@@ -1,15 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash kernels:
 // shared-memory matrix descriptors for 128-byte-swizzled tiles, warpgroup
-// matrix multiply (`wgmma`) wrappers, `mbarrier` waits, the TMA 3-D tile
-// load and its host-side tensor map, and the bf16 hi/lo split of
-// accumulator fragments.
+// matrix multiply (`wgmma`) wrappers for bf16 and tf32, `mbarrier` waits,
+// the TMA 3-D tile load and its host-side tensor map (bf16 or f32), the
+// bf16 hi/lo split of accumulator fragments and the tf32 big/small split
+// of f32 values (3xTF32).
 //
-// Tile layout used throughout: a bf16 tile of R rows and up to 128 columns
-// is stored as column halves of 64 (128 bytes a row), half h at
-// tile + h * R * 128 bytes, each half R rows of 128 bytes, 128B-swizzled by
-// TMA. Every half starts 1024-byte aligned (the swizzle atom: 8 rows of
-// 128 bytes), so a descriptor may start 32, 64 or 96 bytes into a row to
-// step along K, as the hardware applies the swizzle to address bits.
+// Tile layout used throughout: a tile of R rows is stored as column blocks
+// of 128 bytes (64 bf16 or 32 f32 columns), block h at tile + h * R * 128
+// bytes, each block R rows of 128 bytes, 128B-swizzled by TMA. Every block
+// starts 1024-byte aligned (the swizzle atom: 8 rows of 128 bytes), so a
+// descriptor may start 32, 64 or 96 bytes into a row to step along K, as
+// the hardware applies the swizzle to address bits.
 //
 // Accumulator fragment of `wgmma` m64nNk16 (f32): thread t of the
 // warpgroup (warp w = t / 32, lane l) holds d[4j + 2i + c] at row
@@ -31,8 +32,9 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Descriptor of a K-major operand (rows of 64 bf16 = 128 bytes, K
-// contiguous): layout 128B swizzle, stride between 8-row groups 1024 bytes.
+// Descriptor of a K-major operand (rows of 128 bytes, 64 bf16 or 32 tf32,
+// K contiguous): layout 128B swizzle, stride between 8-row groups 1024
+// bytes.
 __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
          | (static_cast<uint64_t>(1) << 16)             // LBO: unused
@@ -178,6 +180,124 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64],
   wgmma_rs_m64n128_tb(d, a, b);
 }
 
+// -- wgmma (tf32 in, f32 accumulate) ------------------------------------------
+//
+// A k-step of tf32 is 8 values, 32 bytes: the same bytes as a bf16 k-step,
+// so `desc_kmajor` and its 32-byte steps along K serve 32-float rows
+// unchanged. `.tf32` takes no transpose bits: both operands are K-major.
+// The A-operand register fragment of m64nNk8 holds, for thread t of the
+// warpgroup (warp w, lane l, g = l / 4, c = l % 4), a[0] at (row 16w + g,
+// k c), a[1] at (16w + g + 8, c), a[2] at (16w + g, c + 4), a[3] at
+// (16w + g + 8, c + 4).
+
+// D[64 x 64] (+)= A[64 x 8] * B[8 x 64], tf32; A and B from shared memory,
+// both K-major. scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32_ss_m64n64(float (&d)[32], uint64_t a,
+                                                     uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D[64 x 32] += A[64 x 8] * B[8 x 32], tf32; A from registers (a tf32
+// fragment), B from shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 8] * B[8 x 64], tf32; A from registers (a tf32
+// fragment), B from shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 8] * B[8 x 128], tf32; A from registers (a tf32
+// fragment), B from shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// tf32(x), rounded to nearest with ties away from zero, as f32 bits with
+// the 13 low bits clear.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xFFFFE000u;
+}
+// x = big + small to ~2^-22 |x|: big = tf32(x), small = tf32(x - big).
+// Three products big.big + big.small + small.big keep an f32 product to
+// about that accuracy (3xTF32; the dropped small.small term is ~2^-22).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// -- shared memory shared by generic and async proxies ---------------------------
+
+// Orders this thread's shared-memory writes before later reads by the
+// async proxy (wgmma, TMA); then a barrier publishes them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Named barrier 1 over the first `count` threads (the consumer warps).
+__device__ __forceinline__ void consumer_sync(int count) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(count) : "memory");
+}
+// Byte offset of 32-bit element (row, col) of a tile of 128-byte rows
+// (32 floats), 128B-swizzled as TMA writes it and wgmma reads it: the
+// 16-byte chunk index is XORed with row % 8 (the tile starts 1024-byte
+// aligned).
+__device__ __forceinline__ int swz128_f32(int row, int col) {
+  return row * 128 + ((((col >> 2) ^ row) & 7) << 4) + ((col & 3) << 2);
+}
+
 // -- mbarrier ----------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -301,23 +421,28 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 3-D map over a contiguous bf16 [bh, t, d] tensor, box (64 columns,
-// `box_rows` rows, 1 head), 128B swizzle. Reads past t or d fill zeros
-// within the head: a tile that runs past t never reads the next head.
+// A 3-D map over a contiguous [bh, t, d] tensor of bf16 (elem_bytes 2) or
+// f32 (4), box (128 bytes of columns: 64 bf16 or 32 f32, `box_rows` rows,
+// 1 head), 128B swizzle. Reads past t or d fill zeros within the head: a
+// tile that runs past t never reads the next head.
 inline cudaError_t encode_bhtd(CUtensorMap* map, const void* base, int bh,
-                               int t, int d, int box_rows) {
+                               int t, int d, int box_rows, int elem_bytes) {
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0) return cudaErrorMisalignedAddress;
+  if (elem_bytes != 2 && elem_bytes != 4) return cudaErrorInvalidValue;
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(t),
                               static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(t) * d * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(d) * elem_bytes;
+  const cuuint64_t strides[2] = {row_bytes, static_cast<cuuint64_t>(t) * row_bytes};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / elem_bytes),
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                      const_cast<void*>(base), dims, strides, box, elem,
+  CUresult r = encode(map,
+                      elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      3, const_cast<void*>(base), dims, strides, box, elem,
                       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

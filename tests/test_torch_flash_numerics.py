@@ -1,18 +1,25 @@
-"""How the bf16 dK/dV kernel may feed its tensor-core products, on the CPU.
+"""How the tensor-core flash kernels may feed their products, on the CPU.
 
 A bf16 tensor-core product rounds its A operand to bf16. The dK/dV kernel
 (`csrc/flash_bwd.cu`) computes P^T and dS^T in f32 and feeds them as the
-A operands of dV = P^T.dO and dK = dS^T.Q. This rehearsal emulates, in
-torch at BH 2, T 512, D 64, causal, bf16 inputs from a numpy seed, the two
-ways to do that, against `_flash_backward_plain` (P and dS in f32, as the
-TPU kernel keeps them):
+A operands of dV = P^T.dO and dK = dS^T.Q; the dQ kernel feeds dS as the
+A operand of dQ = dS.K. This rehearsal emulates, in torch at BH 2, T 512,
+D 64, causal, bf16 inputs from a numpy seed, the two ways to do that,
+against `_flash_backward_plain` (P and dS in f32, as the TPU kernel keeps
+them):
 
 * single rounding: P and dS rounded once to bf16;
-* the kernel's split: x_hi = bf16(x), x_lo = bf16(x - x_hi), two products.
+* the kernels' split: x_hi = bf16(x), x_lo = bf16(x - x_hi), two products.
 
 The split must stay within `chip_smoke.py`'s bf16 backward limits, and
 single rounding must exceed its relative 2-norm limit, so that the limit
 tells the two apart on the card.
+
+A TF32 product keeps 10 mantissa bits of each operand. The f32 forward
+(`csrc/flash_fwd.cu`) splits every f32 operand x into big = tf32(x) and
+small = tf32(x - big) and sums small.big + big.small + big.big (3xTF32).
+The same rehearsal on f32 inputs: 3xTF32 must meet `F32_TOL` on O and lse
+against `_flash_forward_plain`, and one TF32 product must not.
 """
 
 import math
@@ -52,8 +59,8 @@ def _problem():
   s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
   p = torch.exp(s.masked_fill(~valid, float("-inf")) - lse)
   ds = p * (torch.einsum("bqd,bkd->bqk", dof, vf) - delta) * scale
-  return {"q": qf, "do": dof, "p": p, "ds": ds, "dk": want[1],
-          "dv": want[2]}
+  return {"q": qf, "k": kf, "do": dof, "p": p, "ds": ds, "dq": want[0],
+          "dk": want[1], "dv": want[2]}
 
 
 @pytest.fixture(scope="module")
@@ -69,6 +76,13 @@ def _dkv(problem, feed):
   dk = sum(torch.einsum("bqk,bqd->bkd", part, problem["q"])
            for part in feed(problem["ds"]))
   return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+def _dq(problem, feed):
+  """dQ with dS fed as `feed` gives it, f32 sums, rounded to bf16."""
+  dq = sum(torch.einsum("bqk,bkd->bqd", part, problem["k"])
+           for part in feed(problem["ds"]))
+  return dq.to(torch.bfloat16)
 
 
 def _errors(got, want):
@@ -92,6 +106,96 @@ def test_single_rounding_fails_the_norm_limit(problem):
     assert rel > chip_smoke.BWD_BF16_REL_NORM_TOL
 
 
+def test_dq_split_meets_the_bf16_backward_limits(problem):
+  scaled, rel = _errors(_dq(problem, lambda x: list(_split(x))),
+                        problem["dq"])
+  assert scaled <= chip_smoke.BWD_BF16_TOL
+  assert rel <= chip_smoke.BWD_BF16_REL_NORM_TOL
+
+
+def test_dq_single_rounding_fails_the_norm_limit(problem):
+  _, rel = _errors(_dq(problem, lambda x: [_bf16(x)]), problem["dq"])
+  assert rel > chip_smoke.BWD_BF16_REL_NORM_TOL
+
+
 def test_limits_are_one_output_step_and_1e_3():
   assert chip_smoke.BWD_BF16_TOL == 2.0 ** -7
   assert chip_smoke.BWD_BF16_REL_NORM_TOL == 1e-3
+
+
+# -- f32 forward: 3xTF32 ---------------------------------------------------------
+
+
+def _tf32(x):
+  """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+  zero, as `cvt.rna.tf32.f32` rounds: on the int32 view, add half of the
+  13 dropped bits and clear them."""
+  bits = x.contiguous().view(torch.int32)
+  return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+  big = _tf32(x)
+  return big, _tf32(x - big)
+
+
+def _product_3x(a, b, equation):
+  """a.b as the kernel runs it: small.big + big.small + big.big, each
+  product of TF32 values exact in f32, summed in f32."""
+  (ab, as_), (bb, bs) = _split_tf32(a), _split_tf32(b)
+  return (torch.einsum(equation, as_, bb) + torch.einsum(equation, ab, bs)
+          + torch.einsum(equation, ab, bb))
+
+
+def _product_1x(a, b, equation):
+  return torch.einsum(equation, _tf32(a), _tf32(b))
+
+
+@pytest.fixture(scope="module")
+def f32_problem():
+  rs = np.random.RandomState(1)
+  q, k, v = (torch.from_numpy(rs.randn(BH, T, D).astype(np.float32))
+             for _ in range(3))
+  return q, k, v, attention._flash_forward_plain(q, k, v, True, T)
+
+
+def _forward(q, k, v, product):
+  """The f32 forward with every product run by `product`: scores, row
+  max, P = exp(S - m) in f32 (unrounded up to the product), O and lse."""
+  scale = 1.0 / math.sqrt(D)
+  s = product(q, k, "bqd,bkd->bqk") * scale
+  s = s.masked_fill(~attention._flash_valid(T, True, T, q.device),
+                    float("-inf"))
+  m = s.amax(dim=-1, keepdim=True)
+  p = torch.exp(s - m)
+  l = p.sum(dim=-1, keepdim=True)
+  return product(p, v, "bqk,bkd->bqd") / l, m + torch.log(l)
+
+
+def _forward_errors(f32_problem, product):
+  q, k, v, (want_out, want_lse) = f32_problem
+  out, lse = _forward(q, k, v, product)
+  return (float((out - want_out).abs().max()),
+          float((lse - want_lse).abs().max()))
+
+
+def test_tf32_rounds_to_nearest_on_the_int32_view():
+  x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -11 + 2.0 ** -20,
+                    1.0 + 2.0 ** -12, -(1.0 + 3 * 2.0 ** -11), 3.0e-39])
+  want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, 1.0,
+                       -(1.0 + 2 * 2.0 ** -10), 3.0e-39])
+  got = _tf32(x)
+  assert torch.equal(got[:5], want[:5])
+  assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+  big, small = _split_tf32(x[:5])
+  assert torch.equal(big + small, x[:5])
+
+
+def test_3xtf32_forward_meets_the_f32_limit(f32_problem):
+  out_err, lse_err = _forward_errors(f32_problem, _product_3x)
+  assert out_err <= chip_smoke.F32_TOL
+  assert lse_err <= chip_smoke.F32_TOL
+
+
+def test_one_tf32_product_fails_the_f32_limit(f32_problem):
+  assert max(_forward_errors(f32_problem, _product_1x)) > chip_smoke.F32_TOL

@@ -10,6 +10,9 @@
   long-context widths.
 * A kernel library's name changes with any `csrc/*.cuh` header, and
   `profile_train` finds both designs of each flash kernel by name.
+* `chip_smoke.py` labels mangled kernel names by their length prefixes,
+  digits inside a name included, and bounds f32 work by 3xTF32 where
+  that is faster than the f32 CUDA cores.
 """
 
 import ast
@@ -210,9 +213,10 @@ def test_profile_train_matches_both_flash_designs():
 
   events = [
       ("void (anonymous namespace)::tc::flash_fwd_tc_kernel<64>(...)", 3.0),
-      ("void (anonymous namespace)::flash_fwd_kernel<float, 64>(...)", 1.0),
-      ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, "
-       "64>(...)", 4.0),
+      ("void (anonymous namespace)::tc::flash_fwd_tc_split_kernel<64>(...)",
+       1.0),
+      ("void (anonymous namespace)::tc::flash_bwd_dq_tc_kernel<64>(...)",
+       4.0),
       ("void (anonymous namespace)::tc::flash_bwd_dkv_tc_kernel<64>(...)",
        2.0),
       ("ampere_bf16_s16816gemm", 5.0)]
@@ -223,3 +227,45 @@ def test_profile_train_matches_both_flash_designs():
     profile_train.flash_device_ms(events[:3], launched)
   assert profile_train.flash_device_ms(
       events[:3], dict(launched, flash_bwd_dkv=0))["flash_bwd_dkv"] == 0
+
+
+@pytest.mark.parametrize("line, label", [
+    # A digit inside the kernel's name.
+    ("        Function : _ZN12_GLOBAL__N_12tc23flash_fwd_tf32x3_kernelILi64EE"
+     "Ev14CUtensorMap_stS2_S2_PfS3_iiif", "flash_fwd_tf32x3_kernel<64>"),
+    # The CUDA-core dQ as it was templated on its dtype.
+    ("Function : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelI13__nv_bfloat16Li64E"
+     "EEvPKT_S4_S4_S4_PKfS6_PS2_iiif", "flash_bwd_dq_kernel<bf16,64>"),
+    # A tensor-core kernel, as ptxas names it.
+    ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_12tc22flash_"
+     "bwd_dq_tc_kernelILi128EEEv14CUtensorMap_stS2_S2_S2_PKfS4_P13__nv_bfl"
+     "oat16iiiiff' for 'sm_90a'", "flash_bwd_dq_tc_kernel<128>"),
+    ("ptxas info    : Used 168 registers", None),
+])
+def test_chip_smoke_labels_mangled_kernel_names(line, label):
+  import chip_smoke
+
+  assert chip_smoke._kernel_label(line) == label
+
+
+# (flops, dtype, bound ms, path) at the timed shapes: the f32 forward at
+# B1 H8 T4096 D64 causal (one product pair, 4*B*H*T^2*D/2), the f32 dQ
+# (3 products) and dK/dV (4) at B2, the bf16 dQ at B2.
+_PRODUCT_B2 = 2 * 2 * 8 * 4096 * 4096 * 64 // 2
+
+
+@pytest.mark.parametrize("flops, dtype, ms, path", [
+    (4 * 8 * 4096 * 4096 * 64 // 2, "float32", 0.1041, "3xtf32 tensor cores"),
+    (3 * _PRODUCT_B2, "float32", 0.3124, "3xtf32 tensor cores"),
+    (4 * _PRODUCT_B2, "float32", 0.4165, "3xtf32 tensor cores"),
+    (3 * _PRODUCT_B2, "bfloat16", 0.0521, "bfloat16 tensor cores"),
+])
+def test_chip_smoke_bounds_take_the_fastest_exact_path(flops, dtype, ms, path):
+  import chip_smoke
+
+  got = chip_smoke.bound(1e6, flops, dtype)
+  assert got["bound_by"] == "operations" and got["bound_path"] == path
+  assert got["bound_ms"] == pytest.approx(ms, abs=1e-4)
+  memory = chip_smoke.bound(1e12, flops, dtype)
+  assert memory["bound_by"] == "bytes"
+  assert memory["bound_ms"] == pytest.approx(1e3 / 3.35, rel=1e-9)
