@@ -10,9 +10,9 @@ and prints no result):
    built from `tensor2robot_tpu_torch/csrc/` with nvcc, one process per
    source, all started together, with ptxas' registers and spills; the
    matrix instructions of every flash kernel (`cuobjdump -sass`): each
-   instantiation of the tensor-core kernels (the flash forward in bf16 and
-   in f32 by 3xTF32, the bf16 dQ and the bf16 dK/dV) must hold HGMMA (or
-   HMMA) instructions.
+   instantiation of the tensor-core kernels (the flash forward, dQ and
+   dK/dV, each in bf16 and in f32 by 3xTF32) must hold HGMMA (or HMMA)
+   instructions.
 2. Kernels against their plain PyTorch versions at the served shapes:
    the decode tick on an f32 [65, 4096, 8, 64] arena (B = 1 and 8, indices
    0, tile edges, mixed progress and 4095, pad lanes on the null slot; the
@@ -21,9 +21,10 @@ and prints no result):
    against `_flash_backward_plain`, f32 and bf16, causal and not, at
    B x H = 16, D = 64 and T = 4096, 1000 (does not tile) and 1088 (tiles
    by 64, not by 128), and at B x H = 4, D = 16, 32 and 128, T = 1000 and
-   1088 (each kernel must launch once per call); then, in f32 at T = 1000,
-   the gradients through `flash_attention`'s autograd Function against
-   torch autograd through the plain `attention`.
+   1088 (each kernel must launch once per call; in f32 the split pass too,
+   and its planes must equal `_flash_bwd_split_plain`'s bit for bit); then,
+   in f32 at T = 1000, the gradients through `flash_attention`'s autograd
+   Function against torch autograd through the plain `attention`.
 3. The serving slice: the causal sequence policy at the long-context widths of
    `tensor2robot_tpu_torch/configs/serve_session.gin`, random weights
    from seed 0, served CheckpointPredictor -> SessionEngine ->
@@ -41,9 +42,10 @@ and prints no result):
    blocks x steps times; checkpoints 10 and 20 must verify; a second call
    must resume at 20 and reach 30. Then one f32 step's loss and gradients
    with attention_backend 'flash' against 'reference' on the same
-   parameters and batch, and `CheckpointPredictor(model_dir=...)` at the
-   serving widths restores step 30 and serves session ticks that match
-   its stateless predict.
+   parameters and batch (the f32 forward, split pass, dQ and dK/dV must
+   each launch exactly blocks times), and `CheckpointPredictor(model_dir=...)`
+   at the serving widths restores step 30 and serves session ticks that
+   match its stateless predict.
 5. Timings with CUDA events (L2 flushed before every timed call) of each
    kernel, its plain version and a PyTorch yardstick the port never calls
    (`scaled_dot_product_attention` for the flash forward, its
@@ -51,13 +53,15 @@ and prints no result):
    yardstick call runs); each kernel's bound: max(bytes
    / 3.35 TB/s, flops / peak rate of the dtype) with the H100 SXM
    data-sheet peaks (f32: the faster of the CUDA cores and 3xTF32); and
-   the median full-width bf16 train step.
+   the median full-width train step, bf16 and f32.
 
 Output: a `train` JSON line, a `slice` JSON line, a `kernels` JSON line
 (one row per kernel, with its `design`: "wgmma+tma" for the bf16
-tensor-core kernels, "wgmma+tma, 3xtf32" for the f32 forward,
-"cuda-cores" for the others), the card line, and as the last line
-`{"ok": true, "device": {...}}`. The
+tensor-core kernels, "wgmma+tma, 3xtf32" for the f32 ones, "cuda-cores"
+for the decode tick and the f32 backward's split pass; the f32 dQ and
+dK/dV rows carry the split pass's time as `split_ms` and compare dQ +
+dK/dV + split with the library's whole backward), the card line, and as
+the last line `{"ok": true, "device": {...}}`. The
 same numbers go to `chiprun_out/chip_smoke_report.json`.
 """
 
@@ -176,7 +180,9 @@ def max_abs(a, b) -> float:
 # instructions (HGMMA), or at least warp-level ones (HMMA).
 TENSOR_CORE_KERNELS = {
     "flash_fwd": ("flash_fwd_tc_kernel", "flash_fwd_tc_split_kernel"),
-    "flash_bwd": ("flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel")}
+    "flash_bwd": ("flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel",
+                  "flash_bwd_dkv_tc_split_kernel",
+                  "flash_bwd_dq_tc_split_kernel")}
 
 
 def _cuobjdump() -> str:
@@ -375,14 +381,17 @@ def _scaled_err(got, want) -> float:
 
 
 def check_flash_bwd(torch, attention_ops, device, gen):
-  """dQ and dK/dV kernels against `_flash_backward_plain`, then the
+  """dQ and dK/dV kernels against `_flash_backward_plain` (and the f32
+  split pass against `_flash_bwd_split_plain`, bit for bit), then the
   autograd Function against autograd through `attention` (f32, T 1000).
   Returns, per kernel ('dq'; 'dkv' for dK and dV together) and dtype, the
-  worst absolute, scaled and relative-norm errors."""
+  worst absolute, scaled and relative-norm errors; the worst absolute
+  error of the split pass's planes as 'split'."""
   worst = {kernel: {"float32": 0.0, "bfloat16": 0.0}
            for kernel in ("dq", "dkv")}
   scaled = {kernel: {"float32": 0.0, "bfloat16": 0.0} for kernel in worst}
   rel = {kernel: {"float32": 0.0, "bfloat16": 0.0} for kernel in worst}
+  worst["split"] = {"float32": 0.0}  # the f32 split pass's planes
   fb = attention_ops.flash_backward
   for bh, t, hd in FLASH_SHAPES:
     for causal in (True, False):
@@ -390,17 +399,30 @@ def check_flash_bwd(torch, attention_ops, device, gen):
         q3, k3, v3, do3 = _padded_inputs(torch, gen, device, 4, bh, t, hd,
                                          dtype)
         out, lse = attention_ops.flash_forward(q3, k3, v3, causal, t)
-        before = (fb.launches_dq, fb.launches_dkv)
+        f32 = dtype == torch.float32
+        before = (fb.launches_dq, fb.launches_dkv, fb.launches_split)
         grads = attention_ops.flash_backward(q3, k3, v3, out, lse, do3,
                                              causal, t)
         torch.cuda.synchronize()
-        if (fb.launches_dq, fb.launches_dkv) != (before[0] + 1,
-                                                 before[1] + 1):
-          raise RuntimeError("flash backward did not launch both kernels")
+        if (fb.launches_dq, fb.launches_dkv, fb.launches_split) != (
+            before[0] + 1, before[1] + 1, before[2] + int(f32)):
+          raise RuntimeError("flash backward did not launch its kernels "
+                             "(f32: the split pass, dQ and dK/dV)")
+        if f32 and causal:  # the split pass does not depend on causal
+          planes = attention_ops._launch_flash_bwd_split(q3, k3, v3, do3)
+          want_planes = attention_ops._flash_bwd_split_plain(q3, k3, v3, do3)
+          split_err = max(max_abs(g, w) for g, w in zip(planes, want_planes))
+          worst["split"]["float32"] = max(worst["split"]["float32"], split_err)
+          if not all(torch.equal(g, w) for g, w in zip(planes, want_planes)):
+            raise RuntimeError(f"split pass differs from its plain version "
+                               f"(BH={bh} T={t} D={hd}): max |err| "
+                               f"{split_err}")
+          log(f"flash bwd split pass BH={bh} T={t} D={hd}: planes equal "
+              f"the plain version's bit for bit")
+          del planes, want_planes
         want = attention_ops._flash_backward_plain(q3, k3, v3, out, lse, do3,
                                                    causal, t)
         name = str(dtype).replace("torch.", "")
-        f32 = dtype == torch.float32
         tol = F32_TOL if f32 else BWD_BF16_TOL
         rel_tol = REL_NORM_TOL if f32 else BWD_BF16_REL_NORM_TOL
         errs = [_scaled_err(g, w) for g, w in zip(grads, want)]
@@ -649,9 +671,22 @@ def run_train(torch, np, port, device):
     batch = next(generator.create_dataset("train"))
     features = {k: v.to(device) for k, v in batch["features"].items()}
     labels = {k: v.to(device) for k, v in batch["labels"].items()}
-    results = {backend: train_step.loss_and_grads(model, params, features,
-                                                  labels)
-               for backend, model in models.items()}
+    # The f32 path: counts to 0 just before the flash step, read after.
+    fwd.launches = bwd.launches_dq = bwd.launches_dkv = 0
+    bwd.launches_split = 0
+    results = {"flash": train_step.loss_and_grads(models["flash"], params,
+                                                  features, labels)}
+    torch.cuda.synchronize()
+    f32_launches = {"flash_fwd": fwd.launches, "flash_bwd_dq": bwd.launches_dq,
+                    "flash_bwd_dkv": bwd.launches_dkv,
+                    "flash_bwd_split": bwd.launches_split}
+    f32_blocks = WIDTHS["num_blocks"]
+    log(f"f32 flash train step launches {f32_launches}")
+    if f32_launches != {k: f32_blocks for k in f32_launches}:
+      raise RuntimeError(f"the f32 flash step must launch each kernel "
+                         f"{f32_blocks} times, got {f32_launches}")
+    results["reference"] = train_step.loss_and_grads(models["reference"],
+                                                     params, features, labels)
     (loss_f, _, grads_f), (loss_r, _, grads_r) = (results["flash"],
                                                   results["reference"])
     loss_err = abs(float(loss_f) - float(loss_r)) / abs(float(loss_r))
@@ -693,7 +728,8 @@ def run_train(torch, np, port, device):
   finally:
     config.clear_config()
     shutil.rmtree(model_dir, ignore_errors=True)
-  return {"launches": launches, "steps_20_wall_s": first_wall,
+  return {"launches": launches, "f32_step_launches": f32_launches,
+          "steps_20_wall_s": first_wall,
           "loss_step_1": logged[0][1], "loss_step_30": resumed[-1][1],
           "flash_vs_reference_loss_rel_err": loss_err,
           "flash_vs_reference_grad_scaled_err": grad_err,
@@ -701,11 +737,12 @@ def run_train(torch, np, port, device):
 
 
 def time_train_step(torch, train_step, sequence_model, input_generators,
-                    device, steps: int = 10):
-  """Median wall time of the full-width bf16 train step (host clock
-  around a step that ends in a synchronize), fresh parameters."""
+                    device, use_bfloat16: bool = True, steps: int = 10):
+  """Median wall time of the full-width train step (host clock around a
+  step that ends in a synchronize), fresh parameters; bf16 compute on f32
+  masters, or f32 throughout (the f32 flash kernels)."""
   model = sequence_model.SequenceRegressionModel(
-      attention_backend="flash", use_bfloat16=True, **WIDTHS)
+      attention_backend="flash", use_bfloat16=use_bfloat16, **WIDTHS)
   state = train_step.create_train_state(
       model, torch.Generator().manual_seed(0), device)
   generator = input_generators.DefaultRandomInputGenerator(batch_size=2,
@@ -726,7 +763,8 @@ def time_train_step(torch, train_step, sequence_model, input_generators,
   ms = 1e3 * sorted(times)[len(times) // 2]
   return {"step_ms_median": ms, "examples_per_s": 2 / (ms / 1e3),
           "steps_timed": steps, "batch": 2,
-          "shape": "B=2 T=4096 hidden=512 blocks=2 heads=8 bf16"}
+          "shape": "B=2 T=4096 hidden=512 blocks=2 heads=8 "
+                   + ("bf16" if use_bfloat16 else "f32")}
 
 
 # -- phase 5: timings ----------------------------------------------------------
@@ -814,15 +852,20 @@ def time_flash(torch, attention_ops, device, gen, timer, b, dtype):
 
 def time_flash_bwd(torch, attention_ops, device, gen, timer, b, dtype):
   """The causal dQ and dK/dV kernels at the train step's shape, each
-  timed alone; the plain version and `torch.autograd.grad` of
-  `scaled_dot_product_attention` (backward only) cover both at once."""
+  timed alone (in f32 on the split pass's planes, with the split pass
+  timed alone too, as its own row and as `split_ms` of both); the plain
+  version and `torch.autograd.grad` of `scaled_dot_product_attention`
+  (backward only) cover dq, dk and dv at once, so in f32 the rows also
+  carry dQ + dK/dV + split (`backward_ms`) against the library."""
   h, t, d = 8, 4096, 64
   q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device=device)
                  .to(dtype) for _ in range(4))
   q3, k3, v3, do3 = (x.reshape(b * h, t, d) for x in (q, k, v, do))
   out, lse = attention_ops.flash_forward(q3, k3, v3, True, t)
   delta = (do3.float() * out.float()).sum(dim=-1).contiguous()
-  args = (q3, k3, v3, do3, lse, delta, True, t)
+  f32 = dtype == torch.float32
+  split = lambda: attention_ops._launch_flash_bwd_split(q3, k3, v3, do3)
+  args = (q3, k3, v3, do3, lse, delta, True, t, split() if f32 else None)
   dq_ms = timer.ms(lambda: attention_ops._launch_flash_bwd_dq(*args))
   dkv_ms = timer.ms(lambda: attention_ops._launch_flash_bwd_dkv(*args))
   plain_ms = timer.ms(lambda: attention_ops._flash_backward_plain(
@@ -833,7 +876,7 @@ def time_flash_bwd(torch, attention_ops, device, gen, timer, b, dtype):
   library_ms = timer.ms(lambda: torch.autograd.grad(sdpa, leaves, do,
                                                     retain_graph=True))
   name = str(dtype).replace("torch.", "")
-  elem = 4 if dtype == torch.float32 else 2
+  elem = 4 if f32 else 2
   product = 2 * b * h * t * t * d // 2  # one causal [T, T] x D product
   rows = 2 * b * h * t * 4  # lse and delta, f32
   shape = f"B={b} H={h} T={t} D={d} causal {name}"
@@ -847,6 +890,19 @@ def time_flash_bwd(torch, attention_ops, device, gen, timer, b, dtype):
         **bound(moved, products * product, name),
         "library_ms": library_ms, "shape": shape,
         "plain_and_library_cover": "dq, dk and dv together"}
+  if f32:
+    split_ms = timer.ms(split)
+    backward_ms = dq_ms + dkv_ms + split_ms
+    for row in out_rows.values():
+      row.update(split_ms=split_ms, backward_ms=backward_ms,
+                 backward_vs_library=backward_ms / library_ms)
+    # q, k, v, dO read once; 8 row planes and 6 transposed planes written.
+    moved = 4 * b * h * t * d * 4 + 14 * b * h * t * max(d, 32) * 4
+    out_rows["flash_bwd_split"] = {
+        "ms": split_ms, "plain_ms": timer.ms(
+            lambda: attention_ops._flash_bwd_split_plain(q3, k3, v3, do3),
+            iters=5),
+        **bound(moved, 0, name), "library_ms": None, "shape": shape}
   return out_rows
 
 
@@ -931,13 +987,16 @@ def main() -> int:
            "flash_fwd f32 B=2": {**time_flash(torch, attention_ops, device,
                                               gen, timer, 2, torch.float32),
                                  "design": "wgmma+tma, 3xtf32"}}
-  for name, row in time_flash_bwd(torch, attention_ops, device, gen, timer, 2,
-                                  torch.float32).items():
-    extra[f"{name} f32 B=2"] = {**row, "design": "cuda-cores"}
+  bwd_f32_t = time_flash_bwd(torch, attention_ops, device, gen, timer, 2,
+                             torch.float32)
   torch.cuda.empty_cache()
   train_report["step"] = time_train_step(torch, train_step, sequence_model,
                                          input_generators, device)
   log(f"train step: {train_report['step']}")
+  train_report["step_f32"] = time_train_step(
+      torch, train_step, sequence_model, input_generators, device,
+      use_bfloat16=False)
+  log(f"f32 train step: {train_report['step_f32']}")
   fwd_src = "tensor2robot_tpu_torch/csrc/flash_fwd.cu"
   bwd_src = "tensor2robot_tpu_torch/csrc/flash_bwd.cu"
   kernels = [
@@ -963,33 +1022,37 @@ def main() -> int:
        "max_abs_err": flash_err["bfloat16"],
        "rel_norm_err": flash_rel["bfloat16"],
        "sass_mma": sass["flash_fwd_tc_kernel"], **fwd_bf16_t},
-      {"name": "flash_bwd_dq", "route": "cuda", "design": "wgmma+tma",
-       "source": f"{bwd_src} (flash_bwd_dq_tc_kernel; f32: "
-                 f"flash_bwd_dq_kernel, cuda-cores)",
-       "replaces": "tensor2robot_tpu/ops/attention.py:186",
-       "launches": train_report["launches"]["flash_bwd_dq"],
-       "max_abs_err": bwd_err["dq"]["bfloat16"],
-       "max_abs_err_f32": bwd_err["dq"]["float32"],
-       "max_scaled_err_f32": bwd_scaled["dq"]["float32"],
-       "max_scaled_err_bf16": bwd_scaled["dq"]["bfloat16"],
-       "rel_norm_err_f32": bwd_rel["dq"]["float32"],
-       "rel_norm_err_bf16": bwd_rel["dq"]["bfloat16"],
-       "sass_mma": sass["flash_bwd_dq_tc_kernel"],
-       **bwd_t["flash_bwd_dq"]},
-      {"name": "flash_bwd_dkv", "route": "cuda", "design": "wgmma+tma",
-       "source": f"{bwd_src} (flash_bwd_dkv_tc_kernel; f32: "
-                 f"flash_bwd_dkv_kernel, cuda-cores)",
-       "replaces": "tensor2robot_tpu/ops/attention.py:223",
-       "launches": train_report["launches"]["flash_bwd_dkv"],
-       "max_abs_err": bwd_err["dkv"]["bfloat16"],
-       "max_abs_err_f32": bwd_err["dkv"]["float32"],
-       "max_scaled_err_f32": bwd_scaled["dkv"]["float32"],
-       "max_scaled_err_bf16": bwd_scaled["dkv"]["bfloat16"],
-       "rel_norm_err_f32": bwd_rel["dkv"]["float32"],
-       "rel_norm_err_bf16": bwd_rel["dkv"]["bfloat16"],
-       "sass_mma": sass["flash_bwd_dkv_tc_kernel"],
-       **bwd_t["flash_bwd_dkv"]},
   ]
+  # The backward kernels, bf16 (the training phase's main path) and f32
+  # (its f32 flash-vs-reference step).
+  for kernel, replaces, errs in (("dq", 186, "dq"), ("dkv", 223, "dkv")):
+    for dtype, design, timed, launches in (
+        ("bfloat16", "wgmma+tma", bwd_t, train_report["launches"]),
+        ("float32", "wgmma+tma, 3xtf32", bwd_f32_t,
+         train_report["f32_step_launches"])):
+      tc_kernel = (f"flash_bwd_{kernel}_tc_kernel" if dtype == "bfloat16"
+                   else f"flash_bwd_{kernel}_tc_split_kernel")
+      kernels.append({
+          "name": f"flash_bwd_{kernel}" + ("" if dtype == "bfloat16"
+                                           else "_f32"),
+          "route": "cuda", "design": design,
+          "source": f"{bwd_src} ({tc_kernel})",
+          "replaces": f"tensor2robot_tpu/ops/attention.py:{replaces}",
+          "launches": launches[f"flash_bwd_{kernel}"],
+          "max_abs_err": bwd_err[errs][dtype],
+          "max_scaled_err": bwd_scaled[errs][dtype],
+          "rel_norm_err": bwd_rel[errs][dtype],
+          "sass_mma": sass[tc_kernel], **timed[f"flash_bwd_{kernel}"]})
+  # The f32 backward's operand pass, run before its dQ and dK/dV.
+  kernels.append({
+      "name": "flash_bwd_split", "route": "cuda", "design": "cuda-cores",
+      "source": f"{bwd_src} (flash_bwd_split_kernel)",
+      "replaces": "tensor2robot_tpu/ops/attention.py:186",
+      "serves": "flash_bwd_dq_f32 and flash_bwd_dkv_f32 (attention.py:186 "
+                "and :223): their tf32 planes",
+      "launches": train_report["f32_step_launches"]["flash_bwd_split"],
+      "max_abs_err": bwd_err["split"]["float32"],
+      **bwd_f32_t["flash_bwd_split"]})
   report = {"card": card, "build_s": build_s, "kernels": kernels,
             "extra_timings": extra, "slice": slice_report,
             "train": train_report}

@@ -34,9 +34,10 @@ from tensor2robot_tpu_torch.utils import config
 _CONFIG = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configs", "train_longcontext_flash.gin")
 # Prefixes of the device-kernel names of csrc/flash_fwd.cu and
-# csrc/flash_bwd.cu, shared by every kernel of each (flash_fwd_tc_kernel
-# and flash_fwd_tc_split_kernel; flash_bwd_dq_tc_kernel and
-# flash_bwd_dq_kernel; flash_bwd_dkv_tc_kernel and flash_bwd_dkv_kernel).
+# csrc/flash_bwd.cu, shared by both designs of each (bf16 and f32:
+# flash_fwd_tc_kernel and flash_fwd_tc_split_kernel; flash_bwd_dq_tc_kernel
+# and flash_bwd_dq_tc_split_kernel; flash_bwd_dkv_tc_kernel and
+# flash_bwd_dkv_tc_split_kernel).
 _FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 

@@ -319,19 +319,6 @@ struct SplitConfig {
                                   + 3 * kTileKV + 64;
 };
 
-// Splits the four floats at `p` in place into their big parts and writes
-// the small parts to `small`.
-__device__ __forceinline__ void split4_in_place(uint8_t* p, uint8_t* small) {
-  const uint4 x = *reinterpret_cast<const uint4*>(p);
-  uint4 big, lo;
-  split_tf32(__uint_as_float(x.x), big.x, lo.x);
-  split_tf32(__uint_as_float(x.y), big.y, lo.y);
-  split_tf32(__uint_as_float(x.z), big.z, lo.z);
-  split_tf32(__uint_as_float(x.w), big.w, lo.w);
-  *reinterpret_cast<uint4*>(p) = big;
-  *reinterpret_cast<uint4*>(small) = lo;
-}
-
 template <int D>
 __global__ void __launch_bounds__(SplitConfig<D>::kThreads, 1)
 flash_fwd_tc_split_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -446,7 +433,7 @@ flash_fwd_tc_split_kernel(const __grid_constant__ CUtensorMap map_q,
       const int d0 = (i / kKeys) * 4;
       const float4 x = *reinterpret_cast<const float4*>(
           v_t + (d0 / 32) * C::kBlockKV + swz128_f32(key, d0 % 32));
-      const int kp = (key & ~7) | ((key & 7) >> 1) | ((key & 1) << 2);
+      const int kp = perm8(key);
       const int block = (kp / 32) * C::kBlockVt;
       const float xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll

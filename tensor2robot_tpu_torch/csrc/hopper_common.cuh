@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash kernels:
-// shared-memory matrix descriptors for 128-byte-swizzled tiles, warpgroup
-// matrix multiply (`wgmma`) wrappers for bf16 and tf32, `mbarrier` waits,
-// the TMA 3-D tile load and its host-side tensor map (bf16 or f32), the
-// bf16 hi/lo split of accumulator fragments and the tf32 big/small split
-// of f32 values (3xTF32).
+// shared-memory matrix descriptors for 128-byte-swizzled tiles (and
+// K-major 64-byte ones), warpgroup matrix multiply (`wgmma`) wrappers for
+// bf16 and tf32, `mbarrier` waits, the TMA 3-D tile load and its
+// host-side tensor map (bf16 or f32), the bf16 hi/lo split of accumulator
+// fragments, the tf32 big/small split of f32 values (3xTF32) and the
+// permutation (`perm8`) that makes an f32 accumulator a tf32 A fragment.
 //
 // Tile layout used throughout: a tile of R rows is stored as column blocks
 // of 128 bytes (64 bf16 or 32 f32 columns), block h at tile + h * R * 128
@@ -51,6 +52,22 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr,
          | (static_cast<uint64_t>((half_bytes >> 4) & 0x3FFF) << 16)
          | (static_cast<uint64_t>(1024 >> 4) << 32)
          | (static_cast<uint64_t>(1) << 62);
+}
+
+// Descriptor of a K-major operand stored in rows of 64 bytes (16 tf32),
+// 64B-swizzled as TMA writes it (`encode_bhtd_box` with swizzle 64):
+// stride between 8-row groups 512 bytes. A k-step of 8 tf32 is 32 bytes.
+__device__ __forceinline__ uint64_t desc_kmajor_sw64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(1) << 16)             // LBO: unused
+         | (static_cast<uint64_t>(512 >> 4) << 32)      // SBO
+         | (static_cast<uint64_t>(2) << 62);            // 64B swizzle
+}
+// K-major descriptor of a tile of `row_bytes` (128 or 64) rows.
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t desc_kmajor_rows(uint32_t addr) {
+  static_assert(kRowBytes == 128 || kRowBytes == 64, "128 or 64-byte rows");
+  return kRowBytes == 128 ? desc_kmajor(addr) : desc_kmajor_sw64(addr);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -207,6 +224,49 @@ __device__ __forceinline__ void wgmma_tf32_ss_m64n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// D[64 x 32] (+)= A[64 x 8] * B[8 x 32], tf32; A and B from shared memory,
+// both K-major. scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32_ss_m64n32(float (&d)[16], uint64_t a,
+                                                     uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D[64 x 16] (+)= A[64 x 8] * B[8 x 16], tf32; A and B from shared memory,
+// both K-major. scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32_ss_m64n16(float (&d)[8], uint64_t a,
+                                                     uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// The tf32 SS products chosen by accumulator size (N = 16, 32 or 64).
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[8], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  wgmma_tf32_ss_m64n16(d, a, b, scale_d);
+}
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  wgmma_tf32_ss_m64n32(d, a, b, scale_d);
+}
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  wgmma_tf32_ss_m64n64(d, a, b, scale_d);
+}
+
 // D[64 x 32] += A[64 x 8] * B[8 x 32], tf32; A from registers (a tf32
 // fragment), B from shared memory, K-major.
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
@@ -277,6 +337,32 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
   big = tf32_rna(x);
   small = tf32_rna(x - __uint_as_float(big));
+}
+// Splits the four floats at `p` in place into their big parts and writes
+// the small parts to `small`.
+__device__ __forceinline__ void split4_in_place(uint8_t* p, uint8_t* small) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  uint4 big, lo;
+  split_tf32(__uint_as_float(x.x), big.x, lo.x);
+  split_tf32(__uint_as_float(x.y), big.y, lo.y);
+  split_tf32(__uint_as_float(x.z), big.z, lo.z);
+  split_tf32(__uint_as_float(x.w), big.w, lo.w);
+  *reinterpret_cast<uint4*>(p) = big;
+  *reinterpret_cast<uint4*>(small) = lo;
+}
+
+// The key (or query) permutation of a transposed B operand. The f32
+// accumulator of a product holds columns 2c and 2c+1 of each group of 8
+// (c = lane % 4); the tf32 A fragment of the next product takes K indices
+// c and c+4. Storing index j of each 8 at position (j >> 1) + 4 (j & 1)
+// (order 0 2 4 6 1 3 5 7) makes the accumulator's registers that fragment
+// as they stand: a[0..3] = d[4kk + 0, 2, 1, 3].
+__device__ __forceinline__ int perm8(int j) {
+  return (j & ~7) | ((j & 7) >> 1) | ((j & 1) << 2);
+}
+// Its inverse: the index stored at position p.
+__device__ __forceinline__ int unperm8(int p) {
+  return (p & ~7) | ((p & 3) << 1) | ((p >> 2) & 1);
 }
 
 // -- shared memory shared by generic and async proxies ---------------------------
@@ -422,13 +508,16 @@ inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // A 3-D map over a contiguous [bh, t, d] tensor of bf16 (elem_bytes 2) or
-// f32 (4), box (128 bytes of columns: 64 bf16 or 32 f32, `box_rows` rows,
-// 1 head), 128B swizzle. Reads past t or d fill zeros within the head: a
-// tile that runs past t never reads the next head.
-inline cudaError_t encode_bhtd(CUtensorMap* map, const void* base, int bh,
-                               int t, int d, int box_rows, int elem_bytes) {
+// f32 (4), box (`swizzle_bytes` bytes of columns, `box_rows` rows, 1 head),
+// swizzled by 128 or 64 bytes: box rows of that width, as `desc_kmajor` or
+// `desc_kmajor_sw64` read them. Reads past t or d fill zeros within the
+// head: a tile that runs past t never reads the next head.
+inline cudaError_t encode_bhtd_box(CUtensorMap* map, const void* base, int bh,
+                                   int t, int d, int box_rows, int elem_bytes,
+                                   int swizzle_bytes) {
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0) return cudaErrorMisalignedAddress;
   if (elem_bytes != 2 && elem_bytes != 4) return cudaErrorInvalidValue;
+  if (swizzle_bytes != 128 && swizzle_bytes != 64) return cudaErrorInvalidValue;
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
@@ -436,17 +525,27 @@ inline cudaError_t encode_bhtd(CUtensorMap* map, const void* base, int bh,
                               static_cast<cuuint64_t>(bh)};
   const cuuint64_t row_bytes = static_cast<cuuint64_t>(d) * elem_bytes;
   const cuuint64_t strides[2] = {row_bytes, static_cast<cuuint64_t>(t) * row_bytes};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / elem_bytes),
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(swizzle_bytes / elem_bytes),
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   CUresult r = encode(map,
                       elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                       3, const_cast<void*>(base), dims, strides, box, elem,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                           : CU_TENSOR_MAP_SWIZZLE_64B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 3-D map over a contiguous [bh, t, d] tensor of bf16 (elem_bytes 2) or
+// f32 (4), box (128 bytes of columns: 64 bf16 or 32 f32, `box_rows` rows,
+// 1 head), 128B swizzle.
+inline cudaError_t encode_bhtd(CUtensorMap* map, const void* base, int bh,
+                               int t, int d, int box_rows, int elem_bytes) {
+  return encode_bhtd_box(map, base, bh, t, d, box_rows, elem_bytes, 128);
 }
 
 }  // namespace t2r_hopper

@@ -40,8 +40,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "decode_tick": {"t2r_decode_tick": [_P] * 9 + [_I] * 4 + [_P]},
     "flash_fwd": {"t2r_flash_fwd": [_P] * 5 + [_I] * 6 + [_P]},
-    "flash_bwd": {"t2r_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_P],
-                  "t2r_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_P]},
+    "flash_bwd": {"t2r_flash_bwd_split": [_P] * 6 + [_I] * 3 + [_P],
+                  "t2r_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [_P],
+                  "t2r_flash_bwd_dkv": [_P] * 10 + [_I] * 6 + [_P]},
 }
 
 _lock = threading.Lock()

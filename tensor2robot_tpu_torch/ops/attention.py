@@ -14,8 +14,9 @@ Counterpart of `tensor2robot_tpu.ops.attention`. All functions take
   CUDA kernel (`csrc/flash_fwd.cu`) on a CUDA tensor, its plain PyTorch
   version (`_flash_forward_plain`) on a CPU tensor.
 * `flash_backward` — (dq, dk, dv) over [batch*heads, T, D]: the dQ and
-  dK/dV kernels (`csrc/flash_bwd.cu`) on a CUDA tensor, its plain PyTorch
-  version (`_flash_backward_plain`) on a CPU tensor.
+  dK/dV kernels (`csrc/flash_bwd.cu`; in f32 after its split pass) on a
+  CUDA tensor, its plain PyTorch version (`_flash_backward_plain`) on a
+  CPU tensor.
 
 Ring and Ulysses sequence parallelism are not ported yet.
 """
@@ -193,6 +194,65 @@ def _flash_backward_plain(q3: torch.Tensor, k3: torch.Tensor,
   return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+  """f32 `x` rounded to TF32 (10 mantissa bits), to nearest with ties away
+  from zero, as `cvt.rna.tf32.f32` rounds: on the int32 view, add half of
+  the 13 dropped bits and clear them."""
+  bits = x.contiguous().view(torch.int32)
+  return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+# The index that position p of each group of 8 of a transposed plane
+# holds (`perm8` in csrc/hopper_common.cuh): index j sits at position
+# (j >> 1) + 4 (j & 1), so that a score accumulator's registers are the
+# tf32 A fragment of the next product.
+_PERM8 = (0, 2, 4, 6, 1, 3, 5, 7)
+# Order of the planes in the split pass's outputs (`RowPlane` and
+# `ColPlane` in csrc/flash_bwd.cu).
+_ROW_PLANES = ("q_big", "q_small", "k_big", "k_small", "v_big", "v_small",
+               "do_big", "do_small")
+_COL_PLANES = ("qt_big", "qt_small", "dot_big", "dot_small", "kt_big",
+               "kt_small")
+
+
+def _split_plane_shapes(bh: int, t: int, d: int):
+  """Shapes of the split pass's outputs: rows [8, BH, T, DP] and cols
+  [6, BH, DP, T8], DP = max(D, 32) (head_dim 16 is computed at 32), T8 =
+  T rounded up to 8."""
+  dp, t8 = max(d, 32), -(-t // 8) * 8
+  return (len(_ROW_PLANES), bh, t, dp), (len(_COL_PLANES), bh, dp, t8)
+
+
+def _flash_bwd_split_plain(q3: torch.Tensor, k3: torch.Tensor,
+                           v3: torch.Tensor, do: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The plain version of the f32 backward's split pass
+  (`flash_bwd_split_kernel`): every f32 operand x as big = tf32(x) and
+  small = tf32(x - big), columns past D zero. Returns (rows, cols): the
+  planes of Q, K, V and dO ([8, BH, T, DP], `_ROW_PLANES`), and those of
+  Q^T, dO^T and K^T ([6, BH, DP, T8], `_COL_PLANES`), whose T index is
+  permuted by `_PERM8` in each group of 8, positions past T zero."""
+  bh, t, d = q3.shape
+  (_, _, _, dp), (_, _, _, t8) = _split_plane_shapes(bh, t, d)
+  parts = {}
+  for name, x in (("q", q3), ("k", k3), ("v", v3), ("do", do)):
+    x = torch.nn.functional.pad(x.float(), (0, dp - d))
+    big = _tf32(x)
+    parts[name] = (big, _tf32(x - big))
+  rows = torch.stack([p for name in ("q", "k", "v", "do")
+                      for p in parts[name]])
+  order = torch.tensor([8 * (i // 8) + _PERM8[i % 8] for i in range(t8)],
+                       device=q3.device)
+
+  def transposed(x):
+    x = torch.nn.functional.pad(x, (0, 0, 0, t8 - t))
+    return x[:, order, :].transpose(1, 2)
+
+  cols = torch.stack([transposed(p) for name in ("q", "do", "k")
+                      for p in parts[name]])
+  return rows, cols.contiguous()
+
+
 def flash_backward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                    out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                    causal: bool, valid_len: int
@@ -203,8 +263,10 @@ def flash_backward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
 
   delta = rowsum(dO * O) is a torch op, as in the JAX package. A CPU
   tensor runs the plain version; a CUDA tensor launches the dQ and the
-  dK/dV kernels of `csrc/flash_bwd.cu` or raises.
-  `flash_backward.launches_dq` and `.launches_dkv` count launches.
+  dK/dV kernels of `csrc/flash_bwd.cu` or raises. In f32 the split pass
+  (`_launch_flash_bwd_split`) runs first, and both kernels read its
+  planes. `flash_backward.launches_dq`, `.launches_dkv` and
+  `.launches_split` count launches.
   """
   if _check_flash_operands("flash_backward", (q3, k3, v3, out, do),
                            valid_len) == "cpu":
@@ -215,27 +277,54 @@ def flash_backward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                      f"{tuple(lse.shape)}")
   q3, k3, v3, do, lse = (x.contiguous() for x in (q3, k3, v3, do, lse))
   delta = (do.float() * out.float()).sum(dim=-1).contiguous()  # [BH, T]
-  dq = _launch_flash_bwd_dq(q3, k3, v3, do, lse, delta, causal, valid_len)
+  planes = (_launch_flash_bwd_split(q3, k3, v3, do)
+            if q3.dtype == torch.float32 else None)
+  dq = _launch_flash_bwd_dq(q3, k3, v3, do, lse, delta, causal, valid_len,
+                            planes)
   dk, dv = _launch_flash_bwd_dkv(q3, k3, v3, do, lse, delta, causal,
-                                 valid_len)
+                                 valid_len, planes)
   return dq, dk, dv
 
 
-def _bwd_args(q3, k3, v3, do, lse, delta, causal, valid_len):
-  """The pointer operands and the trailing ints + stream of both
-  backward launch functions (inputs already validated, contiguous)."""
+def _launch_flash_bwd_split(q3, k3, v3, do):
+  """Launches the split pass of `csrc/flash_bwd.cu` on f32 CUDA operands
+  (already validated, contiguous); counts the launch. Returns (rows,
+  cols), the planes `_flash_bwd_split_plain` computes."""
   bh, t, d = q3.shape
+  rows_shape, cols_shape = _split_plane_shapes(bh, t, d)
+  rows = torch.empty(rows_shape, dtype=torch.float32, device=q3.device)
+  cols = torch.empty(cols_shape, dtype=torch.float32, device=q3.device)
+  status = _kernels.library("flash_bwd").t2r_flash_bwd_split(
+      q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do.data_ptr(),
+      rows.data_ptr(), cols.data_ptr(), bh, t, d,
+      torch.cuda.current_stream(q3.device).cuda_stream)
+  _kernels.check("flash_bwd", status, "t2r_flash_bwd_split")
+  flash_backward.launches_split += 1
+  return rows, cols
+
+
+def _bwd_args(q3, k3, v3, do, lse, delta, causal, valid_len, planes):
+  """The pointer operands and the trailing ints + stream of both
+  backward launch functions (inputs already validated, contiguous;
+  `planes` the split pass's (rows, cols) in f32, None in bf16)."""
+  bh, t, d = q3.shape
+  f32 = q3.dtype == torch.float32
+  if f32 != (planes is not None):
+    raise ValueError("the f32 backward kernels take the split pass's planes "
+                     "and the bf16 ones none")
+  rows, cols = (p.data_ptr() for p in planes) if f32 else (None, None)
   operands = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do.data_ptr(),
-              lse.data_ptr(), delta.data_ptr())
-  common = (bh, t, d, int(valid_len), int(bool(causal)),
-            0 if q3.dtype == torch.float32 else 1,
+              lse.data_ptr(), delta.data_ptr(), rows, cols)
+  common = (bh, t, d, int(valid_len), int(bool(causal)), 0 if f32 else 1,
             torch.cuda.current_stream(q3.device).cuda_stream)
   return operands, common
 
 
-def _launch_flash_bwd_dq(q3, k3, v3, do, lse, delta, causal, valid_len):
+def _launch_flash_bwd_dq(q3, k3, v3, do, lse, delta, causal, valid_len,
+                         planes):
   """Launches the dQ kernel of `csrc/flash_bwd.cu`; counts the launch."""
-  operands, common = _bwd_args(q3, k3, v3, do, lse, delta, causal, valid_len)
+  operands, common = _bwd_args(q3, k3, v3, do, lse, delta, causal, valid_len,
+                               planes)
   dq = torch.empty_like(q3)
   status = _kernels.library("flash_bwd").t2r_flash_bwd_dq(
       *operands, dq.data_ptr(), *common)
@@ -244,9 +333,11 @@ def _launch_flash_bwd_dq(q3, k3, v3, do, lse, delta, causal, valid_len):
   return dq
 
 
-def _launch_flash_bwd_dkv(q3, k3, v3, do, lse, delta, causal, valid_len):
+def _launch_flash_bwd_dkv(q3, k3, v3, do, lse, delta, causal, valid_len,
+                          planes):
   """Launches the dK/dV kernel of `csrc/flash_bwd.cu`; counts the launch."""
-  operands, common = _bwd_args(q3, k3, v3, do, lse, delta, causal, valid_len)
+  operands, common = _bwd_args(q3, k3, v3, do, lse, delta, causal, valid_len,
+                               planes)
   dk, dv = torch.empty_like(k3), torch.empty_like(v3)
   status = _kernels.library("flash_bwd").t2r_flash_bwd_dkv(
       *operands, dk.data_ptr(), dv.data_ptr(), *common)
@@ -257,6 +348,7 @@ def _launch_flash_bwd_dkv(q3, k3, v3, do, lse, delta, causal, valid_len):
 
 flash_backward.launches_dq = 0
 flash_backward.launches_dkv = 0
+flash_backward.launches_split = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -294,9 +386,9 @@ def _pow2_floor(n: int) -> int:
 # Minimum block edge (the JAX package's hardware tile floor, kept so both
 # packages pad a given T to the same length).
 _MIN_BLOCK = 8
-# The CUDA-core kernels' query/key tile (csrc/flash_fwd.cu kBlockM /
-# kBlockN). The tensor-core kernels' 128-row tiles take any T: their
-# TMA loads fill rows past T with zeros, per head.
+# The default block edge of `flash_attention`, which pads T to a multiple
+# of it (the JAX package pads to its blocks the same way). The kernels
+# take any T: their TMA loads fill rows past T with zeros, per head.
 _KERNEL_TILE = 64
 
 

@@ -199,3 +199,135 @@ def test_3xtf32_forward_meets_the_f32_limit(f32_problem):
 
 def test_one_tf32_product_fails_the_f32_limit(f32_problem):
   assert max(_forward_errors(f32_problem, _product_1x)) > chip_smoke.F32_TOL
+
+
+# -- f32 backward: 3xTF32 --------------------------------------------------------
+#
+# The f32 dQ and dK/dV kernels (`csrc/flash_bwd.cu`) run every product as
+# 3xTF32 on the split pass's planes, and add each streamed tile's dQ, dK
+# or dV contribution (32 keys or queries) into f32 sums on the CUDA cores.
+# Emulated here on f32 inputs against the f64 function, with
+# `chip_smoke.py`'s f32 backward limits: scaled <= F32_TOL and relative
+# 2-norm <= REL_NORM_TOL.
+
+TILE = 32  # keys (dQ) or queries (dK/dV) per streamed tile
+
+
+@pytest.fixture(scope="module")
+def f32_bwd_problem():
+  rs = np.random.RandomState(2)
+  q, k, v, do = (torch.from_numpy(rs.randn(BH, T, D).astype(np.float32))
+                 for _ in range(4))
+  out, lse = attention._flash_forward_plain(q, k, v, True, T)
+  return q, k, v, do, out, lse, _backward_f64(q, k, v, do)
+
+
+def _backward_f64(q, k, v, do):
+  """dQ, dK and dV of causal attention, in f64."""
+  q, k, v, do = (x.double() for x in (q, k, v, do))
+  scale = 1.0 / math.sqrt(D)
+  s = torch.einsum("bqd,bkd->bqk", q, k) * scale
+  s = s.masked_fill(~attention._flash_valid(T, True, T, q.device),
+                    float("-inf"))
+  p = torch.softmax(s, dim=-1)
+  out = torch.einsum("bqk,bkd->bqd", p, v)
+  delta = (do * out).sum(dim=-1, keepdim=True)
+  ds = p * (torch.einsum("bqd,bkd->bqk", do, v) - delta) * scale
+  return (torch.einsum("bqk,bkd->bqd", ds, k),
+          torch.einsum("bqk,bqd->bkd", ds, q),
+          torch.einsum("bqk,bqd->bkd", p, do))
+
+
+def _backward_emulated(problem, product):
+  """dQ, dK and dV as the kernels compute them: S and dP by `product`; P
+  and dS in f32; each tile's dQ, dK and dV contribution by `product`,
+  added to f32 sums."""
+  q, k, v, do, out, lse, _ = problem
+  scale = 1.0 / math.sqrt(D)
+  delta = (do * out).sum(dim=-1, keepdim=True)
+  s = product(q, k, "bqd,bkd->bqk") * scale
+  s = s.masked_fill(~attention._flash_valid(T, True, T, q.device),
+                    float("-inf"))
+  p = torch.exp(s - lse)
+  ds = p * (product(do, v, "bqd,bkd->bqk") - delta) * scale
+  tiles = [slice(j, j + TILE) for j in range(0, T, TILE)]
+  dq = sum(product(ds[:, :, j], k[:, j], "bqk,bkd->bqd") for j in tiles)
+  dk = sum(product(ds[:, j], q[:, j], "bqk,bqd->bkd") for j in tiles)
+  dv = sum(product(p[:, j], do[:, j], "bqk,bqd->bkd") for j in tiles)
+  return dq, dk, dv
+
+
+def _backward_errors(problem, product):
+  return [_errors(got, want) for got, want in
+          zip(_backward_emulated(problem, product), problem[-1])]
+
+
+def test_3xtf32_backward_meets_the_f32_limits(f32_bwd_problem):
+  for scaled, rel in _backward_errors(f32_bwd_problem, _product_3x):
+    assert scaled <= chip_smoke.F32_TOL
+    assert rel <= chip_smoke.REL_NORM_TOL
+
+
+def test_one_tf32_product_fails_the_f32_backward_limit(f32_bwd_problem):
+  errors = _backward_errors(f32_bwd_problem, _product_1x)
+  assert max(scaled for scaled, _ in errors) > chip_smoke.F32_TOL
+
+
+def test_port_tf32_rounds_as_the_tests_do():
+  x = torch.from_numpy(np.random.RandomState(3).randn(4096).astype(np.float32))
+  assert torch.equal(attention._tf32(x), _tf32(x))
+
+
+# The split pass's planes at a T that is not a multiple of 8 and a head_dim
+# computed at 32.
+SPLIT_BH, SPLIT_T, SPLIT_D = 3, 45, 16
+
+
+@pytest.fixture(scope="module")
+def split_planes():
+  rs = np.random.RandomState(4)
+  sources = [torch.from_numpy(rs.randn(SPLIT_BH, SPLIT_T, SPLIT_D).astype(
+      np.float32) * 10.0 ** rs.uniform(-6, 6, (SPLIT_BH, SPLIT_T, 1)).astype(
+          np.float32)) for _ in range(4)]
+  return sources, attention._flash_bwd_split_plain(*sources)
+
+
+def test_split_planes_rebuild_their_sources(split_planes):
+  (q, k, v, do), (rows, cols) = split_planes
+  assert rows.shape == (8, SPLIT_BH, SPLIT_T, 32)
+  assert cols.shape == (6, SPLIT_BH, 32, 48)
+  assert rows.dtype == cols.dtype == torch.float32
+  for index, x in enumerate((q, k, v, do)):
+    big, small = rows[2 * index], rows[2 * index + 1]
+    for part in (big, small):  # tf32 values: the 13 low bits clear
+      assert (part.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert torch.equal(big, _tf32(big)) and torch.equal(small, _tf32(small))
+    rebuilt = (big.double() + small.double())[..., :SPLIT_D]
+    assert bool(((rebuilt - x.double()).abs()
+                 <= 2.0 ** -21 * x.double().abs()).all())
+    assert big[..., SPLIT_D:].eq(0).all() and small[..., SPLIT_D:].eq(0).all()
+
+
+def test_split_transposes_are_permuted_row_planes(split_planes):
+  _, (rows, cols) = split_planes
+  t8 = cols.shape[-1]
+  # Position p of each group of 8 holds index 0 2 4 6 1 3 5 7, so that
+  # index j sits at (j >> 1) + 4 (j & 1).
+  source = [8 * (p // 8) + (0, 2, 4, 6, 1, 3, 5, 7)[p % 8] for p in range(t8)]
+  assert all(source[(j & ~7) + ((j & 7) >> 1) + 4 * (j & 1)] == j
+             for j in range(t8))
+  for col_index, name in enumerate(attention._COL_PLANES):
+    # "qt_big" is the transpose of "q_big", "dot_small" of "do_small".
+    plane = rows[attention._ROW_PLANES.index(name.replace("t_", "_", 1))]
+    for p, j in enumerate(source):
+      want = plane[:, j, :] if j < SPLIT_T else torch.zeros_like(plane[:, 0])
+      assert torch.equal(cols[col_index][:, :, p], want)
+
+
+def test_bwd_args_pair_planes_with_f32():
+  q = torch.zeros((1, 8, 16))
+  with pytest.raises(ValueError, match="split pass"):
+    attention._bwd_args(q, q, q, q, q, q, True, 8, None)
+  q16 = q.to(torch.bfloat16)
+  with pytest.raises(ValueError, match="split pass"):
+    attention._bwd_args(q16, q16, q16, q16, q, q, True, 8, (q, q))
