@@ -8,15 +8,21 @@ and prints no result):
 
 1. Device: the card's name and power limit (nvidia-smi); the CUDA kernels
    built from `tensor2robot_tpu_torch/csrc/` with nvcc, one process per
-   source, all started together, with ptxas' registers and spills; the
-   matrix instructions of every flash kernel (`cuobjdump -sass`): each
-   instantiation of the tensor-core kernels (the flash forward, dQ and
-   dK/dV, each in bf16 and in f32 by 3xTF32) must hold HGMMA (or HMMA)
-   instructions.
+   source, all started together, with ptxas' registers and spills (the
+   decode tick must not spill at D 16, 32 and 64); the instructions of
+   the built kernels (`cuobjdump -sass`): each instantiation of the
+   tensor-core kernels (the flash forward, dQ and dK/dV, each in bf16 and
+   in f32 by 3xTF32) must hold HGMMA (or HMMA) instructions, and each of
+   the decode tick a bulk copy (UBLKCP).
 2. Kernels against their plain PyTorch versions at the served shapes:
-   the decode tick on an f32 [65, 4096, 8, 64] arena (B = 1 and 8, indices
-   0, tile edges, mixed progress and 4095, pad lanes on the null slot; the
-   update must be in place and every untouched row bit-identical); the
+   the decode tick on an f32 [65, 4096, 8, 64] arena (B = 1, 4 and 8;
+   indices 0, the edges of the kernel's chunks of C rows (C - 1, C, C + 1,
+   2C + 1) and of its merge tree (16C, 16C + 1), mixed progress and 4095;
+   pad lanes on the null slot, and a
+   bucket of pad lanes only; the update must be in place, every untouched
+   row bit-identical, and a second call on the same inputs must give the
+   same `out` bit for bit; then D 16, 32 and 128 on a [9, 1000, H, D]
+   arena, H 8, and H 6 at D 128); the
    flash forward (O and lse) and the flash backward's dQ and dK/dV kernels
    against `_flash_backward_plain`, f32 and bf16, causal and not, at
    B x H = 16, D = 64 and T = 4096, 1000 (does not tile) and 1088 (tiles
@@ -46,7 +52,8 @@ and prints no result):
    each launch exactly blocks times), and `CheckpointPredictor(model_dir=...)`
    at the serving widths restores step 30 and serves session ticks that
    match its stateless predict.
-5. Timings with CUDA events (L2 flushed before every timed call) of each
+5. Timings with CUDA events (L2 flushed by a 128 MB read, then a device
+   spin so the call is enqueued before the start event) of each
    kernel, its plain version and a PyTorch yardstick the port never calls
    (`scaled_dot_product_attention` for the flash forward, its
    `torch.autograd.grad` for the backward, with the device kernels a
@@ -57,12 +64,14 @@ and prints no result):
 
 Output: a `train` JSON line, a `slice` JSON line, a `kernels` JSON line
 (one row per kernel, with its `design`: "wgmma+tma" for the bf16
-tensor-core kernels, "wgmma+tma, 3xtf32" for the f32 ones, "cuda-cores"
-for the decode tick and the f32 backward's split pass; the f32 dQ and
-dK/dV rows carry the split pass's time as `split_ms` and compare dQ +
-dK/dV + split with the library's whole backward), the card line, and as
-the last line `{"ok": true, "device": {...}}`. The
-same numbers go to `chiprun_out/chip_smoke_report.json`.
+tensor-core kernels, "wgmma+tma, 3xtf32" for the f32 ones, "split-t,
+bulk-tma" for the decode tick, "cuda-cores" for the f32 backward's split
+pass; the decode row times the served bucket of 8 lanes and, under
+`single_lane`, one lane at index 4095, each with its own bound; the f32
+dQ and dK/dV rows carry the split pass's time as `split_ms` and compare
+dQ + dK/dV + split with the library's whole backward), the card line,
+and as the last line `{"ok": true, "device": {...}}`. The same numbers go
+to `chiprun_out/chip_smoke_report.json`.
 """
 
 import json
@@ -143,29 +152,39 @@ def card_line() -> str:
       check=True, capture_output=True, text=True, timeout=60).stdout.strip()
 
 
+# Device cycles of the spin before each timed call (~0.2 ms at 1.98 GHz).
+SPIN_CYCLES = 400_000
+
+
 class Timer:
   """Per-call CUDA-event timing with the L2 cache flushed before each
   call (the served path finds the arena cold: the other block's leaves
-  and the other lanes pass through L2 between two ticks)."""
+  and the other lanes pass through L2 between two ticks). The flush
+  READS a 128 MB buffer, which leaves L2 clean: a write flush leaves ~50
+  MB of dirty lines whose write-back the timed call would pay in HBM
+  time. Then the device spins (`torch.cuda._sleep`) so that the host has
+  enqueued the call before the device reaches the start event: a Python
+  wrapper takes ~50 us to launch, longer than a short kernel runs."""
 
   def __init__(self, torch, device):
     self._torch = torch
-    self._flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=device)
+    self._flush = torch.zeros(128 * 2**20, dtype=torch.uint8, device=device)
 
   def ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean ms of `iters` calls, after `warmup` calls timed alike."""
     torch = self._torch
-    for _ in range(warmup):
-      fn()
     total = 0.0
-    for _ in range(iters):
-      self._flush.zero_()
+    for i in range(warmup + iters):
+      self._flush.sum()
+      torch.cuda._sleep(SPIN_CYCLES)
       start = torch.cuda.Event(enable_timing=True)
       end = torch.cuda.Event(enable_timing=True)
       start.record()
       fn()
       end.record()
       end.synchronize()
-      total += start.elapsed_time(end)
+      if i >= warmup:
+        total += start.elapsed_time(end)
     return total / iters
 
 
@@ -224,9 +243,10 @@ def _kernel_label(line: str):
   return None
 
 
-def sass_mma_counts(library_path) -> dict:
-  """{kernel<instantiation>: {"HGMMA": n, "HMMA": m}} over the SASS of a
-  built library (`cuobjdump -sass`)."""
+def sass_op_counts(library_path, ops=("HGMMA", "HMMA")) -> dict:
+  """{kernel<instantiation>: {op: n for op in ops}} over the SASS of a
+  built library (`cuobjdump -sass`); a line counts for the first of `ops`
+  it holds."""
   sass = subprocess.run([_cuobjdump(), "-sass", str(library_path)],
                         check=True, capture_output=True, text=True,
                         timeout=300).stdout
@@ -235,11 +255,12 @@ def sass_mma_counts(library_path) -> dict:
     if "Function :" in line:
       current = _kernel_label(line)
       if current:
-        counts[current] = {"HGMMA": 0, "HMMA": 0}
-    elif current and "HGMMA" in line:
-      counts[current]["HGMMA"] += 1
-    elif current and "HMMA" in line:
-      counts[current]["HMMA"] += 1
+        counts[current] = {op: 0 for op in ops}
+    elif current:
+      for op in ops:
+        if op in line:
+          counts[current][op] += 1
+          break
   return counts
 
 
@@ -249,7 +270,7 @@ def check_sass(_kernels) -> dict:
   counts per instantiation."""
   out = {}
   for library, kernels in TENSOR_CORE_KERNELS.items():
-    counts = sass_mma_counts(_kernels._library_path(library))
+    counts = sass_op_counts(_kernels._library_path(library))
     for name, c in sorted(counts.items()):
       log(f"  {library} SASS {name}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
     for kernel in kernels:
@@ -263,58 +284,142 @@ def check_sass(_kernels) -> dict:
   return out
 
 
+# The decode tick's SASS opcode of a 1-D bulk copy (`cp.async.bulk`).
+BULK_COPY_OPS = ("UBLKCP",)
+DECODE_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def check_decode_build(_kernels) -> dict:
+  """Logs the decode tick's registers and spills (ptxas) and its bulk
+  copies (SASS); fails if an instantiation holds no bulk copy, or spills
+  at D <= 64. Returns, per instantiation, its registers, spill bytes and
+  bulk-copy count."""
+  report, current = {}, None
+  for line in (_kernels.build_log("decode_tick") or "").splitlines():
+    if "Compiling entry function" in line:
+      current = _kernel_label(line)
+      if current:
+        report[current] = {}
+    elif current and (spill := re.search(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+      report[current]["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
+    elif current and (regs := re.search(r"Used (\d+) registers", line)):
+      report[current]["registers"] = int(regs.group(1))
+  counts = sass_op_counts(_kernels._library_path("decode_tick"),
+                          BULK_COPY_OPS)
+  for d in DECODE_HEAD_DIMS:
+    name = f"decode_tick_kernel<{d}>"
+    bulk = counts.get(name, {}).get("UBLKCP", 0)
+    row = report.setdefault(name, {})
+    row["bulk_copies"] = bulk
+    log(f"  decode_tick SASS {name}: {row}")
+    if bulk == 0:
+      raise RuntimeError(f"{name}: no bulk-copy instruction in its SASS")
+    if d <= 64 and row.get("spill_bytes", 0):
+      raise RuntimeError(f"{name} spills: {row}")
+  if not report.get("decode_tick_kernel<64>", {}).get("registers"):
+    log("  decode_tick: no ptxas report (library built before this run)")
+  return report
+
+
 # -- phase 2: kernels against their plain versions ---------------------------
 
-DECODE_CASES = (
-    # (slots, index, mask): lanes on distinct slots; pad lanes on slot 0.
-    ([7], [4095], [True]),
-    ([2], [0], [True]),
-    ([3, 17, 64, 5, 9, 40, 0, 0], [0, 63, 64, 2048, 4095, 1000, 0, 0],
-     [True, True, True, True, True, True, False, False]),
-)
+def decode_cases(chunk: int, fan_in: int):
+  """(slots, index, mask) of the decode checks: lanes on distinct slots,
+  pad lanes on slot 0. The edges of the kernel's chunks of `chunk` rows
+  (C - 1, C, C + 1, 2C + 1), of its first merge level (C x fan_in: one
+  merge group, then two) and 4095, alone (B = 1) and in one bucket of 8;
+  index 0; mixed progress; a bucket of pad lanes only (the arena must not
+  change); one lane deep in its episode beside three at index 0."""
+  edges = [chunk - 1, chunk, chunk + 1, 2 * chunk + 1, chunk * fan_in,
+           chunk * fan_in + 1, 4095]
+  return ([([7], [i], [True]) for i in edges]
+          + [([2], [0], [True]),
+             ([3, 17, 64, 5, 9, 40, 11, 0], edges + [0], [True] * 7 + [False]),
+             ([3, 17, 64, 5, 9, 40, 0, 0],
+              [0, 63, 64, 2048, 4095, 1000, 0, 0], [True] * 6 + [False] * 2),
+             ([0] * 8, [0, 1, chunk, chunk + 1, 2 * chunk + 1, 1000, 4095, 0],
+              [False] * 8),
+             ([21, 22, 23, 24], [4095, 0, 0, 0], [True] * 4)])
+
+
+# The other head dims the kernel takes, on a smaller arena whose T (1000)
+# does not tile by the chunk; at D 128 a row of H heads is two groups of
+# heads (H 8: 4 + 4, H 6: 3 + 3), each streamed row by row.
+DECODE_OTHER_SHAPES = ((9, 1000, 8, 16), (9, 1000, 8, 32), (9, 1000, 8, 128),
+                       (9, 1000, 6, 128))
+DECODE_OTHER_CASES = (([4], [31], [True]),
+                      ([1, 2, 0], [999, 33, 5], [True, True, False]))
 
 
 def check_decode(torch, decode_kernels, device, gen) -> float:
-  s, t, h, d = 65, 4096, 8, 64
-  k_arena = torch.randn((s, t, h, d), generator=gen, device=device)
-  v_arena = torch.randn((s, t, h, d), generator=gen, device=device)
   worst = 0.0
-  for slots_l, index_l, mask_l in DECODE_CASES:
-    b = len(slots_l)
-    q, k_new, v_new = (torch.randn((b, h, d), generator=gen, device=device)
-                       for _ in range(3))
-    slots = torch.tensor(slots_l, dtype=torch.int32, device=device)
-    index = torch.tensor(index_l, dtype=torch.int32, device=device)
-    mask = torch.tensor(mask_l, dtype=torch.bool, device=device)
-    k_plain, v_plain = k_arena.clone(), v_arena.clone()
-    k_ptr, v_ptr = k_arena.data_ptr(), v_arena.data_ptr()
-    before = decode_kernels.fused_decode_attention.launches
-    out, k_ret, v_ret = decode_kernels.fused_decode_attention(
-        q, k_new, v_new, k_arena, v_arena, slots, index, mask)
-    torch.cuda.synchronize()
-    if decode_kernels.fused_decode_attention.launches != before + 1:
-      raise RuntimeError("decode tick did not launch its kernel")
-    if (k_ret is not k_arena or k_arena.data_ptr() != k_ptr
-        or v_arena.data_ptr() != v_ptr):
-      raise RuntimeError("decode tick did not update the arena in place")
-    want = decode_kernels._decode_tick_plain(
-        q, k_new, v_new, k_plain, v_plain, slots, index, mask)
-    err = max_abs(out, want)
-    # The plain version wrote the same rows: the whole arena, null slot
-    # and untouched rows included, must match bit for bit.
-    if not (torch.equal(k_arena, k_plain) and torch.equal(v_arena, v_plain)):
-      raise RuntimeError(f"decode tick arena differs from the plain version "
-                         f"(slots {slots_l}, index {index_l})")
-    for lane, (slot, idx, live) in enumerate(zip(slots_l, index_l, mask_l)):
-      if live and not (torch.equal(k_arena[slot, idx], k_new[lane])
-                       and torch.equal(v_arena[slot, idx], v_new[lane])):
-        raise RuntimeError(f"row ({slot}, {idx}) was not appended")
-    log(f"decode tick B={b} index={index_l}: max |err| {err:.3e}")
-    if not err <= F32_TOL:
-      raise RuntimeError(f"decode tick disagrees with its plain version: "
-                         f"{err} > {F32_TOL}")
-    worst = max(worst, err)
+  shapes = [((65, 4096, 8, 64), decode_cases(decode_kernels.DECODE_CHUNK,
+                                             decode_kernels.DECODE_FAN_IN))]
+  shapes += [(shape, DECODE_OTHER_CASES) for shape in DECODE_OTHER_SHAPES]
+  for (s, t, h, d), cases in shapes:
+    k_arena = torch.randn((s, t, h, d), generator=gen, device=device)
+    v_arena = torch.randn((s, t, h, d), generator=gen, device=device)
+    for case in cases:
+      worst = max(worst, _check_decode_case(torch, decode_kernels, device, gen,
+                                            k_arena, v_arena, *case))
+    del k_arena, v_arena
   return worst
+
+
+def _check_decode_case(torch, decode_kernels, device, gen, k_arena, v_arena,
+                       slots_l, index_l, mask_l) -> float:
+  """One decode call (and a second on the same inputs) against the plain
+  version; returns max |err| of out."""
+  h, d = k_arena.shape[2:]
+  b = len(slots_l)
+  q, k_new, v_new = (torch.randn((b, h, d), generator=gen, device=device)
+                     for _ in range(3))
+  slots = torch.tensor(slots_l, dtype=torch.int32, device=device)
+  index = torch.tensor(index_l, dtype=torch.int32, device=device)
+  mask = torch.tensor(mask_l, dtype=torch.bool, device=device)
+  k_plain, v_plain = k_arena.clone(), v_arena.clone()
+  k_ptr, v_ptr = k_arena.data_ptr(), v_arena.data_ptr()
+  before = decode_kernels.fused_decode_attention.launches
+  out, k_ret, v_ret = decode_kernels.fused_decode_attention(
+      q, k_new, v_new, k_arena, v_arena, slots, index, mask)
+  torch.cuda.synchronize()
+  if decode_kernels.fused_decode_attention.launches != before + 1:
+    raise RuntimeError("decode tick did not launch its kernel")
+  # The same inputs again (the append rewrites the same row): the merge
+  # runs in chunk order, so `out` must not depend on which block ended
+  # last.
+  again, _, _ = decode_kernels.fused_decode_attention(
+      q, k_new, v_new, k_arena, v_arena, slots, index, mask)
+  torch.cuda.synchronize()
+  if decode_kernels.fused_decode_attention.launches != before + 2:
+    raise RuntimeError("decode tick did not launch its kernel once per "
+                       "call")
+  if not torch.equal(out, again):
+    raise RuntimeError(f"decode tick is not deterministic (slots "
+                       f"{slots_l}, index {index_l}): max |diff| "
+                       f"{max_abs(out, again)}")
+  if (k_ret is not k_arena or k_arena.data_ptr() != k_ptr
+      or v_arena.data_ptr() != v_ptr):
+    raise RuntimeError("decode tick did not update the arena in place")
+  want = decode_kernels._decode_tick_plain(
+      q, k_new, v_new, k_plain, v_plain, slots, index, mask)
+  err = max_abs(out, want)
+  # The plain version wrote the same rows: the whole arena, null slot
+  # and untouched rows included, must match bit for bit.
+  if not (torch.equal(k_arena, k_plain) and torch.equal(v_arena, v_plain)):
+    raise RuntimeError(f"decode tick arena differs from the plain version "
+                       f"(slots {slots_l}, index {index_l})")
+  for lane, (slot, idx, live) in enumerate(zip(slots_l, index_l, mask_l)):
+    if live and not (torch.equal(k_arena[slot, idx], k_new[lane])
+                     and torch.equal(v_arena[slot, idx], v_new[lane])):
+      raise RuntimeError(f"row ({slot}, {idx}) was not appended")
+  log(f"decode tick arena {list(k_arena.shape)} B={b} index={index_l}: "
+      f"max |err| {err:.3e}")
+  if not err <= F32_TOL:
+    raise RuntimeError(f"decode tick disagrees with its plain version: "
+                       f"{err} > {F32_TOL}")
+  return err
 
 
 def _rel_norm_err(got, want) -> float:
@@ -790,31 +895,39 @@ def bound(moved_bytes: float, flops: float, dtype_name: str) -> dict:
           "bound_path": path}
 
 
-def time_decode(torch, decode_kernels, device, gen, timer):
-  """The served bucket of 8 lanes with mixed progress on the full arena."""
+# The decode tick's timed shapes: the served bucket of 8 lanes with mixed
+# progress, and one lane deep in its episode (a lone robot).
+DECODE_TIMED = ([4095, 3072, 2048, 1024, 512, 256, 48, 1], [4095])
+
+
+def time_decode(torch, decode_kernels, device, gen, timer) -> list:
+  """Each of DECODE_TIMED on the full arena: kernel and plain version,
+  and the bound of that shape's work."""
   s, t, h, d = 65, 4096, 8, 64
-  index_l = [4095, 3072, 2048, 1024, 512, 256, 48, 1]
-  b = len(index_l)
   k_arena = torch.randn((s, t, h, d), generator=gen, device=device)
   v_arena = torch.randn((s, t, h, d), generator=gen, device=device)
-  q, k_new, v_new = (torch.randn((b, h, d), generator=gen, device=device)
-                     for _ in range(3))
-  slots = torch.arange(1, b + 1, dtype=torch.int32, device=device)
-  index = torch.tensor(index_l, dtype=torch.int32, device=device)
-  mask = torch.ones((b,), dtype=torch.bool, device=device)
-  args = (q, k_new, v_new, k_arena, v_arena, slots, index, mask)
-  kernel_ms = timer.ms(lambda: decode_kernels.fused_decode_attention(*args))
-  plain_ms = timer.ms(lambda: decode_kernels._decode_tick_plain(*args))
-  # Bytes the function must move: each lane's K and V rows below its
-  # index, read once; q, k_new, v_new read; out and the appended rows
-  # written.
-  row = h * d * 4
-  moved = 2 * sum(index_l) * row + 3 * b * row + b * row + 2 * b * row
-  flops = 4 * sum(i + 1 for i in index_l) * h * d
-  return {"ms": kernel_ms, "plain_ms": plain_ms,
-          **bound(moved, flops, "float32"),
-          "library_ms": None, "shape": f"B={b} index={index_l} arena "
-          f"[{s},{t},{h},{d}] f32"}
+  rows = []
+  for index_l in DECODE_TIMED:
+    b = len(index_l)
+    q, k_new, v_new = (torch.randn((b, h, d), generator=gen, device=device)
+                       for _ in range(3))
+    slots = torch.arange(1, b + 1, dtype=torch.int32, device=device)
+    index = torch.tensor(index_l, dtype=torch.int32, device=device)
+    mask = torch.ones((b,), dtype=torch.bool, device=device)
+    args = (q, k_new, v_new, k_arena, v_arena, slots, index, mask)
+    kernel_ms = timer.ms(lambda: decode_kernels.fused_decode_attention(*args))
+    plain_ms = timer.ms(lambda: decode_kernels._decode_tick_plain(*args))
+    # Bytes the function must move: each lane's K and V rows below its
+    # index, read once; q, k_new, v_new read; out and the appended rows
+    # written.
+    row = h * d * 4
+    moved = 2 * sum(index_l) * row + 3 * b * row + b * row + 2 * b * row
+    flops = 4 * sum(i + 1 for i in index_l) * h * d
+    rows.append({"ms": kernel_ms, "plain_ms": plain_ms,
+                 **bound(moved, flops, "float32"),
+                 "library_ms": None, "shape": f"B={b} index={index_l} arena "
+                 f"[{s},{t},{h},{d}] f32"})
+  return rows
 
 
 def library_kernels(torch, fn) -> list:
@@ -952,6 +1065,7 @@ def main() -> int:
       elif "registers" in line or "spill" in line:
         log(f"  {kernel}: {line.replace('ptxas info    :', '').strip()}")
   sass = check_sass(_kernels)
+  decode_build = check_decode_build(_kernels)
 
   # Phase 2: kernels against their plain versions.
   gen = torch.Generator(device=device).manual_seed(0)
@@ -975,7 +1089,8 @@ def main() -> int:
 
   # Phase 5: timings.
   timer = Timer(torch, device)
-  decode_t = time_decode(torch, decode_kernels, device, gen, timer)
+  decode_t, decode_b1_t = time_decode(torch, decode_kernels, device, gen,
+                                      timer)
   flash_t = time_flash(torch, attention_ops, device, gen, timer, 1,
                        torch.float32)
   bwd_t = time_flash_bwd(torch, attention_ops, device, gen, timer, 2,
@@ -1000,11 +1115,13 @@ def main() -> int:
   fwd_src = "tensor2robot_tpu_torch/csrc/flash_fwd.cu"
   bwd_src = "tensor2robot_tpu_torch/csrc/flash_bwd.cu"
   kernels = [
-      {"name": "decode_tick", "route": "cuda", "design": "cuda-cores",
+      {"name": "decode_tick", "route": "cuda", "design": "split-t, bulk-tma",
        "source": "tensor2robot_tpu_torch/csrc/decode_tick.cu",
        "replaces": "tensor2robot_tpu/ops/decode_kernels.py:111",
        "launches": slice_report["launches"]["decode_tick"],
-       "max_abs_err": decode_err, "max_err": decode_err, **decode_t},
+       "max_abs_err": decode_err, "max_err": decode_err,
+       "chunk_rows": decode_kernels.DECODE_CHUNK, "build": decode_build,
+       **decode_t, "single_lane": decode_b1_t},
       # The stateless f32 predict of the serving slice.
       {"name": "flash_fwd", "route": "cuda", "design": "wgmma+tma, 3xtf32",
        "source": f"{fwd_src} (flash_fwd_tc_split_kernel)",

@@ -1,10 +1,11 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core flash kernels:
-// shared-memory matrix descriptors for 128-byte-swizzled tiles (and
-// K-major 64-byte ones), warpgroup matrix multiply (`wgmma`) wrappers for
-// bf16 and tf32, `mbarrier` waits, the TMA 3-D tile load and its
-// host-side tensor map (bf16 or f32), the bf16 hi/lo split of accumulator
-// fragments, the tf32 big/small split of f32 values (3xTF32) and the
-// permutation (`perm8`) that makes an f32 accumulator a tf32 A fragment.
+// Hopper (sm_90a) building blocks shared by the tensor-core flash kernels
+// and the decode tick: shared-memory matrix descriptors for
+// 128-byte-swizzled tiles (and K-major 64-byte ones), warpgroup matrix
+// multiply (`wgmma`) wrappers for bf16 and tf32, `mbarrier` waits, the TMA
+// 3-D tile load and its host-side tensor map (bf16 or f32), the 1-D bulk
+// copy, the bf16 hi/lo split of accumulator fragments, the tf32 big/small
+// split of f32 values (3xTF32) and the permutation (`perm8`) that makes an
+// f32 accumulator a tf32 A fragment.
 //
 // Tile layout used throughout: a tile of R rows is stored as column blocks
 // of 128 bytes (64 bf16 or 32 f32 columns), block h at tile + h * R * 128
@@ -372,6 +373,11 @@ __device__ __forceinline__ int unperm8(int p) {
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+// Orders this thread's global-memory accesses (and those it has acquired
+// from other threads) before its later async-proxy ones (bulk copies).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
 // Named barrier 1 over the first `count` threads (the consumer warps).
 __device__ __forceinline__ void consumer_sync(int count) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(count) : "memory");
@@ -433,6 +439,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4, %5}], [%2];\n"
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Copies `bytes` of contiguous global memory at `src` into shared memory
+// at `dst` (1-D bulk copy, no tensor map); completion is counted on `bar`.
+// Both addresses and `bytes` must be multiples of 16.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(smem_u32(bar))
       : "memory");
 }
 

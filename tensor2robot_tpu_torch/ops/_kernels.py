@@ -38,7 +38,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # c_void_p: ctypes would otherwise pass a Python int as a 32-bit int and
 # cut the pointer. Each library also exports `t2r_<name>_error_string`.
 _SIGNATURES = {
-    "decode_tick": {"t2r_decode_tick": [_P] * 9 + [_I] * 4 + [_P]},
+    "decode_tick": {"t2r_decode_tick": [_P] * 11 + [_I] * 5 + [_P]},
     "flash_fwd": {"t2r_flash_fwd": [_P] * 5 + [_I] * 6 + [_P]},
     "flash_bwd": {"t2r_flash_bwd_split": [_P] * 6 + [_I] * 3 + [_P],
                   "t2r_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [_P],

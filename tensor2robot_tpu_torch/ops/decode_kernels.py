@@ -4,8 +4,11 @@ in place, in one kernel launch per attention block.
 Counterpart of `tensor2robot_tpu.ops.decode_kernels`:
 
 * `fused_decode_attention` — on a CUDA tensor, launches
-  `csrc/decode_tick.cu`: per lane, an online softmax over the lane's own
-  arena rows t < index, this tick's K/V absorbed as the last position,
+  `csrc/decode_tick.cu` once: per lane, an online softmax over the lane's
+  own arena rows t < index, split over T into chunks of `DECODE_CHUNK`
+  rows (one thread block each) whose partials the lane's last blocks
+  merge in chunk order (groups of `DECODE_FAN_IN`, then the groups),
+  this tick's K/V absorbed as the last position,
   and the K/V row (slot, index) written IN PLACE for live lanes. Pad
   lanes (mask False, on the null slot 0) write nothing. On a CPU tensor
   it runs `_decode_tick_plain`, the same function in plain PyTorch, also
@@ -23,7 +26,7 @@ so; the kernel also skips such a write).
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -33,9 +36,18 @@ from tensor2robot_tpu_torch.ops import attention as attention_ops
 __all__ = ["fused_decode_attention", "reference_decode_attention"]
 
 DECODE_HEAD_DIMS = (16, 32, 64, 128)
-# Rows per chunk of the plain version's online softmax. The CUDA kernel
-# streams rows itself and takes no block size.
+# Rows per chunk of the plain version's online softmax.
 _PLAIN_BLOCK = 512
+# Arena rows per thread block of the CUDA kernel (its split over T): at
+# B = 1 and index 4095 it makes 128 working blocks for the H100's 132
+# SMs, at a bucket of 8 lanes of mixed progress a few hundred.
+DECODE_CHUNK = 32
+# Chunks per first-level merge of the kernel's partials (its kFanIn).
+DECODE_FAN_IN = 16
+# Per device, the kernel's ticket counters (int32, per lane and head
+# group: one per merge group and one for the lane): zeroed once, and
+# every launch leaves them 0 again.
+_counters: Dict[torch.device, torch.Tensor] = {}
 
 Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -150,6 +162,13 @@ def fused_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
 
   Returns (out [B, H, D], k_arena, v_arena): the arenas are the SAME
   tensors that came in.
+
+  On CUDA: one launch per call, `ceil(T / DECODE_CHUNK)` x B blocks (times
+  the head groups), with partials in scratch from `torch.empty` and one
+  ticket-counter buffer per device that every launch leaves zeroed. Calls
+  that share a device must therefore serialise on one stream, as
+  `SessionEngine` does under its `_arena_lock`. Anything the kernel does
+  not take raises; nothing falls back.
   """
   _check_operands(q, k_new, v_new, k_arena, v_arena, slots, index, mask)
   if q.device.type == "cpu":
@@ -174,13 +193,26 @@ def fused_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
   for name, x in (("q", q), ("k_new", k_new), ("v_new", v_new),
                   ("k_arena", k_arena), ("v_arena", v_arena)):
     if x.data_ptr() % 16:
-      raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
+      raise ValueError(f"{name} must be 16-byte aligned (float4 loads and "
+                       f"bulk copies)")
+  t = k_arena.shape[1]
   out = torch.empty_like(q)
+  chunks = -(-t // DECODE_CHUNK)
+  groups = -(-chunks // DECODE_FAN_IN)
+  # Per (lane, chunk or merge group, head): o [D], then (m, l), padded.
+  partials = torch.empty(b * (chunks + groups) * h * (d + 4),
+                         dtype=torch.float32, device=q.device)
+  counters = _counters.get(q.device)
+  if counters is None or counters.numel() < b * h * (groups + 1):
+    counters = torch.zeros(max(b * h * (groups + 1), 4096),
+                           dtype=torch.int32, device=q.device)
+    _counters[q.device] = counters
   lib = _kernels.library("decode_tick")
   status = lib.t2r_decode_tick(
       q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_arena.data_ptr(),
       v_arena.data_ptr(), slots.data_ptr(), index.data_ptr(),
-      mask.data_ptr(), out.data_ptr(), b, k_arena.shape[1], h, d,
+      mask.data_ptr(), out.data_ptr(), partials.data_ptr(),
+      counters.data_ptr(), b, t, h, d, DECODE_CHUNK,
       torch.cuda.current_stream(q.device).cuda_stream)
   _kernels.check("decode_tick", status)
   fused_decode_attention.launches += 1
