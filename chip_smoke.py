@@ -61,8 +61,42 @@ and prints no result):
    / 3.35 TB/s, flops / peak rate of the dtype) with the H100 SXM
    data-sheet peaks (f32: the faster of the CUDA cores and 3xTF32); and
    the median full-width train step, bf16 and f32.
+6. The QT-Opt critic, `tensor2robot_tpu_torch/configs/train_qtopt.gin`
+   (Grasping44 at 472x472, filters 64, convs (6, 6, 3), batch norm, the
+   named grasp-param blocks), weights from seed 0. No custom kernel is on
+   its path: convolutions go to cuDNN and products to cuBLAS, as the JAX
+   package leaves them to XLA.
+   a. Strict parity, card against the port's CPU path, with
+      `cudnn.allow_tf32` and `cuda.matmul.allow_tf32` False (restored
+      after): one train step at batch 2 in float64 on both — loss 1e-5
+      relative, every gradient 1e-4 x max(1, max|g|), the new batch-norm
+      statistics 1e-5 relative per leaf, q of the eval-mode forward after
+      the step 1e-5; the same step in f32 on both, each measured against
+      the CPU's float64 step, the card within 10x the CPU's distance
+      (batch norm over two rows amplifies f32 rounding to ~5e-3 on the
+      CPU's own gradients); then the bf16 policy's eval-mode forward,
+      the card's logits within 1e-2 (relative 2-norm) of the CPU's f32
+      logits or within 4x the CPU bf16 logits' distance from them (its
+      train-mode logits are reported).
+   b. The flagship config through `train_eval_model` in
+      'train_and_evaluate' at full width (472, batch 32, bf16 on f32
+      masters), cut only in length: 20 steps, an eval of 5 batches and a
+      checkpoint every 10, in a fresh model_dir under `_smoke_runs/`.
+      Every logged loss and eval metric must be finite, both evals must
+      run, the batch-norm statistics must move off their init,
+      checkpoints 10 and 20 must verify and hold them, a second call must
+      resume at 20 and reach 30, and `CheckpointPredictor(model_dir=...)`
+      must restore step 30 and predict a fixed batch exactly as the
+      eval-mode forward of the restored state.
+   c. The median train step (host clock around a step that ends in a
+      synchronize, fresh state, one batch) at batch 32: bf16 (the
+      config), and f32 with and without TF32 convolutions; grasps/s =
+      32 / step seconds; the bound from the step's products as
+      `torch.utils.flop_counter` counts them.
 
-Output: a `train` JSON line, a `slice` JSON line, a `kernels` JSON line
+Output: a `train` JSON line, a `slice` JSON line, a `qtopt` JSON line
+(the critic's checks, its step ms and grasps/s under each policy with
+the card, power limit, TF32 flags and bound), a `kernels` JSON line
 (one row per kernel, with its `design`: "wgmma+tma" for the bf16
 tensor-core kernels, "wgmma+tma, 3xtf32" for the f32 ones, "split-t,
 bulk-tma" for the decode tick, "cuda-cores" for the f32 backward's split
@@ -136,6 +170,7 @@ LOSS_RTOL = 1e-5
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 SESSION_CONFIG = "tensor2robot_tpu_torch/configs/serve_session.gin"
 TRAIN_CONFIG = "tensor2robot_tpu_torch/configs/train_longcontext_flash.gin"
+QTOPT_CONFIG = "tensor2robot_tpu_torch/configs/train_qtopt.gin"
 RUNS_DIR = "_smoke_runs"
 REPORT = "chiprun_out/chip_smoke_report.json"
 WIDTHS = dict(obs_size=16, action_size=7, sequence_length=4096,
@@ -792,8 +827,8 @@ def run_train(torch, np, port, device):
                          f"{f32_blocks} times, got {f32_launches}")
     results["reference"] = train_step.loss_and_grads(models["reference"],
                                                      params, features, labels)
-    (loss_f, _, grads_f), (loss_r, _, grads_r) = (results["flash"],
-                                                  results["reference"])
+    (loss_f, _, grads_f, _), (loss_r, _, grads_r, _) = (
+        results["flash"], results["reference"])
     loss_err = abs(float(loss_f) - float(loss_r)) / abs(float(loss_r))
     grad_err = max(_scaled_err(grads_f[k], grads_r[k]) for k in grads_r)
     log(f"f32 train step flash vs reference: loss {float(loss_f):.6f} vs "
@@ -870,6 +905,366 @@ def time_train_step(torch, train_step, sequence_model, input_generators,
           "steps_timed": steps, "batch": 2,
           "shape": "B=2 T=4096 hidden=512 blocks=2 heads=8 "
                    + ("bf16" if use_bfloat16 else "f32")}
+
+
+# -- phase 6: the QT-Opt critic -----------------------------------------------
+
+# The critic's strict card-vs-CPU step (float64 on both): loss and q
+# relative, gradients against max(1, max|g|) (GRAD_TOL), the new
+# batch-norm statistics per leaf (max |err| / max |ref|). Its f32 step: the
+# card's distance from the CPU's float64 step at most QTOPT_F32_FACTOR
+# times the CPU f32 step's. The bf16 eval-mode forward, by relative
+# 2-norm from the CPU's f32 forward: at most 1e-2 (a bf16 rounding point
+# that flips by one step) or QTOPT_BF16_FACTOR times the CPU bf16
+# forward's distance, whichever is larger: the tower has 16 convolutions
+# and 20 norms, each a bf16 rounding point (run X read 1.57e-2 between
+# the card's and the CPU's bf16 logits).
+QTOPT_RTOL = 1e-5
+QTOPT_F32_FACTOR = 10.0
+QTOPT_BF16_REL_NORM = 1e-2
+QTOPT_BF16_FACTOR = 4.0
+QTOPT_BATCH = 32
+
+
+def _leaf_rel(got, want) -> float:
+  return max_abs(got, want) / max(float(want.float().abs().max()), 1e-30)
+
+
+def _tf32(torch, cudnn: bool, matmul: bool):
+  """Sets both TF32 flags; returns the previous (cudnn, matmul)."""
+  previous = (torch.backends.cudnn.allow_tf32,
+              torch.backends.cuda.matmul.allow_tf32)
+  torch.backends.cudnn.allow_tf32 = cudnn
+  torch.backends.cuda.matmul.allow_tf32 = matmul
+  return previous
+
+
+def _qtopt_batch(input_generators, model, batch_size, seed, device):
+  generator = input_generators.DefaultRandomInputGenerator(
+      batch_size=batch_size, seed=seed)
+  generator.set_specification_from_model(model, "train")
+  batch = next(generator.create_dataset("train"))
+  return ({k: v.to(device) for k, v in batch["features"].items()},
+          {k: v.to(device) for k, v in batch["labels"].items()})
+
+
+def _critic_step(torch, train_step, input_generators, model, state, dtype,
+                 device):
+  """(loss, grads, new batch stats, q of the eval-mode forward after the
+  step) of one train step of `model` at batch 2 on `state` cast to
+  `dtype` on `device`."""
+  model.module.dtype = dtype  # normalize_image's output dtype
+
+  def cast(t):
+    return t.to(device, dtype) if t.is_floating_point() else t.to(device)
+
+  def to_cpu(tree):
+    return {k: v.double().cpu() for k, v in tree.items()}
+
+  state = state.replace(**{
+      name: train_step.map_tensors(cast, getattr(state, name))
+      for name in ("params", "ema_params", "opt_state", "mutable_state")})
+  features, labels = _qtopt_batch(input_generators, model, 2, 0, device)
+  features = {k: cast(v) for k, v in features.items()}
+  labels = {k: cast(v) for k, v in labels.items()}
+  loss, _, grads, stats = train_step.loss_and_grads(
+      model, state.params, features, labels, state.mutable_state)
+  stepped, _ = train_step.make_train_step(model)(state, features, labels)
+  q = train_step.make_predict_fn(model)(stepped, features)["q_predicted"]
+  return float(loss), to_cpu(grads), to_cpu(stats), q.double().cpu()
+
+
+def _critic_errors(got, want) -> dict:
+  """Distances between two `_critic_step` results: loss and q relative,
+  the worst gradient against max(1, max|g|), the worst batch-norm
+  statistic per leaf (max |err| / max |ref|)."""
+  (loss_g, grads_g, stats_g, q_g), (loss_w, grads_w, stats_w, q_w) = got, want
+  if set(stats_g) != set(stats_w) or len(stats_w) != 2 * 20:
+    raise RuntimeError(f"the step returned {len(stats_g)} batch-norm "
+                       "statistics, want the same 40")
+  return {"loss": abs(loss_g - loss_w) / abs(loss_w),
+          "grads": max(_scaled_err(grads_g[k], grads_w[k]) for k in grads_w),
+          "batch_stats": max(_leaf_rel(stats_g[k], stats_w[k])
+                             for k in stats_w),
+          "q": _leaf_rel(q_g, q_w)}
+
+
+def check_qtopt_strict(torch, train_step, input_generators, flagship,
+                       device) -> dict:
+  """The flagship critic's train step at batch 2, card against the
+  port's CPU path, TF32 off (phase 6a):
+
+  * float64 on both: the same function, held to loss, q and batch stats
+    1e-5 relative and gradients 1e-4 x max(1, max|g|);
+  * float32: batch norm over two rows of the 0.01-initialised tower
+    amplifies f32 rounding (the CPU's own f32 gradients lie up to ~5e-3
+    scaled from its float64 ones), so each device's f32 step is measured
+    against the CPU's float64 step and the card is held to 10x the CPU's
+    distance — TF32 rounding (2^-11, not 2^-24) or a wrong layout reads
+    orders of magnitude more;
+  * the bf16 policy's eval-mode forward: the card's logits within 1e-2
+    (relative 2-norm) of the CPU's f32 logits, or within 4x the CPU bf16
+    logits' distance from them where that is larger (its train-mode
+    logits are reported: bf16 rounding over two-row batch statistics
+    moves them by percents)."""
+  if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+    raise RuntimeError("the strict critic check needs TF32 off")
+  cpu = torch.device("cpu")
+  model = flagship.make_flagship_model(use_bfloat16=False)
+  state = train_step.create_train_state(model, torch.Generator().manual_seed(0),
+                                        cpu)
+  runs = {}
+  for dtype in (torch.float64, torch.float32):
+    for name, dev in (("cpu", cpu), ("cuda", device)):
+      start = time.perf_counter()
+      runs[name, dtype] = _critic_step(torch, train_step, input_generators,
+                                       model, state, dtype, dev)
+      log(f"critic {dtype} step on {name}: loss {runs[name, dtype][0]:.9f} "
+          f"({time.perf_counter() - start:.1f} s)")
+  model.module.dtype = None
+  f64 = _critic_errors(runs["cuda", torch.float64], runs["cpu", torch.float64])
+  f32_cuda = _critic_errors(runs["cuda", torch.float32],
+                            runs["cpu", torch.float64])
+  f32_cpu = _critic_errors(runs["cpu", torch.float32],
+                           runs["cpu", torch.float64])
+  out = {"f64_cuda_vs_cpu": f64, "f32_cuda_vs_cpu_f64": f32_cuda,
+         "f32_cpu_vs_cpu_f64": f32_cpu,
+         "f32_cuda_vs_cpu": _critic_errors(runs["cuda", torch.float32],
+                                           runs["cpu", torch.float32])}
+  log(f"critic step card vs CPU: {out}")
+  limits = {"loss": QTOPT_RTOL, "grads": GRAD_TOL,
+            "batch_stats": QTOPT_RTOL, "q": QTOPT_RTOL}
+  bad = {k: v for k, v in f64.items() if not v <= limits[k]}
+  bad.update({f"f32 {k}": (v, f32_cpu[k]) for k, v in f32_cuda.items()
+              if not v <= max(QTOPT_F32_FACTOR * f32_cpu[k], limits[k])})
+  if bad:
+    raise RuntimeError(f"the critic's step on the card disagrees with the "
+                       f"CPU: {bad}")
+
+  # The bf16 policy on the same parameters and statistics, against the
+  # f32 forward on the CPU.
+  bf16 = flagship.make_flagship_model()
+  for train in (False, True):
+    logits = {}
+    for name, policy, dev in (("f32", model, cpu), ("cpu", bf16, cpu),
+                              ("cuda", bf16, device)):
+      on_dev = state.to(dev)
+      features, _ = _qtopt_batch(input_generators, policy, 2, 0, dev)
+      with torch.no_grad():
+        outputs, _ = policy.inference_network_fn(
+            on_dev.params, on_dev.mutable_state,
+            policy.cast_features_for_compute(features), "train", train=train)
+      logits[name] = outputs["logits"].float().cpu()
+    mode = "train" if train else "eval"
+    out[f"bf16_{mode}_logits"] = {
+        "cuda_vs_cpu": _rel_norm_err(logits["cuda"], logits["cpu"]),
+        "cuda_vs_cpu_f32": _rel_norm_err(logits["cuda"], logits["f32"]),
+        "cpu_vs_cpu_f32": _rel_norm_err(logits["cpu"], logits["f32"])}
+  log(f"critic bf16 logits (relative 2-norm): eval-mode forward "
+      f"{out['bf16_eval_logits']}, train-mode {out['bf16_train_logits']} "
+      "(reported)")
+  errs = out["bf16_eval_logits"]
+  if not errs["cuda_vs_cpu_f32"] <= max(
+      QTOPT_BF16_REL_NORM, QTOPT_BF16_FACTOR * errs["cpu_vs_cpu_f32"]):
+    raise RuntimeError(f"the critic's bf16 forward on the card disagrees "
+                       f"with the CPU: {errs}")
+  return out
+
+
+def _qtopt_records(model_dir: str):
+  with open(os.path.join(model_dir, "train", "metrics.jsonl")) as f:
+    records = [json.loads(line) for line in f]
+  return ([r for r in records if "loss" in r],
+          [r for r in records if "eval/loss" in r])
+
+
+def _check_qtopt_records(train_records, eval_records, first, last,
+                         evals) -> None:
+  import math
+
+  _check_losses([(r["step"], r.get("loss")) for r in train_records], first,
+                last)
+  if [r["step"] for r in eval_records] != evals:
+    raise RuntimeError(f"evals at {[r['step'] for r in eval_records]}, "
+                       f"want {evals}")
+  for record in eval_records:
+    for key in ("eval/loss", "eval/q_mean", "eval/td_mse"):
+      if not math.isfinite(record.get(key, float("nan"))):
+        raise RuntimeError(f"eval metric {key} at step {record['step']}: "
+                           f"{record.get(key)}")
+
+
+def run_qtopt_train(torch, np, port, device) -> dict:
+  """The flagship config through `train_eval_model`, a resume and the
+  checkpoint predictor (phase 6b)."""
+  (config, train_eval, checkpoints, predictors, qtopt_models, specs) = port
+  os.makedirs(os.path.join(REPO_DIR, RUNS_DIR), exist_ok=True)
+  model_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  try:
+    config.clear_config()
+    config.parse_config_file(os.path.join(REPO_DIR, QTOPT_CONFIG))
+    for binding in (f"train_eval_model.model_dir = '{model_dir}'",
+                    "train_eval_model.max_train_steps = 20",
+                    "train_eval_model.eval_every_n_steps = 10",
+                    "train_eval_model.eval_steps = 5",
+                    "train_eval_model.checkpoint_every_n_steps = 10",
+                    "train_eval_model.log_every_n_steps = 1"):
+      config.parse_config(binding)
+    start = time.perf_counter()
+    final = train_eval.train_eval_model()
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - start
+    train_records, eval_records = _qtopt_records(model_dir)
+    _check_qtopt_records(train_records, eval_records, 1, 20, [10, 20])
+    log(f"critic: 20 steps with 2 evals in {first_wall:.1f} s; final {final}")
+    manager = checkpoints.CheckpointManager(
+        os.path.join(model_dir, checkpoints.CHECKPOINT_DIRNAME))
+    if manager.all_steps() != [10, 20] or not all(
+        manager.verify_step(s) is True for s in (10, 20)):
+      raise RuntimeError(f"checkpoints {manager.all_steps()} do not verify")
+    for step in (10, 20):
+      stats = manager.restore(step).mutable_state
+      means = [v for k, v in stats.items() if k.endswith("running_mean")]
+      variances = [v for k, v in stats.items() if k.endswith("running_var")]
+      if len(stats) != 2 * 20:
+        raise RuntimeError(f"checkpoint {step} holds {len(stats)} batch-norm "
+                           "statistics, want 40")
+    if not (any(bool((m != 0).any()) for m in means)
+            and any(bool((v != 1).any()) for v in variances)):
+      raise RuntimeError("the batch-norm statistics did not move off their "
+                         "init in 20 steps")
+
+    config.parse_config("train_eval_model.max_train_steps = 30")
+    train_eval.train_eval_model()
+    train_records, eval_records = _qtopt_records(model_dir)
+    _check_qtopt_records(train_records[20:], eval_records, 21, 30,
+                         [10, 20, 30])
+    if manager.all_steps() != [10, 20, 30] \
+        or manager.verify_step(30) is not True:
+      raise RuntimeError(f"resume did not write a verified step 30: "
+                         f"{manager.all_steps()}")
+    log(f"critic resumed at 20 and reached 30; loss "
+        f"{train_records[0]['loss']:.4f} (step 1) -> "
+        f"{train_records[-1]['loss']:.4f} (step 30)")
+
+    predictor = predictors.CheckpointPredictor(
+        model=qtopt_models.QTOptModel(), model_dir=model_dir)
+    if not predictor.restore() or predictor.global_step != 30:
+      raise RuntimeError(f"the predictor did not restore step 30 "
+                         f"(global_step {predictor.global_step})")
+    model = predictor.model
+    wire = specs.make_random_numpy(model.get_feature_specification("predict"),
+                                   batch_size=4, seed=11)
+    got = predictor.predict(wire)
+    state = manager.restore(30, device=device)
+    features, _ = model.preprocessor.preprocess(
+        {k: torch.from_numpy(v).to(device) for k, v in wire.items()},
+        specs.SpecStruct(), "predict")
+    with torch.no_grad():
+      want, _ = model.inference_network_fn(
+          state.ema_params, state.mutable_state,
+          model.cast_features_for_compute(features), "predict")
+    same = {k: bool(np.array_equal(got[k], want[k].float().cpu().numpy()))
+            for k in ("q_predicted", "logits")}
+    log(f"critic predictor at step 30 vs the eval-mode forward: bit-identical "
+        f"{same}; q {got['q_predicted'].ravel().tolist()}")
+    if not all(same.values()) or not np.isfinite(got["q_predicted"]).all():
+      raise RuntimeError(f"the restored predictor disagrees with the "
+                         f"eval-mode forward: {same}")
+  finally:
+    config.clear_config()
+    shutil.rmtree(model_dir, ignore_errors=True)
+  return {"steps_20_wall_s": first_wall,
+          "loss_step_1": train_records[0]["loss"],
+          "loss_step_30": train_records[-1]["loss"],
+          "eval": {str(r["step"]): {k: r[k] for k in (
+              "eval/loss", "eval/q_mean", "eval/td_mse")}
+                   for r in eval_records},
+          "predictor_bit_identical": same}
+
+
+def time_qtopt_step(torch, train_step, input_generators, flagship, device,
+                    use_bfloat16: bool, steps: int = 10) -> dict:
+  """Median wall time of the flagship critic's train step at batch 32
+  (host clock around a step that ends in a synchronize; fresh state, one
+  batch on the card), its products counted by torch's flop counter, and
+  its bound (phase 6c)."""
+  from torch.utils.flop_counter import FlopCounterMode
+
+  model = flagship.make_flagship_model(use_bfloat16=use_bfloat16)
+  state = train_step.create_train_state(model, torch.Generator().manual_seed(0),
+                                        device)
+  features, labels = _qtopt_batch(input_generators, model, QTOPT_BATCH, 5,
+                                  device)
+  step_fn = train_step.make_train_step(model)
+  with FlopCounterMode(display=False) as counter:
+    state, _ = step_fn(state, features, labels)
+  flops = counter.get_total_flops()
+  times = []
+  for i in range(steps + 3):
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    state, metrics = step_fn(state, features, labels)
+    torch.cuda.synchronize()
+    if i >= 3:
+      times.append(time.perf_counter() - start)
+  if not torch.isfinite(metrics["loss"]):
+    raise RuntimeError(f"non-finite critic loss {metrics['loss']}")
+  ms = 1e3 * sorted(times)[len(times) // 2]
+  tensors = (list(features.values()) + list(labels.values())
+             + list(state.params.values()) * 6
+             + list(state.mutable_state.values()) * 2)
+  moved = sum(t.numel() * t.element_size() for t in tensors)
+  if use_bfloat16:
+    rate = "bfloat16"
+  else:
+    rate = "tf32" if torch.backends.cudnn.allow_tf32 else "float32"
+  return {"step_ms_median": ms, "grasps_per_s": QTOPT_BATCH / (ms / 1e3),
+          "step_ms_all": [1e3 * t for t in times], "steps_timed": steps,
+          "batch": QTOPT_BATCH, "image": flagship.IMAGE_SIZE,
+          "policy": "bf16" if use_bfloat16 else "f32",
+          "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                   "matmul": torch.backends.cuda.matmul.allow_tf32},
+          "flops_per_step": flops, "bytes_per_step": moved,
+          **bound(moved, flops, rate)}
+
+
+def run_qtopt(torch, np, port, device, card: str) -> dict:
+  """Phase 6: strict parity with TF32 off, then the flagship run and the
+  step timings under torch's default TF32 flags (cuDNN on, cuBLAS off),
+  the previous flags restored after each."""
+  (config, train_eval, checkpoints, train_step, input_generators,
+   predictors, qtopt_models, flagship, specs) = port
+  previous = _tf32(torch, cudnn=False, matmul=False)
+  try:
+    strict = check_qtopt_strict(torch, train_step, input_generators,
+                                flagship, device)
+  finally:
+    _tf32(torch, *previous)
+  torch.cuda.empty_cache()
+  previous = _tf32(torch, cudnn=True, matmul=False)
+  try:
+    trained = run_qtopt_train(torch, np, (
+        config, train_eval, checkpoints, predictors, qtopt_models, specs),
+                              device)
+    torch.cuda.empty_cache()
+    step = time_qtopt_step(torch, train_step, input_generators, flagship,
+                           device, use_bfloat16=True)
+    step_f32_tf32 = time_qtopt_step(torch, train_step, input_generators,
+                                    flagship, device, use_bfloat16=False)
+    _tf32(torch, cudnn=False, matmul=False)
+    step_f32 = time_qtopt_step(torch, train_step, input_generators, flagship,
+                               device, use_bfloat16=False)
+  finally:
+    _tf32(torch, *previous)
+  torch.cuda.empty_cache()
+  for name, timed in (("bf16", step), ("f32 tf32 convs", step_f32_tf32),
+                      ("f32", step_f32)):
+    log(f"critic train step {name}: {timed['step_ms_median']:.2f} ms, "
+        f"{timed['grasps_per_s']:.0f} grasps/s, bound {timed['bound_ms']:.3f}"
+        f" ms ({timed['bound_by']}, {timed['bound_path']})")
+  return {"card": card, "step": step, "step_f32_tf32_convs": step_f32_tf32,
+          "step_f32": step_f32, "strict": strict, "train": trained}
 
 
 # -- phase 5: timings ----------------------------------------------------------
@@ -1029,6 +1424,7 @@ def main() -> int:
   import numpy as np
 
   from tensor2robot_tpu_torch import checkpoints
+  from tensor2robot_tpu_torch import specs
   from tensor2robot_tpu_torch import train_eval
   from tensor2robot_tpu_torch.data import input_generators
   from tensor2robot_tpu_torch.models import sequence_model
@@ -1038,6 +1434,8 @@ def main() -> int:
   from tensor2robot_tpu_torch.parallel import train_step
   from tensor2robot_tpu_torch.policies import policies
   from tensor2robot_tpu_torch.predictors import predictors
+  from tensor2robot_tpu_torch.research.qtopt import flagship
+  from tensor2robot_tpu_torch.research.qtopt import models as qtopt_models
   from tensor2robot_tpu_torch.serving import session
   from tensor2robot_tpu_torch.utils import config
 
@@ -1112,6 +1510,18 @@ def main() -> int:
       torch, train_step, sequence_model, input_generators, device,
       use_bfloat16=False)
   log(f"f32 train step: {train_report['step_f32']}")
+
+  # Phase 6: the QT-Opt critic. Its path launches no custom kernel.
+  fwd, bwd = attention_ops.flash_forward, attention_ops.flash_backward
+  launches_before = (decode_kernels.fused_decode_attention.launches,
+                     fwd.launches, bwd.launches_dq, bwd.launches_dkv)
+  qtopt_report = run_qtopt(torch, np, (
+      config, train_eval, checkpoints, train_step, input_generators,
+      predictors, qtopt_models, flagship, specs), device, card)
+  qtopt_report["custom_kernel_launches"] = [
+      now - before for now, before in zip(
+          (decode_kernels.fused_decode_attention.launches, fwd.launches,
+           bwd.launches_dq, bwd.launches_dkv), launches_before)]
   fwd_src = "tensor2robot_tpu_torch/csrc/flash_fwd.cu"
   bwd_src = "tensor2robot_tpu_torch/csrc/flash_bwd.cu"
   kernels = [
@@ -1172,12 +1582,13 @@ def main() -> int:
       **bwd_f32_t["flash_bwd_split"]})
   report = {"card": card, "build_s": build_s, "kernels": kernels,
             "extra_timings": extra, "slice": slice_report,
-            "train": train_report}
+            "train": train_report, "qtopt": qtopt_report}
   os.makedirs(os.path.dirname(REPORT), exist_ok=True)
   with open(REPORT, "w") as f:
     json.dump(report, f, indent=1)
   print(json.dumps({"train": train_report}))
   print(json.dumps({"slice": slice_report, "extra_timings": extra}))
+  print(json.dumps({"qtopt": qtopt_report}))
   print(json.dumps({"kernels": kernels}))
   print(card_line(), flush=True)
   print(json.dumps({"ok": True, "device": {

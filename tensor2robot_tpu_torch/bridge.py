@@ -4,21 +4,28 @@
 (numpy, or anything `np.asarray` reads) and returns the port's flat
 `state_dict`, named by joining the flax module path with '.':
 
-* Dense: `kernel [in, out]` -> `weight [out, in]`; `bias` as is;
-* LayerNorm: `scale` / `bias` -> `weight` / `bias`. The port's LayerNorms
-  use flax's eps, 1e-6, not torch's 1e-5.
+* Dense: `kernel [in, out]` -> `weight [out, in]`; `bias` as is (a
+  Dense or Conv with `use_bias=False` has a kernel only);
+* Conv: `kernel [kh, kw, in, out]` (HWIO) -> `weight [out, in, kh, kw]`
+  (OIHW);
+* LayerNorm and BatchNorm: `scale` / `bias` -> `weight` / `bias` (a
+  BatchNorm with `use_scale=False` has a bias only). The port's
+  LayerNorms use flax's eps, 1e-6, not torch's 1e-5.
 
 So `{"attn_0": {"q_proj": {"kernel", "bias"}}}` becomes
 `attn_0.q_proj.weight` / `attn_0.q_proj.bias`. A leaf this mapping does
-not know raises. Conv, BatchNorm and LSTM layouts come with the slices
-that port those layers.
+not know raises. LSTM layouts come with the slice that ports them.
+`mutable_state_from_flax` maps flax's `batch_stats` (`mean` / `var` per
+BatchNorm) onto the port's mutable state, `<name>.running_mean` /
+`<name>.running_var`.
 
 `train_state_from_jax` carries a whole JAX `TrainState` across — step,
-params, optax state and EMA — so a JAX run can continue in the port. The
-optax state is read by duck typing (no optax import): a NamedTuple
-becomes a dict of its fields (`count` as an int, param-shaped moments
-through `state_dict_from_flax`), EmptyState `{}`, a chain's tuple a
-tuple — the layout of `models.optimizers`.
+params, optax state, EMA and batch_stats — so a JAX run can continue in
+the port. The optax state is read by duck typing (no optax import): a
+NamedTuple becomes a dict of its fields (`count` as an int, param-shaped
+moments through `state_dict_from_flax`, a masked transformation's
+`inner_state` recursively), EmptyState `{}`, a chain's tuple a tuple —
+the layout of `models.optimizers`.
 """
 
 from __future__ import annotations
@@ -30,8 +37,9 @@ import torch
 
 from tensor2robot_tpu_torch.parallel import train_step as ts
 
-__all__ = ["state_dict_from_flax", "bridge_train_state",
-           "optimizer_state_from_optax", "train_state_from_jax"]
+__all__ = ["state_dict_from_flax", "mutable_state_from_flax",
+           "bridge_train_state", "optimizer_state_from_optax",
+           "train_state_from_jax"]
 
 
 def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -46,24 +54,54 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if not leaves:
       return
     name = ".".join(path)
-    if set(leaves) == {"kernel", "bias"}:
+    if set(leaves) in ({"kernel", "bias"}, {"kernel"}):
       kernel = np.asarray(leaves["kernel"], np.float32)
-      if kernel.ndim != 2:
-        raise ValueError(f"{name}: only Dense kernels [in, out] are "
-                         f"bridged, got shape {kernel.shape}")
-      out[f"{name}.weight"] = torch.from_numpy(kernel.T.copy())
-      out[f"{name}.bias"] = torch.from_numpy(
-          np.asarray(leaves["bias"], np.float32).copy())
-    elif set(leaves) == {"scale", "bias"}:
-      out[f"{name}.weight"] = torch.from_numpy(
-          np.asarray(leaves["scale"], np.float32).copy())
-      out[f"{name}.bias"] = torch.from_numpy(
-          np.asarray(leaves["bias"], np.float32).copy())
+      if kernel.ndim == 2:  # Dense [in, out] -> [out, in]
+        weight = kernel.T
+      elif kernel.ndim == 4:  # Conv HWIO -> OIHW
+        weight = kernel.transpose(3, 2, 0, 1)
+      else:
+        raise ValueError(f"{name}: only Dense kernels [in, out] and Conv "
+                         f"kernels [kh, kw, in, out] are bridged, got shape "
+                         f"{kernel.shape}")
+      out[f"{name}.weight"] = torch.from_numpy(weight.copy())
+    elif set(leaves) in ({"scale", "bias"}, {"bias"}):
+      if "scale" in leaves:
+        out[f"{name}.weight"] = torch.from_numpy(
+            np.asarray(leaves["scale"], np.float32).copy())
     else:
       raise ValueError(f"{name}: no bridge for a flax module with params "
                        f"{sorted(leaves)}")
+    if "bias" in leaves:
+      out[f"{name}.bias"] = torch.from_numpy(
+          np.asarray(leaves["bias"], np.float32).copy())
 
   visit(params, ())
+  return out
+
+
+def mutable_state_from_flax(batch_stats: Mapping[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+  """flax `batch_stats` ({name: {"mean", "var"}}, nested by module path)
+  as the port's flat f32 mutable state: `<name>.running_mean` and
+  `<name>.running_var`."""
+  out: Dict[str, torch.Tensor] = {}
+
+  def visit(tree: Mapping[str, Any], path: Tuple[str, ...]) -> None:
+    if set(tree) == {"mean", "var"} and not any(
+        isinstance(v, Mapping) for v in tree.values()):
+      name = ".".join(path)
+      for field in ("mean", "var"):
+        out[f"{name}.running_{field}"] = torch.from_numpy(
+            np.asarray(tree[field], np.float32).copy())
+      return
+    for key, value in tree.items():
+      if not isinstance(value, Mapping):
+        raise ValueError(f"{'.'.join(path + (key,))}: no bridge for a "
+                         "batch_stats leaf outside a {mean, var} pair")
+      visit(value, path + (key,))
+
+  visit(batch_stats, ())
   return out
 
 
@@ -95,6 +133,8 @@ def optimizer_state_from_optax(state: Any) -> Any:
         out[field] = int(np.asarray(value))
       elif field in ("mu", "nu", "trace"):
         out[field] = state_dict_from_flax(_numpy_tree(value))
+      elif field == "inner_state":  # optax.masked
+        out[field] = optimizer_state_from_optax(value)
       else:
         raise ValueError(f"no bridge for optax state field {field!r} of "
                          f"{type(state).__name__}")
@@ -105,16 +145,19 @@ def optimizer_state_from_optax(state: Any) -> Any:
 
 
 def train_state_from_jax(state: Any) -> ts.TrainState:
-  """A JAX `TrainState` (step, params, opt_state, ema_params; flax
-  mutable collections must be empty) as the port's, on the CPU: move it
-  with `TrainState.to(device)`."""
-  if getattr(state, "mutable_state", None):
-    raise ValueError("no bridge for flax mutable collections "
-                     f"{sorted(state.mutable_state)}")
+  """A JAX `TrainState` (step, params, opt_state, ema_params, and flax
+  mutable collections: `batch_stats` or none) as the port's, on the CPU:
+  move it with `TrainState.to(device)`."""
+  collections = dict(getattr(state, "mutable_state", None) or {})
+  unknown = sorted(set(collections) - {"batch_stats"})
+  if unknown:
+    raise ValueError(f"no bridge for flax mutable collections {unknown}")
   ema = getattr(state, "ema_params", None)
   return ts.TrainState(
       step=int(np.asarray(state.step)),
       params=state_dict_from_flax(_numpy_tree(state.params)),
       ema_params=None if ema is None else state_dict_from_flax(
           _numpy_tree(ema)),
-      opt_state=optimizer_state_from_optax(state.opt_state))
+      opt_state=optimizer_state_from_optax(state.opt_state),
+      mutable_state=mutable_state_from_flax(
+          _numpy_tree(collections.get("batch_stats", {}))))

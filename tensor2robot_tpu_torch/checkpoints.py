@@ -8,7 +8,8 @@ through `bridge.train_state_from_jax`). Layout under `directory`
 (`<model_dir>/checkpoints` for a trainer):
 
 * `<step>/state.pt` — `torch.save` of {step, params, ema_params,
-  opt_state}, tensors on the CPU. A step is written into a temporary
+  opt_state, mutable_state}, tensors on the CPU (a step written before
+  the state carried `mutable_state` restores with {}). A step is written into a temporary
   directory and renamed into place, so a digit-named directory is
   complete.
 * `manifests/<step>.json` — the same sidecar schema as the JAX package
@@ -117,7 +118,8 @@ class CheckpointManager:
     os.makedirs(tmp)
     cpu = state.to("cpu")
     payload = {"step": int(state.step), "params": cpu.params,
-               "ema_params": cpu.ema_params, "opt_state": cpu.opt_state}
+               "ema_params": cpu.ema_params, "opt_state": cpu.opt_state,
+               "mutable_state": cpu.mutable_state}
     path = os.path.join(tmp, STATE_FILENAME)
     with open(path, "wb") as f:
       torch.save(payload, f)
@@ -211,7 +213,8 @@ class CheckpointManager:
     payload = torch.load(path, map_location=device, weights_only=True)
     return ts.TrainState(step=int(payload["step"]), params=payload["params"],
                          ema_params=payload["ema_params"],
-                         opt_state=payload["opt_state"])
+                         opt_state=payload["opt_state"],
+                         mutable_state=payload.get("mutable_state", {}))
 
   def restore(self, step: Optional[int] = None,
               device=None) -> ts.TrainState:

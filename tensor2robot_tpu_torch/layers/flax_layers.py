@@ -1,0 +1,159 @@
+"""flax's Conv, max_pool, BatchNorm and LayerNorm semantics on NCHW tensors.
+
+The JAX package's vision towers use flax's built-in layers, which differ
+from torch's stock ones:
+
+* `nn.Conv` and `nn.max_pool` with padding "SAME" pad as TensorFlow does:
+  pad_total = max((ceil(n / s) - 1) * s + k - n, 0), pad_total // 2
+  before and the rest after, so an odd total pads more at the bottom and
+  right. Torch's `padding='same'` refuses strides above 1, and a symmetric
+  padding is wrong on an odd total. max_pool pads with -inf.
+* `nn.BatchNorm`: `momentum` is the decay of the running averages
+  (`ra = momentum * ra + (1 - momentum) * batch`); the running variance
+  takes the *biased* batch variance, flax's fast E[x^2] - E[x]^2 clamped
+  at 0. `use_scale=False` has no weight. `BatchNorm.forward` returns the
+  new running statistics instead of writing them, so a train step stays
+  pure, as flax's `apply(..., mutable=["batch_stats"])` is.
+* `nn.LayerNorm` (eps 1e-6) normalises over the last axis of NHWC: over
+  channels, dim 1, here.
+
+Both norms compute their statistics and the normalisation in at least
+float32 (flax's `force_float32_reductions`: bfloat16 widens to float32,
+float64 stays), with a bfloat16 scale and bias widened, and round once to
+the input's dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["same_padding", "conv2d", "max_pool", "moments", "normalize",
+           "layer_norm", "BatchNorm"]
+
+
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+  """TF 'SAME' padding of one spatial dim: (before, after)."""
+  out = -(-size // stride)
+  total = max((out - 1) * stride + kernel - size, 0)
+  return total // 2, total - total // 2
+
+
+def _same_pads(x: torch.Tensor, kernel: Sequence[int],
+               stride: Sequence[int]) -> Tuple[int, int, int, int]:
+  """(left, right, top, bottom), the order of `F.pad` on NCHW."""
+  top, bottom = same_padding(x.shape[2], kernel[0], stride[0])
+  left, right = same_padding(x.shape[3], kernel[1], stride[1])
+  return left, right, top, bottom
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, stride: int = 1,
+           padding: str = "SAME") -> torch.Tensor:
+  """flax `nn.Conv` on NCHW with an OIHW weight, 'SAME' or 'VALID'."""
+  if padding == "VALID":
+    return F.conv2d(x, weight, bias, stride)
+  if padding != "SAME":
+    raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+  left, right, top, bottom = _same_pads(x, weight.shape[2:], (stride, stride))
+  if left == right and top == bottom:
+    return F.conv2d(x, weight, bias, stride, (top, left))
+  return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, bias, stride)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+  """flax `nn.max_pool(..., padding='SAME')` on NCHW: -inf padding."""
+  pads = _same_pads(x, (window, window), (stride, stride))
+  if any(pads):
+    x = F.pad(x, pads, value=float("-inf"))
+  return F.max_pool2d(x, window, stride)
+
+
+def _feature_shape(x: torch.Tensor, dim: int) -> Tuple[int, ...]:
+  shape = [1] * x.ndim
+  shape[dim] = -1
+  return tuple(shape)
+
+
+def _widened(x: torch.Tensor) -> torch.Tensor:
+  """x in at least float32."""
+  return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def moments(x: torch.Tensor, dims: Sequence[int]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """flax's `_compute_stats`: mean and fast variance E[x^2] - E[x]^2
+  (clamped at 0) over `dims`, in at least float32, keeping the reduced
+  dims."""
+  x = _widened(x)
+  mean = x.mean(dims, keepdim=True)
+  var = torch.clamp(x.square().mean(dims, keepdim=True) - mean.square(),
+                    min=0.0)
+  return mean, var
+
+
+def normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+              weight: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+              epsilon: float, dim: int = 1) -> torch.Tensor:
+  """flax's `_normalize`: (x - mean) * (rsqrt(var + eps) * scale) + bias
+  in at least float32, rounded once to x's dtype. `mean` and `var`
+  broadcast against x; `weight` and `bias` are per feature on `dim`."""
+  shape = _feature_shape(x, dim)
+  y = _widened(x) - mean
+  mul = torch.rsqrt(var + epsilon)
+  if weight is not None:
+    mul = mul * _widened(weight).reshape(shape)
+  y = y * mul
+  if bias is not None:
+    y = y + _widened(bias).reshape(shape)
+  return y.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               epsilon: float = 1e-6, dim: int = 1) -> torch.Tensor:
+  """flax `nn.LayerNorm` over the features on `dim` (channels of NCHW)."""
+  mean, var = moments(x, (dim,))
+  return normalize(x, mean, var, weight, bias, epsilon, dim)
+
+
+class BatchNorm(nn.Module):
+  """flax `nn.BatchNorm` over dim 1 of [N, C] or [N, C, H, W].
+
+  Parameters `weight` (absent with `use_scale=False`) and `bias`; buffers
+  `running_mean` (zeros) and `running_var` (ones), which the model keeps
+  as its mutable state. `forward(x, train)` returns (y, new running
+  stats): with `train`, y uses the batch statistics and the new stats
+  are `momentum * running + (1 - momentum) * batch`; without, y uses the
+  running stats and the dict is empty.
+  """
+
+  def __init__(self, num_features: int, use_scale: bool = True,
+               momentum: float = 0.99, epsilon: float = 1e-5):
+    super().__init__()
+    self.momentum = momentum
+    self.epsilon = epsilon
+    if use_scale:
+      self.weight = nn.Parameter(torch.ones(num_features))
+    else:
+      self.register_parameter("weight", None)
+    self.bias = nn.Parameter(torch.zeros(num_features))
+    self.register_buffer("running_mean", torch.zeros(num_features))
+    self.register_buffer("running_var", torch.ones(num_features))
+
+  def forward(self, x: torch.Tensor, train: bool
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    shape = _feature_shape(x, 1)
+    if not train:
+      return normalize(x, self.running_mean.reshape(shape),
+                       self.running_var.reshape(shape), self.weight,
+                       self.bias, self.epsilon), {}
+    mean, var = moments(x, (0,) + tuple(range(2, x.ndim)))
+    decay = self.momentum
+    new = {"running_mean": decay * self.running_mean
+                           + (1.0 - decay) * mean.detach().reshape(-1),
+           "running_var": decay * self.running_var
+                          + (1.0 - decay) * var.detach().reshape(-1)}
+    return normalize(x, mean, var, self.weight, self.bias, self.epsilon), new

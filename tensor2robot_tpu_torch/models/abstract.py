@@ -3,17 +3,22 @@ session-decode seam.
 
 Counterpart of `tensor2robot_tpu.models.abstract`. A model provides
 feature/label specs, `create_module()`, an `nn.Module` whose
-`forward(features, mode)` returns a mapping of inference outputs,
-`model_train_fn` (loss and scalars) and `create_optimizer()` (a
+`forward(features, mode, train)` returns (inference outputs, new mutable
+state), `model_train_fn` (loss and scalars) and `create_optimizer()` (a
 `models.optimizers.GradientTransformation`; Adam at 1e-4 by default). The
-module's own parameters only give the structure: every forward runs on a
-parameter dict (a `state_dict`) through `torch.func.functional_call`, so
-a predictor can swap parameters without touching the module, as the JAX
-package applies one flax module to any param tree.
+module's own parameters and buffers only give the structure: every
+forward runs on a parameter dict and a mutable-state dict (both
+`state_dict`-named) through `torch.func.functional_call`, so a predictor
+can swap them without touching the module, as the JAX package applies one
+flax module to any variable tree. The mutable state is the module's
+buffers (batch-norm running statistics, flax's `batch_stats`); a module
+returns its new values when `train` is true and {} otherwise.
 
 bfloat16 policy: with `use_bfloat16`, the preprocessor is wrapped in
-`Bfloat16DevicePolicy`, features are cast to bfloat16, and float32
-parameters are cast to bfloat16 for the forward.
+`Bfloat16DevicePolicy`, features are cast to bfloat16, and
+`params_for_compute` casts the float32 parameters to bfloat16 for the
+forward (the JAX package's `inference_network_fn` casts its whole
+`params` collection the same way; the mutable state stays float32).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from torch import nn
 
 from tensor2robot_tpu_torch import modes as modes_lib
 from tensor2robot_tpu_torch import specs as specs_lib
+from tensor2robot_tpu_torch.layers import flax_layers
 from tensor2robot_tpu_torch.models import optimizers as optimizers_lib
 from tensor2robot_tpu_torch.preprocessors import base as preprocessors_lib
 
@@ -36,10 +42,11 @@ Params = Dict[str, torch.Tensor]
 
 
 def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
-  """flax's default Dense kernel init: variance_scaling(1, fan_in,
-  truncated_normal), i.e. a normal truncated at two standard deviations
-  and rescaled to variance 1/fan_in. `weight` is torch's [out, in]."""
-  fan_in = weight.shape[1]
+  """flax's default Dense and Conv kernel init: variance_scaling(1,
+  fan_in, truncated_normal), i.e. a normal truncated at two standard
+  deviations and rescaled to variance 1/fan_in. `weight` is torch's
+  [out, in] or [out, in, kh, kw]: fan_in is in * kh * kw."""
+  fan_in = weight[0].numel()
   std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
   nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
                         generator=generator)
@@ -124,8 +131,8 @@ class T2RModel(abc.ABC):
 
   @abc.abstractmethod
   def create_module(self) -> nn.Module:
-    """The network; `forward(features, mode)` returns a mapping of
-    inference outputs."""
+    """The network; `forward(features, mode, train)` returns (a mapping of
+    inference outputs, the new mutable state)."""
 
   @abc.abstractmethod
   def model_train_fn(self, features, labels, inference_outputs, mode: str
@@ -161,37 +168,63 @@ class T2RModel(abc.ABC):
   # -- parameters and forward -----------------------------------------------
 
   def init_params(self, generator: torch.Generator) -> Params:
-    """Fresh parameters with flax's default initializers (Dense: lecun
-    normal kernel, zero bias; LayerNorm: unit scale, zero bias), drawn
-    from `generator` on the CPU."""
+    """Fresh parameters with flax's default initializers, drawn from
+    `generator` on the CPU: Dense and Conv kernels lecun normal (or the
+    layer's own `kernel_init(weight, generator)` where the module sets
+    one), zero biases; LayerNorm and BatchNorm scale 1, bias 0."""
     params: Params = {}
     for name, module in self.module.named_modules():
       prefix = f"{name}." if name else ""
-      if isinstance(module, nn.Linear):
+      if isinstance(module, (nn.Linear, nn.Conv2d)):
         weight = torch.empty_like(module.weight, device="cpu")
-        _lecun_normal_(weight, generator)
+        getattr(module, "kernel_init", _lecun_normal_)(weight, generator)
         params[prefix + "weight"] = weight
+        if module.bias is not None:
+          params[prefix + "bias"] = torch.zeros_like(module.bias,
+                                                     device="cpu")
+      elif isinstance(module, (nn.LayerNorm, flax_layers.BatchNorm)):
+        if module.weight is not None:
+          params[prefix + "weight"] = torch.ones_like(module.weight,
+                                                      device="cpu")
         params[prefix + "bias"] = torch.zeros_like(module.bias, device="cpu")
-      elif isinstance(module, nn.LayerNorm):
-        params[prefix + "weight"] = torch.ones_like(module.weight,
-                                                    device="cpu")
-        params[prefix + "bias"] = torch.zeros_like(module.bias, device="cpu")
-    missing = set(self.module.state_dict()) - set(params)
+    missing = set(dict(self.module.named_parameters())) - set(params)
     if missing:
       raise NotImplementedError(
           f"no initializer for parameters {sorted(missing)}")
     return params
 
-  def inference_network_fn(self, params: Params, features,
-                           mode: str) -> Mapping[str, torch.Tensor]:
-    """Pure forward pass of the module on `params`."""
-    if self._use_bfloat16:
-      # bf16 compute: float32 parameters are cast for the forward, so the
-      # projections run in bf16 like the activations.
-      params = {k: v.to(self.compute_dtype) if v.dtype == torch.float32
-                else v for k, v in params.items()}
-    return torch.func.functional_call(self.module, params, (features,),
-                                      {"mode": mode})
+  def init_mutable_state(self) -> Params:
+    """The module's buffers at their initial values, on the CPU: batch
+    norm's running mean 0 and running variance 1 (flax's batch_stats
+    init); {} for a module without buffers."""
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in self.module.named_buffers()}
+
+  def params_for_compute(self, params: Params) -> Params:
+    """The parameters the forward runs on. Under the bfloat16 policy every
+    float32 parameter is cast to bfloat16, so each product runs in bf16
+    like the activations (flax promotes a layer to its widest input
+    dtype, and the JAX package's `inference_network_fn` casts the whole
+    `params` collection); gradients flow back through the cast to the f32
+    masters. A model whose layers should see other dtypes overrides
+    this."""
+    if not self._use_bfloat16:
+      return params
+    return {k: v.to(self.compute_dtype) if v.dtype == torch.float32 else v
+            for k, v in params.items()}
+
+  def inference_network_fn(self, params: Params, mutable_state: Params,
+                           features, mode: str, train: bool = False
+                           ) -> Tuple[Mapping[str, torch.Tensor], Params]:
+    """Pure forward pass of the module on `params` and `mutable_state`;
+    returns (outputs, new mutable state). With `train`, batch norm
+    normalises by the batch and the new state holds its updated running
+    statistics; otherwise it uses the running statistics and the new
+    state is {} (the JAX package's `inference_network_fn`)."""
+    variables = {**self.params_for_compute(params), **mutable_state}
+    return torch.func.functional_call(self.module, variables, (features,),
+                                      {"mode": mode, "train": train},
+                                      strict=True)
 
   @property
   def compute_dtype(self) -> torch.dtype:

@@ -12,11 +12,14 @@ with its numerics:
 * momentum is `t = g + mu * t`, Nesterov returns `g + mu * t_new`;
 * rmsprop puts eps *inside* the sqrt (`rsqrt(nu + eps)`), unlike
   `torch.optim.RMSprop`, and applies momentum after the learning rate;
-* `clip_by_global_norm` goes first in the chain when asked for.
+* `clip_by_global_norm` goes first in the chain when asked for;
+* `add_decayed_weights` adds `weight_decay * p` to the gradient of each
+  leaf its mask selects, and goes before the optimizer in a chain.
 
 States mirror optax's: a chain's state is a tuple of its members' states,
 each a dict named after the optax NamedTuple's fields (`count`, `mu`,
-`nu`, `trace`), or `{}` for optax's EmptyState. Counts are Python ints;
+`nu`, `trace`, and `inner_state` for a masked transformation), or `{}`
+for optax's EmptyState. Counts are Python ints;
 moments are param-shaped dicts of tensors. `bridge.py` maps an optax
 state onto this layout.
 
@@ -35,6 +38,7 @@ from tensor2robot_tpu_torch.utils import config
 
 __all__ = [
     "GradientTransformation", "chain", "apply_updates", "global_norm",
+    "add_decayed_weights",
     "create_constant_learning_rate", "create_exponential_decay_learning_rate",
     "create_piecewise_linear_learning_rate",
     "create_adam_optimizer", "create_sgd_optimizer",
@@ -172,6 +176,27 @@ def _clip_by_global_norm(max_norm: float) -> GradientTransformation:
                 updates), state
 
   return GradientTransformation(lambda params: {}, update)
+
+
+def add_decayed_weights(
+    weight_decay: float,
+    mask: Optional[Callable[[Params], Dict[str, bool]]] = None
+) -> GradientTransformation:
+  """optax.add_decayed_weights: `g + weight_decay * p` on every leaf, or
+  with `mask` (params -> {name: bool}) on the leaves it selects, the
+  others passed through. The state mirrors optax's: `{}`, or with a mask
+  `{"inner_state": {}}` (optax.masked's MaskedState around EmptyState)."""
+
+  def update(updates, state, params=None):
+    if params is None:
+      raise ValueError("add_decayed_weights needs the params.")
+    selected = mask(params) if mask is not None else None
+    return {k: g + weight_decay * params[k]
+            if selected is None or selected[k] else g
+            for k, g in updates.items()}, state
+
+  return GradientTransformation(
+      lambda params: {} if mask is None else {"inner_state": {}}, update)
 
 
 # -- learning-rate schedules -------------------------------------------------

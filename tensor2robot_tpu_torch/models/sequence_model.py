@@ -77,7 +77,9 @@ class _AttentionTrunk(nn.Module):
       self.add_module(f"mlp_out_{i}", nn.Linear(2 * hidden_size, hidden_size))
     self.head = nn.Linear(hidden_size, action_size)
 
-  def forward(self, features, mode: str = modes_lib.PREDICT):
+  def forward(self, features, mode: str = modes_lib.PREDICT,
+              train: bool = False):
+    """(outputs, {}): the trunk holds no mutable state."""
     x = self.embed(features["observation"])  # [B, T, hidden]
     for i in range(self.num_blocks):
       y = getattr(self, f"ln_attn_{i}")(x)
@@ -86,7 +88,7 @@ class _AttentionTrunk(nn.Module):
       y = getattr(self, f"mlp_out_{i}")(_gelu(getattr(self, f"mlp_in_{i}")(y)))
       x = x + y
     action = self.head(x)  # [B, T, act]
-    return SpecStruct({"action": action, "inference_output": action})
+    return SpecStruct({"action": action, "inference_output": action}), {}
 
 
 @config.configurable

@@ -1,15 +1,20 @@
-"""Train state, the train step, the K-step train loop and the predict
-function.
+"""Train state, the train step, the K-step train loop, the eval step and
+loop, and the predict function.
 
 Counterpart of `tensor2robot_tpu.parallel.train_step` on one device.
 `TrainState` holds the step, the parameters as a flat `state_dict`, the
-optimizer state (`models.optimizers` layout) and the EMA shadow
-parameters (or None). The JAX package jits a pure step over a mesh; here
-the step runs eagerly on the parameters' device and returns a new state:
-the state it was given is left as it was.
+optimizer state (`models.optimizers` layout), the EMA shadow parameters
+(or None) and the mutable state (batch-norm running statistics, flax's
+`batch_stats`; {} for a model without). The JAX package jits a pure step
+over a mesh; here the step runs eagerly on the parameters' device and
+returns a new state: the state it was given is left as it was.
 
-Meshes, sharding rules, donation, remat, gradient accumulation, PCGrad
-and the eval step are not ported yet (ROADMAP.md, Queue A).
+The step's new mutable state comes from the forward on the pre-update
+parameters; the EMA covers parameters only, and eval and predict run the
+EMA parameters (when kept) with the live mutable state.
+
+Meshes, sharding rules, donation, remat, gradient accumulation and PCGrad
+are not ported yet (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ from tensor2robot_tpu_torch.models import optimizers as optimizers_lib
 
 __all__ = ["TrainState", "init_train_state", "create_train_state",
            "loss_and_grads", "make_train_step", "make_train_loop",
-           "make_predict_fn", "map_tensors"]
+           "make_eval_step", "make_eval_loop", "make_predict_fn",
+           "map_tensors"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -43,13 +49,15 @@ def map_tensors(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
 
 @dataclasses.dataclass(frozen=True)
 class TrainState:
-  """Model state: step, parameters, EMA shadow parameters (or None) and
-  optimizer state (or None for a serving-only state)."""
+  """Model state: step, parameters, EMA shadow parameters (or None),
+  optimizer state (or None for a serving-only state) and mutable state
+  (the module's buffers by name; {} for a module without)."""
 
   step: int
   params: Params
   ema_params: Optional[Params] = None
   opt_state: Any = None
+  mutable_state: Params = dataclasses.field(default_factory=dict)
 
   def eval_params(self, use_ema: bool = True) -> Params:
     """Params for eval/serving: the EMA shadow when present."""
@@ -65,24 +73,31 @@ class TrainState:
     move = lambda x: x.to(device)
     return self.replace(params=map_tensors(move, self.params),
                         ema_params=map_tensors(move, self.ema_params),
-                        opt_state=map_tensors(move, self.opt_state))
+                        opt_state=map_tensors(move, self.opt_state),
+                        mutable_state=map_tensors(move, self.mutable_state))
 
 
 def init_train_state(model, params: Params, step: int = 0) -> TrainState:
   """The state a run starts from on `params`: the model's optimizer
-  state, and the EMA shadow as a copy of the parameters when the model
-  uses EMA (a copy, not an alias: the step replaces params, never the
-  shadow's storage)."""
+  state, the EMA shadow as a copy of the parameters when the model uses
+  EMA (a copy, not an alias: the step replaces params, never the
+  shadow's storage), and the model's initial mutable state on the
+  parameters' device."""
   ema = ({k: v.clone() for k, v in params.items()} if model.use_ema
          else None)
+  device = next(iter(params.values())).device
+  mutable_state = {k: v.to(device)
+                   for k, v in model.init_mutable_state().items()}
   return TrainState(step=int(step), params=params, ema_params=ema,
-                    opt_state=model.build_optimizer().init(params))
+                    opt_state=model.build_optimizer().init(params),
+                    mutable_state=mutable_state)
 
 
 def create_train_state(model, generator: torch.Generator,
                        device: torch.device) -> TrainState:
   """Fresh parameters from `generator` (drawn on the CPU, then moved),
-  step 0, fresh optimizer state, EMA as a copy when the model uses it."""
+  step 0, fresh optimizer state, EMA as a copy when the model uses it, the
+  initial mutable state."""
   params = {k: v.to(device) for k, v in model.init_params(generator).items()}
   return init_train_state(model, params)
 
@@ -92,37 +107,46 @@ def _float32_outputs(outputs) -> Dict[str, torch.Tensor]:
           for k, v in outputs.items()}
 
 
-def loss_and_grads(model, params: Params, features, labels):
-  """(loss, scalars, grads) of `model.model_train_fn` on one batch, the
-  gradients taken with respect to `params` (f32 masters: under the
-  bfloat16 policy the forward casts them to bf16 and the gradients flow
-  back through the cast). loss and scalars are detached."""
+def loss_and_grads(model, params: Params, features, labels,
+                   mutable_state: Optional[Params] = None):
+  """(loss, scalars, grads, new mutable state) of `model.model_train_fn`
+  on one batch, the forward in train mode on `params` and
+  `mutable_state` (default {}), the gradients taken with respect to
+  `params` (f32 masters: under the bfloat16 policy the forward casts them
+  to bf16 and the gradients flow back through the cast). loss and scalars
+  are detached; the new mutable state is {} for a model without one."""
   names = list(params)
   leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
   compute_features = model.cast_features_for_compute(features)
-  outputs = _float32_outputs(model.inference_network_fn(
-      leaves, compute_features, modes_lib.TRAIN))
+  outputs, new_mutable = model.inference_network_fn(
+      leaves, mutable_state or {}, compute_features, modes_lib.TRAIN,
+      train=True)
+  outputs = _float32_outputs(outputs)
   loss, scalars = model.model_train_fn(features, labels, outputs,
                                        modes_lib.TRAIN)
   grads = dict(zip(names, torch.autograd.grad(
       loss, [leaves[k] for k in names])))
   return (loss.detach(), {k: v.detach() for k, v in scalars.items()},
-          grads)
+          grads, new_mutable)
 
 
 def make_train_step(model) -> Callable:
   """The train step: (state, features, labels) -> (new_state, metrics).
 
-  `loss_and_grads`, then the optimizer update, then
-  the EMA `e * d + (1 - d) * p` on the new parameters. Metrics: `loss`,
+  `loss_and_grads` (whose forward also gives the new mutable state, from
+  the pre-update parameters), then the optimizer update, then the EMA
+  `e * d + (1 - d) * p` on the new parameters. Metrics: `loss`,
   `global_gradient_norm` of the raw gradients, and the model's scalars,
   as 0-dim tensors on the device (reading them syncs)."""
+  if getattr(model, "use_pcgrad", False):
+    raise NotImplementedError(
+        "use_pcgrad is not ported yet (ROADMAP.md, Queue A: PCGrad)")
   optimizer = model.build_optimizer()
   ema_decay = model.ema_decay
 
   def step_fn(state: TrainState, features, labels):
-    loss, scalars, grads = loss_and_grads(model, state.params, features,
-                                          labels)
+    loss, scalars, grads, new_mutable = loss_and_grads(
+        model, state.params, features, labels, state.mutable_state)
     with torch.no_grad():
       updates, opt_state = optimizer.update(grads, state.opt_state,
                                             state.params)
@@ -135,7 +159,9 @@ def make_train_step(model) -> Callable:
                  "global_gradient_norm": optimizers_lib.global_norm(grads),
                  **scalars}
     return state.replace(step=state.step + 1, params=params,
-                         opt_state=opt_state, ema_params=ema), metrics
+                         opt_state=opt_state, ema_params=ema,
+                         mutable_state=new_mutable or state.mutable_state
+                         ), metrics
 
   return step_fn
 
@@ -161,16 +187,57 @@ def make_train_loop(model, num_steps: int) -> Callable:
   return loop_fn
 
 
+def _eval_outputs(model, state: TrainState, features, mode: str,
+                  use_ema: bool):
+  """Eval-mode outputs (running statistics, no update) of the EMA
+  parameters when kept, with the live mutable state; bfloat16 outputs
+  cast to float32."""
+  outputs, _ = model.inference_network_fn(
+      state.eval_params(use_ema=use_ema), state.mutable_state,
+      model.cast_features_for_compute(features), mode, train=False)
+  return _float32_outputs(outputs)
+
+
+def make_eval_step(model, use_ema: bool = True) -> Callable:
+  """(state, features, labels) -> the model's eval metric scalars, as
+  0-dim tensors on the device."""
+
+  @torch.no_grad()
+  def eval_fn(state: TrainState, features, labels):
+    outputs = _eval_outputs(model, state, features, modes_lib.EVAL, use_ema)
+    return model.model_eval_fn(features, labels, outputs)
+
+  return eval_fn
+
+
+def make_eval_loop(model, num_steps: int, use_ema: bool = True) -> Callable:
+  """K eval batches per call: (state, features, labels) -> metric scalars
+  SUMMED over the K batches (divide by K for the mean), with features and
+  labels carrying a leading `num_steps` axis of batches."""
+  if num_steps < 1:
+    raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+  eval_fn = make_eval_step(model, use_ema=use_ema)
+
+  def loop_fn(state: TrainState, features, labels):
+    totals: Dict[str, torch.Tensor] = {}
+    for i in range(num_steps):
+      metrics = eval_fn(state, {k: v[i] for k, v in features.items()},
+                        {k: v[i] for k, v in labels.items()})
+      for key, value in metrics.items():
+        totals[key] = totals[key] + value if key in totals else value
+    return totals
+
+  return loop_fn
+
+
 def make_predict_fn(model, use_ema: bool = True) -> Callable:
-  """(state, features) -> export outputs, with bfloat16 outputs cast to
-  float32."""
+  """(state, features) -> export outputs of the eval-mode forward, with
+  bfloat16 outputs cast to float32."""
 
   @torch.no_grad()
   def predict_fn(state: TrainState, features):
-    params = state.eval_params(use_ema=use_ema)
-    compute_features = model.cast_features_for_compute(features)
-    outputs = model.inference_network_fn(params, compute_features,
-                                         modes_lib.PREDICT)
-    return model.create_export_outputs_fn(features, _float32_outputs(outputs))
+    outputs = _eval_outputs(model, state, features, modes_lib.PREDICT,
+                            use_ema)
+    return model.create_export_outputs_fn(features, outputs)
 
   return predict_fn

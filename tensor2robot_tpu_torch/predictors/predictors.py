@@ -90,9 +90,11 @@ class AbstractPredictor(abc.ABC):
 class CheckpointPredictor(AbstractPredictor):
   """Serves a model object's predict path on one device.
 
-  Parameters come from `init_randomly(seed)`, from `load_params(...)`
-  (for example a JAX param tree carried over by `bridge.py`), which
-  stages them, or from the checkpoints a trainer wrote under `model_dir`.
+  Parameters (and the mutable state: batch-norm running statistics) come
+  from `init_randomly(seed)`, from `load_params(...)` (for example a JAX
+  variable tree carried over by `bridge.py`), which stages them, or from
+  the checkpoints a trainer wrote under `model_dir`. `predict` runs the
+  eval-mode forward: EMA parameters when kept, running statistics.
   `restore()` swaps staged parameters in, or else the newest verified
   checkpoint (a corrupt newest step is quarantined and the next newest
   serves). Sessions that an engine holds keep their state across a swap:
@@ -141,12 +143,21 @@ class CheckpointPredictor(AbstractPredictor):
 
   def load_params(self, params: Mapping[str, Any],
                   ema_params: Optional[Mapping[str, Any]] = None,
-                  global_step: int = 0) -> None:
-    """Stages a parameter `state_dict` (and EMA shadow) for the next
-    `restore()`. Keys and shapes must match the model's."""
-    expected = self._model.module.state_dict()
+                  global_step: int = 0,
+                  mutable_state: Optional[Mapping[str, Any]] = None) -> None:
+    """Stages a parameter `state_dict` (and EMA shadow, and mutable state:
+    the model's initial one when None) for the next `restore()`. Keys and
+    shapes must match the model's."""
+    module = self._model.module
+    expected_params = dict(module.named_parameters())
+    expected_buffers = dict(module.named_buffers())
+    if mutable_state is None:
+      mutable_state = self._model.init_mutable_state()
     staged = {}
-    for name, tree in (("params", params), ("ema_params", ema_params)):
+    for name, tree, expected in (
+        ("params", params, expected_params),
+        ("ema_params", ema_params, expected_params),
+        ("mutable_state", mutable_state, expected_buffers)):
       if tree is None:
         staged[name] = None
         continue

@@ -7,9 +7,10 @@
 * `chip_smoke.py` exits non-zero and prints no result where there is no
   CUDA device, and in a directory that holds nothing else of the repo.
 * The port's session and training configs parse and bind the
-  long-context widths.
+  long-context widths, and its QT-Opt config the flagship critic's.
 * A kernel library's name changes with any `csrc/*.cuh` header, and
-  `profile_train` finds both designs of each flash kernel by name.
+  `profile_train` finds both designs of each flash kernel by name and
+  sorts the critic's device kernels by kind.
 * `chip_smoke.py` labels mangled kernel names by their length prefixes,
   digits inside a name included, and bounds f32 work by 3xTF32 where
   that is faster than the f32 CUDA cores.
@@ -178,6 +179,34 @@ def test_train_config_binds_the_long_context_widths():
     config.clear_config()
 
 
+def test_qtopt_config_binds_the_flagship_widths():
+  from tensor2robot_tpu_torch.research.qtopt import models as qtopt_models
+
+  try:
+    config.parse_config_file(str(PORT / "configs" / "train_qtopt.gin"))
+    model = config.query_parameter("train_eval_model.model")
+    assert model is not None
+    model = qtopt_models.QTOptModel()
+    assert (model.network, model._image_size, model._action_size,
+            model._grasp_param_names, model.use_bfloat16, model.use_ema,
+            model.ema_decay, model._l2_regularization) == (
+                "grasping44", 472, 5,
+                {"world_vector": (0, 3), "vertical_rotation": (3, 2)}, True,
+                True, 0.9999, 7e-5)
+    assert model.module.fc0.in_features == 8 * 8 * 64
+    for name, value in (("mode", "train_and_evaluate"),
+                        ("max_train_steps", 1000), ("eval_steps", 100),
+                        ("eval_every_n_steps", 500),
+                        ("checkpoint_every_n_steps", 500)):
+      assert config.query_parameter(f"train_eval_model.{name}") == value
+    assert config.query_parameter(
+        "DefaultRandomInputGenerator.batch_size") == 32
+    assert config.query_parameter(
+        "train_eval_model.input_generator_eval") is not None
+  finally:
+    config.clear_config()
+
+
 def test_trainer_raises_without_cuda(no_cuda, tmp_path):
   from tensor2robot_tpu_torch import train_eval
   from tensor2robot_tpu_torch.data import input_generators
@@ -227,6 +256,25 @@ def test_profile_train_matches_both_flash_designs():
     profile_train.flash_device_ms(events[:3], launched)
   assert profile_train.flash_device_ms(
       events[:3], dict(launched, flash_bwd_dkv=0))["flash_bwd_dkv"] == 0
+
+
+def test_profile_train_sorts_device_kernels_by_kind():
+  from tensor2robot_tpu_torch.bin import profile_train
+
+  events = [
+      ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc", 4.0),
+      ("sm90_xmma_wgrad_implicit_gemm_indexed_wo_smem", 3.0),
+      ("cutlass3x_sm90_tensorop_s64x64x16gemm_bf16", 1.0),
+      ("void at::native::(anonymous namespace)::max_pool_forward_nchw", 0.5),
+      ("void at::native::reduce_kernel<512, 1, ReduceOp<float>>", 0.25),
+      ("void at::native::vectorized_elementwise_kernel<4, AddFunctor>", 2.0),
+      ("Memcpy HtoD (Pageable -> Device)", 0.125),
+      ("flash_bwd_dq_tc_kernel<64>", 0.0625),
+      ("some_new_kernel", 0.03125)]
+  assert profile_train.device_ms_by_kind(events) == {
+      "flash": 0.0625, "cudnn_conv": 7.0, "cublas_gemm": 1.0,
+      "max_pool": 0.5, "reduction": 0.25, "elementwise": 2.0,
+      "copy": 0.125, "other": 0.03125}
 
 
 @pytest.mark.parametrize("line, label", [
