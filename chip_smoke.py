@@ -93,10 +93,42 @@ and prints no result):
       config), and f32 with and without TF32 convolutions; grasps/s =
       32 / step seconds; the bound from the step's products as
       `torch.utils.flop_counter` counts them.
+7. The critic served: the step-30 checkpoint of phase 6b through
+   `CheckpointPredictor(model_dir=...)` -> `BucketedEngine` ->
+   `MicroBatcher` at the bindings of
+   `tensor2robot_tpu_torch/configs/serve_qtopt.gin` (rungs 1/2/4/8/16; at
+   most 16 rows, 2 ms, a queue of 128, a 33 ms deadline), under
+   `CEMPolicy` and `DeviceCEMPolicy` (64 samples x 3 iterations, 10
+   elites, seed 0). Served logits are held to the bf16 limit of phase 6a
+   (max(1e-2, 4x the CPU bf16 forward's distance from its f32 one)),
+   each row's error over the rms of the eager logits.
+   a. `Policy.restore()` warms the five rungs (`warm_count` 5, never
+      again after); a seeded sweep of 40 requests of 1-40 rows through
+      the batcher, each row against an eager `predictor.predict` of its
+      request, and the same padded batch twice bit for bit; 8 threads of
+      1-row probes (`run_load`) while 64-row sweeps bypass the queue from
+      another thread, each result against an eager predict of its rows,
+      ok plus sheds equal to the requests sent (sheds are outcomes); a
+      hot swap to the step-20 checkpoint served without a new warm,
+      differing from step 30 and bit-identical to an eager predict, and
+      back; each policy's action within [-1, 1] and its `last_q_value`
+      within the limit of a 1-row rescore; the device CEM draws anew
+      each call and repeats its action bit for bit from a fresh policy
+      of the same seed; `cross_entropy_method` on the card against the
+      CPU on the same draws (the same elites, mean and stddev within
+      1e-6).
+   b. Each rung's request: host wall and the CUDA-event span of the
+      call, and `torch.profiler` device busy and idle share; each
+      policy's `select_action`, median and p99 of 20, and its device busy
+      and idle share; 1-row probe QPS and latency at concurrency 8; peak
+      device memory; the bound of one action (the device CEM's products,
+      3 x 64 image forwards, counted by `torch.utils.flop_counter`, at
+      989 TFLOP/s bf16).
 
 Output: a `train` JSON line, a `slice` JSON line, a `qtopt` JSON line
 (the critic's checks, its step ms and grasps/s under each policy with
-the card, power limit, TF32 flags and bound), a `kernels` JSON line
+the card, power limit, TF32 flags and bound), a `serve_qtopt` JSON line
+(phase 7's checks and numbers), a `kernels` JSON line
 (one row per kernel, with its `design`: "wgmma+tma" for the bf16
 tensor-core kernels, "wgmma+tma, 3xtf32" for the f32 ones, "split-t,
 bulk-tma" for the decode tick, "cuda-cores" for the f32 backward's split
@@ -1094,12 +1126,11 @@ def _check_qtopt_records(train_records, eval_records, first, last,
                            f"{record.get(key)}")
 
 
-def run_qtopt_train(torch, np, port, device) -> dict:
-  """The flagship config through `train_eval_model`, a resume and the
-  checkpoint predictor (phase 6b)."""
+def run_qtopt_train(torch, np, port, device, model_dir: str) -> dict:
+  """The flagship config through `train_eval_model` into `model_dir`, a
+  resume and the checkpoint predictor (phase 6b). The caller removes
+  `model_dir`: phase 7 serves its checkpoints."""
   (config, train_eval, checkpoints, predictors, qtopt_models, specs) = port
-  os.makedirs(os.path.join(REPO_DIR, RUNS_DIR), exist_ok=True)
-  model_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
   try:
     config.clear_config()
     config.parse_config_file(os.path.join(REPO_DIR, QTOPT_CONFIG))
@@ -1173,7 +1204,6 @@ def run_qtopt_train(torch, np, port, device) -> dict:
                          f"eval-mode forward: {same}")
   finally:
     config.clear_config()
-    shutil.rmtree(model_dir, ignore_errors=True)
   return {"steps_20_wall_s": first_wall,
           "loss_step_1": train_records[0]["loss"],
           "loss_step_30": train_records[-1]["loss"],
@@ -1229,10 +1259,10 @@ def time_qtopt_step(torch, train_step, input_generators, flagship, device,
           **bound(moved, flops, rate)}
 
 
-def run_qtopt(torch, np, port, device, card: str) -> dict:
-  """Phase 6: strict parity with TF32 off, then the flagship run and the
-  step timings under torch's default TF32 flags (cuDNN on, cuBLAS off),
-  the previous flags restored after each."""
+def run_qtopt(torch, np, port, device, card: str, model_dir: str) -> dict:
+  """Phase 6: strict parity with TF32 off, then the flagship run (into
+  `model_dir`) and the step timings under torch's default TF32 flags
+  (cuDNN on, cuBLAS off), the previous flags restored after each."""
   (config, train_eval, checkpoints, train_step, input_generators,
    predictors, qtopt_models, flagship, specs) = port
   previous = _tf32(torch, cudnn=False, matmul=False)
@@ -1246,7 +1276,7 @@ def run_qtopt(torch, np, port, device, card: str) -> dict:
   try:
     trained = run_qtopt_train(torch, np, (
         config, train_eval, checkpoints, predictors, qtopt_models, specs),
-                              device)
+                              device, model_dir)
     torch.cuda.empty_cache()
     step = time_qtopt_step(torch, train_step, input_generators, flagship,
                            device, use_bfloat16=True)
@@ -1265,6 +1295,323 @@ def run_qtopt(torch, np, port, device, card: str) -> dict:
         f" ms ({timed['bound_by']}, {timed['bound_path']})")
   return {"card": card, "step": step, "step_f32_tf32_convs": step_f32_tf32,
           "step_f32": step_f32, "strict": strict, "train": trained}
+
+
+# -- phase 7: the critic served ------------------------------------------------
+
+SERVE_CONFIG = "tensor2robot_tpu_torch/configs/serve_qtopt.gin"
+SERVE_LADDER = [1, 2, 4, 8, 16]
+SERVE_POOL = 64            # distinct images the requests draw from
+SWEEP_REQUESTS = 40        # of 1..SWEEP_MAX_ROWS rows (crosses the top rung)
+SWEEP_MAX_ROWS = 40
+PROBE_THREADS = 8          # concurrent 1-row clients
+MIXED_PROBES = 10          # per thread, beside the 64-row sweeps
+MIXED_SWEEPS = 4
+QPS_PROBES = 25            # per thread, probes alone
+ACTIONS_TIMED = 20
+CEM_TOL = 1e-6             # card vs CPU CEM: mean and stddev, same draws
+SHEDS = ("ShedError", "DeadlineError")
+
+
+def _serve_request(np, pool, rows: int, seed: int) -> dict:
+  """`rows` images drawn from `pool`, with uniform actions in [-1, 1]."""
+  rng = np.random.RandomState(seed)
+  return {"state/image": pool[rng.randint(0, len(pool), size=rows)],
+          "action/action": rng.uniform(-1.0, 1.0, (rows, 5)).astype(
+              np.float32)}
+
+
+def _check_rows(np, pairs, predictor, limit: float) -> dict:
+  """Each served request's rows against an eager `predictor.predict` of
+  that request: every output has the request's rows, and each row's logit
+  error over the rms of the eager logits (the relative 2-norm's
+  denominator, over all rows held) stays within `limit`."""
+  want = [predictor.predict(request) for request, _ in pairs]
+  for (request, got), eager in zip(pairs, want):
+    rows = len(request["action/action"])
+    for key in ("q_predicted", "logits"):
+      if got[key].shape != eager[key].shape or got[key].shape[0] != rows:
+        raise RuntimeError(f"{key} of a {rows}-row request has shape "
+                           f"{got[key].shape}, eager {eager[key].shape}")
+  logits = np.concatenate([w["logits"].ravel() for w in want])
+  scale = float(np.sqrt(np.mean(logits.astype(np.float64) ** 2)))
+  errs = np.concatenate([np.abs(got["logits"] - w["logits"]).ravel()
+                         for (_, got), w in zip(pairs, want)]) / scale
+  worst = float(errs.max())
+  if not worst <= limit:
+    raise RuntimeError(f"a served row's logit is {worst:.3e} (of the rms "
+                       f"logit {scale:.3e}) from the eager predict, limit "
+                       f"{limit:.3e}")
+  return {"requests": len(pairs), "rows": int(errs.size),
+          "max_row_err": worst, "rms_logit": scale,
+          "bit_identical_rows": int(np.sum(errs == 0))}
+
+
+def _check_load(result: dict) -> dict:
+  """ok plus sheds must be every request sent; any other error fails."""
+  sheds = sum(n for name, n in result["errors"].items() if name in SHEDS)
+  other = {k: v for k, v in result["errors"].items() if k not in SHEDS}
+  if other or result["ok"] + sheds != result["requests"]:
+    raise RuntimeError(f"load run: {result}")
+  return {**result, "sheds": sheds}
+
+
+def check_cem_card_vs_cpu(torch, np, cem, device) -> dict:
+  """`cross_entropy_method` on the card and on the CPU, a quadratic
+  objective and the same injected draws: the same elites every
+  iteration, mean and stddev within CEM_TOL."""
+  draws = torch.from_numpy(
+      np.random.RandomState(5).randn(3, 64, 5).astype(np.float32))
+  target = torch.tensor([0.3, -0.5, 0.8, 0.1, -0.2])
+  runs = []
+  for dev in (torch.device("cpu"), device):
+    history = []
+    t = target.to(dev)
+    ones = torch.ones(5, device=dev)
+    _, score, _ = cem.cross_entropy_method(
+        lambda a: -((a - t) ** 2).sum(-1), torch.zeros(5, device=dev), ones,
+        low=-ones, high=ones, draws=draws, history=history)
+    runs.append((float(score), [{k: v.cpu() for k, v in h.items()}
+                                for h in history]))
+  (_, cpu), (score, card) = runs
+  same = all(torch.equal(a["elite_idx"], b["elite_idx"])
+             for a, b in zip(card, cpu))
+  err = max(max_abs(a[k], b[k]) for a, b in zip(card, cpu)
+            for k in ("mean", "stddev"))
+  log(f"cross_entropy_method card vs CPU: same elites {same}, mean/stddev "
+      f"max |err| {err:.3e}")
+  if not (same and err <= CEM_TOL):
+    raise RuntimeError(f"the CEM on the card disagrees with the CPU: elites "
+                       f"{same}, err {err}")
+  return {"same_elites": same, "max_abs_err": err, "score": score}
+
+
+def _time_actions(np, policy, obs) -> dict:
+  walls = []
+  for _ in range(ACTIONS_TIMED):
+    start = time.perf_counter()
+    policy.select_action(obs)
+    walls.append(time.perf_counter() - start)
+  ms = 1e3 * np.asarray(walls)
+  return {"median_ms": float(np.median(ms)),
+          "p99_ms": float(np.percentile(ms, 99)), "n": len(walls)}
+
+
+def _profile(device_profile, fn, count: int) -> dict:
+  out = device_profile.profile_window(fn, count)
+  out.pop("events")
+  return out
+
+
+def run_qtopt_serve(torch, np, port, device, model_dir: str,
+                    bf16_limit: float) -> dict:
+  """Phase 7: the step-30 checkpoint of phase 6b served through
+  CheckpointPredictor -> BucketedEngine -> MicroBatcher at the bindings
+  of `configs/serve_qtopt.gin`, under the host CEM and the device CEM."""
+  (config, checkpoints, predictors, specs, flagship, serving, loadgen,
+   policies, device_cem, cem, obs_metrics, device_profile) = port
+  from torch.utils.flop_counter import FlopCounterMode
+
+  torch.cuda.reset_peak_memory_stats()
+  config.clear_config()
+  config.parse_config_file(os.path.join(REPO_DIR, SERVE_CONFIG))
+  predictor = predictors.CheckpointPredictor(
+      model=flagship.make_flagship_model(), model_dir=model_dir)
+  engine = serving.BucketedEngine(predictor=predictor)
+  batcher = serving.MicroBatcher(backend=engine)
+  out = {"ladder": engine.buckets,
+         "batcher": {"max_batch_size": batcher._max_batch_size,
+                     "max_delay_ms": 1e3 * batcher._max_delay_s,
+                     "max_queue": batcher._max_queue,
+                     "deadline_ms": batcher._default_deadline_ms},
+         "bf16_limit": bf16_limit}
+  try:
+    if engine.buckets != SERVE_LADDER:
+      raise RuntimeError(f"the serve config bound the ladder "
+                         f"{engine.buckets}, want {SERVE_LADDER}")
+    policy = policies.CEMPolicy(predictor=batcher,
+                                action_size=flagship.ACTION_SIZE, seed=0)
+    start = time.perf_counter()
+    if not policy.restore() or policy.global_step != 30:
+      raise RuntimeError(f"the policy did not restore step 30 "
+                         f"({policy.global_step})")
+    out["restore_warm_s"] = time.perf_counter() - start
+    out["warmup_ms"] = engine.warmup_ms
+    if engine.warm_count != len(SERVE_LADDER):
+      raise RuntimeError(f"warm_count {engine.warm_count} after restore")
+    log(f"served step 30: ladder {engine.buckets}, warmup ms "
+        f"{ {k: round(v, 1) for k, v in engine.warmup_ms.items()} }")
+    pool = specs.make_random_numpy(predictor.get_feature_specification(),
+                                   batch_size=SERVE_POOL,
+                                   seed=7)["state/image"]
+
+    # 7a. A sweep of 1..40 rows through the batcher (the top rung is 16).
+    rng = np.random.RandomState(0)
+    pairs = []
+    for i in range(SWEEP_REQUESTS):
+      rows = int(rng.randint(1, SWEEP_MAX_ROWS + 1))
+      request = _serve_request(np, pool, rows, 100 + i)
+      pairs.append((request, batcher.predict(request)))
+    out["sweep"] = _check_rows(np, pairs, predictor, bf16_limit)
+    request = _serve_request(np, pool, 5, 99)
+    first, second = engine.predict(request), engine.predict(request)
+    if not all(np.array_equal(first[k], second[k]) for k in first):
+      raise RuntimeError("the same padded batch twice is not bit-identical")
+    log(f"sweep of {SWEEP_REQUESTS} requests: {out['sweep']}")
+
+    # Mixed traffic: 1-row probes from 8 threads through the queue while
+    # 64-row sweeps bypass it from another thread.
+    records, lock, sweep_errors = [], threading.Lock(), []
+    probes = [_serve_request(np, pool, 1, 1000 + i)
+              for i in range(PROBE_THREADS * MIXED_PROBES)]
+
+    def probe(request, **kwargs):
+      result = batcher.predict(request, **kwargs)
+      with lock:
+        records.append((request, result))
+      return result
+
+    def sweeper():
+      for i in range(MIXED_SWEEPS):
+        try:
+          probe(_serve_request(np, pool, 64, 2000 + i))
+        except Exception as e:  # noqa: BLE001 - re-raised below
+          sweep_errors.append(e)
+
+    thread = threading.Thread(target=sweeper)
+    thread.start()
+    mixed = loadgen.run_load(probe, lambda i: probes[i],
+                             concurrency=PROBE_THREADS,
+                             requests_per_thread=MIXED_PROBES)
+    thread.join(timeout=300)
+    if thread.is_alive() or sweep_errors:
+      raise RuntimeError(f"the 64-row sweeps failed: {sweep_errors}")
+    out["mixed"] = {"load": _check_load(mixed),
+                    "rows": _check_rows(np, records, predictor, bf16_limit)}
+    log(f"mixed traffic: {out['mixed']}")
+    if engine.warm_count != len(SERVE_LADDER):
+      raise RuntimeError(f"warm_count moved to {engine.warm_count}")
+
+    # The hot swap: step 20 into the same predictor, then back to 30.
+    request = _serve_request(np, pool, 4, 77)
+    at_30 = engine.predict(request)["logits"]
+    manager = checkpoints.CheckpointManager(
+        os.path.join(model_dir, checkpoints.CHECKPOINT_DIRNAME))
+    step_20 = manager.restore(20, device=device)
+    predictor.load_params(step_20.params, step_20.ema_params, 20,
+                          step_20.mutable_state)
+    if not engine.restore() or engine.global_step != 20:
+      raise RuntimeError("the engine did not swap in step 20")
+    at_20 = engine.predict(request)["logits"]
+    swapped = {
+        "differs_from_step_30": not np.array_equal(at_20, at_30),
+        "equals_eager": bool(np.array_equal(
+            at_20, predictor.predict(request)["logits"])),
+        "warm_count": engine.warm_count}
+    log(f"hot swap to step 20: {swapped}")
+    if not (swapped["differs_from_step_30"] and swapped["equals_eager"]
+            and engine.warm_count == len(SERVE_LADDER)):
+      raise RuntimeError(f"the hot swap failed: {swapped}")
+    if not engine.restore() or engine.global_step != 30 \
+        or not np.array_equal(engine.predict(request)["logits"], at_30):
+      raise RuntimeError("the engine did not swap step 30 back in")
+    out["hot_swap"] = swapped
+
+    # The two CEM policies.
+    obs = {"image": pool[0]}
+    state = predictor.state
+    device_policy = device_cem.DeviceCEMPolicy(
+        model=predictor.model, state=state,
+        action_size=flagship.ACTION_SIZE, seed=0)
+    out["policies"] = {}
+    for name, pol in (("cem", policy), ("device_cem", device_policy)):
+      torch.cuda.reset_peak_memory_stats()
+      action = pol.select_action(obs)
+      peak = torch.cuda.max_memory_allocated()
+      q = pol.last_q_value
+      q_eager = float(predictor.predict(
+          {"state/image": pool[:1], "action/action": action[None]}
+      )["q_predicted"][0, 0])
+      err = abs(q - q_eager) / abs(q_eager)
+      out["policies"][name] = {"action": action.tolist(), "q": q,
+                               "q_rescored_1_row": q_eager, "q_rel_err": err,
+                               "peak_bytes": peak}
+      log(f"{name}: action {action.tolist()}, q {q} (1-row rescore "
+          f"{q_eager}), peak {peak / 2**30:.2f} GiB")
+      if not (action.shape == (flagship.ACTION_SIZE,)
+              and np.all(np.abs(action) <= 1.0) and err <= bf16_limit):
+        raise RuntimeError(f"{name} action failed its checks: "
+                           f"{out['policies'][name]}")
+    first = np.asarray(out["policies"]["device_cem"]["action"], np.float32)
+    second = device_policy.select_action(obs)
+    fresh = device_cem.DeviceCEMPolicy(
+        model=predictor.model, state=state,
+        action_size=flagship.ACTION_SIZE, seed=0).select_action(obs)
+    draws = {"second_call_differs": not np.array_equal(second, first),
+             "same_seed_bit_identical": bool(np.array_equal(fresh, first))}
+    out["policies"]["device_cem"].update(draws)
+    if not all(draws.values()):
+      raise RuntimeError(f"the device CEM's draws: {draws}")
+    out["cem_card_vs_cpu"] = check_cem_card_vs_cpu(torch, np, cem, device)
+
+    # 7b. Numbers: each rung, the two policies, the probes alone.
+    out["rungs"] = {}
+    for rung in SERVE_LADDER:
+      request = _serve_request(np, pool, rung, 3000 + rung)
+      engine.predict(request)
+      walls, spans = [], []
+      for _ in range(10):
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start = time.perf_counter()
+        begin.record()
+        engine.predict(request)
+        end.record()
+        end.synchronize()
+        walls.append(time.perf_counter() - start)
+        spans.append(begin.elapsed_time(end))
+      out["rungs"][str(rung)] = {
+          "wall_ms_median": 1e3 * float(np.median(walls)),
+          "device_span_ms_median": float(np.median(spans)),
+          "profile": _profile(device_profile,
+                              lambda: engine.predict(request), 5)}
+      log(f"rung {rung}: {out['rungs'][str(rung)]}")
+    for name, pol in (("cem", policy), ("device_cem", device_policy)):
+      timed = out["policies"][name]
+      timed["select_action"] = _time_actions(np, pol, obs)
+      timed["profile"] = _profile(device_profile,
+                                  lambda: pol.select_action(obs), 2)
+      log(f"{name} select_action: {timed['select_action']}; profile "
+          f"{timed['profile']}")
+    qps_probes = [_serve_request(np, pool, 1, 5000 + i)
+                  for i in range(PROBE_THREADS * QPS_PROBES)]
+    with obs_metrics.isolated():
+      probes_only = _check_load(loadgen.run_load(
+          batcher.predict, lambda i: qps_probes[i],
+          concurrency=PROBE_THREADS, requests_per_thread=QPS_PROBES))
+      probes_only["latency_ms"] = loadgen.latency_percentiles()
+      probes_only["batch_rows_mean"] = obs_metrics.histogram(
+          "serve/batch_rows").mean
+    out["probes"] = probes_only
+    log(f"1-row probes at concurrency {PROBE_THREADS}: {probes_only}")
+
+    # The bound of one action: the device CEM's products (3 x 64 image
+    # forwards) at the bf16 rate, or its inputs read once.
+    with FlopCounterMode(display=False) as counter:
+      device_policy.select_action(obs)
+    flops = counter.get_total_flops()
+    moved = pool[0].nbytes + sum(
+        t.numel() * t.element_size() for t in list(
+            state.eval_params().values()) + list(state.mutable_state.values()))
+    out["action_bound"] = {"flops": flops, "bytes": moved,
+                           "image_forwards": 3 * 64,
+                           **bound(moved, flops, "bfloat16")}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"action bound {out['action_bound']}")
+  finally:
+    batcher.close()
+    config.clear_config()
+  return out
 
 
 # -- phase 5: timings ----------------------------------------------------------
@@ -1430,12 +1777,18 @@ def main() -> int:
   from tensor2robot_tpu_torch.models import sequence_model
   from tensor2robot_tpu_torch.ops import _kernels
   from tensor2robot_tpu_torch.ops import attention as attention_ops
+  from tensor2robot_tpu_torch import serving
+  from tensor2robot_tpu_torch.obs import device_profile
+  from tensor2robot_tpu_torch.obs import metrics as obs_metrics
+  from tensor2robot_tpu_torch.ops import cem
   from tensor2robot_tpu_torch.ops import decode_kernels
   from tensor2robot_tpu_torch.parallel import train_step
+  from tensor2robot_tpu_torch.policies import device_cem
   from tensor2robot_tpu_torch.policies import policies
   from tensor2robot_tpu_torch.predictors import predictors
   from tensor2robot_tpu_torch.research.qtopt import flagship
   from tensor2robot_tpu_torch.research.qtopt import models as qtopt_models
+  from tensor2robot_tpu_torch.serving import loadgen
   from tensor2robot_tpu_torch.serving import session
   from tensor2robot_tpu_torch.utils import config
 
@@ -1511,17 +1864,41 @@ def main() -> int:
       use_bfloat16=False)
   log(f"f32 train step: {train_report['step_f32']}")
 
-  # Phase 6: the QT-Opt critic. Its path launches no custom kernel.
+  # Phases 6 and 7: the QT-Opt critic trained, then served from the
+  # checkpoints phase 6 wrote. Their paths launch no custom kernel.
   fwd, bwd = attention_ops.flash_forward, attention_ops.flash_backward
-  launches_before = (decode_kernels.fused_decode_attention.launches,
-                     fwd.launches, bwd.launches_dq, bwd.launches_dkv)
-  qtopt_report = run_qtopt(torch, np, (
-      config, train_eval, checkpoints, train_step, input_generators,
-      predictors, qtopt_models, flagship, specs), device, card)
-  qtopt_report["custom_kernel_launches"] = [
-      now - before for now, before in zip(
-          (decode_kernels.fused_decode_attention.launches, fwd.launches,
-           bwd.launches_dq, bwd.launches_dkv), launches_before)]
+
+  def custom_launches():
+    return (decode_kernels.fused_decode_attention.launches, fwd.launches,
+            bwd.launches_dq, bwd.launches_dkv)
+
+  os.makedirs(os.path.join(REPO_DIR, RUNS_DIR), exist_ok=True)
+  critic_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  try:
+    launches_before = custom_launches()
+    qtopt_report = run_qtopt(torch, np, (
+        config, train_eval, checkpoints, train_step, input_generators,
+        predictors, qtopt_models, flagship, specs), device, card, critic_dir)
+    qtopt_report["custom_kernel_launches"] = [
+        now - before for now, before in zip(custom_launches(),
+                                            launches_before)]
+    torch.cuda.empty_cache()
+
+    # Phase 7: the critic served, held to the bf16 limit of phase 6a.
+    launches_before = custom_launches()
+    strict_bf16 = qtopt_report["strict"]["bf16_eval_logits"]
+    serve_report = run_qtopt_serve(torch, np, (
+        config, checkpoints, predictors, specs, flagship, serving, loadgen,
+        policies, device_cem, cem, obs_metrics, device_profile), device,
+        critic_dir, max(QTOPT_BF16_REL_NORM,
+                        QTOPT_BF16_FACTOR * strict_bf16["cpu_vs_cpu_f32"]))
+    serve_report["custom_kernel_launches"] = [
+        now - before for now, before in zip(custom_launches(),
+                                            launches_before)]
+    serve_report["card"] = card
+  finally:
+    shutil.rmtree(critic_dir, ignore_errors=True)
+  torch.cuda.empty_cache()
   fwd_src = "tensor2robot_tpu_torch/csrc/flash_fwd.cu"
   bwd_src = "tensor2robot_tpu_torch/csrc/flash_bwd.cu"
   kernels = [
@@ -1582,13 +1959,15 @@ def main() -> int:
       **bwd_f32_t["flash_bwd_split"]})
   report = {"card": card, "build_s": build_s, "kernels": kernels,
             "extra_timings": extra, "slice": slice_report,
-            "train": train_report, "qtopt": qtopt_report}
+            "train": train_report, "qtopt": qtopt_report,
+            "serve_qtopt": serve_report}
   os.makedirs(os.path.dirname(REPORT), exist_ok=True)
   with open(REPORT, "w") as f:
     json.dump(report, f, indent=1)
   print(json.dumps({"train": train_report}))
   print(json.dumps({"slice": slice_report, "extra_timings": extra}))
   print(json.dumps({"qtopt": qtopt_report}))
+  print(json.dumps({"serve_qtopt": serve_report}))
   print(json.dumps({"kernels": kernels}))
   print(card_line(), flush=True)
   print(json.dumps({"ok": True, "device": {

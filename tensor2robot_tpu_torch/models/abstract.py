@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import abc
 import math
+import threading
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
@@ -86,6 +87,11 @@ class T2RModel(abc.ABC):
     self._ema_decay = ema_decay
     self._preprocessor: Optional[preprocessors_lib.AbstractPreprocessor] = None
     self._module: Optional[nn.Module] = None
+    # `functional_call` swaps the given tensors into the one module for
+    # the call and swaps its own back after: two threads in a forward at
+    # once (a batcher's worker and a bypassing CEM sweep) would run on
+    # each other's, or the module's own, parameters.
+    self._module_lock = threading.RLock()
 
   @property
   def use_bfloat16(self) -> bool:
@@ -115,9 +121,10 @@ class T2RModel(abc.ABC):
 
   @property
   def module(self) -> nn.Module:
-    if self._module is None:
-      self._module = self.create_module()
-    return self._module
+    with self._module_lock:
+      if self._module is None:
+        self._module = self.create_module()
+      return self._module
 
   # -- abstract model surface ----------------------------------------------
 
@@ -220,11 +227,13 @@ class T2RModel(abc.ABC):
     returns (outputs, new mutable state). With `train`, batch norm
     normalises by the batch and the new state holds its updated running
     statistics; otherwise it uses the running statistics and the new
-    state is {} (the JAX package's `inference_network_fn`)."""
+    state is {} (the JAX package's `inference_network_fn`). Forwards of
+    one model from several threads run one at a time."""
     variables = {**self.params_for_compute(params), **mutable_state}
-    return torch.func.functional_call(self.module, variables, (features,),
-                                      {"mode": mode, "train": train},
-                                      strict=True)
+    with self._module_lock:
+      return torch.func.functional_call(self.module, variables, (features,),
+                                        {"mode": mode, "train": train},
+                                        strict=True)
 
   @property
   def compute_dtype(self) -> torch.dtype:

@@ -1,8 +1,9 @@
 """Policies: predictor-backed action selection for robot control loops.
 
 Counterpart of `tensor2robot_tpu.policies.policies` (the `Policy`
-contract and `SessionRegressionPolicy`; the CEM and stateless regression
-policies come with later slices).
+contract, `CEMPolicy` and `SessionRegressionPolicy`; `LSTMCEMPolicy` and
+the stateless regression policies come with the LSTM, ROADMAP Queue A
+item 12).
 """
 
 from __future__ import annotations
@@ -13,10 +14,11 @@ from typing import Any, Mapping, Optional
 import numpy as np
 
 from tensor2robot_tpu_torch.obs import metrics as obs_metrics
+from tensor2robot_tpu_torch.ops import cem as cem_lib
 from tensor2robot_tpu_torch.serving import session as session_lib
 from tensor2robot_tpu_torch.utils import config
 
-__all__ = ["Policy", "SessionRegressionPolicy"]
+__all__ = ["Policy", "CEMPolicy", "SessionRegressionPolicy"]
 
 
 class Policy(abc.ABC):
@@ -53,6 +55,9 @@ class Policy(abc.ABC):
   def restore(self) -> bool:
     if self._predictor is not None:
       ok = self._predictor.restore()
+      # A serving front (`BucketedEngine`, `MicroBatcher`) runs every
+      # rung here, before the robot loop starts, instead of on the first
+      # action's critical path.
       warm = getattr(self._predictor, "warmup", None)
       if ok and warm is not None:
         warm()
@@ -68,6 +73,55 @@ class Policy(abc.ABC):
   def close(self) -> None:
     if self._predictor is not None:
       self._predictor.close()
+
+
+@config.configurable
+class CEMPolicy(Policy):
+  """argmax_a Q(s, a) via the host CEM over the critic predictor
+  (defaults 64 samples x 3 iterations, 10 elites).
+
+  Each CEM iteration repeats the observation over the candidates and
+  sends them through `predictor.predict` (a `MicroBatcher` in front of a
+  `BucketedEngine` when served): at 472x472 that is 64 copies of the
+  image per iteration, as in the JAX package.
+  """
+
+  def __init__(self, predictor=None, action_size: int = None,
+               cem_samples: int = 64, cem_iterations: int = 3,
+               cem_elites: int = 10,
+               action_low: float = -1.0, action_high: float = 1.0,
+               q_key: str = "q_predicted", seed: Optional[int] = None):
+    super().__init__(predictor)
+    if action_size is None:
+      raise ValueError("action_size is required.")
+    self._cem = cem_lib.CrossEntropyMethod(
+        num_samples=cem_samples, num_iterations=cem_iterations,
+        num_elites=cem_elites, seed=seed)
+    self._low = np.full(action_size, action_low, np.float32)
+    self._high = np.full(action_size, action_high, np.float32)
+    self._q_key = q_key
+
+  def _objective(self, obs):
+    def objective_fn(actions: np.ndarray) -> np.ndarray:
+      features = {("state/" + k): np.repeat(
+          np.asarray(v)[None], actions.shape[0], axis=0)
+          for k, v in dict(obs).items()}
+      features["action/action"] = actions
+      return self._predictor.predict(features)[self._q_key].reshape(-1)
+
+    return objective_fn
+
+  def select_action(self, obs, explore_prob: float = 0.0) -> np.ndarray:
+    if explore_prob > 0.0 and np.random.rand() < explore_prob:
+      self.last_q_value = None  # no Q for random actions
+      return np.random.uniform(self._low, self._high).astype(np.float32)
+    mean = (self._low + self._high) / 2.0
+    stddev = (self._high - self._low) / 2.0
+    action, score = self._cem.optimize(self._objective(obs), mean, stddev,
+                                       low=self._low, high=self._high)
+    # Exposed for actor-side Q-value summaries.
+    self.last_q_value = score
+    return action
 
 
 @config.configurable
