@@ -124,11 +124,38 @@ and prints no result):
       device memory; the bound of one action (the device CEM's products,
       3 x 64 image forwards, counted by `torch.utils.flop_counter`, at
       989 TFLOP/s bf16).
+8. The critic fed from TFRecords (no custom kernel on its path): the
+   machine's facts (cores, g++, whether the port's native library built
+   and with libjpeg, whether protobuf and PIL import; no native build
+   fails the phase); 4 train files of 64 grasp records and an eval file
+   of 5 x 32, written by the port's replay writer (`state/image` a
+   472x472 JPEG of a smooth image made from seed 0, tens of KB,
+   `action/action`, `reward`). The native chain (stager, columnar
+   parser, the native JPEG decoder where libjpeg is built, else PIL) and
+   the port's Python chain give byte-identical batches: the eval pass
+   end to end, 10 unshuffled train batches (past the epoch) end to end,
+   and 8 shuffled train batches parsed on both routes from the same
+   staged records (the stager's std::mt19937_64 and Python's generator
+   draw other shuffles by design); each decoder's count must equal the
+   images parsed. `configs/train_qtopt_records.gin` through
+   `train_eval_model` for 20 steps with evals of 5 batches at 10 and 20
+   and checkpoints 10 and 20: finite losses and eval metrics, verified
+   checkpoints, every step's and eval step's batch on the card and
+   copied from the prefetcher's page-locked ring on its side stream
+   (30 copies), and as many threads after the call as before it. Timed:
+   the record pipeline alone at 1, 2 and 4 parse workers (30 batches
+   after 3); one batch's copy to the card by CUDA events on the
+   prefetcher's side stream, beside a pageable and a page-locked copy on
+   the default stream; the median bf16 step fed through the prefetcher
+   from the constant generator, the records (2 and 4 workers) and the
+   random generator; the device idle share of 10 record-fed steps.
 
 Output: a `train` JSON line, a `slice` JSON line, a `qtopt` JSON line
 (the critic's checks, its step ms and grasps/s under each policy with
 the card, power limit, TF32 flags and bound), a `serve_qtopt` JSON line
-(phase 7's checks and numbers), a `kernels` JSON line
+(phase 7's checks and numbers), a `records` JSON line (phase 8's
+facts, checks and times with the card and its power limit), a `kernels`
+JSON line
 (one row per kernel, with its `design`: "wgmma+tma" for the bf16
 tensor-core kernels, "wgmma+tma, 3xtf32" for the f32 ones, "split-t,
 bulk-tma" for the decode tick, "cuda-cores" for the f32 backward's split
@@ -140,6 +167,7 @@ and as the last line `{"ok": true, "device": {...}}`. The same numbers go
 to `chiprun_out/chip_smoke_report.json`.
 """
 
+import itertools
 import json
 import os
 import re
@@ -1616,6 +1644,491 @@ def run_qtopt_serve(torch, np, port, device, model_dir: str,
 
 # -- phase 5: timings ----------------------------------------------------------
 
+# -- phase 8: the critic fed from records ------------------------------------
+
+RECORDS_CONFIG = "tensor2robot_tpu_torch/configs/train_qtopt_records.gin"
+RECORD_SEED = 0
+TRAIN_SHARDS = 4
+RECORDS_PER_SHARD = 64
+EVAL_BATCHES = 5             # the eval file holds 5 batches of 32
+IMAGE_POOL = 64              # distinct JPEGs the records draw from
+CHAIN_TRAIN_BATCHES = 8      # shuffled train batches held native vs Python
+CHAIN_EPOCH_BATCHES = 10     # unshuffled train batches, past the epoch's 8
+PIPELINE_WORKERS = (1, 2, 4)
+PIPELINE_BATCHES = 30
+PIPELINE_WARMUP = 3
+FED_STEPS = 10               # timed record-fed and random-fed steps
+FED_WARMUP = 3
+COPIES_TIMED = 10
+LOADER_THREADS = ("overlap-", "device-prefetch")
+
+
+def host_facts(native) -> dict:
+  """What the native data plane has on this machine. Raises when the
+  native library did not build, or when no JPEG decoder is there."""
+  import importlib
+
+  try:
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()[0]
+  except (OSError, IndexError):
+    gxx = None
+  facts = {"nproc": os.cpu_count(), "gxx": gxx,
+           "native": native.available(), "native_jpeg": native.has_jpeg()}
+  for module in ("google.protobuf", "PIL"):
+    try:
+      importlib.import_module(module)
+      facts[module] = True
+    except ImportError:
+      facts[module] = False
+  if not facts["native"]:
+    raise RuntimeError("the native data plane did not build:\n"
+                       + native.build_log())
+  if not (facts["native_jpeg"] or facts["PIL"]):
+    raise RuntimeError("no JPEG decoder: no libjpeg build and no PIL")
+  return facts
+
+
+def smooth_image(np, rng, size: int):
+  """A smooth uint8 image from `rng`: four plane waves a channel, summed
+  by separable products (sin(a + b) = sin a cos b + cos a sin b); about
+  23 KB as a 472x472 JPEG of the codec's default quality."""
+  t = np.arange(size, dtype=np.float32) / size
+  out = np.empty((size, size, 3), np.float32)
+  for c in range(3):
+    acc = np.zeros((size, size), np.float32)
+    for _ in range(4):
+      fx, fy = rng.uniform(1, 12), rng.uniform(1, 12)
+      ax = 2 * np.pi * fx * t
+      by = 2 * np.pi * fy * t + rng.uniform(0, 2 * np.pi)
+      acc += np.outer(np.cos(by), np.sin(ax)) + np.outer(np.sin(by),
+                                                         np.cos(ax))
+    out[..., c] = 127.5 + 30 * acc
+  return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def write_critic_records(np, specs, codec, replay_writer, model,
+                         directory: str) -> dict:
+  """TRAIN_SHARDS train files of RECORDS_PER_SHARD grasp records and one
+  eval file of EVAL_BATCHES x 32, with the replay writer: `state/image`
+  a JPEG of a smooth image, `action/action` uniform in [-1, 1], `reward`
+  0 or 1."""
+  spec = specs.SpecStruct({
+      **model.preprocessor.get_in_feature_specification("train"),
+      **model.preprocessor.get_in_label_specification("train")})
+  size = spec["state/image"].shape[0]
+  action_size = spec["action/action"].shape[0]
+  rng = np.random.RandomState(RECORD_SEED)
+  start = time.perf_counter()
+  pool = [codec.encode_image(smooth_image(np, rng, size))
+          for _ in range(IMAGE_POOL)]
+  total = 0
+  for split, shards, per_shard in (
+      ("train", TRAIN_SHARDS, RECORDS_PER_SHARD), ("eval", 1, EVAL_BATCHES * 32)):
+    for shard in range(shards):
+      path = os.path.join(directory, f"{split}-{shard:02d}.tfrecord")
+      records = [codec.encode_example({
+          "state/image": pool[rng.randint(IMAGE_POOL)],
+          "action/action": rng.uniform(-1, 1, action_size).astype(np.float32),
+          "reward": np.float32([rng.randint(2)])}, spec)
+                 for _ in range(per_shard)]
+      total += sum(len(r) for r in records)
+      with replay_writer.TFRecordReplayWriter(path) as writer:
+        writer.write(records)
+  count = TRAIN_SHARDS * RECORDS_PER_SHARD + EVAL_BATCHES * 32
+  return {"train": os.path.join(directory, "train-*.tfrecord"),
+          "eval": os.path.join(directory, "eval-*.tfrecord"),
+          "records": count, "mean_record_bytes": total / count,
+          "mean_jpeg_bytes": sum(len(p) for p in pool) / len(pool),
+          "write_s": time.perf_counter() - start}
+
+
+def _same_batches(np, torch, want, got, what: str) -> None:
+  """Batch by batch, leaf by leaf: the same keys, dtype, shape, bytes."""
+  if len(want) != len(got):
+    raise RuntimeError(f"{what}: {len(want)} vs {len(got)} batches")
+  for i, (a, b) in enumerate(zip(want, got)):
+    for part in ("features", "labels"):
+      if sorted(a[part].keys()) != sorted(b[part].keys()):
+        raise RuntimeError(f"{what}: batch {i} {part} keys differ")
+      for key in a[part].keys():
+        x, y = a[part][key], b[part][key]
+        x = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        y = y.numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
+        if x.dtype != y.dtype or x.shape != y.shape \
+            or x.tobytes() != y.tobytes():
+          raise RuntimeError(f"{what}: batch {i} {part}/{key} differs")
+
+
+class _BothRoutes:
+  """A parse function that parses each raw batch on the native route and
+  on the Python route, keeps both, and hands on the native one."""
+
+  def __init__(self, native_fn, python_fn):
+    self.dataset_keys = native_fn.dataset_keys
+    self._fns = (native_fn, python_fn)
+    self.pairs = []
+
+  def parse_batch(self, records):
+    pair = tuple(fn.parse_batch(records) for fn in self._fns)
+    self.pairs.append(pair)
+    return pair[0]
+
+
+def check_record_chains(np, torch, model, paths) -> dict:
+  """The native chain (stager, columnar parser, the native JPEG decoder
+  where built) against the port's Python chain (the Python interleave,
+  shuffle and batching over the record reader, `example_wire`, PIL),
+  byte for byte: eval end to end (one pass); train
+  end to end without the record shuffle (file order shuffled per epoch,
+  repeating past the epoch); and CHAIN_TRAIN_BATCHES shuffled train
+  batches, each staged batch parsed on both routes. The stager shuffles
+  with a std::mt19937_64 and the Python chain with Python's generator,
+  the same algorithm with other draws, so shuffled batches are compared
+  on the same staged records. Counts the decodes of each decoder."""
+  from tensor2robot_tpu_torch import native
+  from tensor2robot_tpu_torch.data import codec, parsing, pipeline
+
+  features = model.preprocessor.get_in_feature_specification("train")
+  labels = model.preprocessor.get_in_label_specification("train")
+
+  def parse_fn(route):
+    fn = parsing.create_parse_fn(features, labels)
+    if route == "python":
+      fn._native_parsers = {k: None for k in fn._native_parsers}
+    elif not all(p is not None for p in fn._native_parsers.values()):
+      raise RuntimeError("the critic's records do not take the native "
+                         "columnar parser")
+    return fn
+
+  def run(mode, files, route, count, shuffle, fn=None):
+    """`count` batches of the serial chain (nothing parsed ahead)."""
+    stream = iter(pipeline.RecordBatchPipeline(
+        files, fn or parse_fn(route), batch_size=32, mode=mode,
+        seed=RECORD_SEED, shuffle_buffer_size=shuffle,
+        use_native_stager=route == "native", overlap=False,
+        prefetch_size=0, num_parallel_parses=1))
+    try:
+      return list(itertools.islice(stream, count))
+    finally:
+      if hasattr(stream, "close"):  # the serial chain is a plain map
+        stream.close()
+
+  def decodes():
+    return native.counters.jpeg_images, codec.decode_image.images
+
+  report = {"jpeg_decoder": "native" if native.has_jpeg() else "PIL"}
+  expected = {"native": [0, 0], "python": [0, 0]}
+  slot = 0 if native.has_jpeg() else 1
+  for name, mode, files, count, shuffle in (
+      ("eval", "eval", paths["eval"], EVAL_BATCHES + 1, 0),
+      ("train_unshuffled", "train", paths["train"], CHAIN_EPOCH_BATCHES, 0)):
+    out = {}
+    for route in ("native", "python"):
+      before = decodes()
+      stager, parser = (native.counters.stager_batches,
+                        native.counters.parser_batches)
+      out[route] = run(mode, files, route, count, shuffle)
+      images = 32 * len(out[route])
+      got = [a - b for a, b in zip(decodes(), before)]
+      want = [0, images] if route == "python" else (
+          [images, 0] if slot == 0 else [0, images])
+      staged = native.counters.stager_batches - stager
+      parsed = native.counters.parser_batches - parser
+      if got != want or (route == "native" and (
+          staged < len(out[route]) or parsed != len(out[route]))) or (
+              route == "python" and staged + parsed):
+        raise RuntimeError(f"{name} {route}: decodes (native, PIL) {got}, "
+                           f"want {want}; staged {staged}, parsed {parsed}")
+    _same_batches(np, torch, out["python"], out["native"], name)
+    report[name] = {"batches": len(out["native"]), "identical": True}
+  both = _BothRoutes(parse_fn("native"), parse_fn("python"))
+  run("train", paths["train"], "native", CHAIN_TRAIN_BATCHES, 512, both)
+  _same_batches(np, torch, [pipeline.as_tensors(p[1]) for p in both.pairs],
+                [pipeline.as_tensors(p[0]) for p in both.pairs],
+                "train_shuffled")
+  report["train_shuffled"] = {"batches": len(both.pairs), "identical": True}
+  if report["eval"]["batches"] != EVAL_BATCHES:
+    raise RuntimeError(f"the eval pass gave {report['eval']['batches']} "
+                       f"batches, want {EVAL_BATCHES}")
+  return report
+
+
+def _loader_threads():
+  return sorted(t.name for t in threading.enumerate()
+                if t.name.startswith(LOADER_THREADS))
+
+
+def time_pipeline(model, files: str, workers: int) -> dict:
+  """The record pipeline alone, as the trainer builds it (stager, parse
+  and decode on `workers` threads, preprocess, CPU tensors): batches/s
+  and grasps/s over PIPELINE_BATCHES after PIPELINE_WARMUP."""
+  from tensor2robot_tpu_torch.data import input_generators
+
+  generator = input_generators.DefaultRecordInputGenerator(
+      file_patterns=files, batch_size=32, seed=RECORD_SEED,
+      num_parallel_parses=workers)
+  generator.set_specification_from_model(model, "train")
+  stream = generator.create_dataset("train")
+  try:
+    for _ in range(PIPELINE_WARMUP):
+      next(stream)
+    start = time.perf_counter()
+    for _ in range(PIPELINE_BATCHES):
+      next(stream)
+    seconds = time.perf_counter() - start
+  finally:
+    stream.close()
+  return {"workers": workers, "batches_per_s": PIPELINE_BATCHES / seconds,
+          "grasps_per_s": 32 * PIPELINE_BATCHES / seconds}
+
+
+def time_copies(torch, model, files: str, device) -> dict:
+  """One batch's host-to-device copy: by CUDA events on the prefetcher's
+  side stream (page-locked ring), against the same batch's pageable
+  `.to(device)` and a page-locked one on the default stream."""
+  from tensor2robot_tpu_torch.data import input_generators
+  from tensor2robot_tpu_torch.parallel import mesh
+
+  generator = input_generators.DefaultRecordInputGenerator(
+      file_patterns=files, batch_size=32, seed=RECORD_SEED)
+  generator.set_specification_from_model(model, "train")
+  stream = generator.create_dataset("train")
+  prefetcher = mesh.DevicePrefetcher(stream, device, depth=2,
+                                     max_batches=FED_WARMUP + COPIES_TIMED,
+                                     close_source=True)
+  with prefetcher:
+    for _ in prefetcher:
+      pass
+    side = prefetcher.copy_ms()[FED_WARMUP:]
+  stream = generator.create_dataset("eval")
+  try:
+    batch = next(stream)
+  finally:
+    stream.close()
+  leaves = list(batch["features"].values()) + list(batch["labels"].values())
+  nbytes = sum(t.numel() * t.element_size() for t in leaves)
+
+  def timed(tensors, non_blocking):
+    times = []
+    for _ in range(FED_WARMUP + COPIES_TIMED):
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      for t in tensors:
+        t.to(device, non_blocking=non_blocking)
+      end.record()
+      end.synchronize()
+      times.append(start.elapsed_time(end))
+    return sorted(times[FED_WARMUP:])[COPIES_TIMED // 2]
+
+  pageable = timed(leaves, False)
+  pinned = timed([t.pin_memory() for t in leaves], True)
+  median = sorted(side)[len(side) // 2]
+  return {"bytes": nbytes, "side_stream_ms_median": median,
+          "side_stream_ms_all": side, "pinned_default_stream_ms": pinned,
+          "pageable_ms": pageable, "side_stream_gb_per_s": nbytes / median / 1e6,
+          "pageable_gb_per_s": nbytes / pageable / 1e6}
+
+
+def run_records_train(torch, model_dir: str, paths, device) -> dict:
+  """`configs/train_qtopt_records.gin` through `train_eval_model`: 20
+  steps, evals of 5 batches at 10 and 20, checkpoints 10 and 20. Every
+  batch a step or an eval step reads must be on the card, and each must
+  have come from the prefetcher's page-locked ring on its side stream;
+  no loader thread may outlive the call."""
+  from tensor2robot_tpu_torch import checkpoints, train_eval
+  from tensor2robot_tpu_torch.obs import metrics as obs_metrics
+  from tensor2robot_tpu_torch.parallel import train_step
+  from tensor2robot_tpu_torch.utils import config
+
+  devices = []
+
+  def watched(make):
+    def factory(*args, **kwargs):
+      fn = make(*args, **kwargs)
+
+      def step(state, features, labels):
+        devices.append({v.device.type for v in (*features.values(),
+                                                *labels.values())})
+        return fn(state, features, labels)
+      return step
+    return factory
+
+  makers = (train_step.make_train_step, train_step.make_eval_step)
+  pinned = obs_metrics.counter("data/prefetch_pinned_batches")
+  threads_before = set(threading.enumerate())
+  pinned_before = pinned.value
+  try:
+    train_step.make_train_step = watched(makers[0])
+    train_step.make_eval_step = watched(makers[1])
+    config.clear_config()
+    config.parse_config_file(os.path.join(REPO_DIR, RECORDS_CONFIG))
+    for binding in (f"train_eval_model.model_dir = '{model_dir}'",
+                    "train_eval_model.max_train_steps = 20",
+                    "train_eval_model.eval_every_n_steps = 10",
+                    "train_eval_model.eval_steps = 5",
+                    "train_eval_model.checkpoint_every_n_steps = 10",
+                    "train_eval_model.log_every_n_steps = 1",
+                    "train/DefaultRecordInputGenerator.file_patterns = "
+                    f"'{paths['train']}'",
+                    "eval/DefaultRecordInputGenerator.file_patterns = "
+                    f"'{paths['eval']}'"):
+      config.parse_config(binding)
+    start = time.perf_counter()
+    final = train_eval.train_eval_model()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+  finally:
+    train_step.make_train_step, train_step.make_eval_step = makers
+    config.clear_config()
+  started = [t.name for t in threading.enumerate()
+             if t not in threads_before]
+  if started or _loader_threads():
+    raise RuntimeError(f"threads outlived the run: {started}, loader "
+                       f"threads {_loader_threads()}")
+  train_records, eval_records = _qtopt_records(model_dir)
+  _check_qtopt_records(train_records, eval_records, 1, 20, [10, 20])
+  manager = checkpoints.CheckpointManager(
+      os.path.join(model_dir, checkpoints.CHECKPOINT_DIRNAME))
+  if manager.all_steps() != [10, 20] or not all(
+      manager.verify_step(s) is True for s in (10, 20)):
+    raise RuntimeError(f"checkpoints {manager.all_steps()} do not verify")
+  copied = pinned.value - pinned_before
+  if len(devices) != 20 + 2 * 5 or any(d != {device.type} for d in devices) \
+      or copied != (len(devices) if device.type == "cuda" else 0):
+    raise RuntimeError(f"{len(devices)} step inputs on {devices[:3]}...; "
+                       f"{copied} batches copied from the page-locked ring")
+  log(f"critic from records: 20 steps with 2 evals in {wall:.1f} s; "
+      f"{copied} batches from page-locked buffers on the side stream; "
+      f"{len(threads_before)} threads before and after; final {final}")
+  return {"steps_20_wall_s": wall, "loss_step_1": train_records[0]["loss"],
+          "loss_step_20": train_records[-1]["loss"],
+          "eval": {str(r["step"]): {k: r[k] for k in (
+              "eval/loss", "eval/q_mean", "eval/td_mse")}
+                   for r in eval_records},
+          "step_inputs_on_device": len(devices),
+          "batches_from_pinned_side_stream": copied,
+          "threads_before_after": [len(threads_before)] * 2}
+
+
+def time_fed_steps(torch, model_fn, paths, device) -> dict:
+  """The median bf16 train step at batch 32, fed through a
+  `DevicePrefetcher` (depth 2), host clock around next batch + step +
+  synchronize, from: the constant generator (no data-plane work: the
+  step's own cost), the records at 2 and 4 parse workers, and the random
+  generator; then the device idle share of FED_STEPS record-fed steps
+  (`torch.profiler`)."""
+  from tensor2robot_tpu_torch.data import input_generators
+  from tensor2robot_tpu_torch.obs import device_profile
+  from tensor2robot_tpu_torch.parallel import mesh, train_step
+
+  model = model_fn()
+  state = [train_step.create_train_state(
+      model, torch.Generator().manual_seed(0), device)]
+  step_fn = train_step.make_train_step(model)
+
+  def one_step(prefetcher):
+    features, labels = next(prefetcher)
+    state[0], metrics = step_fn(state[0], features, labels)
+    return metrics
+
+  def timed(generator, profile: bool):
+    generator.set_specification_from_model(model, "train")
+    stream = generator.create_dataset("train")
+    with mesh.DevicePrefetcher(stream, device, depth=2,
+                               close_source=True) as prefetcher:
+      times = []
+      for i in range(FED_WARMUP + FED_STEPS):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        metrics = one_step(prefetcher)
+        torch.cuda.synchronize()
+        if i >= FED_WARMUP:
+          times.append(1e3 * (time.perf_counter() - start))
+      if not torch.isfinite(metrics["loss"]):
+        raise RuntimeError(f"non-finite loss {metrics['loss']}")
+      window = (device_profile.profile_window(
+          lambda: one_step(prefetcher), FED_STEPS) if profile else None)
+    ms = sorted(times)[len(times) // 2]
+    out = {"step_ms_median": ms, "grasps_per_s": 32e3 / ms,
+           "step_ms_all": times}
+    if window is not None:
+      out.update(device_idle_share=window["device_idle_share"],
+                 wall_ms_per_step=window["wall_ms_per_call"],
+                 device_busy_ms_per_step=window["device_busy_ms_per_call"])
+    return out
+
+  out = {"constant": timed(input_generators.DefaultConstantInputGenerator(
+      1.0, batch_size=32), False)}
+  for name, workers in (("records", 2), ("records_4_workers", 4)):
+    out[name] = timed(input_generators.DefaultRecordInputGenerator(
+        file_patterns=paths["train"], batch_size=32, seed=RECORD_SEED,
+        num_parallel_parses=workers), name == "records")
+  out["random"] = timed(input_generators.DefaultRandomInputGenerator(
+      batch_size=32, seed=RECORD_SEED), False)
+  return out
+
+
+def run_records(torch, np, device, card: str, directory: str) -> dict:
+  """Phase 8: the critic fed from TFRecords of JPEG grasp records."""
+  from tensor2robot_tpu_torch import native, specs
+  from tensor2robot_tpu_torch.data import codec, replay_writer
+  from tensor2robot_tpu_torch.research.qtopt import flagship
+
+  start = time.perf_counter()
+  seconds = {}
+
+  def lap(name):
+    seconds[name] = time.perf_counter() - start - sum(seconds.values())
+
+  facts = host_facts(native)
+  log(f"host: {facts}")
+  model = flagship.make_flagship_model()
+  previous = _tf32(torch, cudnn=True, matmul=False)
+  try:
+    paths = write_critic_records(np, specs, codec, replay_writer, model,
+                                 directory)
+    log(f"records: {paths['records']} in {paths['write_s']:.1f} s, "
+        f"{paths['mean_record_bytes'] / 1024:.1f} KB each")
+    lap("write")
+    chains = check_record_chains(np, torch, model, paths)
+    log(f"native vs Python chains: {chains}")
+    lap("chains")
+    rates = [time_pipeline(model, paths["train"], w) for w in PIPELINE_WORKERS]
+    lap("pipeline")
+    log("record pipeline alone: " + ", ".join(
+        f"{r['workers']} workers {r['grasps_per_s']:.0f} grasps/s"
+        for r in rates))
+    copies = time_copies(torch, model, paths["train"], device)
+    log(f"one batch to the card ({copies['bytes'] / 1e6:.1f} MB): side "
+        f"stream {copies['side_stream_ms_median']:.3f} ms, page-locked "
+        f"{copies['pinned_default_stream_ms']:.3f} ms, pageable "
+        f"{copies['pageable_ms']:.3f} ms")
+    lap("copies")
+    run_dir = tempfile.mkdtemp(dir=directory)
+    trained = run_records_train(torch, run_dir, paths, device)
+    lap("train")
+    steps = time_fed_steps(torch, flagship.make_flagship_model, paths, device)
+    lap("steps")
+    log("bf16 step fed " + ", ".join(
+        f"{name} {timed['step_ms_median']:.2f} ms" for name, timed in
+        steps.items()) + f"; idle share from records "
+        f"{steps['records']['device_idle_share']:.3f}; phase seconds "
+        f"{seconds}")
+  finally:
+    _tf32(torch, *previous)
+  if _loader_threads():
+    raise RuntimeError(f"loader threads alive after phase 8: "
+                       f"{_loader_threads()}")
+  return {"card": card, "host": facts,
+          "records": {k: v for k, v in paths.items()
+                      if k not in ("train", "eval")},
+          "chains": chains, "pipeline": rates, "h2d": copies,
+          "train": trained, "step": steps, "phase_seconds": seconds,
+          "phase_s": time.perf_counter() - start}
+
+
 def bound(moved_bytes: float, flops: float, dtype_name: str) -> dict:
   """The least time the card could take for the work: max(bytes / HBM
   rate, flops / peak), with `bound_by` the larger term and `bound_path`
@@ -1899,6 +2412,18 @@ def main() -> int:
   finally:
     shutil.rmtree(critic_dir, ignore_errors=True)
   torch.cuda.empty_cache()
+
+  # Phase 8: the critic fed from records (no custom kernel on its path).
+  records_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  try:
+    launches_before = custom_launches()
+    records_report = run_records(torch, np, device, card, records_dir)
+    records_report["custom_kernel_launches"] = [
+        now - before for now, before in zip(custom_launches(),
+                                            launches_before)]
+  finally:
+    shutil.rmtree(records_dir, ignore_errors=True)
+  torch.cuda.empty_cache()
   fwd_src = "tensor2robot_tpu_torch/csrc/flash_fwd.cu"
   bwd_src = "tensor2robot_tpu_torch/csrc/flash_bwd.cu"
   kernels = [
@@ -1960,7 +2485,7 @@ def main() -> int:
   report = {"card": card, "build_s": build_s, "kernels": kernels,
             "extra_timings": extra, "slice": slice_report,
             "train": train_report, "qtopt": qtopt_report,
-            "serve_qtopt": serve_report}
+            "serve_qtopt": serve_report, "records": records_report}
   os.makedirs(os.path.dirname(REPORT), exist_ok=True)
   with open(REPORT, "w") as f:
     json.dump(report, f, indent=1)
@@ -1968,6 +2493,7 @@ def main() -> int:
   print(json.dumps({"slice": slice_report, "extra_timings": extra}))
   print(json.dumps({"qtopt": qtopt_report}))
   print(json.dumps({"serve_qtopt": serve_report}))
+  print(json.dumps({"records": records_report}))
   print(json.dumps({"kernels": kernels}))
   print(card_line(), flush=True)
   print(json.dumps({"ok": True, "device": {

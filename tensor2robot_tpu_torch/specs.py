@@ -6,10 +6,11 @@ path uses, for PyTorch.
 * `SpecStruct` — an ordered mapping that is both flat (`'a/b/c'` path
   keys) and hierarchical (indexing an intermediate path returns a live
   view onto the parent store).
-* The spec algebra the preprocessor contract needs: flatten / pack /
-  validate / filter / sequence-length specs / dtype rewrites.
+* The spec algebra the preprocessor contract and the data plane need:
+  flatten / pack / validate / compare / copy / filter (required, by
+  dataset) / sequence-length specs / dtype rewrites.
 * `make_random_numpy`, with the same numpy RNG stream as the JAX package,
-  so one seed gives one batch in both.
+  so one seed gives one batch in both, and `make_constant_numpy`.
 
 dtypes: numpy has no bfloat16, so a bfloat16 spec carries
 `torch.bfloat16`; every other dtype is a `np.dtype`. A torch tensor's
@@ -34,11 +35,17 @@ __all__ = [
     "validate",
     "validate_and_pack",
     "validate_and_flatten",
+    "assert_equal",
+    "assert_required",
+    "copy_specs",
     "filter_required",
+    "filter_by_dataset",
+    "dataset_keys",
     "add_sequence_length_specs",
     "replace_dtype",
     "cast_float32_to_bfloat16",
     "make_random_numpy",
+    "make_constant_numpy",
 ]
 
 _VALID_IMAGE_FORMATS = ("jpeg", "jpg", "png", "bmp", "gif")
@@ -328,6 +335,55 @@ def validate_and_flatten(spec_structure: SpecStructLike,
       spec_structure, flatten_spec_structure(values))
 
 
+def _check_pairs(pairs, ignore_batch: bool, what: str) -> None:
+  for key, sa, sb in pairs:
+    shape_a, shape_b = sa.shape, sb.shape
+    if ignore_batch:
+      shape_a, shape_b = shape_a[1:], shape_b[1:]
+    if shape_a != shape_b or sa.dtype != sb.dtype:
+      raise ValueError(f"{what} mismatch at {key!r}: {sa!r} vs {sb!r}")
+
+
+def assert_equal(spec_a: SpecStructLike, spec_b: SpecStructLike,
+                 ignore_batch: bool = False) -> None:
+  """Raises unless two spec structures have the same keys, shapes and
+  dtypes."""
+  a = flatten_spec_structure(spec_a)
+  b = flatten_spec_structure(spec_b)
+  if set(a.keys()) != set(b.keys()):
+    raise ValueError(
+        f"Spec key sets differ: only_in_a={sorted(set(a) - set(b))}, "
+        f"only_in_b={sorted(set(b) - set(a))}")
+  _check_pairs(((k, a[k], b[k]) for k in a), ignore_batch, "Spec")
+
+
+def assert_required(required: SpecStructLike, actual: SpecStructLike,
+                    ignore_batch: bool = False) -> None:
+  """Raises unless every non-optional spec of `required` is in `actual`
+  with its shape and dtype."""
+  req = filter_required(required)
+  act = flatten_spec_structure(actual)
+  for key in req:
+    if key not in act:
+      raise ValueError(f"Required spec {key!r} missing from actual structure "
+                       f"with keys {sorted(act.keys())}")
+  _check_pairs(((k, req[k], act[k]) for k in req), ignore_batch,
+               "Required spec")
+
+
+def copy_specs(spec_structure: SpecStructLike, prefix: str = "",
+               batch_size: Optional[int] = None) -> SpecStruct:
+  """A copy of a spec structure, under a key prefix and with a leading
+  batch dim (None for batch_size <= 0) where asked."""
+  out = SpecStruct()
+  for key, spec in flatten_spec_structure(spec_structure).items():
+    if batch_size is not None:
+      spec = spec.replace(
+          shape=(batch_size if batch_size > 0 else None,) + spec.shape)
+    out[f"{prefix}/{key}" if prefix else key] = spec
+  return out
+
+
 def filter_required(spec_structure: SpecStructLike) -> SpecStruct:
   """Drops optional specs."""
   out = SpecStruct()
@@ -335,6 +391,25 @@ def filter_required(spec_structure: SpecStructLike) -> SpecStruct:
     if not spec.is_optional:
       out[key] = spec
   return out
+
+
+def filter_by_dataset(spec_structure: SpecStructLike,
+                      dataset_key: str) -> SpecStruct:
+  """The specs of one dataset."""
+  out = SpecStruct()
+  for key, spec in flatten_spec_structure(spec_structure).items():
+    if spec.dataset_key == dataset_key:
+      out[key] = spec
+  return out
+
+
+def dataset_keys(spec_structure: SpecStructLike) -> Tuple[str, ...]:
+  """The dataset keys of a spec structure, in first-seen order."""
+  keys = []
+  for spec in flatten_spec_structure(spec_structure).values():
+    if spec.dataset_key not in keys:
+      keys.append(spec.dataset_key)
+  return tuple(keys)
 
 
 def add_sequence_length_specs(spec_structure: SpecStructLike) -> SpecStruct:
@@ -399,4 +474,19 @@ def make_random_numpy(spec_structure: SpecStructLike,
       out[key] = rng.rand(*shape) > 0.5
     else:
       out[key] = rng.rand(*shape).astype(spec.dtype)
+  return out
+
+
+def make_constant_numpy(spec_structure: SpecStructLike,
+                        constant_value: float,
+                        batch_size: Optional[int] = None,
+                        sequence_length: int = 3) -> SpecStruct:
+  """Constant numpy data matching a spec structure."""
+  out = SpecStruct()
+  for key, spec in filter_required(spec_structure).items():
+    if spec.dtype is torch.bfloat16:
+      raise ValueError(f"{key!r}: numpy has no bfloat16; make float32 "
+                       "data and cast it on the device.")
+    shape = _concrete_shape(spec, batch_size, unknown_dim=sequence_length)
+    out[key] = np.full(shape, constant_value, dtype=spec.dtype)
   return out

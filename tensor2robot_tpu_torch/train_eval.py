@@ -23,7 +23,15 @@ Semantics kept from the JAX package:
   `<model_dir>/eval/metrics.jsonl`;
 * a resumed run restores the newest verified checkpoint (a corrupt one
   is quarantined and the next newest serves) and restarts the input
-  stream from its seed.
+  stream from its seed;
+* batches reach the device through `parallel.mesh.DevicePrefetcher`,
+  `device_prefetch_depth` of them placed ahead (from page-locked
+  buffers on a side stream on the card; 0 places each batch inline),
+  and `host_overlap_workers` / `host_overlap_queue_mb` tune the record
+  pipelines' parse threads and output queue;
+* every stream is closed when its loop ends, however it ends: an eval
+  round's stream and the train stream, with the loader threads behind
+  them.
 
 `continuous_eval`, the eval throttle, hooks, exporters, telemetry (step
 stats, sentinel, flight recorder), warm starts, the executable cache and
@@ -42,6 +50,7 @@ import torch
 
 from tensor2robot_tpu_torch import checkpoints as checkpoints_lib
 from tensor2robot_tpu_torch import modes as modes_lib
+from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 from tensor2robot_tpu_torch.parallel import train_step as ts
 from tensor2robot_tpu_torch.utils import config
 from tensor2robot_tpu_torch.utils import device as device_lib
@@ -66,23 +75,48 @@ def _take(stream: Iterator, k: int) -> List:
   return list(itertools.islice(stream, k))
 
 
-def _to_device(batch, device) -> dict:
-  return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+def _close_dataset(dataset) -> None:
+  """Closes a closable batch source (an `OverlappedLoader`'s stage
+  threads, a generator's frame); never raises."""
+  if dataset is not None and hasattr(dataset, "close"):
+    try:
+      dataset.close()
+    except Exception:  # noqa: BLE001 - teardown must not mask errors
+      _log.exception("train_eval: closing a data source failed")
+
+
+def _device_batches(dataset: Iterator, device, depth: int, max_batches: int,
+                    source=None) -> Iterator:
+  """(features, labels) on `device` for up to `max_batches` batches of
+  `dataset`: through a `DevicePrefetcher` `depth` ahead, or placed
+  inline when `depth` is 0. The caller closes it and `source`."""
+  if depth:
+    return mesh_lib.DevicePrefetcher(dataset, device, depth=depth,
+                                     max_batches=max_batches,
+                                     close_source=True, source=source)
+  return (mesh_lib.place_batch(device, batch)
+          for batch in itertools.islice(dataset, max_batches))
 
 
 def _run_eval(eval_step, state: ts.TrainState, dataset: Iterator,
-              eval_steps: int, device) -> dict:
+              eval_steps: int, device, prefetch_depth: int) -> dict:
   """The mean of each eval metric over `eval_steps` batches (fewer if
   the stream ends first). The sums stay on the device; the only read is
-  the final one."""
+  the final one. Closes `dataset` however the round ends."""
   totals: dict = {}
   count = 0
-  for batch in itertools.islice(dataset, eval_steps):
-    metrics = eval_step(state, _to_device(batch["features"], device),
-                        _to_device(batch["labels"], device))
-    for key, value in metrics.items():
-      totals[key] = totals[key] + value if key in totals else value
-    count += 1
+  batches = None
+  try:
+    batches = _device_batches(dataset, device, prefetch_depth, eval_steps)
+    for features, labels in batches:
+      metrics = eval_step(state, features, labels)
+      for key, value in metrics.items():
+        totals[key] = totals[key] + value if key in totals else value
+      count += 1
+  finally:
+    if batches is not None:
+      batches.close()
+    _close_dataset(dataset)
   if not totals:
     return {}
   means = (torch.stack([v.float() for v in totals.values()])
@@ -106,6 +140,9 @@ def train_eval_model(
     log_every_n_steps: int = 100,
     iterations_per_loop: int = 1,
     use_ema_for_eval: bool = True,
+    device_prefetch_depth: int = 2,
+    host_overlap_workers: Optional[int] = None,
+    host_overlap_queue_mb: Optional[float] = None,
     device=None,
 ) -> dict:
   """Trains `model` to `max_train_steps` (with evals in
@@ -116,7 +153,11 @@ def train_eval_model(
 
   Runs on CUDA unless `device` names another (tests pass 'cpu'). Fresh
   parameters come from `torch.Generator().manual_seed(seed)`: flax's
-  initialisers, not JAX's numbers."""
+  initialisers, not JAX's numbers. `device_prefetch_depth` batches are
+  kept placed ahead on the device (0: each placed inline);
+  `host_overlap_workers` parse threads and a `host_overlap_queue_mb`
+  output queue are handed to record-backed generators (None keeps
+  theirs)."""
   if mode not in _MODES:
     raise ValueError(f"Unknown train_eval mode {mode!r}")
   if mode == "continuous_eval":
@@ -130,6 +171,11 @@ def train_eval_model(
   if needs_eval and input_generator_eval is None:
     raise ValueError("input_generator_eval is required for evaluation.")
   device = device_lib.resolve_device(device)
+  for generator in (input_generator_train, input_generator_eval):
+    if generator is not None and hasattr(generator, "set_overlap_options"):
+      generator.set_overlap_options(
+          num_parallel_parses=host_overlap_workers,
+          overlap_queue_mb=host_overlap_queue_mb)
   os.makedirs(model_dir, exist_ok=True)
   manager = checkpoints_lib.CheckpointManager(
       os.path.join(model_dir, checkpoints_lib.CHECKPOINT_DIRNAME),
@@ -143,77 +189,87 @@ def train_eval_model(
   def evaluate(state: ts.TrainState) -> dict:
     return _run_eval(eval_step, state,
                      input_generator_eval.create_dataset(modes_lib.EVAL),
-                     eval_steps, device)
+                     eval_steps, device, device_prefetch_depth)
 
+  dataset = None
   if needs_train:
     input_generator_train.set_specification_from_model(model,
                                                        modes_lib.TRAIN)
     dataset = input_generator_train.create_dataset(modes_lib.TRAIN)
-    first_batch = next(dataset)
-  if manager.latest_step() is not None:
-    state = manager.restore(device=device)
-    _log.info("Resumed from checkpoint step %d", manager.last_restored_step)
-  else:
-    state = ts.create_train_state(
-        model, torch.Generator().manual_seed(seed), device)
+  batches = None
+  try:
+    if dataset is not None:
+      first_batch = next(dataset)
+    if manager.latest_step() is not None:
+      state = manager.restore(device=device)
+      _log.info("Resumed from checkpoint step %d",
+                manager.last_restored_step)
+    else:
+      state = ts.create_train_state(
+          model, torch.Generator().manual_seed(seed), device)
 
-  if not needs_train:
-    eval_metrics = evaluate(state)
-    with summaries_lib.SummaryWriter(os.path.join(model_dir, "eval")) \
+    if not needs_train:
+      eval_metrics = evaluate(state)
+      with summaries_lib.SummaryWriter(os.path.join(model_dir, "eval")) \
+          as writer:
+        writer.write_scalars(state.step, eval_metrics)
+      _log.info("eval @%d: %s", state.step, eval_metrics)
+      return eval_metrics
+
+    train_step = ts.make_train_step(model)
+    loop_k = max(1, int(iterations_per_loop))
+
+    def checkpoint(step: int) -> None:
+      if manager.save(step, state):
+        _log.info("Saved checkpoint step %d", step)
+
+    final_metrics: dict = {}
+    step = state.step
+    batches = _device_batches(itertools.chain([first_batch], dataset),
+                              device, device_prefetch_depth,
+                              max(max_train_steps - step, 0), source=dataset)
+    last_log, last_log_step = time.time(), step
+    with summaries_lib.SummaryWriter(os.path.join(model_dir, "train")) \
         as writer:
-      writer.write_scalars(state.step, eval_metrics)
-    _log.info("eval @%d: %s", state.step, eval_metrics)
-    return eval_metrics
-
-  train_step = ts.make_train_step(model)
-  loop_k = max(1, int(iterations_per_loop))
-
-  def checkpoint(step: int) -> None:
-    if manager.save(step, state):
-      _log.info("Saved checkpoint step %d", step)
-
-  final_metrics: dict = {}
-  stream = itertools.chain([first_batch], dataset)
-  step = state.step
-  last_log, last_log_step = time.time(), step
-  with summaries_lib.SummaryWriter(os.path.join(model_dir, "train")) as writer:
-    while step < max_train_steps:
-      k = loop_k if (max_train_steps - step) >= loop_k else 1
-      batches = _take(stream, k)
-      if not batches:
-        raise StopIteration(f"finite train stream exhausted after step "
-                            f"{step}")
-      prev_step = step
-      # A finite stream that ended mid-group still trains the batches it
-      # gave.
-      for batch in batches:
-        state, metrics = train_step(state,
-                                    _to_device(batch["features"], device),
-                                    _to_device(batch["labels"], device))
-      step = state.step
-      if _crossed(log_every_n_steps, prev_step, step) \
-          or step == max_train_steps:
-        scalars = {key: float(value) for key, value in metrics.items()}
-        writer.write_scalars(step, scalars)
-        now = time.time()
-        _log.info("step %d: loss=%.5f (%.1f steps/s)", step,
-                  scalars.get("loss", float("nan")),
-                  (step - last_log_step) / max(now - last_log, 1e-6))
-        last_log, last_log_step = now, step
-        final_metrics = scalars
-      if _crossed(checkpoint_every_n_steps, prev_step, step):
-        checkpoint(step)
-      if eval_step is not None and (
-          _crossed(eval_every_n_steps, prev_step, step)
-          or step == max_train_steps):
-        eval_metrics = {f"eval/{key}": value
-                        for key, value in evaluate(state).items()}
-        writer.write_scalars(step, eval_metrics)
-        _log.info("eval @%d: %s", step, eval_metrics)
-        final_metrics.update(eval_metrics)
-      if len(batches) < k:
-        checkpoint(step)
-        raise StopIteration(f"finite train stream exhausted after step "
-                            f"{step}")
-    checkpoint(step)
-  return final_metrics
+      while step < max_train_steps:
+        k = loop_k if (max_train_steps - step) >= loop_k else 1
+        group = _take(batches, k)
+        if not group:
+          raise StopIteration(f"finite train stream exhausted after step "
+                              f"{step}")
+        prev_step = step
+        # A finite stream that ended mid-group still trains the batches it
+        # gave.
+        for features, labels in group:
+          state, metrics = train_step(state, features, labels)
+        step = state.step
+        if _crossed(log_every_n_steps, prev_step, step) \
+            or step == max_train_steps:
+          scalars = {key: float(value) for key, value in metrics.items()}
+          writer.write_scalars(step, scalars)
+          now = time.time()
+          _log.info("step %d: loss=%.5f (%.1f steps/s)", step,
+                    scalars.get("loss", float("nan")),
+                    (step - last_log_step) / max(now - last_log, 1e-6))
+          last_log, last_log_step = now, step
+          final_metrics = scalars
+        if _crossed(checkpoint_every_n_steps, prev_step, step):
+          checkpoint(step)
+        if eval_step is not None and (
+            _crossed(eval_every_n_steps, prev_step, step)
+            or step == max_train_steps):
+          eval_metrics = {f"eval/{key}": value
+                          for key, value in evaluate(state).items()}
+          writer.write_scalars(step, eval_metrics)
+          _log.info("eval @%d: %s", step, eval_metrics)
+          final_metrics.update(eval_metrics)
+        if len(group) < k:
+          checkpoint(step)
+          raise StopIteration(f"finite train stream exhausted after step "
+                              f"{step}")
+      checkpoint(step)
+    return final_metrics
+  finally:
+    if batches is not None:
+      batches.close()
+    _close_dataset(dataset)

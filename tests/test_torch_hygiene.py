@@ -2,7 +2,10 @@
 
 * No file of `tensor2robot_tpu_torch/` (nor `chip_smoke.py`) imports
   jax, flax, optax, orbax, absl or tensor2robot_tpu (AST scan), and every
-  module imports with those blocked.
+  module imports with those blocked. No port module and no native source
+  of the port names a path under `tensor2robot_tpu/`: the port keeps its
+  own copy of what it needs, C++ sources included, and reads nothing of
+  the JAX package.
 * Entry points raise without a CUDA device unless asked for the CPU.
 * `chip_smoke.py` exits non-zero and prints no result where there is no
   CUDA device, and in a directory that holds nothing else of the repo.
@@ -72,6 +75,22 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                            f"imports {name}")
   assert not offenders, offenders
   assert len(_port_files()) > 20
+
+
+def test_no_port_module_names_a_path_in_the_jax_package():
+  offenders = []
+  for path in sorted(PORT.rglob("*.py")):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+      if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+          and "tensor2robot_tpu/" in node.value:
+        offenders.append(f"{path.relative_to(REPO_ROOT)}:{node.lineno}")
+  native_sources = sorted((PORT / "native").glob("*.[ch]*"))
+  assert len(native_sources) == 5
+  for path in native_sources:
+    for lineno, line in enumerate(path.read_text().splitlines(), 1):
+      if "tensor2robot_tpu/" in line:
+        offenders.append(f"{path.relative_to(REPO_ROOT)}:{lineno}")
+  assert not offenders, offenders
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -203,6 +222,34 @@ def test_qtopt_config_binds_the_flagship_widths():
         "DefaultRandomInputGenerator.batch_size") == 32
     assert config.query_parameter(
         "train_eval_model.input_generator_eval") is not None
+  finally:
+    config.clear_config()
+
+
+def test_records_config_binds_the_record_generators(tmp_path):
+  from tensor2robot_tpu_torch.data import input_generators
+  from tensor2robot_tpu_torch.research.qtopt import models as qtopt_models
+
+  try:
+    config.parse_config_file(str(PORT / "configs" /
+                                 "train_qtopt_records.gin"))
+    for scope, pattern in (("train", "t-*"), ("eval", "e-*")):
+      config.parse_config(f"{scope}/DefaultRecordInputGenerator."
+                          f"file_patterns = '{tmp_path / pattern}'")
+    train = config.query_parameter("train_eval_model.input_generator_train")
+    evaluation = config.query_parameter(
+        "train_eval_model.input_generator_eval")
+    assert isinstance(train, input_generators.DefaultRecordInputGenerator)
+    assert isinstance(evaluation,
+                      input_generators.DefaultRecordInputGenerator)
+    assert (train._file_patterns, evaluation._file_patterns,
+            train.batch_size) == (str(tmp_path / "t-*"),
+                                  str(tmp_path / "e-*"), 32)
+    model = qtopt_models.QTOptModel()
+    assert (model.network, model._image_size, model.use_bfloat16) == (
+        "grasping44", 472, True)
+    assert config.query_parameter("train_eval_model.mode") == \
+        "train_and_evaluate"
   finally:
     config.clear_config()
 

@@ -208,3 +208,42 @@ def test_checkpoint_predictor_serves_the_newest_verified_step(tmp_path):
   empty = predictors.CheckpointPredictor(
       model=_model(), model_dir=str(tmp_path / "nothing"), device="cpu")
   assert not empty.restore()
+
+
+@pytest.mark.parametrize("depth", [0, 3])
+def test_prefetch_depth_does_not_change_the_run(tmp_path, depth):
+  model = _model()
+  _train(tmp_path / "ref", model=model)
+  _train(tmp_path / "depth", model=model, device_prefetch_depth=depth)
+  _assert_states_equal(_manager(tmp_path / "depth").restore(),
+                       _manager(tmp_path / "ref").restore())
+
+
+@pytest.mark.parametrize("depth", [2, 0])
+def test_no_loader_thread_outlives_a_run_from_records(tmp_path, depth):
+  """Three evals and a train stream on `OverlappedLoader`s: every stream
+  is closed when its loop ends, so no thread the call started is alive
+  right after it returns."""
+  import threading
+
+  from tensor2robot_tpu_torch.research.qtopt import models as qtopt_models
+  from tests import torch_data_fixtures as fx
+
+  model = qtopt_models.QTOptModel(image_size=32, action_size=4,
+                                  network="small")
+  train_glob, eval_glob = fx.write_critic_records(tmp_path, model)
+  before = set(threading.enumerate())
+  metrics = train_eval.train_eval_model(
+      model=model, model_dir=str(tmp_path / "run"), device="cpu",
+      mode="train_and_evaluate", max_train_steps=6, eval_every_n_steps=2,
+      eval_steps=1, checkpoint_every_n_steps=6, log_every_n_steps=2,
+      device_prefetch_depth=depth, host_overlap_workers=2,
+      input_generator_train=input_generators.DefaultRecordInputGenerator(
+          file_patterns=train_glob, batch_size=4, seed=0),
+      input_generator_eval=input_generators.DefaultRecordInputGenerator(
+          file_patterns=eval_glob, batch_size=4))
+  alive = [t.name for t in threading.enumerate() if t not in before]
+  assert alive == []
+  with open(os.path.join(tmp_path, "run", "train", "metrics.jsonl")) as f:
+    evals = [json.loads(line)["step"] for line in f if "eval/loss" in line]
+  assert evals == [2, 4, 6] and np.isfinite(metrics["eval/loss"])
