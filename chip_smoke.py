@@ -171,6 +171,7 @@ import itertools
 import json
 import os
 import re
+import select
 import shutil
 import subprocess
 import sys
@@ -811,12 +812,12 @@ def _check_losses(logged, first: int, last: int) -> None:
     raise RuntimeError(f"non-finite losses at {bad}")
 
 
-def run_train(torch, np, port, device):
+def run_train(torch, np, port, device, model_dir: str):
+  """Phase 4, into `model_dir` (the caller removes it: phase 9 exports its
+  step-30 checkpoint)."""
   (config, sequence_model, predictors, session, attention_ops, train_eval,
    checkpoints, train_step, input_generators) = port
   fwd, bwd = attention_ops.flash_forward, attention_ops.flash_backward
-  os.makedirs(os.path.join(REPO_DIR, RUNS_DIR), exist_ok=True)
-  model_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
   try:
     config.clear_config()
     config.parse_config_file(os.path.join(REPO_DIR, TRAIN_CONFIG))
@@ -927,7 +928,6 @@ def run_train(torch, np, port, device):
                          f"predict: {serve_err}")
   finally:
     config.clear_config()
-    shutil.rmtree(model_dir, ignore_errors=True)
   return {"launches": launches, "f32_step_launches": f32_launches,
           "steps_20_wall_s": first_wall,
           "loss_step_1": logged[0][1], "loss_step_30": resumed[-1][1],
@@ -2274,6 +2274,500 @@ def time_flash_bwd(torch, attention_ops, device, gen, timer, b, dtype):
   return out_rows
 
 
+# -- phase 9: the deployment path ------------------------------------------
+
+DEPLOY_CONFIG = "tensor2robot_tpu_torch/configs/train_qtopt_export.gin"
+DEPLOY_STEPS = 30
+DEPLOY_EVERY = 10            # checkpoints, exports and in-loop evals
+DEPLOY_EVAL_STEPS = 5
+DEPLOY_VERSIONS = 3          # AsyncExportHookBuilder.num_versions
+DEPLOY_TIMEOUT_S = 600       # the predictor's first-bundle wait, the evaluator
+EVALUATOR_WAIT_S = 300       # for the evaluator to finish after the trainer
+PROBE_PAUSE_S = 0.005        # between one client's 1-row probes
+POLL_S = 0.1                 # the hot-swap poller's period
+CHECK_ROWS = 4               # the swap check's batch: rung 4, no pad rows
+SESSION_TICKS = 64
+DEPLOY_THREADS = ("export-worker", "ckpt-save-", "export-restore")
+
+# The continuous evaluator: its own process on the same model_dir. It
+# records every manifest check, so the smoke can hold that each step it
+# evaluated was verified.
+EVALUATOR = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from tensor2robot_tpu_torch import checkpoints, train_eval
+from tensor2robot_tpu_torch.utils import config
+
+verified = []
+plain_verify = checkpoints.CheckpointManager.verify_step
+
+
+def verify_step(self, step):
+  result = plain_verify(self, step)
+  verified.append([int(step), result])
+  return result
+
+
+checkpoints.CheckpointManager.verify_step = verify_step
+# A 1 s poll (the default is 5 s) so that a 30-step run is followed at
+# more than its last checkpoint.
+train_eval.CONTINUOUS_EVAL_POLL_SECS = 1.0
+config.parse_config_file(sys.argv[2])
+for binding in sys.argv[3:]:
+  config.parse_config(binding)
+import torch
+torch.zeros(1, device="cuda")  # the card is up before the first poll
+print(json.dumps({"ready": True}), flush=True)
+metrics = train_eval.train_eval_model()
+print(json.dumps({"evaluator": {"metrics": metrics, "verified": verified}}))
+"""
+
+
+def _deploy_threads():
+  return sorted(t.name for t in threading.enumerate()
+                if t.name.startswith(DEPLOY_THREADS))
+
+
+class _Recorder:
+  """A hook that stamps the wall clock at each callback (the train loop
+  calls it last), so a step's interval excludes the checkpoint, export
+  snapshot and eval bookkeeping of the step before it. The first
+  interval starts at `begin`."""
+
+  def __init__(self, hooks_lib):
+    outer = self
+
+    class Hook(hooks_lib.Hook):
+      def after_step(self, ctx, step, metrics):
+        now = time.time()
+        outer.steps.append((step, outer.mark, now))
+        outer.mark = now
+
+      def after_checkpoint(self, ctx, step):
+        now = time.time()
+        outer.checkpoints.append((step, outer.mark, now))
+        outer.mark = now
+
+      def begin(self, ctx):
+        outer.mark = time.time()
+
+      def after_eval(self, ctx, step, metrics):
+        now = time.time()
+        outer.evals.append((step, outer.mark, now))
+        outer.mark = now
+
+    self.hook = Hook()
+    self.steps, self.checkpoints, self.evals = [], [], []
+    self.mark = time.time()
+
+
+def _percentiles(np, values) -> dict:
+  values = np.asarray(values, np.float64)
+  if not values.size:
+    return {"n": 0}
+  return {"n": int(values.size), "p50": float(np.percentile(values, 50)),
+          "p99": float(np.percentile(values, 99)),
+          "max": float(values.max())}
+
+
+def _bundle_variables(torch, path: str):
+  return torch.load(os.path.join(path, "params", "variables.pt"),
+                    map_location="cpu", weights_only=True)
+
+
+def _same_tree(torch, got, want) -> bool:
+  return set(got) == set(want) and all(torch.equal(got[k], want[k])
+                                       for k in want)
+
+
+def run_deploy(torch, np, port, device, card: str, model_dir: str,
+               sequence_dir: str, bf16_limit: float) -> dict:
+  """Phase 9a: the critic trained with async checkpoints and exports
+  while an evaluator process follows its checkpoints and the smoke
+  process serves its bundles with hot swaps; 9b: the export CLI, the
+  critic's and the sequence policy's bundles against their
+  checkpoints."""
+  (config, checkpoints, train_eval, predictors, flagship, serving, specs,
+   hooks_lib, export_cli, policies, sequence_model, session,
+   attention_ops, decode_kernels) = port
+  ckpt_dir = os.path.join(model_dir, checkpoints.CHECKPOINT_DIRNAME)
+  export_dir = os.path.join(model_dir, "export")
+  out = {"card": card, "steps": DEPLOY_STEPS, "every": DEPLOY_EVERY}
+  threads_before = _deploy_threads()
+  bindings = [f"train_eval_model.model_dir = '{model_dir}'",
+              f"train_eval_model.max_train_steps = {DEPLOY_STEPS}",
+              f"train_eval_model.checkpoint_every_n_steps = {DEPLOY_EVERY}",
+              f"train_eval_model.eval_every_n_steps = {DEPLOY_EVERY}",
+              f"train_eval_model.eval_steps = {DEPLOY_EVAL_STEPS}",
+              "train_eval_model.log_every_n_steps = 1"]
+  config.clear_config()
+  config.parse_config_file(os.path.join(REPO_DIR, DEPLOY_CONFIG))
+  config.parse_config_file(os.path.join(REPO_DIR, SERVE_CONFIG))
+  for binding in bindings:
+    config.parse_config(binding)
+
+  evaluator_log = open(os.path.join(model_dir, "evaluator.log"), "w+")
+  evaluator = subprocess.Popen(
+      [sys.executable, "-c", EVALUATOR, REPO_DIR,
+       os.path.join(REPO_DIR, DEPLOY_CONFIG), *bindings,
+       "train_eval_model.mode = 'continuous_eval'",
+       f"train_eval_model.continuous_eval_timeout_secs = {DEPLOY_TIMEOUT_S}"],
+      stdout=subprocess.PIPE, stderr=evaluator_log, text=True)
+  exported = predictors.ExportedModelPredictor(
+      export_dir=export_dir, model=flagship.make_flagship_model(),
+      timeout_secs=DEPLOY_TIMEOUT_S)
+  engine = serving.BucketedEngine(predictor=exported)
+  batcher = serving.MicroBatcher(backend=engine)
+  reference = predictors.CheckpointPredictor(
+      model=flagship.make_flagship_model(), model_dir=model_dir)
+  stop = threading.Event()
+  errors, probes, swaps = [], [], []
+  pool = specs.make_random_numpy(exported.get_feature_specification(),
+                                 batch_size=SERVE_POOL, seed=7)["state/image"]
+  check_request = _serve_request(np, pool, CHECK_ROWS, 9000)
+
+  def client():
+    sent = 0
+    while not stop.is_set():
+      request = _serve_request(np, pool, 1, 10000 + sent)
+      sent += 1
+      before = engine.global_step
+      try:
+        batcher.predict(request)
+        outcome = "ok"
+      except (serving.ShedError, serving.DeadlineError) as e:
+        outcome = type(e).__name__
+      except Exception as e:  # noqa: BLE001 - fails the phase below
+        errors.append(f"probe: {type(e).__name__}: {e}")
+        outcome = "error"
+      probes.append((time.time(), before, engine.global_step, outcome))
+      stop.wait(PROBE_PAUSE_S)
+
+  def poller():
+    served = None  # the first bundle (loaded before the poller) counts too
+    while not stop.is_set():
+      try:
+        start = time.perf_counter()
+        engine.restore()
+        wall = time.perf_counter() - start
+        if engine.global_step != served:
+          first_load = served is None
+          served = engine.global_step
+          swaps.append({"step": served,
+                        "restore_ms": None if first_load else 1e3 * wall,
+                        "at": time.time(),
+                        "outputs": engine.predict(check_request)})
+      except Exception as e:  # noqa: BLE001 - fails the phase below
+        errors.append(f"poller: {type(e).__name__}: {e}")
+        return
+      stop.wait(POLL_S)
+
+  recorder = _Recorder(hooks_lib)
+  export_hooks = []
+  builders = config.query_parameter("train_eval_model.hook_builders")
+
+  class Capture(hooks_lib.HookBuilder):
+    def create_hooks(self, model, directory):
+      hooks = [h for b in builders for h in b.create_hooks(model, directory)]
+      export_hooks.extend(hooks)
+      return hooks + [recorder.hook]
+
+  workers = []
+  try:
+    # The evaluator polls from before the first checkpoint.
+    started, _, _ = select.select([evaluator.stdout], [], [],
+                                  EVALUATOR_WAIT_S)
+    ready = evaluator.stdout.readline() if started else ""
+    if '"ready"' not in ready:
+      raise RuntimeError(f"the evaluator did not start: {ready!r}")
+    # 9a. Serve before the first export exists: the first restore waits.
+    first = exported.restore_async()
+    workers.append(threading.Thread(target=_serve_once_loaded, args=(
+        first, engine, stop, errors, [threading.Thread(target=client),
+                                      threading.Thread(target=poller)])))
+    workers[0].start()
+    start = time.perf_counter()
+    final = train_eval.train_eval_model(hook_builders=[Capture()])
+    out["train_wall_s"] = time.perf_counter() - start
+    out["train_metrics"] = final
+    out["threads_after_train"] = [
+        name for name in _deploy_threads()
+        if not name.startswith("export-restore")]
+    stdout, _ = evaluator.communicate(timeout=EVALUATOR_WAIT_S)
+    out["evaluator_exit"] = evaluator.returncode
+    if evaluator.returncode != 0:
+      evaluator_log.seek(0)
+      raise RuntimeError(f"the continuous evaluator failed "
+                         f"({evaluator.returncode}): "
+                         f"{evaluator_log.read()[-4000:]}")
+    report = next(json.loads(line)["evaluator"]
+                  for line in stdout.splitlines()
+                  if line.startswith('{"evaluator"'))
+    # Probes past the last swap, then stop the clients.
+    deadline = time.time() + 30
+    while time.time() < deadline and not errors and (
+        engine.global_step != DEPLOY_STEPS
+        or not any(p[1] == p[2] == DEPLOY_STEPS and p[3] == "ok"
+                   for p in probes)):
+      time.sleep(0.1)
+  finally:
+    stop.set()
+    for worker in workers:
+      worker.join(timeout=120)
+    batcher.close()
+    exported.close()
+    if evaluator.poll() is None:
+      evaluator.kill()
+      evaluator.wait()
+    evaluator_log.close()
+  if errors:
+    raise RuntimeError(f"phase 9 serving errors: {errors[:5]}")
+  if any(worker.is_alive() for worker in workers):
+    raise RuntimeError("a phase 9 client thread did not stop")
+
+  # Training: finite losses, checkpoints 10/20/30 verified.
+  train_records, eval_records = _qtopt_records(model_dir)
+  losses = [r["loss"] for r in train_records]
+  manager = checkpoints.CheckpointManager(ckpt_dir)
+  want_steps = list(range(DEPLOY_EVERY, DEPLOY_STEPS + 1, DEPLOY_EVERY))
+  if len(losses) != DEPLOY_STEPS or not all(np.isfinite(losses)):
+    raise RuntimeError(f"train losses: {losses}")
+  trainer_evals = {r["step"]: r for r in eval_records}
+  if sorted(trainer_evals) != want_steps or not all(
+      np.isfinite(v) for r in trainer_evals.values() for v in r.values()):
+    raise RuntimeError(f"in-loop evals: {trainer_evals}")
+  if manager.all_steps() != want_steps or not all(
+      manager.verify_step(s) is True for s in want_steps):
+    raise RuntimeError(f"checkpoints {manager.all_steps()} do not verify")
+
+  # Exports: versions kept, the lagged directory, bundle == checkpoint.
+  hook = export_hooks[0]
+  if hook.failures:
+    raise RuntimeError(f"failed exports: {hook.failures}")
+  versions = sorted(os.listdir(export_dir), key=int)
+  lagged = sorted(os.listdir(os.path.join(model_dir, "lagged_export")),
+                  key=int)
+  if len(versions) != DEPLOY_VERSIONS or not lagged \
+      or lagged[-1] != versions[-2]:
+    raise RuntimeError(f"exports {versions}, lagged {lagged}")
+  bundle_steps = []
+  for version in versions:
+    path = os.path.join(export_dir, version)
+    step = specs.load_assets(os.path.join(path, "t2r_assets.json")
+                             ).global_step
+    bundle_steps.append(step)
+    variables = _bundle_variables(torch, path)
+    state = manager.restore(step)
+    if not (_same_tree(torch, variables["params"], state.ema_params)
+            and _same_tree(torch, variables["mutable"],
+                           state.mutable_state)):
+      raise RuntimeError(f"bundle {version} (step {step}) differs from "
+                         f"checkpoint {step}")
+  if bundle_steps != want_steps or [e["step"] for e in hook.exports] \
+      != want_steps:
+    raise RuntimeError(f"bundles hold steps {bundle_steps}, exports "
+                       f"{hook.exports}")
+  out["exports"] = {
+      "versions_kept": len(versions), "lagged": len(lagged),
+      "bundle_bytes": hook.exports[-1]["bytes"],
+      "bit_identical_to_checkpoints": True,
+      "export_ms": _percentiles(np, [
+          1e3 * (e["exported_at"] - e["snapshot_at"]) for e in hook.exports])}
+
+  # Continuous eval: step 30 evaluated, each evaluated step verified, its
+  # metrics the trainer's in-loop eval's; no backup left.
+  with open(os.path.join(model_dir, "eval", "metrics.jsonl")) as f:
+    evaluated = [json.loads(line) for line in f]
+  verified = {step for step, result in report["verified"] if result is True}
+  steps_evaluated = [r["step"] for r in evaluated]
+  if not steps_evaluated or steps_evaluated[-1] != DEPLOY_STEPS or not set(
+      steps_evaluated) <= verified:
+    raise RuntimeError(f"the evaluator evaluated {steps_evaluated}, "
+                       f"verified {sorted(verified)}")
+  worst = 0.0
+  for record in evaluated:
+    want = trainer_evals[record["step"]]
+    for key, value in record.items():
+      if key in ("step", "time"):
+        continue
+      ref = want[f"eval/{key}"]
+      worst = max(worst, abs(value - ref) / max(abs(ref), 1e-12))
+  if worst > bf16_limit:
+    raise RuntimeError(f"continuous eval differs from the in-loop eval by "
+                       f"{worst} (limit {bf16_limit})")
+  if os.path.exists(os.path.join(ckpt_dir, "eval_backup")):
+    raise RuntimeError("the evaluator left its backup directory")
+  lag = [record["time"] - os.path.getmtime(os.path.join(
+      ckpt_dir, checkpoints.MANIFEST_DIRNAME, f"{record['step']}.json"))
+      for record in evaluated]
+  out["continuous_eval"] = {
+      "steps": steps_evaluated, "verified": sorted(verified),
+      "poll_s": 1.0, "max_rel_err_vs_in_loop": worst, "lag_s": lag}
+
+  # Serving: monotone versions, each a bundle's step; no warm after the
+  # first; ok + sheds = probes; each swap bit-identical to an eager
+  # CheckpointPredictor predict of that step's checkpoint.
+  served = [before for _, before, after, outcome in probes
+            if before == after and outcome == "ok"]
+  sheds = sum(p[3] != "ok" for p in probes)
+  if not served or served != sorted(served) or not set(served) <= set(
+      want_steps) or served[-1] != DEPLOY_STEPS:
+    raise RuntimeError(f"served versions {sorted(set(served))}")
+  if engine.warm_count != len(SERVE_LADDER):
+    raise RuntimeError(f"warm_count {engine.warm_count} after the swaps")
+  ok = sum(p[3] == "ok" for p in probes)
+  if ok + sheds != len(probes):
+    raise RuntimeError(f"probes: {ok} ok + {sheds} sheds of {len(probes)}")
+  swap_steps = [s["step"] for s in swaps]
+  if swap_steps != sorted(swap_steps) or not swap_steps \
+      or swap_steps[-1] != DEPLOY_STEPS:
+    raise RuntimeError(f"swaps {swap_steps}")
+  for swap in swaps:
+    state = manager.restore(swap["step"], device=device)
+    reference.load_params(state.params, state.ema_params, swap["step"],
+                          state.mutable_state)
+    reference.restore()
+    eager = reference.predict(check_request)
+    if set(eager) != set(swap["outputs"]) or not all(
+        np.array_equal(eager[k], swap["outputs"][k]) for k in eager):
+      raise RuntimeError(f"after the swap to step {swap['step']} the served "
+                         f"outputs differ from the checkpoint's eager predict")
+  published = {e["step"]: e["exported_at"] for e in hook.exports}
+  first_served = {}
+  for answered, before, after, outcome in probes:
+    if before == after and outcome == "ok":
+      first_served.setdefault(before, answered)
+  out["serving"] = {
+      "probes": len(probes), "ok": ok, "sheds": sheds,
+      "versions_served": sorted(set(served)), "swaps": swap_steps,
+      "swaps_bit_identical": True, "warm_count": engine.warm_count,
+      "restore_ms": [s["restore_ms"] for s in swaps[1:]],
+      "publish_to_first_served_s": {
+          str(step): first_served[step] - published[step]
+          for step in sorted(first_served)}}
+
+  # Step times with and without an export in flight; the in-loop evals
+  # (each right after its step's checkpoint and export snapshot).
+  busy = [(e["snapshot_at"], e["exported_at"]) for e in hook.exports]
+  quiet, loaded = [], []
+  for step, begin, end in recorder.steps[1:]:  # step 1 holds the set-up
+    overlaps = any(begin < b and a < end for a, b in busy)
+    (loaded if overlaps else quiet).append(1e3 * (end - begin))
+  out["step_ms"] = {"first_step": 1e3 * (recorder.steps[0][2]
+                                         - recorder.steps[0][1]),
+                    "with_export_in_flight": _percentiles(np, loaded),
+                    "without": _percentiles(np, quiet),
+                    "checkpoint_and_snapshot_ms": [
+                        1e3 * (end - begin)
+                        for _, begin, end in recorder.checkpoints],
+                    "in_loop_eval_ms": [
+                        1e3 * (end - begin) for _, begin, end in recorder.evals],
+                    "export_done_within_its_eval": [
+                        published[step] <= end
+                        for step, _, end in recorder.evals]}
+  out["threads_after_close"] = _deploy_threads()
+  if out["threads_after_close"] != threads_before \
+      or out["threads_after_train"] != threads_before:
+    raise RuntimeError(f"deployment threads left: {out['threads_after_train']}"
+                       f" after training, {out['threads_after_close']} after "
+                       f"close")
+  log(f"9a: {json.dumps(out)}")
+
+  # 9b. The export CLI on the step-30 critic checkpoint: CEM over the
+  # bundle against CEM over the checkpoint, the same draws.
+  config.clear_config()
+  cli_dir = os.path.join(model_dir, "cli_export")
+  start = time.perf_counter()
+  path = export_cli.export_checkpoint(model=flagship.make_flagship_model(),
+                                      model_dir=model_dir, export_dir=cli_dir)
+  out["cli_export_s"] = time.perf_counter() - start
+  actions = {}
+  obs = {"image": pool[0]}
+  for name, predictor in (
+      ("bundle", predictors.ExportedModelPredictor(
+          export_dir=cli_dir, model=flagship.make_flagship_model())),
+      ("checkpoint", predictors.CheckpointPredictor(
+          model=flagship.make_flagship_model(), model_dir=model_dir))):
+    policy = policies.CEMPolicy(predictor=predictor,
+                                action_size=flagship.ACTION_SIZE, seed=0)
+    if not policy.restore() or policy.global_step != DEPLOY_STEPS:
+      raise RuntimeError(f"CEM over the {name} did not restore step 30")
+    actions[name] = (policy.select_action(obs), policy.last_q_value)
+  if not (np.array_equal(actions["bundle"][0], actions["checkpoint"][0])
+          and actions["bundle"][1] == actions["checkpoint"][1]):
+    raise RuntimeError(f"CEM over the bundle {actions['bundle']} differs "
+                       f"from CEM over the checkpoint {actions['checkpoint']}")
+  out["cem_bundle_vs_checkpoint"] = {
+      "action": actions["bundle"][0].tolist(), "q": actions["bundle"][1],
+      "bit_identical": True, "bundle": os.path.basename(path)}
+
+  # The sequence policy of phase 4, exported and served in sessions.
+  config.parse_config_file(os.path.join(REPO_DIR, SESSION_CONFIG))
+  seq_export = os.path.join(model_dir, "sequence_export")
+  export_cli.export_checkpoint(model=sequence_model.SequenceRegressionModel(),
+                               model_dir=sequence_dir, export_dir=seq_export)
+  t_max = WIDTHS["sequence_length"]
+  seq = np.zeros((1, t_max, WIDTHS["obs_size"]), np.float32)
+  seq[0, :SESSION_TICKS] = np.random.RandomState(5).randn(
+      SESSION_TICKS, WIDTHS["obs_size"]).astype(np.float32)
+  bundle_predictor = predictors.ExportedModelPredictor(
+      export_dir=seq_export, model=sequence_model.SequenceRegressionModel())
+  if not bundle_predictor.restore() or bundle_predictor.global_step != 30:
+    raise RuntimeError("the sequence bundle did not restore step 30")
+  ticks = {}
+  fwd = attention_ops.flash_forward
+  decode = decode_kernels.fused_decode_attention
+  # The main path of 9b: counts to 0 just before, read just after.
+  fwd.launches = decode.launches = 0
+  ticks["bundle"] = _session_ticks(np, session, bundle_predictor, seq)
+  full = bundle_predictor.predict({"observation": seq})["action"][
+      0, :SESSION_TICKS]
+  torch.cuda.synchronize()
+  launches = {"decode_tick": decode.launches, "flash_fwd": fwd.launches}
+  if not all(launches.values()):
+    raise RuntimeError(f"the bundle's predictor launched {launches}")
+  checkpoint_predictor = predictors.CheckpointPredictor(
+      model=sequence_model.SequenceRegressionModel(), model_dir=sequence_dir)
+  checkpoint_predictor.restore()
+  ticks["checkpoint"] = _session_ticks(np, session, checkpoint_predictor, seq)
+  tick_vs_predict = float(np.abs(ticks["bundle"] - full).max())
+  if not (np.array_equal(ticks["bundle"], ticks["checkpoint"])
+          and tick_vs_predict <= F32_TOL):
+    raise RuntimeError(f"bundle session ticks differ from the checkpoint's "
+                       f"(or from the predict by {tick_vs_predict})")
+  out["sequence_bundle"] = {"ticks": SESSION_TICKS, "launches": launches,
+                            "ticks_bit_identical": True,
+                            "tick_vs_predict_max_abs_err": tick_vs_predict}
+  config.clear_config()
+  log(f"9b: {out['cem_bundle_vs_checkpoint']} {out['sequence_bundle']}")
+  return out
+
+
+def _serve_once_loaded(first, engine, stop, errors, clients) -> None:
+  """Waits for the predictor's first bundle, warms the engine, then runs
+  the client and the poller until `stop`."""
+  first.join()
+  if engine.global_step < 0:
+    if not stop.is_set():
+      errors.append("no bundle appeared before the predictor's timeout")
+    return
+  engine.warmup()
+  for thread in clients:
+    thread.start()
+  for thread in clients:
+    thread.join()
+
+
+def _session_ticks(np, session, predictor, seq):
+  engine = session.SessionEngine(predictor=predictor, max_sessions=1,
+                                 max_tick_batch=1)
+  sid = engine.open()
+  out = np.stack([engine.step(sid, {"observation": seq[0, i]})["action"]
+                  for i in range(SESSION_TICKS)])
+  engine.close()
+  return out
+
+
 def main() -> int:
   import torch
 
@@ -2281,12 +2775,24 @@ def main() -> int:
     print("chip_smoke: torch.cuda.is_available() is false; this script runs "
           "only on a CUDA card.", file=sys.stderr)
     return 1
+  # Phase 4 trains the sequence policy here; phase 9 exports from it.
+  os.makedirs(os.path.join(REPO_DIR, RUNS_DIR), exist_ok=True)
+  sequence_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  try:
+    return run_phases(torch, sequence_dir)
+  finally:
+    shutil.rmtree(sequence_dir, ignore_errors=True)
+
+
+def run_phases(torch, sequence_dir: str) -> int:
   import numpy as np
 
   from tensor2robot_tpu_torch import checkpoints
   from tensor2robot_tpu_torch import specs
   from tensor2robot_tpu_torch import train_eval
+  from tensor2robot_tpu_torch.bin import export_saved_model
   from tensor2robot_tpu_torch.data import input_generators
+  from tensor2robot_tpu_torch.hooks import core as hooks_core
   from tensor2robot_tpu_torch.models import sequence_model
   from tensor2robot_tpu_torch.ops import _kernels
   from tensor2robot_tpu_torch.ops import attention as attention_ops
@@ -2345,10 +2851,10 @@ def main() -> int:
                                        decode_kernels))
   torch.cuda.empty_cache()
 
-  # Phase 4: the training slice.
+  # Phase 4: the training slice, into a model_dir phase 9 exports from.
   train_report = run_train(torch, np, (
       config, sequence_model, predictors, session, attention_ops, train_eval,
-      checkpoints, train_step, input_generators), device)
+      checkpoints, train_step, input_generators), device, sequence_dir)
   torch.cuda.empty_cache()
 
   # Phase 5: timings.
@@ -2400,11 +2906,12 @@ def main() -> int:
     # Phase 7: the critic served, held to the bf16 limit of phase 6a.
     launches_before = custom_launches()
     strict_bf16 = qtopt_report["strict"]["bf16_eval_logits"]
+    bf16_limit = max(QTOPT_BF16_REL_NORM,
+                     QTOPT_BF16_FACTOR * strict_bf16["cpu_vs_cpu_f32"])
     serve_report = run_qtopt_serve(torch, np, (
         config, checkpoints, predictors, specs, flagship, serving, loadgen,
         policies, device_cem, cem, obs_metrics, device_profile), device,
-        critic_dir, max(QTOPT_BF16_REL_NORM,
-                        QTOPT_BF16_FACTOR * strict_bf16["cpu_vs_cpu_f32"]))
+        critic_dir, bf16_limit)
     serve_report["custom_kernel_launches"] = [
         now - before for now, before in zip(custom_launches(),
                                             launches_before)]
@@ -2424,6 +2931,21 @@ def main() -> int:
   finally:
     shutil.rmtree(records_dir, ignore_errors=True)
   torch.cuda.empty_cache()
+
+  # Phase 9: the deployment path; its sequence-policy part (9b) runs the
+  # flash forward and the decode tick from an exported bundle.
+  deploy_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  try:
+    start = time.perf_counter()
+    deploy_report = run_deploy(torch, np, (
+        config, checkpoints, train_eval, predictors, flagship, serving, specs,
+        hooks_core, export_saved_model, policies, sequence_model, session,
+        attention_ops, decode_kernels), device, card, deploy_dir,
+        sequence_dir, bf16_limit)
+    deploy_report["phase_wall_s"] = time.perf_counter() - start
+  finally:
+    shutil.rmtree(deploy_dir, ignore_errors=True)
+  torch.cuda.empty_cache()
   fwd_src = "tensor2robot_tpu_torch/csrc/flash_fwd.cu"
   bwd_src = "tensor2robot_tpu_torch/csrc/flash_bwd.cu"
   kernels = [
@@ -2433,12 +2955,16 @@ def main() -> int:
        "launches": slice_report["launches"]["decode_tick"],
        "max_abs_err": decode_err, "max_err": decode_err,
        "chunk_rows": decode_kernels.DECODE_CHUNK, "build": decode_build,
+       "launches_deploy": deploy_report["sequence_bundle"]["launches"][
+           "decode_tick"],
        **decode_t, "single_lane": decode_b1_t},
       # The stateless f32 predict of the serving slice.
       {"name": "flash_fwd", "route": "cuda", "design": "wgmma+tma, 3xtf32",
        "source": f"{fwd_src} (flash_fwd_tc_split_kernel)",
        "replaces": "tensor2robot_tpu/ops/attention.py:139",
        "launches": slice_report["launches"]["flash_fwd"],
+       "launches_deploy": deploy_report["sequence_bundle"]["launches"][
+           "flash_fwd"],
        "max_abs_err": flash_err["float32"], "max_err": flash_err["float32"],
        "rel_norm_err": flash_rel["float32"],
        "sass_mma": sass["flash_fwd_tc_split_kernel"], **flash_t},
@@ -2485,7 +3011,8 @@ def main() -> int:
   report = {"card": card, "build_s": build_s, "kernels": kernels,
             "extra_timings": extra, "slice": slice_report,
             "train": train_report, "qtopt": qtopt_report,
-            "serve_qtopt": serve_report, "records": records_report}
+            "serve_qtopt": serve_report, "records": records_report,
+            "deploy": deploy_report}
   os.makedirs(os.path.dirname(REPORT), exist_ok=True)
   with open(REPORT, "w") as f:
     json.dump(report, f, indent=1)
@@ -2494,6 +3021,7 @@ def main() -> int:
   print(json.dumps({"qtopt": qtopt_report}))
   print(json.dumps({"serve_qtopt": serve_report}))
   print(json.dumps({"records": records_report}))
+  print(json.dumps({"deploy": deploy_report}))
   print(json.dumps({"kernels": kernels}))
   print(card_line(), flush=True)
   print(json.dumps({"ok": True, "device": {

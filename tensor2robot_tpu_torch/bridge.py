@@ -26,6 +26,11 @@ NamedTuple becomes a dict of its fields (`count` as an int, param-shaped
 moments through `state_dict_from_flax`, a masked transformation's
 `inner_state` recursively), EmptyState `{}`, a chain's tuple a tuple —
 the layout of `models.optimizers`.
+
+`export_variables_from_jax` carries a JAX export bundle's variables
+(`{"params", "mutable"}` as numpy trees, read on the JAX side) into the
+port's eval parameters and batch-norm buffers, the `variables.pt` layout
+of the port's own bundles.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from tensor2robot_tpu_torch.parallel import train_step as ts
 
 __all__ = ["state_dict_from_flax", "mutable_state_from_flax",
            "bridge_train_state", "optimizer_state_from_optax",
-           "train_state_from_jax"]
+           "train_state_from_jax", "export_variables_from_jax"]
 
 
 def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -161,3 +166,17 @@ def train_state_from_jax(state: Any) -> ts.TrainState:
       opt_state=optimizer_state_from_optax(state.opt_state),
       mutable_state=mutable_state_from_flax(
           _numpy_tree(collections.get("batch_stats", {}))))
+
+
+def export_variables_from_jax(variables: Mapping[str, Any]
+                              ) -> Dict[str, Dict[str, torch.Tensor]]:
+  """A JAX export bundle's `{"params": flax params, "mutable": flax
+  mutable collections}` as the port's `{"params": state_dict, "mutable":
+  batch-norm buffers}`, on the CPU."""
+  collections = dict(variables.get("mutable") or {})
+  unknown = sorted(set(collections) - {"batch_stats"})
+  if unknown:
+    raise ValueError(f"no bridge for flax mutable collections {unknown}")
+  return {"params": state_dict_from_flax(_numpy_tree(variables["params"])),
+          "mutable": mutable_state_from_flax(
+              _numpy_tree(collections.get("batch_stats", {})))}

@@ -21,7 +21,31 @@ through `bridge.train_state_from_jax`). Layout under `directory`
 `restore(None)` walks the steps newest first and falls back past corrupt
 ones to the newest verified step; an explicit corrupt step raises
 `CheckpointCorruptionError`. `max_to_keep` newest steps are kept.
-Saves are synchronous.
+
+Saves are asynchronous by default (`async_checkpointing=True`, as in the
+JAX package): `save` copies the state to the host on the caller's thread
+and returns; one worker thread writes, fsyncs, renames, writes the
+manifest and prunes. A second save waits for the first. `all_steps`,
+`latest_step` and `restore` of the saving manager see only finished
+steps (`restore` and `close` wait for the save in flight). A failed
+write is logged by the worker and raised by the next `save`,
+`wait_until_finished` or `close`.
+
+Beside the manager, the functions a deployment needs:
+
+* `latest_step(directory)`, without a manager;
+* `checkpoints_iterator`: new steps as they land, each only once its
+  manifest exists (a step is renamed into place before its manifest is
+  written, so a step without one may still be in flight), polled with a
+  jittered sleep;
+* `backup_checkpoint`: a step (hard links where the filesystem allows)
+  and its manifest copied out of the writer's pruning reach, under a
+  retry policy;
+* `warm_start_params`: fresh parameters overwritten by the same-named,
+  same-shaped leaves of another run's checkpoint or export bundle. Names
+  are the port's flat `state_dict` names (`tower.conv1.weight`), so a
+  `filter_fn` sees those, not the JAX package's key paths;
+* `average_checkpoints`: the uniform mean of several steps' parameters.
 """
 
 from __future__ import annotations
@@ -30,18 +54,23 @@ import json
 import logging
 import os
 import shutil
+import threading
 import time
 import zlib
-from typing import Dict, List, Optional
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
 from tensor2robot_tpu_torch.obs import metrics as metrics_lib
 from tensor2robot_tpu_torch.parallel import train_step as ts
+from tensor2robot_tpu_torch.utils import retry as retry_lib
 
 __all__ = ["CheckpointManager", "CheckpointCorruptionError",
            "CHECKPOINT_DIRNAME", "MANIFEST_DIRNAME", "QUARANTINE_DIRNAME",
-           "MANIFEST_SCHEMA", "STATE_FILENAME"]
+           "MANIFEST_SCHEMA", "STATE_FILENAME", "latest_step",
+           "checkpoints_iterator", "backup_checkpoint", "warm_start_params",
+           "average_checkpoints", "remove_backup", "host_copy"]
 
 # A trainer's checkpoints live in <model_dir>/checkpoints.
 CHECKPOINT_DIRNAME = "checkpoints"
@@ -66,6 +95,12 @@ def _file_crc32(path: str) -> int:
   return crc & 0xFFFFFFFF
 
 
+def host_copy(tree):
+  """A copy of every tensor of `tree` on the CPU, made now: the D2H copy
+  of a card's tensor waits for the work that writes it."""
+  return ts.map_tensors(lambda x: x.detach().to("cpu", copy=True), tree)
+
+
 def _step_files(step_dir: str) -> List[str]:
   """Relative paths of every file under a step dir, sorted."""
   out: List[str] = []
@@ -79,13 +114,24 @@ def _step_files(step_dir: str) -> List[str]:
 class CheckpointManager:
   """Saves and restores `TrainState`s under one directory."""
 
-  def __init__(self, directory: str, max_to_keep: int = 5):
+  def __init__(self, directory: str, max_to_keep: int = 5,
+               async_checkpointing: bool = True):
     self._directory = os.path.abspath(directory)
     os.makedirs(self._directory, exist_ok=True)
     self._max_to_keep = max_to_keep
+    self._async = async_checkpointing
+    # The save in flight: its worker and step; the error of a failed one,
+    # raised on the caller's thread by the next save or wait.
+    self._worker: Optional[threading.Thread] = None
+    self._worker_step: Optional[int] = None
+    self._error: Optional[BaseException] = None
     # The step the most recent restore() returned (the fallback walk may
     # land below the newest step).
     self.last_restored_step: Optional[int] = None
+
+  @property
+  def directory(self) -> str:
+    return self._directory
 
   def _step_dir(self, step: int) -> str:
     return os.path.join(self._directory, str(int(step)))
@@ -94,9 +140,11 @@ class CheckpointManager:
     return os.path.join(self._directory, MANIFEST_DIRNAME, f"{int(step)}.json")
 
   def all_steps(self) -> List[int]:
-    """Steps on disk (digit-named directories), oldest first."""
+    """Finished steps on disk (digit-named directories), oldest first."""
+    worker, in_flight = self._worker, self._worker_step
+    busy = in_flight if worker is not None and worker.is_alive() else None
     return sorted(int(name) for name in os.listdir(self._directory)
-                  if name.isdigit()
+                  if name.isdigit() and int(name) != busy
                   and os.path.isdir(os.path.join(self._directory, name)))
 
   def latest_step(self) -> Optional[int]:
@@ -107,29 +155,70 @@ class CheckpointManager:
 
   def save(self, step: int, state: ts.TrainState) -> bool:
     """Writes `state` as step `step`, then its manifest, then drops the
-    oldest steps past `max_to_keep`. False (nothing written) when the
-    step is already on disk."""
+    oldest steps past `max_to_keep`; asynchronously unless the manager
+    was made with `async_checkpointing=False`. Waits for a save in
+    flight first. False (nothing written) when the step is already on
+    disk."""
     step = int(step)
-    final = self._step_dir(step)
-    if os.path.isdir(final):
+    self.wait_until_finished()
+    if os.path.isdir(self._step_dir(step)):
       return False
+    payload = {"step": int(state.step),
+               **host_copy({"params": state.params,
+                            "ema_params": state.ema_params,
+                            "opt_state": state.opt_state,
+                            "mutable_state": state.mutable_state})}
+    if not self._async:
+      self._write(step, payload)
+      return True
+    self._worker_step = step
+    self._worker = threading.Thread(target=self._write_in_worker,
+                                    args=(step, payload),
+                                    name=f"ckpt-save-{step}")
+    self._worker.start()
+    return True
+
+  def _write_in_worker(self, step: int, payload: dict) -> None:
+    try:
+      self._write(step, payload)
+    except BaseException as e:  # noqa: BLE001 - re-raised on the caller
+      _log.exception("checkpoint step %d: async save failed", step)
+      self._error = e
+
+  def _write(self, step: int, payload: dict) -> None:
     tmp = os.path.join(self._directory, f".{step}.tmp-{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    cpu = state.to("cpu")
-    payload = {"step": int(state.step), "params": cpu.params,
-               "ema_params": cpu.ema_params, "opt_state": cpu.opt_state,
-               "mutable_state": cpu.mutable_state}
     path = os.path.join(tmp, STATE_FILENAME)
     with open(path, "wb") as f:
       torch.save(payload, f)
       f.flush()
       os.fsync(f.fileno())
-    os.replace(tmp, final)
+    os.replace(tmp, self._step_dir(step))
     self._write_manifest(step)
     metrics_lib.counter("ckpt/saves").inc()
     self._prune()
-    return True
+
+  def wait_until_finished(self) -> None:
+    """Joins the save in flight; raises `RuntimeError` (from the
+    worker's error) when an asynchronous save failed."""
+    worker = self._worker
+    if worker is not None:
+      worker.join()
+      self._worker = self._worker_step = None
+    if self._error is not None:
+      error, self._error = self._error, None
+      raise RuntimeError(f"an asynchronous checkpoint save under "
+                         f"{self._directory} failed") from error
+
+  def close(self) -> None:
+    self.wait_until_finished()
+
+  def __enter__(self) -> "CheckpointManager":
+    return self
+
+  def __exit__(self, *exc) -> None:
+    self.close()
 
   def _write_manifest(self, step: int) -> None:
     step_dir = self._step_dir(step)
@@ -219,12 +308,14 @@ class CheckpointManager:
   def restore(self, step: Optional[int] = None,
               device=None) -> ts.TrainState:
     """Restores `step`, or with None the newest step that verifies and
-    loads, onto `device` (the CPU by default). A step failing its
+    loads, onto `device` (the CPU by default), after the save in flight
+    has finished. A step failing its
     manifest, or failing to load without a clean manifest and looking
     torn, is quarantined: then `step=None` falls back to the next newest
     and an explicit step raises `CheckpointCorruptionError`. A load
     failure of a step whose manifest verified is re-raised. An explicit
     step not on disk raises FileNotFoundError."""
+    self.wait_until_finished()
     explicit = step is not None
     on_disk = self.all_steps()
     if explicit and int(step) not in on_disk:
@@ -261,3 +352,182 @@ class CheckpointManager:
     raise CheckpointCorruptionError(
         f"no intact checkpoint in {self._directory}: every candidate step "
         "was quarantined") from last_error
+
+
+# -- deployment helpers -------------------------------------------------------
+
+def latest_step(directory: str) -> Optional[int]:
+  """The newest digit-named step under `directory`, without a manager."""
+  if not os.path.isdir(directory):
+    return None
+  steps = [int(name) for name in os.listdir(directory)
+           if name.isdigit() and os.path.isdir(os.path.join(directory, name))]
+  return max(steps) if steps else None
+
+
+def checkpoints_iterator(directory: str,
+                         timeout_secs: float = 10.0,
+                         total_timeout_secs: Optional[float] = None,
+                         min_interval_secs: float = 0.0
+                         ) -> Iterator[int]:
+  """Yields the newest step under `directory` each time a new one has
+  landed: renamed into place AND with its manifest written (a step
+  without a manifest may be a save in flight). Steps that land between
+  two polls are skipped for the newest, as in the JAX package. Between
+  polls it sleeps about `timeout_secs` (jittered by a quarter, so many
+  evaluators on one filesystem do not poll in step); it returns once
+  `total_timeout_secs` pass without a new step."""
+  seen = set()
+  start = time.time()
+  while True:
+    step = latest_step(directory)
+    if step is not None and step not in seen and os.path.isfile(
+        os.path.join(directory, MANIFEST_DIRNAME, f"{step}.json")):
+      seen.add(step)
+      yield step
+      start = time.time()
+      if min_interval_secs:
+        time.sleep(min_interval_secs)
+      continue
+    if (total_timeout_secs is not None
+        and time.time() - start > total_timeout_secs):
+      return
+    time.sleep(retry_lib.jittered_s(timeout_secs, jitter=0.25))
+
+
+def _link_or_copy(src: str, dst: str) -> None:
+  try:
+    os.link(src, dst)
+  except OSError:
+    shutil.copy2(src, dst)
+
+
+def backup_checkpoint(directory: str, step: int,
+                      backup_root: Optional[str] = None,
+                      max_attempts: int = 3) -> Optional[str]:
+  """Copies step `step` of `directory` to `<backup_root>/<step>` (hard
+  links where the filesystem allows, so the copy costs no bytes and
+  survives the writer pruning the source) and its manifest to
+  `<backup_root>/manifests/`, so `CheckpointManager(backup_root)`
+  verifies and restores it. Retries under a `RetryPolicy`
+  (`retry/ckpt_backup/*`) when the writer races the copy; returns the
+  backup's path, or None when every attempt failed. `backup_root`
+  defaults to `<directory>/eval_backup`."""
+  src = os.path.join(directory, str(int(step)))
+  manifest = os.path.join(directory, MANIFEST_DIRNAME, f"{int(step)}.json")
+  backup_root = backup_root or os.path.join(directory, "eval_backup")
+  dst = os.path.join(backup_root, str(int(step)))
+  dst_manifest = os.path.join(backup_root, MANIFEST_DIRNAME,
+                              f"{int(step)}.json")
+
+  def _copy() -> str:
+    if os.path.isdir(dst):
+      shutil.rmtree(dst)
+    os.makedirs(os.path.dirname(dst_manifest), exist_ok=True)
+    shutil.copytree(src, dst, copy_function=_link_or_copy)
+    if os.path.isfile(manifest):
+      shutil.copy2(manifest, dst_manifest)
+    return dst
+
+  policy = retry_lib.RetryPolicy(
+      name="ckpt_backup", max_attempts=max_attempts, base_delay_s=0.5,
+      multiplier=1.5, max_delay_s=2.0,
+      retryable=lambda e: isinstance(e, (OSError, shutil.Error)))
+  try:
+    return policy.call(_copy)
+  except retry_lib.RetryBudgetExhausted:
+    _log.warning("checkpoint step %s: backup to %s failed", step, dst)
+    return None
+
+
+def remove_backup(backup: str) -> None:
+  """Removes a `backup_checkpoint` copy, its manifest, and the backup
+  root's directories once they are empty."""
+  root = os.path.dirname(backup)
+  shutil.rmtree(backup, ignore_errors=True)
+  manifests = os.path.join(root, MANIFEST_DIRNAME)
+  manifest = os.path.join(manifests, f"{os.path.basename(backup)}.json")
+  if os.path.isfile(manifest):
+    os.remove(manifest)
+  for path in (manifests, root):
+    try:
+      os.rmdir(path)
+    except OSError:
+      pass  # not empty (another evaluator's backup) or already gone
+
+
+def _load_variables(checkpoint_path: str) -> dict:
+  """The parameter tree of a step directory (or its `state.pt`), or of
+  an export bundle (or its `params/` directory, or the file there)."""
+  from tensor2robot_tpu_torch.export import export_generator as export_lib
+
+  path = checkpoint_path
+  if os.path.isdir(path):
+    for candidate in (STATE_FILENAME, export_lib.VARIABLES_FILENAME,
+                      os.path.join(export_lib.PARAMS_DIRNAME,
+                                   export_lib.VARIABLES_FILENAME)):
+      if os.path.isfile(os.path.join(path, candidate)):
+        path = os.path.join(path, candidate)
+        break
+    else:
+      raise FileNotFoundError(f"no {STATE_FILENAME} or export variables "
+                              f"under {checkpoint_path}")
+  payload = torch.load(path, map_location="cpu", weights_only=True)
+  return payload["params"] if "params" in payload else payload
+
+
+def warm_start_params(params: Dict[str, torch.Tensor], checkpoint_path: str,
+                      filter_fn: Optional[Callable[[str], bool]] = None,
+                      strict: bool = False
+                      ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+  """Overwrites fresh `params` with the leaves of another checkpoint
+  (a step directory of any run, or an export bundle) that have the same
+  name and shape; every other leaf keeps its fresh value. `filter_fn`
+  sees the port's flat names (`tower.conv1.weight`) and returns False to
+  keep a leaf fresh; with `strict` a leaf missing from the checkpoint
+  raises. Restored leaves take the fresh leaf's dtype and device.
+  Returns (merged params, restored names); raises when nothing was
+  restored."""
+  restored = _load_variables(checkpoint_path)
+  merged, names = {}, []
+  for name, leaf in params.items():
+    candidate = restored.get(name)
+    if filter_fn is not None and not filter_fn(name):
+      merged[name] = leaf
+      continue
+    if candidate is None or tuple(candidate.shape) != tuple(leaf.shape):
+      if strict and candidate is None:
+        raise ValueError(f"warm start: {name!r} missing from checkpoint")
+      merged[name] = leaf
+      continue
+    merged[name] = candidate.to(dtype=leaf.dtype, device=leaf.device)
+    names.append(name)
+  if not names:
+    raise ValueError(f"Warm start from {checkpoint_path} restored nothing; "
+                     f"checkpoint keys: {sorted(restored)[:10]}...")
+  return merged, names
+
+
+def average_checkpoints(directory: str,
+                        steps: Optional[Sequence[int]] = None,
+                        last_n: int = 3) -> Dict[str, torch.Tensor]:
+  """The uniform mean of the `params` of the steps `steps` under
+  `directory` (default: the newest `last_n`), summed in float64 and
+  returned in float32 on the CPU."""
+  available = sorted(int(name) for name in os.listdir(directory)
+                     if name.isdigit())
+  if steps is None:
+    steps = available[-last_n:]
+  if not steps:
+    raise ValueError(f"No checkpoints to average in {directory}")
+  missing = [s for s in steps if s not in available]
+  if missing:
+    raise ValueError(f"Steps {missing} not found; available: {available}")
+  total: Optional[Dict[str, torch.Tensor]] = None
+  for step in steps:
+    params = _load_variables(os.path.join(directory, str(step)))
+    if total is None:
+      total = {k: v.double() for k, v in params.items()}
+    else:
+      total = {k: total[k] + params[k].double() for k in total}
+  return {k: (v / float(len(steps))).float() for k, v in total.items()}

@@ -60,6 +60,13 @@ class T2RModel(abc.ABC):
   `use_ema` keeps EMA shadow parameters in the train state, updated as
   `e * ema_decay + (1 - ema_decay) * p` after every step. `remat` and
   `gradient_accumulation_steps > 1` are not ported yet and raise.
+
+  `init_checkpoint` warm-starts a fresh run (never a resumed one): a
+  checkpoint step directory or an export bundle whose same-named,
+  same-shaped parameters replace the fresh ones
+  (`checkpoints.warm_start_params`). `init_checkpoint_filter(name)`
+  returns False for a parameter that stays fresh; it sees the port's
+  flat `state_dict` names (`tower.conv1.weight`), not JAX key paths.
   """
 
   def __init__(self, preprocessor_cls: Optional[Callable] = None,
@@ -68,7 +75,9 @@ class T2RModel(abc.ABC):
                use_ema: bool = False,
                ema_decay: float = 0.9999,
                remat: bool = False,
-               gradient_accumulation_steps: int = 1):
+               gradient_accumulation_steps: int = 1,
+               init_checkpoint: Optional[str] = None,
+               init_checkpoint_filter: Optional[Callable[[str], bool]] = None):
     if remat:
       raise NotImplementedError(
           "remat is not ported yet (ROADMAP.md, Queue A: rematerialisation "
@@ -85,6 +94,8 @@ class T2RModel(abc.ABC):
     self._use_bfloat16 = use_bfloat16
     self._use_ema = use_ema
     self._ema_decay = ema_decay
+    self._init_checkpoint = init_checkpoint
+    self._init_checkpoint_filter = init_checkpoint_filter
     self._preprocessor: Optional[preprocessors_lib.AbstractPreprocessor] = None
     self._module: Optional[nn.Module] = None
     # `functional_call` swaps the given tensors into the one module for
@@ -104,6 +115,14 @@ class T2RModel(abc.ABC):
   @property
   def ema_decay(self) -> float:
     return self._ema_decay
+
+  @property
+  def init_checkpoint(self) -> Optional[str]:
+    return self._init_checkpoint
+
+  @property
+  def init_checkpoint_filter(self) -> Optional[Callable[[str], bool]]:
+    return self._init_checkpoint_filter
 
   @property
   def preprocessor(self) -> preprocessors_lib.AbstractPreprocessor:

@@ -11,6 +11,12 @@ path uses, for PyTorch.
   dataset) / sequence-length specs / dtype rewrites.
 * `make_random_numpy`, with the same numpy RNG stream as the JAX package,
   so one seed gives one batch in both, and `make_constant_numpy`.
+* The `t2r_assets` sidecar of an export bundle: `Assets` (specs and
+  global step) as `t2r_assets.json`, and as the text-format `T2RAssets`
+  proto `assets.extra/t2r_assets.pbtxt` that robot stacks read. The port
+  imports no protobuf: the text format is written and parsed here, with
+  the JAX package's field numbers, the TF `DataType` enum and the float
+  formatting of protobuf's `text_format`, byte for byte.
 
 dtypes: numpy has no bfloat16, so a bfloat16 spec carries
 `torch.bfloat16`; every other dtype is a `np.dtype`. A torch tensor's
@@ -21,8 +27,13 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import json
+import math
+import os
+import struct
 from collections import OrderedDict
-from typing import Any, Iterator, Mapping, MutableMapping, Optional, Tuple, Union
+from typing import (Any, Dict, Iterator, List, Mapping, MutableMapping,
+                    Optional, Tuple, Union)
 
 import numpy as np
 import torch
@@ -46,6 +57,14 @@ __all__ = [
     "cast_float32_to_bfloat16",
     "make_random_numpy",
     "make_constant_numpy",
+    "Assets",
+    "ASSET_FILENAME",
+    "PBTXT_ASSET_FILENAME",
+    "write_assets",
+    "load_assets",
+    "assets_to_pbtxt",
+    "assets_from_pbtxt",
+    "write_assets_pbtxt",
 ]
 
 _VALID_IMAGE_FORMATS = ("jpeg", "jpg", "png", "bmp", "gif")
@@ -115,6 +134,26 @@ class TensorSpec:
       if spec_dim is not None and dim != spec_dim:
         return False
     return dtype == self.dtype
+
+  def to_dict(self) -> dict:
+    """The JSON form of the JAX package's `TensorSpec.to_dict`: shape and
+    dtype name, then each other field that differs from its default."""
+    d = {"shape": [d if d is None else int(d) for d in self.shape],
+         "dtype": _dtype_name(self.dtype)}
+    for field in ("name", "is_optional", "is_sequence", "is_extracted",
+                  "data_format", "dataset_key", "varlen_default_value"):
+      value = getattr(self, field)
+      if value != TensorSpec.__dataclass_fields__[field].default:
+        d[field] = value
+    return d
+
+  @classmethod
+  def from_dict(cls, d: Mapping[str, Any]) -> "TensorSpec":
+    """Inverse of `to_dict`. A JAX spec's `sharding` (mesh axes; the port
+    has no meshes) is dropped."""
+    kwargs = {k: v for k, v in d.items() if k != "sharding"}
+    kwargs["shape"] = tuple(kwargs["shape"])
+    return cls(**kwargs)
 
   def __repr__(self) -> str:
     extras = []
@@ -490,3 +529,293 @@ def make_constant_numpy(spec_structure: SpecStructLike,
     shape = _concrete_shape(spec, batch_size, unknown_dim=sequence_length)
     out[key] = np.full(shape, constant_value, dtype=spec.dtype)
   return out
+
+
+# -- the t2r_assets sidecar ---------------------------------------------------
+
+ASSET_FILENAME = "t2r_assets.json"
+PBTXT_ASSET_FILENAME = "t2r_assets.pbtxt"
+
+
+@dataclasses.dataclass
+class Assets:
+  """An export bundle's sidecar: the serving feature and label specs and
+  the global step, everything a predictor needs to build feeds."""
+
+  feature_spec: Optional[SpecStruct] = None
+  label_spec: Optional[SpecStruct] = None
+  global_step: Optional[int] = None
+  extra: dict = dataclasses.field(default_factory=dict)
+
+  def to_json(self) -> str:
+    def _spec_dict(struct):
+      if struct is None:
+        return None
+      return {k: v.to_dict() for k, v in
+              flatten_spec_structure(struct).items()}
+
+    return json.dumps({
+        "feature_spec": _spec_dict(self.feature_spec),
+        "label_spec": _spec_dict(self.label_spec),
+        "global_step": self.global_step,
+        "extra": self.extra,
+    }, indent=2, sort_keys=True)
+
+  @classmethod
+  def from_json(cls, text: str) -> "Assets":
+    data = json.loads(text)
+
+    def _spec_struct(d):
+      if d is None:
+        return None
+      return SpecStruct({k: TensorSpec.from_dict(v) for k, v in d.items()})
+
+    return cls(feature_spec=_spec_struct(data.get("feature_spec")),
+               label_spec=_spec_struct(data.get("label_spec")),
+               global_step=data.get("global_step"),
+               extra=data.get("extra", {}))
+
+
+def _write_text(path: str, text: str) -> None:
+  os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+  with open(path, "w") as f:
+    f.write(text)
+
+
+def write_assets(assets: Assets, path: str) -> None:
+  _write_text(path, assets.to_json())
+
+
+def write_assets_pbtxt(assets: Assets, path: str) -> None:
+  _write_text(path, assets_to_pbtxt(assets))
+
+
+def load_assets(path: str) -> Assets:
+  """Reads a sidecar, JSON or pbtxt by its extension. When `path` is
+  missing, its sibling with the other extension, or
+  `assets.extra/t2r_assets.pbtxt` beside it, is read instead."""
+  if not os.path.isfile(path):
+    base, ext = os.path.splitext(path)
+    sibling = base + (".json" if ext == ".pbtxt" else ".pbtxt")
+    for candidate in (sibling, os.path.join(os.path.dirname(path),
+                                            "assets.extra",
+                                            PBTXT_ASSET_FILENAME)):
+      if os.path.isfile(candidate):
+        path = candidate
+        break
+  with open(path) as f:
+    text = f.read()
+  if path.endswith(".pbtxt"):
+    return assets_from_pbtxt(text)
+  return Assets.from_json(text)
+
+
+# The text format of the JAX package's `T2RAssets` proto:
+#   ExtendedTensorSpec {1 repeated int32 shape; 2 int32 dtype; 3 string
+#     name; 4 bool is_optional; 5 bool is_extracted; 6 string data_format;
+#     7 string dataset_key; 8 float varlen_default_value}
+#   TensorSpecStruct {1 map<string, ExtendedTensorSpec> key_value}
+#   T2RAssets {1 TensorSpecStruct feature_spec; 2 TensorSpecStruct
+#     label_spec; 3 int32 global_step}
+# Fields print in number order, map entries by sorted key, a submessage
+# as `name {` ... `}` indented by two.
+
+# tensorflow/core/framework/types.proto DataType values.
+_NP_TO_TF_ENUM = {
+    "float32": 1, "float64": 2, "int32": 3, "uint8": 4, "int16": 5,
+    "int8": 6, "object": 7, "complex64": 8, "int64": 9, "bool": 10,
+    "bfloat16": 14, "uint16": 17, "complex128": 18, "float16": 19,
+    "uint32": 22, "uint64": 23,
+}
+_TF_ENUM_TO_NP = {v: k for k, v in _NP_TO_TF_ENUM.items()}
+_SPEC_FIELDS = (  # (name, kind) in field-number order after shape/dtype
+    ("name", "string"), ("is_optional", "bool"), ("is_extracted", "bool"),
+    ("data_format", "string"), ("dataset_key", "string"),
+    ("varlen_default_value", "float"))
+
+
+def _escape(text: str) -> str:
+  """protobuf's `CEscape` as `text_format` applies it by default
+  (as_utf8): quotes, backslash and the ASCII controls escaped, every
+  other character as it is."""
+  out = []
+  for char in text:
+    if char in '"\\\'':
+      out.append("\\" + char)
+    elif char in "\n\r\t":
+      out.append({"\n": "\\n", "\r": "\\r", "\t": "\\t"}[char])
+    elif ord(char) < 32 or ord(char) == 127:
+      out.append("\\%03o" % ord(char))
+    else:
+      out.append(char)
+  return "".join(out)
+
+
+def _shortest_float(value: float) -> str:
+  """A float field as `text_format` prints it: the shortest decimal that
+  rounds to the same 4-byte float."""
+  if math.isnan(value):
+    return str(value)
+  original = struct.unpack("<f", struct.pack("<f", value))[0]
+  precision = 6
+  while True:
+    rounded = float(f"{original:.{precision}g}")
+    if struct.unpack("<f", struct.pack("<f", rounded))[0] == original:
+      return str(rounded)
+    precision += 1
+
+
+def _spec_lines(spec: TensorSpec, indent: str) -> List[str]:
+  lines = [f"{indent}shape: {-1 if d is None else int(d)}"
+           for d in spec.shape]
+  enum = _NP_TO_TF_ENUM.get(_dtype_name(spec.dtype))
+  if enum is None:
+    raise ValueError(f"dtype {spec.dtype} has no TF DataType enum; cannot "
+                     f"serialize to {PBTXT_ASSET_FILENAME}")
+  lines.append(f"{indent}dtype: {enum}")
+  for field, kind in _SPEC_FIELDS:
+    value = getattr(spec, field)
+    if kind == "string" and value is not None and (
+        field != "dataset_key" or value):
+      lines.append(f'{indent}{field}: "{_escape(value)}"')
+    elif kind == "bool" and value:
+      lines.append(f"{indent}{field}: true")
+    elif kind == "float" and value is not None:
+      lines.append(f"{indent}{field}: {_shortest_float(float(value))}")
+  return lines
+
+
+def assets_to_pbtxt(assets: Assets) -> str:
+  """`assets` as text-format `T2RAssets`, as protobuf's
+  `text_format.MessageToString` prints it."""
+  lines: List[str] = []
+  for field, struct_ in (("feature_spec", assets.feature_spec),
+                         ("label_spec", assets.label_spec)):
+    flat = None if struct_ is None else flatten_spec_structure(struct_)
+    if not flat:  # an empty map leaves the submessage unset
+      continue
+    lines.append(f"{field} {{")
+    for key in sorted(flat):
+      lines += ["  key_value {", f'    key: "{_escape(key)}"', "    value {"]
+      lines += _spec_lines(flat[key], " " * 6)
+      lines += ["    }", "  }"]
+    lines.append("}")
+  if assets.global_step is not None:
+    lines.append(f"global_step: {int(assets.global_step)}")
+  return "".join(line + "\n" for line in lines)
+
+
+def _pbtxt_tokens(text: str) -> Iterator[str]:
+  """Tokens of protobuf text format: names, numbers, quoted strings
+  (unescaped) and the punctuation `{ } < > :`; comments and the optional
+  separators `,` `;` are dropped."""
+  i, n = 0, len(text)
+  while i < n:
+    char = text[i]
+    if char.isspace() or char in ",;":
+      i += 1
+    elif char == "#":
+      while i < n and text[i] != "\n":
+        i += 1
+    elif char in "{}<>:":
+      yield char
+      i += 1
+    elif char in "\"'":
+      quote, i, raw = char, i + 1, bytearray()
+      while text[i] != quote:
+        if text[i] != "\\":
+          raw += text[i].encode("utf-8")
+          i += 1
+          continue
+        esc = text[i + 1]
+        if esc in "01234567":
+          j = i + 1
+          while j < min(i + 4, n) and text[j] in "01234567":
+            j += 1
+          raw.append(int(text[i + 1:j], 8))
+          i = j
+        elif esc == "x":
+          j = i + 2
+          while j < min(i + 4, n) and text[j] in "0123456789abcdefABCDEF":
+            j += 1
+          raw.append(int(text[i + 2:j], 16))
+          i = j
+        else:
+          raw += {"n": b"\n", "r": b"\r", "t": b"\t", "a": b"\a",
+                  "b": b"\b", "f": b"\f", "v": b"\v"}.get(
+                      esc, esc.encode("utf-8"))
+          i += 2
+      yield '"' + raw.decode("utf-8")
+      i += 1
+    else:
+      start = i
+      while i < n and not text[i].isspace() and text[i] not in "{}<>:,;#":
+        i += 1
+      yield text[start:i]
+
+
+def _parse_message(tokens: Iterator[str], close: Optional[str]) -> list:
+  """[(field, value)] of one message: a value is a token or a nested list."""
+  fields = []
+  for token in tokens:
+    if token == close:
+      return fields
+    if token in "{}<>:" or token.startswith('"'):
+      raise ValueError(f"{PBTXT_ASSET_FILENAME}: unexpected {token!r}")
+    value = next(tokens)
+    if value == ":":
+      value = next(tokens)
+    if value in ("{", "<"):
+      value = _parse_message(tokens, "}" if value == "{" else ">")
+    fields.append((token, value))
+  if close is not None:
+    raise ValueError(f"{PBTXT_ASSET_FILENAME}: unterminated message")
+  return fields
+
+
+def _spec_from_fields(fields: list) -> TensorSpec:
+  kwargs: Dict[str, Any] = {"shape": []}
+  dtype_name = "float32"
+  for field, value in fields:
+    if field == "shape":
+      kwargs["shape"].append(None if int(value) == -1 else int(value))
+    elif field == "dtype":
+      dtype_name = _TF_ENUM_TO_NP.get(int(value))
+      if dtype_name is None:
+        raise ValueError(f"{PBTXT_ASSET_FILENAME}: TF DataType enum "
+                         f"{value} has no numpy equivalent")
+    elif field in ("name", "data_format", "dataset_key"):
+      kwargs[field] = value[1:]
+    elif field in ("is_optional", "is_extracted"):
+      kwargs[field] = value in ("true", "True", "t", "1")
+    elif field == "varlen_default_value":
+      # A proto float: the value the 4-byte field holds.
+      kwargs[field] = struct.unpack(
+          "<f", struct.pack("<f", float(value.rstrip("fF"))))[0]
+    else:
+      raise ValueError(f"{PBTXT_ASSET_FILENAME}: unknown spec field "
+                       f"{field!r}")
+  kwargs["dtype"] = np.dtype(object) if dtype_name == "object" \
+      else dtype_name
+  return TensorSpec(**kwargs)
+
+
+def assets_from_pbtxt(text: str) -> Assets:
+  """Parses text-format `T2RAssets` (the inverse of `assets_to_pbtxt`,
+  and reads what the JAX package's writer and `text_format` write)."""
+  assets = Assets()
+  for field, value in _parse_message(_pbtxt_tokens(text), None):
+    if field in ("feature_spec", "label_spec"):
+      struct_ = getattr(assets, field) or SpecStruct()
+      for entry_field, entry in value:
+        if entry_field != "key_value":
+          raise ValueError(f"{PBTXT_ASSET_FILENAME}: unknown field "
+                           f"{entry_field!r} in {field}")
+        entry = dict(entry)
+        struct_[entry["key"][1:]] = _spec_from_fields(entry.get("value", []))
+      setattr(assets, field, struct_)
+    elif field == "global_step":
+      assets.global_step = int(value)
+    else:
+      raise ValueError(f"{PBTXT_ASSET_FILENAME}: unknown field {field!r}")
+  return assets

@@ -676,7 +676,9 @@ def operative_config_str() -> str:
   Values with no config syntax (live objects) are emitted as comments, as
   gin does, so the file always re-parses."""
   lines = []
-  for (name, param), value in sorted(_REGISTRY.operative.items()):
+  # A copy (one C-level call) so an export worker reading it never races
+  # a configurable called on another thread.
+  for (name, param), value in sorted(_REGISTRY.operative.copy().items()):
     if _is_representable(value):
       lines.append(f"{name}.{param} = {_format_value(value)}")
     else:

@@ -9,6 +9,9 @@
   step raises. A torn step without a manifest falls back too; an intact
   step whose load fails is a caller error and re-raises.
 * `max_to_keep` keeps the newest steps.
+* These managers save synchronously (`async_checkpointing=False`): the
+  tests read and damage the files on disk right after a save. The
+  asynchronous default is held in `test_torch_checkpoints_more.py`.
 * `SummaryWriter` skips non-scalar and non-finite values, as the JAX
   package's does.
 """
@@ -62,7 +65,8 @@ def _flip_byte(path):
 
 
 def test_round_trip(tmp_path):
-  manager = checkpoints.CheckpointManager(str(tmp_path))
+  manager = checkpoints.CheckpointManager(str(tmp_path),
+                                          async_checkpointing=False)
   state = _state(0, step=7)
   assert manager.save(7, state)
   assert not manager.save(7, state)  # a step is written once
@@ -74,7 +78,8 @@ def test_round_trip(tmp_path):
 
 
 def test_manifest_describes_the_bytes_on_disk(tmp_path):
-  manager = checkpoints.CheckpointManager(str(tmp_path))
+  manager = checkpoints.CheckpointManager(str(tmp_path),
+                                          async_checkpointing=False)
   manager.save(3, _state(1, step=3))
   with open(tmp_path / "manifests" / "3.json") as f:
     manifest = json.load(f)
@@ -88,7 +93,8 @@ def test_manifest_describes_the_bytes_on_disk(tmp_path):
 
 
 def test_flipped_byte_is_quarantined_and_restore_falls_back(tmp_path):
-  manager = checkpoints.CheckpointManager(str(tmp_path))
+  manager = checkpoints.CheckpointManager(str(tmp_path),
+                                          async_checkpointing=False)
   older, newer = _state(0, step=10), _state(1, step=20)
   manager.save(10, older)
   manager.save(20, newer)
@@ -110,7 +116,8 @@ def test_flipped_byte_is_quarantined_and_restore_falls_back(tmp_path):
 
 
 def test_explicit_corrupt_or_missing_step_raises(tmp_path):
-  manager = checkpoints.CheckpointManager(str(tmp_path))
+  manager = checkpoints.CheckpointManager(str(tmp_path),
+                                          async_checkpointing=False)
   manager.save(5, _state(0, step=5))
   _flip_byte(tmp_path / "5" / checkpoints.STATE_FILENAME)
   with pytest.raises(checkpoints.CheckpointCorruptionError):
@@ -122,7 +129,8 @@ def test_explicit_corrupt_or_missing_step_raises(tmp_path):
 
 
 def test_torn_step_without_manifest_falls_back(tmp_path):
-  manager = checkpoints.CheckpointManager(str(tmp_path))
+  manager = checkpoints.CheckpointManager(str(tmp_path),
+                                          async_checkpointing=False)
   older = _state(0, step=1)
   manager.save(1, older)
   manager.save(2, _state(1, step=2))
@@ -142,7 +150,8 @@ def test_torn_step_without_manifest_falls_back(tmp_path):
 
 
 def test_max_to_keep(tmp_path):
-  manager = checkpoints.CheckpointManager(str(tmp_path), max_to_keep=2)
+  manager = checkpoints.CheckpointManager(str(tmp_path), max_to_keep=2,
+                                         async_checkpointing=False)
   state = _state(0)
   for step in (1, 2, 3, 4):
     manager.save(step, state.replace(step=step))

@@ -364,3 +364,50 @@ def test_chip_smoke_bounds_take_the_fastest_exact_path(flops, dtype, ms, path):
   memory = chip_smoke.bound(1e12, flops, dtype)
   assert memory["bound_by"] == "bytes"
   assert memory["bound_ms"] == pytest.approx(1e3 / 3.35, rel=1e-9)
+
+
+def test_export_and_hooks_packages_import_no_jax():
+  modules = ["tensor2robot_tpu_torch.export.export_generator",
+             "tensor2robot_tpu_torch.hooks.core",
+             "tensor2robot_tpu_torch.hooks.td3",
+             "tensor2robot_tpu_torch.bin.export_saved_model"]
+  assert set(modules) <= set(_port_modules())
+  code = (
+      "import importlib, sys\n"
+      f"for name in {FORBIDDEN!r}:\n"
+      "  sys.modules[name] = None\n"
+      f"for module in {modules!r}:\n"
+      "  importlib.import_module(module)\n"
+      "print(sorted(m for m in sys.modules if sys.modules[m] is not None\n"
+      f"             and m.split('.')[0] in {FORBIDDEN!r}))\n")
+  result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=120)
+  assert result.returncode == 0, result.stderr
+  assert result.stdout.strip() == "[]"
+
+
+def test_export_config_binds_only_port_configurables():
+  from tensor2robot_tpu_torch.export import export_generator
+  from tensor2robot_tpu_torch.hooks import core as hooks_core
+
+  try:
+    config.parse_config_file(str(PORT / "configs" /
+                                 "train_qtopt_export.gin"))
+    registry = config._REGISTRY
+    assert registry.imports and all(
+        m.startswith("tensor2robot_tpu_torch.") for m in registry.imports)
+    for _, name, _ in registry.bindings:
+      configurable = config.get_configurable(name)
+      module = getattr(configurable, "__module__", "")
+      assert module.startswith("tensor2robot_tpu_torch."), (name, module)
+    (builder,) = config.query_parameter("train_eval_model.hook_builders")
+    assert isinstance(builder, hooks_core.AsyncExportHookBuilder)
+    assert isinstance(builder._export_generator,
+                      export_generator.DefaultExportGenerator)
+    assert (builder._num_versions, builder._lagged,
+            builder._async_export) == (3, True, True)
+    assert config.query_parameter("QTOptModel.image_size") == 472
+    assert config.query_parameter("train_eval_model.mode") == \
+        "train_and_evaluate"
+  finally:
+    config.clear_config()

@@ -373,7 +373,8 @@ def test_cli_trains_the_qtopt_config_shrunk_to_the_small_critic(tmp_path):
 
 
 def test_a_checkpoint_without_mutable_state_restores(tmp_path):
-  manager = checkpoints.CheckpointManager(str(tmp_path))
+  manager = checkpoints.CheckpointManager(str(tmp_path),
+                                          async_checkpointing=False)
   state = train_step.TrainState(step=3, params={"w": torch.ones(2)})
   manager.save(3, state)
   path = tmp_path / "3" / checkpoints.STATE_FILENAME
@@ -388,7 +389,7 @@ def test_a_checkpoint_without_mutable_state_restores(tmp_path):
 def test_unported_knobs_raise(tmp_path):
   with pytest.raises(NotImplementedError, match="ROADMAP"):
     train_step.make_train_step(models.QTOptModel(use_pcgrad=True))
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
+  with pytest.raises(ValueError, match="input_generator_eval"):
     train_eval.train_eval_model(model=_tiny_critic(), model_dir=str(tmp_path),
                                 mode="continuous_eval", device="cpu")
   with pytest.raises(ValueError, match="input_generator_eval"):

@@ -151,10 +151,7 @@ def test_resume_skips_a_corrupt_newest_checkpoint(tmp_path):
 
 
 def test_other_modes_and_missing_inputs_raise(tmp_path):
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    train_eval.train_eval_model(model=_model(), model_dir=str(tmp_path),
-                                mode="continuous_eval", device="cpu")
-  for mode in ("evaluate", "train_and_evaluate"):
+  for mode in ("evaluate", "train_and_evaluate", "continuous_eval"):
     with pytest.raises(ValueError, match="input_generator_eval"):
       train_eval.train_eval_model(model=_model(), model_dir=str(tmp_path),
                                   mode=mode, device="cpu",
