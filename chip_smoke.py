@@ -149,24 +149,67 @@ and prints no result):
    the default stream; the median bf16 step fed through the prefetcher
    from the constant generator, the records (2 and 4 workers) and the
    random generator; the device idle share of 10 record-fed steps.
+9. The deployment path (see `run_deploy`).
+10. The rest of the training surface, TF32 off for its checks:
+   a. a fresh run warm-started from phase 6b's step-30 checkpoint keeps
+      the fresh init as its EMA, bit for bit, and the checkpoint's
+      parameters;
+   b. remat on the critic, one f32 step at 472 and batch 2: loss and new
+      batch statistics within 1e-6 relative of the plain step,
+      gradients within phase 6a's f32 limit (whether they came out
+      bit-identical is reported);
+   c. remat on the sequence policy at full width, one f32 step against
+      the plain step within phase 4's limits; per block the flash
+      forward launches exactly twice (forward and recompute), dQ, dK/dV
+      and the split pass once;
+   d. gradient accumulation, k = 4 at batch 8 on the f32 critic: after
+      the 4th micro-step the parameters are the inner optimizer applied
+      once to the mean of the four micro-batch gradients, each taken
+      alone (1e-4 of the largest update; deterministic cuDNN), the EMA
+      moved once, every schedule count is 1;
+   e. PCGrad, one f32 critic step (deterministic cuDNN): its task
+      gradients against each task's gradient taken alone, the combined
+      gradient against `pcgrad_combine` of those (phase 6a's f32
+      limit), its gradient norm against the combined one's (1e-5);
+   f. the s2d stem: the step-30 critic with its stem mapped by
+      `stem_kernel_to_s2d`, eval-mode logits against the plain stem's,
+      f32 1e-5 relative, bf16 within phase 6a's bf16 limit;
+   g. the median train step (20 after 3) of
+      `configs/train_qtopt_tuned.gin` (batch 256, bf16), the same with
+      remat, with the s2d stem, and at batch 64 x 4 accumulated
+      micro-steps: step ms, grasps/s and peak device memory, under
+      torch's default TF32 flags (cuDNN on, cuBLAS off).
+11. The LSTM family: `LSTMRegressionModel` at its defaults (obs 16,
+   action 7, T 32, hidden 64) trained through `train_eval_model` for 30
+   steps of batch 32 with checkpoints 10, 20 and 30 (finite losses,
+   verified steps); step 30 served by `CheckpointPredictor` ->
+   `SessionEngine` on its carry path: 64 sessions at ragged lengths in
+   dispatches of 1-8 lanes across the buckets, every tick within 1e-5 of
+   the stateless full-sequence predict (f32, TF32 off in cuBLAS and
+   cuDNN), the null slot untouched; then 20 actions of
+   `SessionRegressionPolicy`, timed.
 
 Output: a `train` JSON line, a `slice` JSON line, a `qtopt` JSON line
 (the critic's checks, its step ms and grasps/s under each policy with
 the card, power limit, TF32 flags and bound), a `serve_qtopt` JSON line
 (phase 7's checks and numbers), a `records` JSON line (phase 8's
-facts, checks and times with the card and its power limit), a `kernels`
-JSON line
+facts, checks and times with the card and its power limit), a `deploy`
+line (phase 9), a `surface` line (phase 10's checks and its timings), an
+`lstm` line (phase 11's checks, the tick error and the policy's action
+p50 and p99), a `kernels` JSON line
 (one row per kernel, with its `design`: "wgmma+tma" for the bf16
 tensor-core kernels, "wgmma+tma, 3xtf32" for the f32 ones, "split-t,
 bulk-tma" for the decode tick, "cuda-cores" for the f32 backward's split
 pass; the decode row times the served bucket of 8 lanes and, under
 `single_lane`, one lane at index 4095, each with its own bound; the f32
 dQ and dK/dV rows carry the split pass's time as `split_ms` and compare
-dQ + dK/dV + split with the library's whole backward), the card line,
+dQ + dK/dV + split with the library's whole backward; the f32 flash
+rows carry `launches_remat`, phase 10c's counts), the card line,
 and as the last line `{"ok": true, "device": {...}}`. The same numbers go
 to `chiprun_out/chip_smoke_report.json`.
 """
 
+import contextlib
 import itertools
 import json
 import os
@@ -2768,6 +2811,536 @@ def _session_ticks(np, session, predictor, seq):
   return out
 
 
+# -- phase 10: the rest of the training surface ------------------------------
+
+TUNED_CONFIG = "tensor2robot_tpu_torch/configs/train_qtopt_tuned.gin"
+# 10b: remat recomputes the same forward, so the loss and the new batch
+# statistics are held to 1e-6 relative (f32 sums in the same order read
+# 0); the gradients to phase 6a's f32 limit.
+REMAT_RTOL = 1e-6
+ACCUM_K = 4
+ACCUM_BATCH = 8
+# 10d: the parameters after the 4th micro-step against the inner
+# optimizer applied once to the mean of the four gradients, each taken
+# alone and folded in the step's order (optax's running mean). cuDNN runs
+# deterministic algorithms for the check, so the two should agree bit
+# for bit; the applied updates are held to 1e-4 of the largest update
+# entry, which an update of the wrong batch or a missed micro-step
+# exceeds by orders of magnitude.
+ACCUM_UPDATE_RTOL = 1e-4
+# 10f: the s2d stem sums the same 108 products per output in another
+# order: eval logits f32 (TF32 off) 1e-5 relative; bf16 phase 6a's limit.
+S2D_F32_RTOL = 1e-5
+SURFACE_STEPS = 20
+SURFACE_WARMUP = 3
+SURFACE_BATCH = 256        # the tuned config's
+SURFACE_ACCUM_BATCH = 64   # x 4 micro-steps: 256 grasps an update
+
+
+def _counts(tree) -> list:
+  """Every `count` of an optimizer state."""
+  if isinstance(tree, dict):
+    return [v for k, v in tree.items() if k == "count"] + [
+        c for v in tree.values() for c in _counts(v)]
+  if isinstance(tree, (tuple, list)):
+    return [c for v in tree for c in _counts(v)]
+  return []
+
+
+def check_warm_start_ema(torch, port, device, critic_dir: str,
+                         directory: str) -> dict:
+  """10a: a fresh run warm-started from phase 6b's step-30 checkpoint
+  keeps the fresh init as its EMA, bit for bit, and takes the
+  checkpoint's parameters."""
+  (config, train_eval, checkpoints, train_step, input_generators,
+   flagship) = port
+  source = os.path.join(critic_dir, checkpoints.CHECKPOINT_DIRNAME, "30")
+  config.clear_config()
+  model = flagship.make_flagship_model(init_checkpoint=source)
+  train_eval.train_eval_model(
+      model=model, model_dir=directory, mode="train", max_train_steps=0,
+      checkpoint_every_n_steps=1, seed=0, device=device,
+      input_generator_train=input_generators.DefaultRandomInputGenerator(
+          batch_size=2))
+  step0 = checkpoints.CheckpointManager(
+      os.path.join(directory, checkpoints.CHECKPOINT_DIRNAME)).restore(0)
+  fresh = train_step.create_train_state(
+      model, torch.Generator().manual_seed(0), torch.device("cpu"))
+  trained = checkpoints.CheckpointManager(
+      os.path.join(critic_dir, checkpoints.CHECKPOINT_DIRNAME)).restore(30)
+  ema_fresh = all(torch.equal(step0.ema_params[k], v)
+                  for k, v in fresh.params.items())
+  params_warm = all(torch.equal(step0.params[k], v)
+                    for k, v in trained.params.items())
+  moved = sum(not torch.equal(trained.params[k], v)
+              for k, v in fresh.params.items())
+  log(f"10a warm start from step 30: EMA = fresh init bit for bit "
+      f"{ema_fresh}; params = the checkpoint's {params_warm} "
+      f"({moved} of {len(fresh.params)} leaves differ from the fresh init)")
+  if not (ema_fresh and params_warm and moved):
+    raise RuntimeError(f"warm start: EMA fresh {ema_fresh}, params from "
+                       f"the checkpoint {params_warm}, leaves moved {moved}")
+  return {"ema_is_fresh_init": ema_fresh, "params_from_checkpoint":
+          params_warm, "leaves_differing_from_init": moved}
+
+
+def check_critic_remat(torch, train_step, input_generators, flagship, device,
+                       grad_limit: float) -> dict:
+  """10b: one f32 critic step at 472 and batch 2, TF32 off, with and
+  without remat."""
+  results = {}
+  for remat in (False, True):
+    model = flagship.make_flagship_model(use_bfloat16=False, remat=remat)
+    state = train_step.create_train_state(
+        model, torch.Generator().manual_seed(0), device)
+    features, labels = _qtopt_batch(input_generators, model, 2, 0, device)
+    torch.cuda.reset_peak_memory_stats()
+    results[remat] = train_step.loss_and_grads(
+        model, state.params, features, labels, state.mutable_state)
+    torch.cuda.synchronize()
+    results[remat] += (torch.cuda.max_memory_allocated(),)
+  (loss, _, grads, stats, peak), (loss_r, _, grads_r, stats_r, peak_r) = (
+      results[False], results[True])
+  out = {
+      "loss_rel": abs(float(loss_r) - float(loss)) / abs(float(loss)),
+      "batch_stats_rel": max(_leaf_rel(stats_r[k], stats[k]) for k in stats),
+      "grads_scaled": max(_scaled_err(grads_r[k], grads[k]) for k in grads),
+      "grad_limit": grad_limit,
+      "bit_identical": {
+          "loss": bool(torch.equal(loss_r, loss)),
+          "grads": all(torch.equal(grads_r[k], grads[k]) for k in grads),
+          "batch_stats": all(torch.equal(stats_r[k], stats[k])
+                             for k in stats)},
+      "peak_bytes": {"plain": peak, "remat": peak_r}}
+  log(f"10b critic f32 step, remat vs plain: {out}")
+  if set(stats_r) != set(stats) or len(stats) != 40 or not (
+      out["loss_rel"] <= REMAT_RTOL and out["batch_stats_rel"] <= REMAT_RTOL
+      and out["grads_scaled"] <= grad_limit):
+    raise RuntimeError(f"the remat critic step disagrees: {out}")
+  return out
+
+
+def check_sequence_remat(torch, port, device) -> dict:
+  """10c: one f32 step of the sequence policy at full width with remat
+  against the step without: phase 4's limits, and per block the flash
+  forward launched twice (forward and recompute), dQ, dK/dV and the
+  split pass once."""
+  (sequence_model, train_step, input_generators, attention_ops) = port
+  fwd, bwd = attention_ops.flash_forward, attention_ops.flash_backward
+  models = {remat: sequence_model.SequenceRegressionModel(
+      attention_backend="flash", remat=remat, **WIDTHS)
+            for remat in (False, True)}
+  params = {k: v.to(device) for k, v in models[False].init_params(
+      torch.Generator().manual_seed(1)).items()}
+  generator = input_generators.DefaultRandomInputGenerator(batch_size=2,
+                                                           seed=3)
+  generator.set_specification_from_model(models[False], "train")
+  batch = next(generator.create_dataset("train"))
+  features = {k: v.to(device) for k, v in batch["features"].items()}
+  labels = {k: v.to(device) for k, v in batch["labels"].items()}
+  plain = train_step.loss_and_grads(models[False], params, features, labels)
+  torch.cuda.synchronize()
+  # The remat step: counts to 0 just before, read just after.
+  fwd.launches = bwd.launches_dq = bwd.launches_dkv = 0
+  bwd.launches_split = 0
+  remat = train_step.loss_and_grads(models[True], params, features, labels)
+  torch.cuda.synchronize()
+  launches = {"flash_fwd": fwd.launches, "flash_bwd_dq": bwd.launches_dq,
+              "flash_bwd_dkv": bwd.launches_dkv,
+              "flash_bwd_split": bwd.launches_split}
+  blocks = WIDTHS["num_blocks"]
+  want = {"flash_fwd": 2 * blocks, "flash_bwd_dq": blocks,
+          "flash_bwd_dkv": blocks, "flash_bwd_split": blocks}
+  loss_err = abs(float(remat[0]) - float(plain[0])) / abs(float(plain[0]))
+  grad_err = max(_scaled_err(remat[2][k], plain[2][k]) for k in plain[2])
+  out = {"launches": launches, "loss_rel": loss_err,
+         "grads_scaled": grad_err,
+         "bit_identical_grads": all(torch.equal(remat[2][k], plain[2][k])
+                                    for k in plain[2])}
+  log(f"10c sequence policy f32 step, remat vs plain: {out}")
+  if launches != want:
+    raise RuntimeError(f"the remat step must launch {want}, got {launches}")
+  if not (loss_err <= LOSS_RTOL and grad_err <= GRAD_TOL):
+    raise RuntimeError(f"the remat sequence step disagrees: {out}")
+  return out
+
+
+def check_accumulation(torch, train_step, input_generators, flagship,
+                       optimizers, device) -> dict:
+  """10d: k = 4 micro-steps at batch 8 on the f32 critic (TF32 off,
+  deterministic cuDNN) against the inner optimizer applied once to the
+  mean of the four micro-batch gradients, each taken alone; the EMA
+  moves once, the schedule counts one update."""
+  with _deterministic_cudnn(torch):
+    return _check_accumulation(torch, train_step, input_generators,
+                               flagship, optimizers, device)
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn(torch):
+  """cuDNN restricted to deterministic algorithms inside the block (a
+  non-deterministic weight gradient sums its partial products in a new
+  order on every call)."""
+  previous = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  try:
+    yield
+  finally:
+    torch.backends.cudnn.deterministic = previous
+
+
+def _check_accumulation(torch, train_step, input_generators, flagship,
+                        optimizers, device) -> dict:
+  model = flagship.make_flagship_model(use_bfloat16=False,
+                                       gradient_accumulation_steps=ACCUM_K)
+  state0 = train_step.create_train_state(
+      model, torch.Generator().manual_seed(0), device)
+  batches = [_qtopt_batch(input_generators, model, ACCUM_BATCH, 20 + i,
+                          device) for i in range(ACCUM_K)]
+  step = train_step.make_train_step(model)
+  state, ema_moves = state0, 0
+  for features, labels in batches:
+    before = state.ema_params
+    state, _ = step(state, features, labels)
+    ema_moves += any(not torch.equal(state.ema_params[k], v)
+                     for k, v in before.items())
+  alone = [train_step.loss_and_grads(model, state0.params, f, l,
+                                     state0.mutable_state)[2]
+           for f, l in batches]
+  mean = {k: torch.zeros_like(v) for k, v in alone[0].items()}
+  for n, grads in enumerate(alone):
+    mean = {k: a + (grads[k] - a) / (n + 1) for k, a in mean.items()}
+  inner = model.create_optimizer()
+  updates, inner_state = inner.update(mean, inner.init(state0.params),
+                                      state0.params)
+  want = optimizers.apply_updates(state0.params, updates)
+  scale = max(float((want[k] - state0.params[k]).abs().max()) for k in want)
+  update_err = max(float(((state.params[k] - state0.params[k])
+                          - (want[k] - state0.params[k])).abs().max())
+                   for k in want) / scale
+  decay = model.ema_decay
+  ema_once = all(torch.equal(state.ema_params[k],
+                             e * decay + (1.0 - decay) * state.params[k])
+                 for k, e in state0.ema_params.items())
+  counts = _counts(state.opt_state["inner_opt_state"])
+  out = {"k": ACCUM_K, "batch": ACCUM_BATCH, "update_rel": update_err,
+         "params_bit_identical": all(torch.equal(state.params[k], want[k])
+                                     for k in want),
+         "ema_moves": ema_moves, "ema_once_bitwise": ema_once,
+         "schedule_counts": counts,
+         "mini_step": state.opt_state["mini_step"],
+         "gradient_step": state.opt_state["gradient_step"]}
+  log(f"10d accumulation: {out}")
+  if not (update_err <= ACCUM_UPDATE_RTOL and ema_moves == 1 and ema_once
+          and counts == [1] and out["mini_step"] == 0
+          and out["gradient_step"] == 1
+          and _counts(inner_state) == [1]):
+    raise RuntimeError(f"accumulation on the card disagrees: {out}")
+  return out
+
+
+def check_pcgrad(torch, train_step, input_generators, flagship, pcgrad,
+                 device, grad_limit: float) -> dict:
+  """10e: one PCGrad critic step (f32, TF32 off, deterministic cuDNN,
+  batch 8): its task gradients from one forward against each task's
+  gradient taken alone and the combined gradient against
+  `pcgrad_combine` of the lone ones, both within phase 6a's f32 limit
+  (batch norm over few rows amplifies any change of summation order),
+  and the step's gradient norm against the combined gradient's."""
+  with _deterministic_cudnn(torch):
+    return _check_pcgrad(torch, train_step, input_generators, flagship,
+                         pcgrad, device, grad_limit)
+
+
+def _check_pcgrad(torch, train_step, input_generators, flagship, pcgrad,
+                  device, grad_limit: float) -> dict:
+  model = flagship.make_flagship_model(use_bfloat16=False, use_pcgrad=True)
+  state = train_step.create_train_state(
+      model, torch.Generator().manual_seed(0), device)
+  features, labels = _qtopt_batch(input_generators, model, ACCUM_BATCH, 30,
+                                  device)
+  _, task_grads, _ = train_step.task_losses_and_grads(
+      model, state.params, features, labels, state.mutable_state)
+  tasks = ("bellman", "q_regularizer")
+  alone = []
+  for task in tasks:
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in state.params.items()}
+    outputs, _ = model.inference_network_fn(leaves, state.mutable_state,
+                                            features, "train", train=True)
+    loss = model.model_task_losses_fn(features, labels, outputs,
+                                      "train")[task]
+    alone.append(dict(zip(leaves, torch.autograd.grad(
+        loss, list(leaves.values())))))
+  combined = pcgrad.pcgrad_combine(task_grads)
+  want = pcgrad.pcgrad_combine(alone)
+  _, metrics = train_step.make_train_step(model)(state, features, labels)
+  norm = float(torch.sqrt(sum(torch.sum(g * g) for g in combined.values())))
+  out = {
+      "task_grads_scaled": max(_scaled_err(task_grads[i][k], alone[i][k])
+                               for i in range(2) for k in alone[i]),
+      "combined_scaled": max(_scaled_err(combined[k], want[k])
+                             for k in want),
+      "norm_rel": abs(float(metrics["global_gradient_norm"]) - norm) / norm,
+      "grad_limit": grad_limit,
+      "bit_identical_task_grads": all(
+          torch.equal(task_grads[i][k], alone[i][k])
+          for i in range(2) for k in alone[i]),
+      "metrics": sorted(metrics)}
+  log(f"10e PCGrad: {out}")
+  if not (out["task_grads_scaled"] <= grad_limit
+          and out["combined_scaled"] <= grad_limit
+          and out["norm_rel"] <= LOSS_RTOL
+          and out["metrics"] == ["global_gradient_norm", "loss",
+                                 "task_loss/bellman",
+                                 "task_loss/q_regularizer"]):
+    raise RuntimeError(f"the PCGrad step disagrees: {out}")
+  return out
+
+
+def check_s2d(torch, port, device, critic_dir: str, bf16_limit: float
+              ) -> dict:
+  """10f: phase 6b's step-30 critic (EMA parameters, trained statistics)
+  with its stem mapped by `stem_kernel_to_s2d`, eval-mode logits of the
+  s2d tower against the plain one: f32 (TF32 off) and bf16."""
+  (checkpoints, input_generators, flagship, qtopt_models) = port
+  state = checkpoints.CheckpointManager(
+      os.path.join(critic_dir, checkpoints.CHECKPOINT_DIRNAME)).restore(
+          30, device=device)
+  s2d_params = {k: v for k, v in state.ema_params.items()
+                if not k.startswith("conv1_1.")}
+  s2d_params["conv1_1_s2d.weight"] = qtopt_models.stem_kernel_to_s2d(
+      state.ema_params["conv1_1.weight"])
+  s2d_params["conv1_1_s2d.bias"] = state.ema_params["conv1_1.bias"]
+  out = {}
+  for name, bf16 in (("f32", False), ("bf16", True)):
+    logits = {}
+    for s2d, params in ((False, state.ema_params), (True, s2d_params)):
+      model = flagship.make_flagship_model(use_bfloat16=bf16,
+                                           space_to_depth=s2d)
+      features, _ = _qtopt_batch(input_generators, model, ACCUM_BATCH, 40,
+                                 device)
+      with torch.no_grad():
+        outputs, _ = model.inference_network_fn(
+            params, state.mutable_state,
+            model.cast_features_for_compute(features), "predict")
+      logits[s2d] = outputs["logits"].float()
+    out[name] = {"rel": _leaf_rel(logits[True], logits[False]),
+                 "rel_norm": _rel_norm_err(logits[True], logits[False])}
+  out["bf16_limit"] = bf16_limit
+  log(f"10f s2d stem vs the plain stem, eval-mode logits: {out}")
+  if not (out["f32"]["rel"] <= S2D_F32_RTOL
+          and out["bf16"]["rel_norm"] <= bf16_limit):
+    raise RuntimeError(f"the s2d critic disagrees with the plain one: {out}")
+  return out
+
+
+def time_surface(torch, port, device) -> dict:
+  """10g: the median train step of `configs/train_qtopt_tuned.gin`'s
+  critic (batch 256, bf16), and the same with remat, with the s2d stem,
+  and at batch 64 with k = 4 accumulated micro-steps: host clock around
+  a step that ends in a synchronize, one random batch on the card, 3
+  steps of warm-up, then `SURFACE_STEPS`; peak device memory over them."""
+  (config, train_step, input_generators, qtopt_models) = port
+  out = {}
+  cases = (("tuned", SURFACE_BATCH, {}),
+           ("remat", SURFACE_BATCH, {"remat": True}),
+           ("s2d", SURFACE_BATCH, {"space_to_depth": True}),
+           ("accumulate_64x4", SURFACE_ACCUM_BATCH,
+            {"gradient_accumulation_steps": 4}))
+  for name, batch, knobs in cases:
+    config.clear_config()
+    config.parse_config_file(os.path.join(REPO_DIR, TUNED_CONFIG))
+    for knob, value in knobs.items():
+      config.parse_config(f"QTOptModel.{knob} = {value}")
+    config.parse_config(f"DefaultRandomInputGenerator.batch_size = {batch}")
+    model = qtopt_models.QTOptModel()
+    state = train_step.create_train_state(
+        model, torch.Generator().manual_seed(0), device)
+    features, labels = _qtopt_batch(input_generators, model, batch, 5,
+                                    device)
+    step_fn = train_step.make_train_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(SURFACE_WARMUP + SURFACE_STEPS):
+      torch.cuda.synchronize()
+      start = time.perf_counter()
+      state, metrics = step_fn(state, features, labels)
+      torch.cuda.synchronize()
+      if i >= SURFACE_WARMUP:
+        times.append(time.perf_counter() - start)
+    if not torch.isfinite(metrics["loss"]):
+      raise RuntimeError(f"10g {name}: non-finite loss {metrics['loss']}")
+    ms = 1e3 * sorted(times)[len(times) // 2]
+    mean_ms = 1e3 * sum(times) / len(times)
+    out[name] = {"batch": batch, **knobs, "step_ms_median": ms,
+                 "step_ms_mean": mean_ms,
+                 "grasps_per_s": batch / (ms / 1e3),
+                 "grasps_per_s_mean": batch / (mean_ms / 1e3),
+                 "peak_bytes": torch.cuda.max_memory_allocated(),
+                 "steps_timed": SURFACE_STEPS,
+                 "config": TUNED_CONFIG}
+    log(f"10g {name}: {ms:.2f} ms median ({mean_ms:.2f} mean), "
+        f"{out[name]['grasps_per_s']:.0f} grasps/s, peak "
+        f"{out[name]['peak_bytes'] / 2**30:.2f} GiB")
+    del state, features, labels, metrics
+    torch.cuda.empty_cache()
+  config.clear_config()
+  return out
+
+
+def run_surface(torch, np, port, device, card: str, critic_dir: str,
+                directory: str, strict: dict, bf16_limit: float) -> dict:
+  """Phase 10: the training surface on the card (see the module
+  docstring)."""
+  (config, train_eval, checkpoints, train_step, input_generators, flagship,
+   qtopt_models, sequence_model, attention_ops, optimizers, pcgrad) = port
+  start = time.perf_counter()
+  out = {"card": card}
+  out["warm_start"] = check_warm_start_ema(
+      torch, (config, train_eval, checkpoints, train_step, input_generators,
+              flagship), device, critic_dir, directory)
+  torch.cuda.empty_cache()
+  previous = _tf32(torch, cudnn=False, matmul=False)
+  try:
+    grad_limit = max(QTOPT_F32_FACTOR * strict["f32_cpu_vs_cpu_f64"]["grads"],
+                     GRAD_TOL)
+    out["remat_critic"] = check_critic_remat(
+        torch, train_step, input_generators, flagship, device, grad_limit)
+    torch.cuda.empty_cache()
+    out["remat_sequence"] = check_sequence_remat(
+        torch, (sequence_model, train_step, input_generators, attention_ops),
+        device)
+    torch.cuda.empty_cache()
+    out["accumulation"] = check_accumulation(
+        torch, train_step, input_generators, flagship, optimizers, device)
+    out["pcgrad"] = check_pcgrad(torch, train_step, input_generators,
+                                 flagship, pcgrad, device, grad_limit)
+    out["s2d"] = check_s2d(torch, (checkpoints, input_generators, flagship,
+                                   qtopt_models), device, critic_dir,
+                           bf16_limit)
+  finally:
+    _tf32(torch, *previous)
+  torch.cuda.empty_cache()
+  previous = _tf32(torch, cudnn=True, matmul=False)
+  try:
+    out["timings"] = time_surface(torch, (config, train_step,
+                                          input_generators, qtopt_models),
+                                  device)
+  finally:
+    _tf32(torch, *previous)
+  out["tf32_for_timings"] = {"cudnn": True, "matmul": False}
+  out["phase_wall_s"] = time.perf_counter() - start
+  return out
+
+
+# -- phase 11: the LSTM family ----------------------------------------------
+
+LSTM_STEPS = 30
+LSTM_BATCH = 32
+LSTM_SESSIONS = 64
+LSTM_TICK_ATOL = 1e-5
+LSTM_ACTIONS = 20
+
+
+def run_lstm(torch, np, port, device, card: str, model_dir: str) -> dict:
+  """Phase 11: `LSTMRegressionModel` at its defaults trained through
+  `train_eval_model`, its step-30 checkpoint served through
+  `CheckpointPredictor` -> `SessionEngine`'s carry path: 64 sessions at
+  ragged lengths across the buckets, every tick against the stateless
+  full-sequence predict (f32, TF32 off in cuBLAS and cuDNN), the null
+  slot untouched; then `SessionRegressionPolicy` actions, timed."""
+  (config, train_eval, checkpoints, input_generators, sequence_model,
+   predictors, session, policies) = port
+  start = time.perf_counter()
+  config.clear_config()
+  train_eval.train_eval_model(
+      model=sequence_model.LSTMRegressionModel(), model_dir=model_dir,
+      mode="train", max_train_steps=LSTM_STEPS, checkpoint_every_n_steps=10,
+      log_every_n_steps=1, device=device,
+      input_generator_train=input_generators.DefaultRandomInputGenerator(
+          batch_size=LSTM_BATCH))
+  torch.cuda.synchronize()
+  train_wall = time.perf_counter() - start
+  logged = _logged_losses(model_dir)
+  _check_losses(logged, 1, LSTM_STEPS)
+  manager = checkpoints.CheckpointManager(
+      os.path.join(model_dir, checkpoints.CHECKPOINT_DIRNAME))
+  if manager.all_steps() != [10, 20, 30] or not all(
+      manager.verify_step(s) is True for s in (10, 20, 30)):
+    raise RuntimeError(f"LSTM checkpoints {manager.all_steps()} do not "
+                       "verify")
+  predictor = predictors.CheckpointPredictor(
+      model=sequence_model.LSTMRegressionModel(), model_dir=model_dir)
+  if not predictor.restore() or predictor.global_step != LSTM_STEPS:
+    raise RuntimeError(f"the LSTM predictor did not restore step 30 "
+                       f"(global_step {predictor.global_step})")
+  model = predictor.model
+  t_max = model.get_feature_specification("predict")["observation"].shape[0]
+  obs_size = model.decode_observation_spec["observation"].shape[0]
+  rng = np.random.RandomState(11)
+  lengths = rng.randint(1, t_max + 1, size=LSTM_SESSIONS)
+  obs = rng.randn(LSTM_SESSIONS, t_max, obs_size).astype(np.float32)
+  full = predictor.predict({"observation": obs})["action"]
+  engine = session.SessionEngine(predictor=predictor,
+                                 max_sessions=LSTM_SESSIONS,
+                                 max_tick_batch=8)
+  engine.warmup()
+  arena = sorted(engine.arena or {})
+  if arena != ["carry_c", "carry_h", "index"]:
+    raise RuntimeError(f"the LSTM engine built no carry arena: {arena}")
+  sids = [engine.open() for _ in range(LSTM_SESSIONS)]
+  done = np.zeros(LSTM_SESSIONS, np.int64)
+  worst, buckets, dispatches = 0.0, set(), 0
+  while (done < lengths).any():
+    live = np.flatnonzero(done < lengths)
+    take = rng.choice(live, size=min(len(live), rng.randint(1, 9)),
+                      replace=False)
+    buckets.add(min(b for b in engine.buckets if b >= len(take)))
+    got = engine.step_many([(sids[i], {"observation": obs[i, done[i]]})
+                            for i in take])
+    dispatches += 1
+    for lane, i in enumerate(take):
+      worst = max(worst, float(np.abs(got[lane]["action"]
+                                      - full[i, done[i]]).max()))
+    done[take] += 1
+  null_slot = {k: bool(leaf[0].any()) for k, leaf in engine.arena.items()}
+  ticks = all(engine.session_ticks(s) == n for s, n in zip(sids, lengths))
+  log(f"11 LSTM: {int(lengths.sum())} ticks of {LSTM_SESSIONS} sessions "
+      f"(lengths {int(lengths.min())}-{int(lengths.max())}) in {dispatches} "
+      f"dispatches over buckets {sorted(buckets)}: max |tick - predict| "
+      f"{worst:.3e}; null slot written {null_slot}")
+  if not (worst <= LSTM_TICK_ATOL and not any(null_slot.values()) and ticks
+          and len(buckets) > 1):
+    raise RuntimeError(f"the LSTM carry path disagrees: worst {worst}, "
+                       f"null slot {null_slot}, ticks {ticks}, buckets "
+                       f"{sorted(buckets)}")
+  for sid in sids:
+    engine.close_session(sid)
+  policy = policies.SessionRegressionPolicy(predictor=engine)
+  policy.reset()
+  action_ms = []
+  for i in range(LSTM_ACTIONS):
+    tick_start = time.perf_counter()
+    action = policy.select_action({"observation": obs[0, i % t_max]})
+    action_ms.append(1e3 * (time.perf_counter() - tick_start))
+    if not np.isfinite(action).all():
+      raise RuntimeError(f"non-finite LSTM action {action}")
+  policy.close()
+  engine.close()
+  return {"card": card, "steps": LSTM_STEPS, "batch": LSTM_BATCH,
+          "loss_step_1": logged[0][1], "loss_step_30": logged[-1][1],
+          "train_wall_s": train_wall, "sessions": LSTM_SESSIONS,
+          "ticks": int(lengths.sum()), "dispatches": dispatches,
+          "buckets": sorted(buckets), "tick_max_abs_err": worst,
+          "null_slot_written": any(null_slot.values()),
+          "policy_action_ms": _percentiles(np, action_ms),
+          "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                   "matmul": torch.backends.cuda.matmul.allow_tf32},
+          "phase_wall_s": time.perf_counter() - start}
+
+
 def main() -> int:
   import torch
 
@@ -2776,15 +3349,18 @@ def main() -> int:
           "only on a CUDA card.", file=sys.stderr)
     return 1
   # Phase 4 trains the sequence policy here; phase 9 exports from it.
+  # Phase 6 trains the critic into `critic_dir`; phases 7 and 10 read it.
   os.makedirs(os.path.join(REPO_DIR, RUNS_DIR), exist_ok=True)
   sequence_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  critic_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
   try:
-    return run_phases(torch, sequence_dir)
+    return run_phases(torch, sequence_dir, critic_dir)
   finally:
     shutil.rmtree(sequence_dir, ignore_errors=True)
+    shutil.rmtree(critic_dir, ignore_errors=True)
 
 
-def run_phases(torch, sequence_dir: str) -> int:
+def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   import numpy as np
 
   from tensor2robot_tpu_torch import checkpoints
@@ -2793,6 +3369,7 @@ def run_phases(torch, sequence_dir: str) -> int:
   from tensor2robot_tpu_torch.bin import export_saved_model
   from tensor2robot_tpu_torch.data import input_generators
   from tensor2robot_tpu_torch.hooks import core as hooks_core
+  from tensor2robot_tpu_torch.models import optimizers
   from tensor2robot_tpu_torch.models import sequence_model
   from tensor2robot_tpu_torch.ops import _kernels
   from tensor2robot_tpu_torch.ops import attention as attention_ops
@@ -2801,6 +3378,7 @@ def run_phases(torch, sequence_dir: str) -> int:
   from tensor2robot_tpu_torch.obs import metrics as obs_metrics
   from tensor2robot_tpu_torch.ops import cem
   from tensor2robot_tpu_torch.ops import decode_kernels
+  from tensor2robot_tpu_torch.ops import pcgrad
   from tensor2robot_tpu_torch.parallel import train_step
   from tensor2robot_tpu_torch.policies import device_cem
   from tensor2robot_tpu_torch.policies import policies
@@ -2891,33 +3469,28 @@ def run_phases(torch, sequence_dir: str) -> int:
     return (decode_kernels.fused_decode_attention.launches, fwd.launches,
             bwd.launches_dq, bwd.launches_dkv)
 
-  os.makedirs(os.path.join(REPO_DIR, RUNS_DIR), exist_ok=True)
-  critic_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
-  try:
-    launches_before = custom_launches()
-    qtopt_report = run_qtopt(torch, np, (
-        config, train_eval, checkpoints, train_step, input_generators,
-        predictors, qtopt_models, flagship, specs), device, card, critic_dir)
-    qtopt_report["custom_kernel_launches"] = [
-        now - before for now, before in zip(custom_launches(),
-                                            launches_before)]
-    torch.cuda.empty_cache()
+  launches_before = custom_launches()
+  qtopt_report = run_qtopt(torch, np, (
+      config, train_eval, checkpoints, train_step, input_generators,
+      predictors, qtopt_models, flagship, specs), device, card, critic_dir)
+  qtopt_report["custom_kernel_launches"] = [
+      now - before for now, before in zip(custom_launches(),
+                                          launches_before)]
+  torch.cuda.empty_cache()
 
-    # Phase 7: the critic served, held to the bf16 limit of phase 6a.
-    launches_before = custom_launches()
-    strict_bf16 = qtopt_report["strict"]["bf16_eval_logits"]
-    bf16_limit = max(QTOPT_BF16_REL_NORM,
-                     QTOPT_BF16_FACTOR * strict_bf16["cpu_vs_cpu_f32"])
-    serve_report = run_qtopt_serve(torch, np, (
-        config, checkpoints, predictors, specs, flagship, serving, loadgen,
-        policies, device_cem, cem, obs_metrics, device_profile), device,
-        critic_dir, bf16_limit)
-    serve_report["custom_kernel_launches"] = [
-        now - before for now, before in zip(custom_launches(),
-                                            launches_before)]
-    serve_report["card"] = card
-  finally:
-    shutil.rmtree(critic_dir, ignore_errors=True)
+  # Phase 7: the critic served, held to the bf16 limit of phase 6a.
+  launches_before = custom_launches()
+  strict_bf16 = qtopt_report["strict"]["bf16_eval_logits"]
+  bf16_limit = max(QTOPT_BF16_REL_NORM,
+                   QTOPT_BF16_FACTOR * strict_bf16["cpu_vs_cpu_f32"])
+  serve_report = run_qtopt_serve(torch, np, (
+      config, checkpoints, predictors, specs, flagship, serving, loadgen,
+      policies, device_cem, cem, obs_metrics, device_profile), device,
+      critic_dir, bf16_limit)
+  serve_report["custom_kernel_launches"] = [
+      now - before for now, before in zip(custom_launches(),
+                                          launches_before)]
+  serve_report["card"] = card
   torch.cuda.empty_cache()
 
   # Phase 8: the critic fed from records (no custom kernel on its path).
@@ -2946,6 +3519,36 @@ def run_phases(torch, sequence_dir: str) -> int:
   finally:
     shutil.rmtree(deploy_dir, ignore_errors=True)
   torch.cuda.empty_cache()
+
+  # Phase 10: the rest of the training surface (remat, accumulation,
+  # PCGrad, the s2d stem, the batch-256 config), from phase 6b's
+  # checkpoints; only its 10c launches the flash kernels.
+  surface_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  try:
+    surface_report = run_surface(torch, np, (
+        config, train_eval, checkpoints, train_step, input_generators,
+        flagship, qtopt_models, sequence_model, attention_ops, optimizers,
+        pcgrad), device, card, critic_dir, surface_dir,
+        qtopt_report["strict"], bf16_limit)
+  finally:
+    shutil.rmtree(surface_dir, ignore_errors=True)
+  torch.cuda.empty_cache()
+  remat_launches = surface_report["remat_sequence"]["launches"]
+
+  # Phase 11: the LSTM family trained and served on the carry path (no
+  # custom kernel on its path).
+  lstm_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  try:
+    launches_before = custom_launches()
+    lstm_report = run_lstm(torch, np, (
+        config, train_eval, checkpoints, input_generators, sequence_model,
+        predictors, session, policies), device, card, lstm_dir)
+    lstm_report["custom_kernel_launches"] = [
+        now - before for now, before in zip(custom_launches(),
+                                            launches_before)]
+  finally:
+    shutil.rmtree(lstm_dir, ignore_errors=True)
+  torch.cuda.empty_cache()
   fwd_src = "tensor2robot_tpu_torch/csrc/flash_fwd.cu"
   bwd_src = "tensor2robot_tpu_torch/csrc/flash_bwd.cu"
   kernels = [
@@ -2965,6 +3568,7 @@ def run_phases(torch, sequence_dir: str) -> int:
        "launches": slice_report["launches"]["flash_fwd"],
        "launches_deploy": deploy_report["sequence_bundle"]["launches"][
            "flash_fwd"],
+       "launches_remat": remat_launches["flash_fwd"],
        "max_abs_err": flash_err["float32"], "max_err": flash_err["float32"],
        "rel_norm_err": flash_rel["float32"],
        "sass_mma": sass["flash_fwd_tc_split_kernel"], **flash_t},
@@ -2994,6 +3598,8 @@ def run_phases(torch, sequence_dir: str) -> int:
           "source": f"{bwd_src} ({tc_kernel})",
           "replaces": f"tensor2robot_tpu/ops/attention.py:{replaces}",
           "launches": launches[f"flash_bwd_{kernel}"],
+          **({} if dtype == "bfloat16" else {
+              "launches_remat": remat_launches[f"flash_bwd_{kernel}"]}),
           "max_abs_err": bwd_err[errs][dtype],
           "max_scaled_err": bwd_scaled[errs][dtype],
           "rel_norm_err": bwd_rel[errs][dtype],
@@ -3006,13 +3612,15 @@ def run_phases(torch, sequence_dir: str) -> int:
       "serves": "flash_bwd_dq_f32 and flash_bwd_dkv_f32 (attention.py:186 "
                 "and :223): their tf32 planes",
       "launches": train_report["f32_step_launches"]["flash_bwd_split"],
+      "launches_remat": remat_launches["flash_bwd_split"],
       "max_abs_err": bwd_err["split"]["float32"],
       **bwd_f32_t["flash_bwd_split"]})
   report = {"card": card, "build_s": build_s, "kernels": kernels,
             "extra_timings": extra, "slice": slice_report,
             "train": train_report, "qtopt": qtopt_report,
             "serve_qtopt": serve_report, "records": records_report,
-            "deploy": deploy_report}
+            "deploy": deploy_report, "surface": surface_report,
+            "lstm": lstm_report}
   os.makedirs(os.path.dirname(REPORT), exist_ok=True)
   with open(REPORT, "w") as f:
     json.dump(report, f, indent=1)
@@ -3022,6 +3630,8 @@ def run_phases(torch, sequence_dir: str) -> int:
   print(json.dumps({"serve_qtopt": serve_report}))
   print(json.dumps({"records": records_report}))
   print(json.dumps({"deploy": deploy_report}))
+  print(json.dumps({"surface": surface_report}))
+  print(json.dumps({"lstm": lstm_report}))
   print(json.dumps({"kernels": kernels}))
   print(card_line(), flush=True)
   print(json.dumps({"ok": True, "device": {

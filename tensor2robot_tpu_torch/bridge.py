@@ -12,9 +12,16 @@
   BatchNorm with `use_scale=False` has a bias only). The port's
   LayerNorms use flax's eps, 1e-6, not torch's 1e-5.
 
+* `nn.OptimizedLSTMCell`: the input kernels `ii`, `if`, `ig`, `io`
+  ([in, H], no bias) and the hidden kernels `hi`, `hf`, `hg`, `ho` ([H,
+  H], with biases) -> `weight_ih` [4H, in] and `weight_hh` [4H, H], the
+  transposed kernels stacked by rows in the gate order i, f, g, o that
+  torch's LSTM uses, and `bias_hh` [4H], the hidden biases in that order
+  (the port's cell has no input bias).
+
 So `{"attn_0": {"q_proj": {"kernel", "bias"}}}` becomes
 `attn_0.q_proj.weight` / `attn_0.q_proj.bias`. A leaf this mapping does
-not know raises. LSTM layouts come with the slice that ports them.
+not know raises.
 `mutable_state_from_flax` maps flax's `batch_stats` (`mean` / `var` per
 BatchNorm) onto the port's mutable state, `<name>.running_mean` /
 `<name>.running_var`.
@@ -25,7 +32,10 @@ the port. The optax state is read by duck typing (no optax import): a
 NamedTuple becomes a dict of its fields (`count` as an int, param-shaped
 moments through `state_dict_from_flax`, a masked transformation's
 `inner_state` recursively), EmptyState `{}`, a chain's tuple a tuple —
-the layout of `models.optimizers`.
+the layout of `models.optimizers`; `optax.MultiStepsState` keeps its
+fields (`mini_step` and `gradient_step` as ints, `acc_grads` through
+`state_dict_from_flax`, `inner_opt_state` recursively, an empty
+`skip_state` as `{}`).
 
 `export_variables_from_jax` carries a JAX export bundle's variables
 (`{"params", "mutable"}` as numpy trees, read on the JAX side) into the
@@ -42,9 +52,31 @@ import torch
 
 from tensor2robot_tpu_torch.parallel import train_step as ts
 
-__all__ = ["state_dict_from_flax", "mutable_state_from_flax",
+__all__ = ["LSTM_GATES", "state_dict_from_flax", "mutable_state_from_flax",
            "bridge_train_state", "optimizer_state_from_optax",
            "train_state_from_jax", "export_variables_from_jax"]
+
+
+LSTM_GATES = ("i", "f", "g", "o")
+
+
+def _lstm_cell(tree: Mapping[str, Any], name: str
+               ) -> Dict[str, torch.Tensor]:
+  """An OptimizedLSTMCell's eight Dense params as the port's cell."""
+
+  def stacked(prefix: str, leaf: str, transpose: bool):
+    parts = [np.asarray(tree[prefix + gate][leaf], np.float32)
+             for gate in LSTM_GATES]
+    return torch.from_numpy(np.concatenate(
+        [p.T if transpose else p for p in parts], axis=0).copy())
+
+  return {f"{name}.weight_ih": stacked("i", "kernel", True),
+          f"{name}.weight_hh": stacked("h", "kernel", True),
+          f"{name}.bias_hh": stacked("h", "bias", False)}
+
+
+def _is_lstm_cell(tree: Mapping[str, Any]) -> bool:
+  return set(tree) == {p + g for p in "ih" for g in LSTM_GATES}
 
 
 def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -52,6 +84,9 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
   out: Dict[str, torch.Tensor] = {}
 
   def visit(tree: Mapping[str, Any], path: Tuple[str, ...]) -> None:
+    if _is_lstm_cell(tree):
+      out.update(_lstm_cell(tree, ".".join(path)))
+      return
     leaves = {k: v for k, v in tree.items() if not isinstance(v, Mapping)}
     for key, value in tree.items():
       if isinstance(value, Mapping):
@@ -126,6 +161,14 @@ def _numpy_tree(tree: Any) -> Any:
   return np.asarray(tree)
 
 
+def _leaves_of(tree: Any) -> list:
+  if isinstance(tree, Mapping):
+    return [x for v in tree.values() for x in _leaves_of(v)]
+  if isinstance(tree, (tuple, list)):
+    return [x for v in tree for x in _leaves_of(v)]
+  return [tree]
+
+
 def optimizer_state_from_optax(state: Any) -> Any:
   """An optax optimizer state (NamedTuples inside chain tuples, leaves
   arrays) in the layout of `models.optimizers`. Raises on a field this
@@ -134,12 +177,15 @@ def optimizer_state_from_optax(state: Any) -> Any:
     out = {}
     for field in state._fields:
       value = getattr(state, field)
-      if field == "count":
+      if field in ("count", "mini_step", "gradient_step"):
         out[field] = int(np.asarray(value))
-      elif field in ("mu", "nu", "trace"):
+      elif field in ("mu", "nu", "trace", "acc_grads"):
         out[field] = state_dict_from_flax(_numpy_tree(value))
-      elif field == "inner_state":  # optax.masked
+      elif field in ("inner_state", "inner_opt_state"):
+        # optax.masked; optax.MultiSteps
         out[field] = optimizer_state_from_optax(value)
+      elif field == "skip_state" and not _leaves_of(value):
+        out[field] = {}  # MultiSteps without a skip function
       else:
         raise ValueError(f"no bridge for optax state field {field!r} of "
                          f"{type(state).__name__}")

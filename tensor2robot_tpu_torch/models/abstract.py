@@ -37,12 +37,12 @@ from tensor2robot_tpu_torch.layers import flax_layers
 from tensor2robot_tpu_torch.models import optimizers as optimizers_lib
 from tensor2robot_tpu_torch.preprocessors import base as preprocessors_lib
 
-__all__ = ["T2RModel"]
+__all__ = ["T2RModel", "lecun_normal_"]
 
 Params = Dict[str, torch.Tensor]
 
 
-def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
   """flax's default Dense and Conv kernel init: variance_scaling(1,
   fan_in, truncated_normal), i.e. a normal truncated at two standard
   deviations and rescaled to variance 1/fan_in. `weight` is torch's
@@ -58,8 +58,14 @@ class T2RModel(abc.ABC):
   seam.
 
   `use_ema` keeps EMA shadow parameters in the train state, updated as
-  `e * ema_decay + (1 - ema_decay) * p` after every step. `remat` and
-  `gradient_accumulation_steps > 1` are not ported yet and raise.
+  `e * ema_decay + (1 - ema_decay) * p` after every applied update.
+  `remat` recomputes the train step's forward in its backward instead of
+  keeping its activations (`torch.utils.checkpoint`). With
+  `gradient_accumulation_steps=k` the optimizer is wrapped in
+  `optimizers.multi_steps`: gradients are averaged over k micro-batch
+  steps and applied on every k-th, so k steps at batch B train like one
+  step at batch kB (for a model without batch norm) without holding kB
+  activations.
 
   `init_checkpoint` warm-starts a fresh run (never a resumed one): a
   checkpoint step directory or an export bundle whose same-named,
@@ -78,17 +84,11 @@ class T2RModel(abc.ABC):
                gradient_accumulation_steps: int = 1,
                init_checkpoint: Optional[str] = None,
                init_checkpoint_filter: Optional[Callable[[str], bool]] = None):
-    if remat:
-      raise NotImplementedError(
-          "remat is not ported yet (ROADMAP.md, Queue A: rematerialisation "
-          "of the train step)")
     if gradient_accumulation_steps < 1:
       raise ValueError("gradient_accumulation_steps must be >= 1, got "
                        f"{gradient_accumulation_steps}")
-    if gradient_accumulation_steps > 1:
-      raise NotImplementedError(
-          "gradient_accumulation_steps > 1 is not ported yet (ROADMAP.md, "
-          "Queue A: gradient accumulation)")
+    self._remat = bool(remat)
+    self._gradient_accumulation_steps = int(gradient_accumulation_steps)
     self._preprocessor_cls = preprocessor_cls
     self._optimizer_fn = optimizer_fn
     self._use_bfloat16 = use_bfloat16
@@ -115,6 +115,14 @@ class T2RModel(abc.ABC):
   @property
   def ema_decay(self) -> float:
     return self._ema_decay
+
+  @property
+  def remat(self) -> bool:
+    return self._remat
+
+  @property
+  def gradient_accumulation_steps(self) -> int:
+    return self._gradient_accumulation_steps
 
   @property
   def init_checkpoint(self) -> Optional[str]:
@@ -186,10 +194,15 @@ class T2RModel(abc.ABC):
     return fn()
 
   def build_optimizer(self) -> optimizers_lib.GradientTransformation:
-    """`create_optimizer` plus framework wrappers (gradient accumulation
-    in the JAX package, not ported yet) — the method the train step
-    calls. Override `create_optimizer`, not this one."""
-    return self.create_optimizer()
+    """`create_optimizer` plus framework wrappers (`multi_steps` when
+    `gradient_accumulation_steps > 1`) — the method the train step
+    calls. Override `create_optimizer`, not this one, or the wrappers
+    are lost."""
+    optimizer = self.create_optimizer()
+    if self._gradient_accumulation_steps > 1:
+      optimizer = optimizers_lib.multi_steps(
+          optimizer, self._gradient_accumulation_steps)
+    return optimizer
 
   # -- parameters and forward -----------------------------------------------
 
@@ -197,13 +210,15 @@ class T2RModel(abc.ABC):
     """Fresh parameters with flax's default initializers, drawn from
     `generator` on the CPU: Dense and Conv kernels lecun normal (or the
     layer's own `kernel_init(weight, generator)` where the module sets
-    one), zero biases; LayerNorm and BatchNorm scale 1, bias 0."""
+    one), zero biases; LayerNorm and BatchNorm scale 1, bias 0; a layer
+    with an `initial_params(generator)` method (the LSTM cell) its
+    own."""
     params: Params = {}
     for name, module in self.module.named_modules():
       prefix = f"{name}." if name else ""
       if isinstance(module, (nn.Linear, nn.Conv2d)):
         weight = torch.empty_like(module.weight, device="cpu")
-        getattr(module, "kernel_init", _lecun_normal_)(weight, generator)
+        getattr(module, "kernel_init", lecun_normal_)(weight, generator)
         params[prefix + "weight"] = weight
         if module.bias is not None:
           params[prefix + "bias"] = torch.zeros_like(module.bias,
@@ -213,6 +228,9 @@ class T2RModel(abc.ABC):
           params[prefix + "weight"] = torch.ones_like(module.weight,
                                                       device="cpu")
         params[prefix + "bias"] = torch.zeros_like(module.bias, device="cpu")
+      elif hasattr(module, "initial_params"):  # a layer with its own init
+        params.update({prefix + k: v for k, v in
+                       module.initial_params(generator).items()})
     missing = set(dict(self.module.named_parameters())) - set(params)
     if missing:
       raise NotImplementedError(

@@ -19,9 +19,13 @@ with its numerics:
 States mirror optax's: a chain's state is a tuple of its members' states,
 each a dict named after the optax NamedTuple's fields (`count`, `mu`,
 `nu`, `trace`, and `inner_state` for a masked transformation), or `{}`
-for optax's EmptyState. Counts are Python ints;
-moments are param-shaped dicts of tensors. `bridge.py` maps an optax
-state onto this layout.
+for optax's EmptyState. `multi_steps` (optax.MultiSteps, gradient
+accumulation) holds `mini_step`, `gradient_step`, `inner_opt_state` (the
+wrapped optimizer's state), `acc_grads` (the running mean of the
+micro-batch gradients since the last applied update) and `skip_state`
+(`{}`: no skip function). Counts are Python ints; moments are
+param-shaped dicts of tensors. `bridge.py` maps an optax state onto this
+layout.
 
 The EMA shadow parameters (the reference's MovingAverageOptimizer) are a
 field of `parallel.train_step.TrainState`, not a transformation.
@@ -38,7 +42,7 @@ from tensor2robot_tpu_torch.utils import config
 
 __all__ = [
     "GradientTransformation", "chain", "apply_updates", "global_norm",
-    "add_decayed_weights",
+    "add_decayed_weights", "multi_steps", "has_updated",
     "create_constant_learning_rate", "create_exponential_decay_learning_rate",
     "create_piecewise_linear_learning_rate",
     "create_adam_optimizer", "create_sgd_optimizer",
@@ -197,6 +201,50 @@ def add_decayed_weights(
 
   return GradientTransformation(
       lambda params: {} if mask is None else {"inner_state": {}}, update)
+
+
+def multi_steps(inner: GradientTransformation,
+                every_k: int) -> GradientTransformation:
+  """optax.MultiSteps(inner, every_k_schedule=every_k) with the gradient
+  mean: each update folds the gradients into `acc_grads` as optax's
+  running mean, `acc + (g - acc) / (n + 1)` with n = `mini_step`; on
+  every k-th update `inner` runs once on that mean, its updates are
+  returned, `gradient_step` advances and `acc_grads` restart at zeros.
+  The other updates are zeros and leave `inner`'s state as it was, so a
+  schedule or a weight decay inside `inner` counts applied updates
+  only."""
+  every_k = int(every_k)
+  if every_k < 1:
+    raise ValueError(f"every_k must be >= 1, got {every_k}")
+
+  def init(params):
+    return {"mini_step": 0, "gradient_step": 0,
+            "inner_opt_state": inner.init(params),
+            "acc_grads": _zeros_like(params), "skip_state": {}}
+
+  def update(updates, state, params=None):
+    n = state["mini_step"]
+    acc = _map(lambda g, a: a + (g - a) / (n + 1), updates,
+               state["acc_grads"])
+    if n < every_k - 1:
+      return _zeros_like(updates), {**state, "mini_step": n + 1,
+                                    "acc_grads": acc}
+    out, inner_state = inner.update(acc, state["inner_opt_state"], params)
+    return out, {"mini_step": 0,
+                 "gradient_step": state["gradient_step"] + 1,
+                 "inner_opt_state": inner_state,
+                 "acc_grads": _zeros_like(acc), "skip_state": {}}
+
+  return GradientTransformation(init, update)
+
+
+def has_updated(state: Any) -> bool:
+  """True when the update that produced `state` was applied: always for
+  a state not made by `multi_steps`; for one that is, when its
+  micro-step count has wrapped to 0 (optax.MultiSteps.has_updated)."""
+  if isinstance(state, dict) and "mini_step" in state:
+    return state["mini_step"] == 0 and state["gradient_step"] > 0
+  return True
 
 
 # -- learning-rate schedules -------------------------------------------------

@@ -1,11 +1,13 @@
-"""The causal-attention sequence policy and its session-decode seam.
+"""The sequence policies and their session-decode seams.
 
-Counterpart of `tensor2robot_tpu.models.sequence_model`
-(`SequenceRegressionModel`): a stack of pre-LN causal attention + MLP
-blocks, [B, T, obs] -> [B, T, action]. Module names follow flax's
-(`embed`, `ln_attn_{i}`, `attn_{i}.{q,k,v,out}_proj`, `ln_mlp_{i}`,
-`mlp_in_{i}`, `mlp_out_{i}`, `head`), so `bridge.py` maps a flax param
-tree onto this `state_dict` by name.
+Counterpart of `tensor2robot_tpu.models.sequence_model`:
+`SequenceRegressionModel`, a stack of pre-LN causal attention + MLP
+blocks, [B, T, obs] -> [B, T, action]; and `LSTMRegressionModel`, an
+LSTM over time and a Dense head, whose session state is the LSTM carry.
+Module names follow flax's (`embed`, `ln_attn_{i}`,
+`attn_{i}.{q,k,v,out}_proj`, `ln_mlp_{i}`, `mlp_in_{i}`, `mlp_out_{i}`,
+`head`), so `bridge.py` maps a flax param tree onto this `state_dict` by
+name.
 
 The decode path is plain functions over the same parameter dict the full
 forward runs on:
@@ -19,6 +21,16 @@ forward runs on:
 
 LayerNorm eps is 1e-6 (flax's), and gelu is the tanh approximation
 (flax's `nn.gelu`).
+
+The LSTM is flax's `nn.RNN(nn.OptimizedLSTMCell)`: gates i, f, g, o
+from `x W_i + h W_h + b_h` (the input products have no bias), `c' = f c
++ i g`, `h' = o tanh(c')`, a zero initial carry. Its parameters are
+`lstm_cell.weight_ih` [4H, obs], `lstm_cell.weight_hh` [4H, H] and
+`lstm_cell.bias_hh` [4H], gates stacked i, f, g, o as torch's LSTM
+stacks them (`bridge.py` maps flax's eight kernels onto them). The
+trunk and the decode tick run the same cell function on the same
+parameters: the input products and then one step per tick, on cuBLAS
+(no Pallas kernel stands behind the LSTM).
 """
 
 from __future__ import annotations
@@ -38,7 +50,8 @@ from tensor2robot_tpu_torch.ops import decode_kernels
 from tensor2robot_tpu_torch.specs import SpecStruct, TensorSpec
 from tensor2robot_tpu_torch.utils import config
 
-__all__ = ["SequenceRegressionModel"]
+__all__ = ["SequenceRegressionModel", "LSTMRegressionModel", "LSTMCell",
+           "lstm_cell_step"]
 
 LAYERNORM_EPS = 1e-6  # flax nn.LayerNorm's default, not torch's 1e-5
 
@@ -260,3 +273,150 @@ class SequenceRegressionModel(abstract_model.T2RModel):
       return arena, {"action": action, "inference_output": action}
 
     return decode_arena_step
+
+
+# -- the LSTM family -----------------------------------------------------------
+
+
+def lstm_cell_step(x_proj: torch.Tensor, c: torch.Tensor, h: torch.Tensor,
+                   weight_hh: torch.Tensor, bias_hh: torch.Tensor):
+  """One OptimizedLSTMCell step: `x_proj` is the input product x W_i
+  ([B, 4H]); returns the new (c, h)."""
+  gates = F.linear(h, weight_hh, bias_hh) + x_proj
+  i, f, g, o = gates.chunk(4, dim=-1)
+  c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+  return c, torch.sigmoid(o) * torch.tanh(c)
+
+
+class LSTMCell(nn.Module):
+  """flax `nn.OptimizedLSTMCell`'s parameters in torch's LSTM layout (see
+  the module docstring); `forward` runs it over [B, T, in] from a zero
+  carry and returns the hidden states [B, T, H]."""
+
+  def __init__(self, input_size: int, hidden_size: int):
+    super().__init__()
+    self.hidden_size = hidden_size
+    self.weight_ih = nn.Parameter(torch.empty(4 * hidden_size, input_size))
+    self.weight_hh = nn.Parameter(torch.empty(4 * hidden_size, hidden_size))
+    self.bias_hh = nn.Parameter(torch.zeros(4 * hidden_size))
+
+  def initial_params(self, generator: torch.Generator
+                     ) -> Dict[str, torch.Tensor]:
+    """flax's initializers, per gate: input kernels lecun normal, hidden
+    kernels orthogonal, biases zero (drawn on the CPU)."""
+    weight_ih = torch.empty_like(self.weight_ih, device="cpu")
+    for gate in weight_ih.chunk(4):
+      abstract_model.lecun_normal_(gate, generator)
+    weight_hh = torch.empty_like(self.weight_hh, device="cpu")
+    for gate in weight_hh.chunk(4):
+      nn.init.orthogonal_(gate, generator=generator)
+    return {"weight_ih": weight_ih, "weight_hh": weight_hh,
+            "bias_hh": torch.zeros_like(self.bias_hh, device="cpu")}
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    b, t = x.shape[:2]
+    x_proj = F.linear(x, self.weight_ih)  # [B, T, 4H]
+    c = h = x.new_zeros((b, self.hidden_size))
+    hs = []
+    for step in range(t):
+      c, h = lstm_cell_step(x_proj[:, step], c, h, self.weight_hh,
+                            self.bias_hh)
+      hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+class _LSTMTrunk(nn.Module):
+  """obs [B, T, obs] -> LSTM over time -> Dense head -> [B, T, act]."""
+
+  def __init__(self, obs_size: int, action_size: int, hidden_size: int):
+    super().__init__()
+    self.lstm_cell = LSTMCell(obs_size, hidden_size)
+    self.head = nn.Linear(hidden_size, action_size)
+
+  def forward(self, features, mode: str = modes_lib.PREDICT,
+              train: bool = False):
+    """(outputs, {}): the trunk holds no mutable state."""
+    action = self.head(self.lstm_cell(features["observation"]))
+    return SpecStruct({"action": action, "inference_output": action}), {}
+
+
+@config.configurable
+class LSTMRegressionModel(abstract_model.T2RModel):
+  """[B, T, obs] -> [B, T, action] LSTM regression; its session state is
+  the LSTM carry (one cell step per control tick), which
+  `SessionEngine` serves through its gather -> tick -> scatter path. The
+  carry has no horizon: a session ticks past T."""
+
+  def __init__(self, obs_size: int = 16, action_size: int = 7,
+               sequence_length: int = 32, hidden_size: int = 64,
+               **kwargs):
+    super().__init__(**kwargs)
+    self._obs_size = obs_size
+    self._action_size = action_size
+    self._sequence_length = sequence_length
+    self._hidden_size = hidden_size
+
+  def get_feature_specification(self, mode):
+    return SpecStruct({
+        "observation": TensorSpec(
+            shape=(self._sequence_length, self._obs_size),
+            dtype=np.float32, name="observation"),
+    })
+
+  def get_label_specification(self, mode):
+    return SpecStruct({
+        "action": TensorSpec(
+            shape=(self._sequence_length, self._action_size),
+            dtype=np.float32, name="action"),
+    })
+
+  def create_module(self) -> nn.Module:
+    return _LSTMTrunk(obs_size=self._obs_size,
+                      action_size=self._action_size,
+                      hidden_size=self._hidden_size)
+
+  def model_train_fn(self, features, labels, inference_outputs, mode):
+    """Mean squared error over every action entry, reported as 'mse'."""
+    loss = torch.mean((inference_outputs["action"] - labels["action"]) ** 2)
+    return loss, {"mse": loss}
+
+  # -- session-decode seam ---------------------------------------------------
+
+  @property
+  def supports_sessions(self) -> bool:
+    return True
+
+  @property
+  def decode_observation_spec(self) -> SpecStruct:
+    return SpecStruct({
+        "observation": TensorSpec(shape=(self._obs_size,),
+                                  dtype=np.float32, name="observation"),
+    })
+
+  def init_session_state(self, batch_size: int, device=None
+                         ) -> Dict[str, torch.Tensor]:
+    """The zero LSTM carry (`carry_c`, `carry_h`: [B, H] f32) and the [B]
+    int32 tick index, on `device`."""
+    carry = (batch_size, self._hidden_size)
+    return {"index": torch.zeros((batch_size,), dtype=torch.int32,
+                                 device=device),
+            "carry_c": torch.zeros(carry, dtype=torch.float32, device=device),
+            "carry_h": torch.zeros(carry, dtype=torch.float32, device=device)}
+
+  def decode_step_fn(self):
+    """Pure per-tick forward: one cell step on each row's carry, then the
+    head. Returns the new carry and index; the inputs are left alone."""
+
+    def decode_step(state, session_state, features):
+      params = state.eval_params()
+      obs = features["observation"]  # [B, obs]
+      c, h = lstm_cell_step(
+          F.linear(obs, params["lstm_cell.weight_ih"]),
+          session_state["carry_c"], session_state["carry_h"],
+          params["lstm_cell.weight_hh"], params["lstm_cell.bias_hh"])
+      action = _dense(params, "head", h)
+      new_state = {"index": session_state["index"] + 1,
+                   "carry_c": c, "carry_h": h}
+      return new_state, {"action": action, "inference_output": action}
+
+    return decode_step

@@ -13,8 +13,20 @@ The step's new mutable state comes from the forward on the pre-update
 parameters; the EMA covers parameters only, and eval and predict run the
 EMA parameters (when kept) with the live mutable state.
 
-Meshes, sharding rules, donation, remat, gradient accumulation and PCGrad
-are not ported yet (ROADMAP.md, Queue A).
+The step follows the model's knobs as the JAX package's does:
+
+* `remat`: the forward runs under `torch.utils.checkpoint` (non-reentrant)
+  and is recomputed in the backward. The forward draws no randomness and
+  writes no buffer (batch norm returns its new statistics), so the
+  recompute reproduces it and updates nothing twice;
+* `gradient_accumulation_steps > 1`: the optimizer is `multi_steps`, and
+  the EMA moves only on a step whose update was applied;
+* `use_pcgrad` (with `model_task_losses_fn`): one forward, one gradient
+  per task loss in sorted name order, combined by `ops.pcgrad`; the loss
+  is the sum of the task losses and the scalars are `task_loss/<name>`.
+
+Meshes, sharding rules and donation are not ported yet (ROADMAP.md,
+Queue A item 14).
 """
 
 from __future__ import annotations
@@ -23,14 +35,16 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from tensor2robot_tpu_torch import modes as modes_lib
 from tensor2robot_tpu_torch.models import optimizers as optimizers_lib
+from tensor2robot_tpu_torch.ops import pcgrad as pcgrad_lib
 
 __all__ = ["TrainState", "init_train_state", "create_train_state",
-           "loss_and_grads", "make_train_step", "make_train_loop",
-           "make_eval_step", "make_eval_loop", "make_predict_fn",
-           "map_tensors"]
+           "loss_and_grads", "task_losses_and_grads", "make_train_step",
+           "make_train_loop", "make_eval_step", "make_eval_loop",
+           "make_predict_fn", "map_tensors"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -107,6 +121,28 @@ def _float32_outputs(outputs) -> Dict[str, torch.Tensor]:
           for k, v in outputs.items()}
 
 
+def _train_forward(model, leaves: Params, features, mutable_state):
+  """Train-mode outputs (bfloat16 cast to float32) and the new mutable
+  state of the forward on `leaves`; under `model.remat` its activations
+  are recomputed in the backward instead of kept."""
+  compute_features = model.cast_features_for_compute(features)
+
+  def forward(leaves):
+    outputs, new_mutable = model.inference_network_fn(
+        leaves, mutable_state or {}, compute_features, modes_lib.TRAIN,
+        train=True)
+    return _float32_outputs(outputs), new_mutable
+
+  if getattr(model, "remat", False):
+    return torch.utils.checkpoint.checkpoint(forward, leaves,
+                                             use_reentrant=False)
+  return forward(leaves)
+
+
+def _leaves(params: Params) -> Params:
+  return {k: v.detach().requires_grad_(True) for k, v in params.items()}
+
+
 def loss_and_grads(model, params: Params, features, labels,
                    mutable_state: Optional[Params] = None):
   """(loss, scalars, grads, new mutable state) of `model.model_train_fn`
@@ -116,12 +152,9 @@ def loss_and_grads(model, params: Params, features, labels,
   to bf16 and the gradients flow back through the cast). loss and scalars
   are detached; the new mutable state is {} for a model without one."""
   names = list(params)
-  leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-  compute_features = model.cast_features_for_compute(features)
-  outputs, new_mutable = model.inference_network_fn(
-      leaves, mutable_state or {}, compute_features, modes_lib.TRAIN,
-      train=True)
-  outputs = _float32_outputs(outputs)
+  leaves = _leaves(params)
+  outputs, new_mutable = _train_forward(model, leaves, features,
+                                        mutable_state)
   loss, scalars = model.model_train_fn(features, labels, outputs,
                                        modes_lib.TRAIN)
   grads = dict(zip(names, torch.autograd.grad(
@@ -130,29 +163,71 @@ def loss_and_grads(model, params: Params, features, labels,
           grads, new_mutable)
 
 
+def task_losses_and_grads(model, params: Params, features, labels,
+                          mutable_state: Optional[Params] = None):
+  """({task: loss}, [grads per task in sorted task order], new mutable
+  state) of `model.model_task_losses_fn` on one forward: one
+  `torch.autograd.grad` per task loss, the graph kept for all but the
+  last (the JAX package's `jax.jacrev` over the stacked task losses)."""
+  names = list(params)
+  leaves = _leaves(params)
+  outputs, new_mutable = _train_forward(model, leaves, features,
+                                        mutable_state)
+  losses = model.model_task_losses_fn(features, labels, outputs,
+                                      modes_lib.TRAIN)
+  tasks = sorted(losses)
+  task_grads = []
+  for i, task in enumerate(tasks):
+    grads = torch.autograd.grad(losses[task], [leaves[k] for k in names],
+                                retain_graph=i < len(tasks) - 1)
+    task_grads.append(dict(zip(names, grads)))
+  return ({k: v.detach() for k, v in losses.items()}, task_grads,
+          new_mutable)
+
+
+def _uses_pcgrad(model) -> bool:
+  return bool(getattr(model, "use_pcgrad", False)) and (
+      getattr(model, "model_task_losses_fn", None) is not None)
+
+
 def make_train_step(model) -> Callable:
   """The train step: (state, features, labels) -> (new_state, metrics).
 
-  `loss_and_grads` (whose forward also gives the new mutable state, from
+  `loss_and_grads` (or, under PCGrad, `task_losses_and_grads` and
+  `pcgrad_combine`; its forward also gives the new mutable state, from
   the pre-update parameters), then the optimizer update, then the EMA
-  `e * d + (1 - d) * p` on the new parameters. Metrics: `loss`,
-  `global_gradient_norm` of the raw gradients, and the model's scalars,
-  as 0-dim tensors on the device (reading them syncs)."""
-  if getattr(model, "use_pcgrad", False):
-    raise NotImplementedError(
-        "use_pcgrad is not ported yet (ROADMAP.md, Queue A: PCGrad)")
+  `e * d + (1 - d) * p` on the new parameters when the update was
+  applied. Metrics: `loss`, `global_gradient_norm` of the gradients the
+  optimizer gets (the micro-batch's under accumulation, the combined ones
+  under PCGrad), and the model's scalars, as 0-dim tensors on the device
+  (reading them syncs)."""
   optimizer = model.build_optimizer()
   ema_decay = model.ema_decay
+  use_pcgrad = _uses_pcgrad(model)
 
   def step_fn(state: TrainState, features, labels):
-    loss, scalars, grads, new_mutable = loss_and_grads(
-        model, state.params, features, labels, state.mutable_state)
+    if use_pcgrad:
+      task_losses, task_grads, new_mutable = task_losses_and_grads(
+          model, state.params, features, labels, state.mutable_state)
+      grads = pcgrad_lib.pcgrad_combine(
+          task_grads,
+          use_flat_projection=getattr(model, "pcgrad_flat_projection",
+                                      False),
+          allowlist=getattr(model, "pcgrad_allowlist", None),
+          denylist=getattr(model, "pcgrad_denylist", None))
+      loss = sum(task_losses.values())
+      scalars = {f"task_loss/{k}": v for k, v in task_losses.items()}
+    else:
+      loss, scalars, grads, new_mutable = loss_and_grads(
+          model, state.params, features, labels, state.mutable_state)
     with torch.no_grad():
       updates, opt_state = optimizer.update(grads, state.opt_state,
                                             state.params)
-      params = optimizers_lib.apply_updates(state.params, updates)
+      applied = optimizers_lib.has_updated(opt_state)
+      params = (optimizers_lib.apply_updates(state.params, updates)
+                if applied else state.params)
       ema = state.ema_params
-      if ema is not None:
+      if ema is not None and applied:
         ema = {k: e * ema_decay + (1.0 - ema_decay) * params[k]
                for k, e in ema.items()}
       metrics = {"loss": loss,

@@ -1,15 +1,28 @@
 """Policies: predictor-backed action selection for robot control loops.
 
-Counterpart of `tensor2robot_tpu.policies.policies` (the `Policy`
-contract, `CEMPolicy` and `SessionRegressionPolicy`; `LSTMCEMPolicy` and
-the stateless regression policies come with the LSTM, ROADMAP Queue A
-item 12).
+Counterpart of `tensor2robot_tpu.policies.policies`:
+
+* `Policy`, the contract env loops call;
+* `CEMPolicy`, argmax of a critic's q by the cross-entropy method, and
+  `LSTMCEMPolicy`, which threads a predictor's `hidden_state` output
+  back into its next call;
+* `RegressionPolicy` (the regression head of a one-row predict),
+  `SequentialRegressionPolicy` (the current timestep's row of an
+  episode-shaped output) and `SessionRegressionPolicy` (one decode tick
+  of a server-side session per action);
+* exploration: `OUNoiseProcess`, `OUExploreRegressionPolicy`,
+  `ScheduledExplorationRegressionPolicy` (noise scaled by
+  `boundary_schedule_value` of the global step) and
+  `PerEpisodeSwitchPolicy` (an explore or a greedy policy per episode).
+
+Their draws are numpy `RandomState`s from the given seeds, as in the JAX
+package, so both draw the same numbers.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Any, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -18,7 +31,11 @@ from tensor2robot_tpu_torch.ops import cem as cem_lib
 from tensor2robot_tpu_torch.serving import session as session_lib
 from tensor2robot_tpu_torch.utils import config
 
-__all__ = ["Policy", "CEMPolicy", "SessionRegressionPolicy"]
+__all__ = ["Policy", "CEMPolicy", "LSTMCEMPolicy", "RegressionPolicy",
+           "SequentialRegressionPolicy", "SessionRegressionPolicy",
+           "OUExploreRegressionPolicy",
+           "ScheduledExplorationRegressionPolicy", "PerEpisodeSwitchPolicy",
+           "OUNoiseProcess", "boundary_schedule_value"]
 
 
 class Policy(abc.ABC):
@@ -124,6 +141,85 @@ class CEMPolicy(Policy):
     return action
 
 
+class LSTMCEMPolicy(CEMPolicy):
+  """CEM policy threading recurrent hidden state between steps: the
+  predictor returns `hidden_state`, which the next call feeds back as
+  `state/<hidden_state_key>` (the first row of the last CEM batch)."""
+
+  def __init__(self, hidden_state_key: str = "hidden_state", **kwargs):
+    super().__init__(**kwargs)
+    self._hidden_state_key = hidden_state_key
+    self._hidden_state = None
+    self._last_outputs = None
+
+  def reset(self) -> None:
+    self._hidden_state = None
+
+  def _objective(self, obs):
+    hidden = self._hidden_state
+    key = self._hidden_state_key
+
+    def objective_fn(actions):
+      features = {("state/" + k): np.repeat(
+          np.asarray(v)[None], actions.shape[0], axis=0)
+          for k, v in dict(obs).items()}
+      features["action/action"] = actions
+      if hidden is not None:
+        features["state/" + key] = np.repeat(hidden, actions.shape[0],
+                                             axis=0)
+      outputs = self._predictor.predict(features)
+      self._last_outputs = outputs
+      return outputs[self._q_key].reshape(-1)
+
+    return objective_fn
+
+  def select_action(self, obs, explore_prob: float = 0.0) -> np.ndarray:
+    action = super().select_action(obs, explore_prob=explore_prob)
+    outputs = self._last_outputs
+    if outputs is not None and self._hidden_state_key in outputs:
+      self._hidden_state = outputs[self._hidden_state_key][:1]
+    return action
+
+
+@config.configurable
+class RegressionPolicy(Policy):
+  """The regression head of a one-row predict."""
+
+  def __init__(self, predictor=None, action_key: str = "inference_output"):
+    super().__init__(predictor)
+    self._action_key = action_key
+
+  def _features(self, obs) -> Dict[str, np.ndarray]:
+    return {k: np.asarray(v)[None] for k, v in dict(obs).items()}
+
+  def select_action(self, obs, explore_prob: float = 0.0) -> np.ndarray:
+    outputs = self._predictor.predict(self._features(obs))
+    return np.asarray(outputs[self._action_key])[0]
+
+
+@config.configurable
+class SequentialRegressionPolicy(RegressionPolicy):
+  """Regression over episode-shaped outputs: the current timestep's row
+  (the last row once the episode outruns the output)."""
+
+  def __init__(self, **kwargs):
+    super().__init__(**kwargs)
+    self._timestep = 0
+
+  def reset(self) -> None:
+    self._timestep = 0
+
+  def select_action(self, obs, explore_prob: float = 0.0) -> np.ndarray:
+    outputs = self._predictor.predict(self._features(obs))
+    action_all = np.asarray(outputs[self._action_key])[0]
+    if action_all.ndim >= 2:
+      action = action_all[min(self._timestep, action_all.shape[0] - 1)]
+    else:
+      action = action_all
+    self._timestep += 1
+    return action
+
+
 @config.configurable
 class SessionRegressionPolicy(Policy):
   """Regression policy riding a server-side SESSION: each episode is one
@@ -187,3 +283,114 @@ class SessionRegressionPolicy(Policy):
   def close(self) -> None:
     self._close_session()
     super().close()
+
+
+@config.configurable
+class OUNoiseProcess:
+  """Ornstein-Uhlenbeck noise: each sample moves the f32 state by
+  `-theta * noise + sigma * N(0, 1)` from a `RandomState(seed)`."""
+
+  def __init__(self, action_size: int, theta: float = 0.15,
+               sigma: float = 0.2, seed: Optional[int] = None):
+    self._theta = theta
+    self._sigma = sigma
+    self._action_size = action_size
+    self._rng = np.random.RandomState(seed)
+    self._noise = np.zeros(action_size, np.float32)
+
+  def reset(self) -> None:
+    self._noise = np.zeros(self._action_size, np.float32)
+
+  def sample(self) -> np.ndarray:
+    self._noise += (-self._theta * self._noise
+                    + self._sigma * self._rng.randn(self._action_size))
+    return self._noise
+
+
+def boundary_schedule_value(boundaries: Sequence[int],
+                            values: Sequence[float], step: int) -> float:
+  """Step-boundary schedule lookup: the value of the last boundary <=
+  step (a negative step reads as 0)."""
+  step = max(step, 0)
+  value = values[0]
+  for boundary, v in zip(boundaries, values):
+    if step >= boundary:
+      value = v
+  return value
+
+
+class OUExploreRegressionPolicy(RegressionPolicy):
+  """Regression actions plus `explore_prob` times Ornstein-Uhlenbeck
+  noise."""
+
+  def __init__(self, theta: float = 0.15, sigma: float = 0.2,
+               action_size: int = None, seed: Optional[int] = None,
+               **kwargs):
+    super().__init__(**kwargs)
+    if action_size is None:
+      raise ValueError("action_size is required.")
+    self._ou = OUNoiseProcess(action_size, theta=theta, sigma=sigma,
+                              seed=seed)
+
+  def reset(self) -> None:
+    self._ou.reset()
+
+  def select_action(self, obs, explore_prob: float = 0.0) -> np.ndarray:
+    action = super().select_action(obs)
+    return action + explore_prob * self._ou.sample()
+
+
+@config.configurable
+class ScheduledExplorationRegressionPolicy(OUExploreRegressionPolicy):
+  """OU exploration whose magnitude follows the policy's global step
+  through a boundary schedule."""
+
+  def __init__(self, schedule_boundaries: Sequence[int] = (0,),
+               schedule_values: Sequence[float] = (1.0,), **kwargs):
+    super().__init__(**kwargs)
+    if len(schedule_boundaries) != len(schedule_values):
+      raise ValueError("boundaries and values must align.")
+    self._boundaries = list(schedule_boundaries)
+    self._values = list(schedule_values)
+
+  def _scheduled_value(self) -> float:
+    return boundary_schedule_value(self._boundaries, self._values,
+                                   self.global_step)
+
+  def select_action(self, obs, explore_prob: float = 0.0) -> np.ndarray:
+    return super().select_action(obs,
+                                 explore_prob=self._scheduled_value())
+
+
+@config.configurable
+class PerEpisodeSwitchPolicy(Policy):
+  """Picks the explore or the greedy sub-policy once per episode, at
+  `reset()`, with probability `explore_prob` from a `RandomState(seed)`."""
+
+  def __init__(self, explore_policy: Policy = None,
+               greedy_policy: Policy = None,
+               explore_prob: float = 0.1, seed: Optional[int] = None):
+    super().__init__()
+    if explore_policy is None or greedy_policy is None:
+      raise ValueError("Both sub-policies are required.")
+    self._explore_policy = explore_policy
+    self._greedy_policy = greedy_policy
+    self._explore_prob = explore_prob
+    self._rng = np.random.RandomState(seed)
+    self._active = greedy_policy
+
+  def reset(self) -> None:
+    self._active = (self._explore_policy
+                    if self._rng.rand() < self._explore_prob
+                    else self._greedy_policy)
+    self._active.reset()
+
+  def restore(self) -> bool:
+    return self._explore_policy.restore() and self._greedy_policy.restore()
+
+  @property
+  def global_step(self) -> int:
+    return self._greedy_policy.global_step
+
+  def select_action(self, obs, explore_prob: float = 0.0) -> np.ndarray:
+    return self._active.select_action(obs, explore_prob=explore_prob)

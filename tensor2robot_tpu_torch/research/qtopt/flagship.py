@@ -20,17 +20,21 @@ ACTION_SIZE = 5
 GRASP_PARAM_NAMES = {"world_vector": (0, 3), "vertical_rotation": (3, 2)}
 
 
-def make_flagship_model(device_platform: str = "gpu",
+def make_flagship_model(device_platform: str = "gpu", remat: bool = False,
+                        space_to_depth: bool = False,
                         **kwargs) -> qtopt_models.QTOptModel:
   """Grasping44 at 472, bf16, EMA on an accelerator ('gpu'); the small
-  critic at 32x32 on 'cpu'. `kwargs` override the model's arguments
-  (e.g. `use_bfloat16=False`)."""
+  critic at 32x32 on 'cpu'. `remat` recomputes the train step's forward
+  in its backward; `space_to_depth` runs the stem folded (the same math;
+  the small critic has no such stem). `kwargs` override the model's
+  arguments (e.g. `use_bfloat16=False`)."""
   on_device = device_platform != "cpu"
   args = dict(
       image_size=IMAGE_SIZE if on_device else 32,
       network="grasping44" if on_device else "small",
       action_size=ACTION_SIZE if on_device else 4,
       grasp_param_names=GRASP_PARAM_NAMES if on_device else None,
-      use_bfloat16=on_device, use_ema=True)
+      space_to_depth=space_to_depth and on_device,
+      use_bfloat16=on_device, use_ema=True, remat=remat)
   args.update(kwargs)
   return qtopt_models.QTOptModel(**args)

@@ -25,8 +25,10 @@ CEM action batches: grasp params of shape [B, A, P] tile the pooled
 image embedding (not the raw image) A times mid-tower and return
 predictions [B, A]; rank-2 state vectors are broadcast over A.
 
-Not ported yet (ROADMAP.md, Queue A): the space-to-depth stem
-(`space_to_depth=True` raises) with `stem_kernel_to_s2d`, and PCGrad.
+The space-to-depth stem (`space_to_depth=True`) folds each 2x2 block of
+pixels into channels and runs the 6x6/2 stem as the exactly equivalent
+3x3/1 conv `conv1_1_s2d`; `stem_kernel_to_s2d` maps a stem kernel onto
+it. `QTOptModel.model_task_losses_fn` gives PCGrad its two tasks.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ from tensor2robot_tpu_torch.ops.image_norm import normalize_image
 from tensor2robot_tpu_torch.specs import SpecStruct, TensorSpec
 from tensor2robot_tpu_torch.utils import config
 
-__all__ = ["GraspingCNN", "Grasping44", "QTOptModel", "trunc_normal_001_"]
+__all__ = ["GraspingCNN", "Grasping44", "QTOptModel", "trunc_normal_001_",
+           "stem_kernel_to_s2d", "space_to_depth"]
 
 LAYERNORM_EPS = 1e-6  # flax nn.LayerNorm's default, not torch's 1e-5
 
@@ -85,6 +88,32 @@ def _ceil_div(size: int, stride: int) -> int:
 
 def _nhwc_flatten(x: torch.Tensor) -> torch.Tensor:
   return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
+def stem_kernel_to_s2d(kernel: torch.Tensor) -> torch.Tensor:
+  """Maps an OIHW [O, C, 6, 6] stride-2 stem kernel to the exactly
+  equivalent [O, 4C, 3, 3] space-to-depth kernel:
+  w_s2d[o, (py * 2 + px) * C + c, ki, kj] = w[o, c, 2 ki + py, 2 kj + px].
+  The stem's bias carries over unchanged."""
+  o, c, kh, kw = kernel.shape
+  if kh != 6 or kw != 6:
+    raise ValueError(f"expected an [O, C, 6, 6] stem kernel, got "
+                     f"{tuple(kernel.shape)}")
+  # [O, C, ki, py, kj, px] -> [O, py, px, C, ki, kj]
+  k = kernel.reshape(o, c, 3, 2, 3, 2).permute(0, 3, 5, 1, 2, 4)
+  return k.reshape(o, 4 * c, 3, 3)
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+  """NCHW [B, C, H, W] -> [B, 4C, H/2, W/2], channel (py * 2 + px) * C + c
+  holding pixel (2i + py, 2j + px) of channel c: the channel order of the
+  JAX package's NHWC fold. H and W must be even."""
+  b, c, h, w = x.shape
+  if h % 2 or w % 2:
+    raise ValueError(
+        f"space_to_depth stem needs even spatial dims, got {h}x{w}")
+  x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+  return x.reshape(b, 4 * c, h // 2, w // 2)
 
 
 class GraspingCNN(nn.Module):
@@ -151,7 +180,11 @@ class Grasping44(nn.Module):
   `grasp_param_names` maps block names to (offset, size) slices of it.
   `goal_spatial_channels` / `goal_vector_size` widen `fc0` for the goal
   merges (flax infers the width when the module is initialised with the
-  goal present; torch needs it up front)."""
+  goal present; torch needs it up front). With `space_to_depth` the stem
+  is `conv1_1_s2d`, a 3x3/1 SAME conv over the folded image: its (1, 1)
+  padding of the folded rows is the (2, 2) padding flax's SAME gives the
+  6x6/2 conv over an even H, so both sum the same 108 products for each
+  output."""
 
   def __init__(self, image_size: int, image_channels: int,
                grasp_param_size: int,
@@ -170,10 +203,7 @@ class Grasping44(nn.Module):
                goal_spatial_channels: int = 0,
                goal_vector_size: int = 0):
     super().__init__()
-    if space_to_depth:
-      raise NotImplementedError(
-          "the space-to-depth stem is not ported yet (ROADMAP.md, Queue A: "
-          "the s2d stem)")
+    self.space_to_depth = space_to_depth
     self.dtype = dtype
     self.num_classes = num_classes
     self.softmax = softmax
@@ -195,7 +225,10 @@ class Grasping44(nn.Module):
           n, use_scale=use_scale, momentum=batch_norm_decay,
           epsilon=batch_norm_epsilon))
 
-    conv("conv1_1", image_channels, 6, stride=2, bias=True)
+    if space_to_depth:
+      conv("conv1_1_s2d", 4 * image_channels, 3, bias=True)
+    else:
+      conv("conv1_1", image_channels, 6, stride=2, bias=True)
     bn("conv1_bn", filters, use_scale=False)
     size = _ceil_div(_ceil_div(image_size, 2), 3)  # stem /2, pool /3
     self.conv_names = ([], [], [])
@@ -245,10 +278,15 @@ class Grasping44(nn.Module):
       layer = getattr(self, name)
       x = flax_layers.conv2d(x, layer.weight, layer.bias,
                              stride=layer.stride[0], padding=padding)
-      return bn_relu(f"{name}_bn" if name != "conv1_1" else "conv1_bn", x)
+      return bn_relu("conv1_bn" if name.startswith("conv1_1")
+                     else f"{name}_bn", x)
 
     net = normalize_image(features["state/image"], self.dtype)
-    net = conv_bn("conv1_1", net.permute(0, 3, 1, 2))  # NHWC -> NCHW
+    net = net.permute(0, 3, 1, 2)  # NHWC -> NCHW
+    if self.space_to_depth:
+      net = conv_bn("conv1_1_s2d", space_to_depth(net))
+    else:
+      net = conv_bn("conv1_1", net)
     net = flax_layers.max_pool(net, 3, 3)
     for name in self.conv_names[0]:
       net = conv_bn(name, net)

@@ -8,9 +8,15 @@ state lives on the device between control ticks:
 * the ARENA: a dict of device tensors whose leading dim is
   max_sessions + 1, built from the model's `init_session_state`. Slot 0
   is the reserved NULL slot: pad lanes of a partial bucket ride it with
-  mask False and write nothing. The arena is updated IN PLACE by the
-  model's `decode_arena_fn` (the fused decode-tick kernel per attention
-  block, and an in-place index advance): never copied per tick;
+  mask False and change nothing. The arena is updated IN PLACE, never
+  copied per tick, on one of two paths, as the model offers:
+  - a KV arena (`SequenceRegressionModel`): the model's
+    `decode_arena_fn`, the fused decode-tick kernel per attention block
+    and an in-place index advance;
+  - any other session state (the LSTM carry of `LSTMRegressionModel`):
+    the lanes' slots are gathered, the model's `decode_fn` runs one
+    tick on them, and the new rows are scattered back where the mask is
+    set (a pad lane writes back the null slot's own values);
 * a bucket ladder (1, 2, 4, ..., max_tick_batch): a tick of n sessions
   runs at the smallest bucket >= n, the rest pad lanes;
 * session lifecycle: `open()` admits, or under slot pressure evicts the
@@ -194,14 +200,24 @@ class SessionEngine:
   # -- warmup ---------------------------------------------------------------
 
   def _load_bundle(self):
-    bundle = self._predictor.decode_bundle()
-    if bundle.decode_arena_fn is None:
-      raise ValueError(
-          "the model has no fused-arena decode step; only models with "
-          "a KV arena (SequenceRegressionModel) are served by the port's "
-          "SessionEngine so far (LSTMRegressionModel: ROADMAP.md, "
-          "Queue A)")
-    return bundle
+    return self._predictor.decode_bundle()
+
+  def _dispatch(self, bundle, state, slots: torch.Tensor, features,
+                mask: torch.Tensor):
+    """One tick of the lanes `slots` (mask False on pad lanes, which ride
+    the null slot) against the arena, in place; returns the outputs. The
+    caller holds _arena_lock."""
+    if bundle.decode_arena_fn is not None:
+      return bundle.decode_arena_fn(state, self._arena, slots, features,
+                                    mask)[1]
+    slots = slots.long()
+    gathered = {k: leaf[slots] for k, leaf in self._arena.items()}
+    new_state, outputs = bundle.decode_fn(state, gathered, features)
+    for key, leaf in self._arena.items():
+      keep = mask.reshape(mask.shape + (1,) * (leaf.ndim - 1))
+      leaf.index_copy_(0, slots, torch.where(
+          keep, new_state[key].to(leaf.dtype), gathered[key]))
+    return outputs
 
   def warmup(self) -> "SessionEngine":
     """Builds the arena on the device and runs one all-pad tick per
@@ -224,8 +240,7 @@ class SessionEngine:
         slots = torch.zeros((bucket,), dtype=torch.int32, device=self._device)
         mask = torch.zeros((bucket,), dtype=torch.bool, device=self._device)
         with torch.no_grad():
-          self._bundle.decode_arena_fn(state, self._arena, slots, features,
-                                       mask)
+          self._dispatch(self._bundle, state, slots, features, mask)
     return self
 
   # -- lifecycle ------------------------------------------------------------
@@ -407,9 +422,8 @@ class SessionEngine:
       bundle = self._bundle
       state = bundle.get_state()
       with self._arena_lock, torch.no_grad():
-        _, outputs = bundle.decode_arena_fn(
-            state, self._arena,
-            torch.from_numpy(slot_arr).to(self._device),
+        outputs = self._dispatch(
+            bundle, state, torch.from_numpy(slot_arr).to(self._device),
             {k: torch.from_numpy(v).to(self._device)
              for k, v in features.items()},
             torch.from_numpy(mask).to(self._device))

@@ -49,9 +49,9 @@ with evals in between. Semantics kept from the JAX package:
   copy, and stops after `max_train_steps` or once
   `continuous_eval_timeout_secs` pass without a new checkpoint;
 * a fresh run (no checkpoint in `model_dir`) of a model with an
-  `init_checkpoint` is warm-started from it. The EMA shadow and the
-  optimizer state start from the warm-started parameters (the JAX
-  package keeps the EMA at the fresh init);
+  `init_checkpoint` is warm-started from it: only the parameters are
+  replaced, so the EMA shadow stays the copy of the fresh init and the
+  optimizer and mutable state stay fresh, as in the JAX package;
 * checkpoints are saved asynchronously; the save in flight is drained
   before the run returns, however it ends.
 
@@ -361,7 +361,7 @@ def _initial_state(model, manager, seed: int, device) -> ts.TrainState:
     params, names = checkpoints_lib.warm_start_params(
         state.params, init_checkpoint,
         filter_fn=getattr(model, "init_checkpoint_filter", None))
-    state = ts.init_train_state(model, params)
+    state = state.replace(params=params)
     _log.info("Warm-started %d parameter tensors from %s", len(names),
               init_checkpoint)
   return state

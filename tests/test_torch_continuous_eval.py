@@ -11,7 +11,7 @@ warm starts in the port, on the CPU.
   do their `predict_from_model`s on the same weights and batches.
 * A warm-started fresh run's step-0 parameters equal the source
   checkpoint's on the restored leaves and the fresh init on the
-  filtered ones; its EMA starts from them.
+  filtered ones; its EMA stays the fresh init, as in the JAX package.
 """
 
 import json
@@ -220,7 +220,7 @@ def test_warm_start_of_a_fresh_run(tmp_path):
   for key, value in step0.params.items():
     want = fresh.params[key] if key.startswith("q.") else source.params[key]
     assert torch.equal(value, want), key
-    assert torch.equal(step0.ema_params[key], value), key
+    assert torch.equal(step0.ema_params[key], fresh.params[key]), key
   # A resumed run keeps its own weights: no second warm start.
   train_eval.train_eval_model(
       model=model, model_dir=str(tmp_path / "warm2"), mode="train",

@@ -226,6 +226,31 @@ def test_qtopt_config_binds_the_flagship_widths():
     config.clear_config()
 
 
+def test_tuned_config_binds_the_batch_256_critic():
+  from tensor2robot_tpu_torch.research.qtopt import models as qtopt_models
+
+  try:
+    config.parse_config_file(str(PORT / "configs" / "train_qtopt_tuned.gin"))
+    model = qtopt_models.QTOptModel()
+    assert (model.network, model._image_size, model._action_size,
+            model.use_bfloat16, model.use_ema, model.remat,
+            model.module.space_to_depth) == (
+                "grasping44", 472, 5, True, True, False, False)
+    assert config.query_parameter(
+        "DefaultRandomInputGenerator.batch_size") == 256
+    for name, value in (("device_prefetch_depth", 2),
+                        ("host_overlap_workers", 2),
+                        ("host_overlap_queue_mb", 384),
+                        ("mode", "train_and_evaluate")):
+      assert config.query_parameter(f"train_eval_model.{name}") == value
+    config.parse_config("QTOptModel.remat = True")
+    config.parse_config("QTOptModel.space_to_depth = True")
+    model = qtopt_models.QTOptModel()
+    assert model.remat and model.module.space_to_depth
+  finally:
+    config.clear_config()
+
+
 def test_records_config_binds_the_record_generators(tmp_path):
   from tensor2robot_tpu_torch.data import input_generators
   from tensor2robot_tpu_torch.research.qtopt import models as qtopt_models

@@ -420,7 +420,11 @@ def test_flagship_widths_and_unported_knobs():
   assert module.vertical_rotation.in_features == 2
   small = flagship.make_flagship_model("cpu")
   assert small.network == "small" and not small.use_bfloat16
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    models.Grasping44(SIZE, 3, 5, space_to_depth=True)
+  # The s2d stem is ported (tests/test_torch_s2d.py); an odd image
+  # raises, as in the JAX package.
+  s2d = models.Grasping44(SIZE, 3, 5, space_to_depth=True)
+  assert s2d.conv1_1_s2d.weight.shape == (64, 12, 3, 3)
+  with pytest.raises(ValueError, match="even spatial dims"):
+    models.space_to_depth(torch.zeros(1, 3, 5, 6))
   with pytest.raises(ValueError, match="network"):
     models.QTOptModel(network="nope")

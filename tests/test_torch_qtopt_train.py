@@ -387,8 +387,10 @@ def test_a_checkpoint_without_mutable_state_restores(tmp_path):
 
 
 def test_unported_knobs_raise(tmp_path):
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    train_step.make_train_step(models.QTOptModel(use_pcgrad=True))
+  # PCGrad is ported (tests/test_torch_pcgrad.py holds its step against
+  # JAX's); a model without task losses trains without it, as in JAX.
+  assert train_step._uses_pcgrad(models.QTOptModel(use_pcgrad=True))
+  assert not train_step._uses_pcgrad(models.QTOptModel())
   with pytest.raises(ValueError, match="input_generator_eval"):
     train_eval.train_eval_model(model=_tiny_critic(), model_dir=str(tmp_path),
                                 mode="continuous_eval", device="cpu")

@@ -231,11 +231,22 @@ def test_custom_optimizer_fn_and_unported_knobs():
   state = train_step.create_train_state(
       model, torch.Generator().manual_seed(0), torch.device("cpu"))
   assert state.opt_state == ({}, {})  # identity, then a constant scale
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    sequence_model.SequenceRegressionModel(remat=True, **WIDTHS)
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    sequence_model.SequenceRegressionModel(gradient_accumulation_steps=2,
-                                           **WIDTHS)
+  # The knobs of the JAX model are ported (tests/test_torch_remat.py and
+  # tests/test_torch_accumulation.py hold their steps against JAX's).
+  remat = sequence_model.SequenceRegressionModel(remat=True, **WIDTHS)
+  assert remat.remat and remat.gradient_accumulation_steps == 1
+  accumulating = sequence_model.SequenceRegressionModel(
+      optimizer_fn=lambda: optimizers.create_sgd_optimizer(0.5),
+      gradient_accumulation_steps=2, **WIDTHS)
+  assert not accumulating.remat
+  assert accumulating.gradient_accumulation_steps == 2
+  opt_state = train_step.create_train_state(
+      accumulating, torch.Generator().manual_seed(0),
+      torch.device("cpu")).opt_state
+  assert (opt_state["mini_step"], opt_state["gradient_step"],
+          opt_state["inner_opt_state"], opt_state["skip_state"]) == (
+              0, 0, ({}, {}), {})
+  assert set(opt_state["acc_grads"]) == set(state.params)
   with pytest.raises(ValueError, match="gradient_accumulation_steps"):
     sequence_model.SequenceRegressionModel(gradient_accumulation_steps=0,
                                            **WIDTHS)
