@@ -188,6 +188,43 @@ and prints no result):
    the stateless full-sequence predict (f32, TF32 off in cuBLAS and
    cuDNN), the null slot untouched; then 20 actions of
    `SessionRegressionPolicy`, timed.
+12. The pose environment's robot loop and MAML, f32 with TF32 off, at the
+   JAX configs' widths (image 32, BerkeleyNet filters (32, 16), kernels
+   (5, 3), strides (2, 1), a pose head of 64, a critic of 64 x 64). No
+   custom kernel is on this path.
+   a. `configs/collect_random.gin` through `bin/run_collect_eval`
+      (`collect_eval_loop` -> `run_env` -> `RandomPolicy`) writes 400
+      one-step episodes of PNG records; `PoseEnvContinuousMCModel` trains
+      on them through `train_eval_model` (`DefaultRecordInputGenerator`,
+      batch 64, 300 steps, finite losses, checkpoint 300 verified); step
+      300 served by `CheckpointPredictor` -> `CEMPolicy` (64 x 3, 10
+      elites, seed 0) in `run_env` on `PoseToyEnv(seed=7)` must beat
+      `RandomPolicy(seed=9)` on the same env stream by more than 0.1 in
+      mean reward over 20 episodes; `configs/train_pose_regression.gin` on
+      the same replay in `train_and_evaluate` (100 steps, batch 64,
+      finite losses and evals, checkpoints 50 and 100 verified), its
+      predictor bit-identical to the eval-mode forward, and
+      `RegressionPolicy` in `run_env`; one f32 critic step card against
+      the port's CPU path (loss 1e-5 relative, gradients 1e-4 x max(1,
+      max |g|)); an env crash mid-episode calls `abort_episode` once,
+      counts `env/aborted_episodes` and surfaces unchanged. Timed: the
+      median critic and regression train step (batch 64), CEM and
+      regression actions.
+   b. `MAMLModel` over `PoseEnvRegressionModel` at
+      `configs/train_pose_maml.gin`'s settings: one meta-step card against
+      CPU in float64 and f32 on the same parameters and batch, second
+      order, first order and learned inner rates (loss and inner losses
+      1e-5 relative, every gradient 1e-4 x max(1, max |g|)); the config
+      through `train_eval_model` for 30 steps with checkpoints 10, 20 and
+      30 (finite losses, verified); the median meta-step, second and first
+      order; the end task of `tests/test_convergence.py` at image 32
+      (`bin/maml_end_task.py`, one init seed; 6 +
+      6 samples, 2 inner steps at 0.2, Adam 2e-3, 300 steps) whose
+      conditioned MAE over 16 held-out tasks must be below 0.8 x the
+      unconditioned; that model served by `CheckpointPredictor` ->
+      `MAMLRegressionPolicy` in `run_meta_env` on toy-env tasks with an
+      oracle demo, each action adapting on the card under `no_grad`, one
+      action's adapted output against the CPU's within 1e-5.
 
 Output: a `train` JSON line, a `slice` JSON line, a `qtopt` JSON line
 (the critic's checks, its step ms and grasps/s under each policy with
@@ -196,7 +233,9 @@ the card, power limit, TF32 flags and bound), a `serve_qtopt` JSON line
 facts, checks and times with the card and its power limit), a `deploy`
 line (phase 9), a `surface` line (phase 10's checks and its timings), an
 `lstm` line (phase 11's checks, the tick error and the policy's action
-p50 and p99), a `kernels` JSON line
+p50 and p99), `pose` and `meta` lines (phase 12's checks, step and action
+times, rewards and MAEs, with the card and its power limit), a `kernels`
+JSON line
 (one row per kernel, with its `design`: "wgmma+tma" for the bf16
 tensor-core kernels, "wgmma+tma, 3xtf32" for the f32 ones, "split-t,
 bulk-tma" for the decode tick, "cuda-cores" for the f32 backward's split
@@ -3341,6 +3380,542 @@ def run_lstm(torch, np, port, device, card: str, model_dir: str) -> dict:
           "phase_wall_s": time.perf_counter() - start}
 
 
+# -- phase 12: the pose environment's robot loop and MAML ---------------------
+
+COLLECT_CONFIG = "tensor2robot_tpu_torch/configs/collect_random.gin"
+POSE_REGRESSION_CONFIG = (
+    "tensor2robot_tpu_torch/configs/train_pose_regression.gin")
+POSE_MAML_CONFIG = "tensor2robot_tpu_torch/configs/train_pose_maml.gin"
+POSE_EPISODES = 400          # one-step episodes collected into the replay
+POSE_BATCH = 64
+CRITIC_STEPS = 300
+REGRESSION_STEPS = 100
+POSE_EVAL_EPISODES = 20
+CEM_MARGIN = 0.1             # the CEM policy's bar over random, mean reward
+POSE_TIMED = 20              # timed steps, after POSE_WARMUP
+POSE_WARMUP = 3
+PARITY_BATCH = 8
+MAML_STEPS = 30
+# The end task (`bin/maml_end_task.py`) at 300 steps, its MAE over 16
+# held-out tasks. At the JAX test's 60 steps the ratio spreads across init
+# seeds past the bar on the card, and at 150 steps still reaches 0.95
+# (PERF.md, the end task's length): 300 steps keep the 0.8 bar a test of
+# learning, not of a seed.
+END_TASK_STEPS = 300
+END_TASK_MAE_RATIO = 0.8
+META_TASKS = 4               # run_meta_env tasks served from the end task
+
+
+class StateObsEnv:
+  """The toy env's observation under the models' `state/` keys (the
+  regression and MAML policies send an observation's keys as they are)."""
+
+  def __init__(self, env):
+    self.env = env
+
+  def reset(self, seed=None):
+    obs, info = self.env.reset(seed=seed)
+    return {"state/image": obs["image"]}, info
+
+  def step(self, action):
+    obs, reward, terminated, truncated, info = self.env.step(action)
+    return {"state/image": obs["image"]}, reward, terminated, truncated, info
+
+
+def _grads_close(got, want) -> dict:
+  """Each gradient's max |err| / max(1, max |g|), by name."""
+  return {k: float((got[k].double().cpu() - want[k].double().cpu()).abs()
+                   .max()) / max(1.0, float(want[k].abs().max()))
+          for k in want}
+
+
+def _to(torch, tree, device, dtype=None):
+  out = {}
+  for key, value in tree.items():
+    value = torch.as_tensor(value)
+    if dtype is not None and value.is_floating_point():
+      value = value.to(dtype)
+    out[key] = value.to(device)
+  return out
+
+
+def _median_step_ms(torch, np, step_fn, state, features, labels,
+                    device) -> dict:
+  """Host clock around each step that ends in a synchronize: median and
+  p99 of POSE_TIMED steps after POSE_WARMUP."""
+  times = []
+  for i in range(POSE_WARMUP + POSE_TIMED):
+    start = time.perf_counter()
+    state, metrics = step_fn(state, features, labels)
+    torch.cuda.synchronize(device)
+    if i >= POSE_WARMUP:
+      times.append(1e3 * (time.perf_counter() - start))
+    if not np.isfinite(float(metrics["loss"])):
+      raise RuntimeError("non-finite loss in a timed step")
+  return _percentiles(np, times)
+
+
+def _logged_records(model_dir: str):
+  """(step, loss, is an eval line) of each line a train_and_evaluate run
+  logged."""
+  path = os.path.join(model_dir, "train", "metrics.jsonl")
+  with open(path) as f:
+    return [(r["step"], r.get("loss"), any(k.startswith("eval/") for k in r))
+            for r in map(json.loads, f)]
+
+
+def _verified(checkpoints, model_dir: str, steps) -> None:
+  manager = checkpoints.CheckpointManager(
+      os.path.join(model_dir, checkpoints.CHECKPOINT_DIRNAME))
+  manager.wait_until_finished()
+  if manager.all_steps() != list(steps) or not all(
+      manager.verify_step(s) is True for s in steps):
+    raise RuntimeError(f"checkpoints {manager.all_steps()} in {model_dir} "
+                       f"do not verify as {list(steps)}")
+
+
+def _action_ms(obs_metrics, np) -> dict:
+  return _percentiles(
+      np, obs_metrics.histogram("policy/select_action_ms").values())
+
+
+def run_pose(torch, np, port, device, card: str, directory: str) -> dict:
+  """Phase 12a: the robot loop (collect -> records -> critic -> CEM;
+  regression -> RegressionPolicy), a critic step card vs CPU, the abort
+  contract."""
+  (config, train_eval, checkpoints, train_step, input_generators,
+   predictors, policies, tfrecord, obs_metrics, pose_models, pose_env,
+   run_env, run_collect_eval) = port
+  start = time.perf_counter()
+  out = {"card": card}
+
+  # 1. Collect through the actor CLI.
+  config.clear_config()
+  actor_dir = os.path.join(directory, "actor")
+  collect = run_collect_eval.main([
+      "--config_files", COLLECT_CONFIG,
+      "--config", f"collect_eval_loop.root_dir = '{actor_dir}'",
+      "--config", f"collect_eval_loop.num_collect_episodes = {POSE_EPISODES}",
+      "--config", "collect/PoseToyEnv.seed = 0",
+      "--config", "eval/PoseToyEnv.seed = 1",
+      "--config", "RandomPolicy.seed = 1"])
+  config.clear_config()
+  replay = os.path.join(actor_dir, "policy_collect", "episodes_0.tfrecord")
+  records = tfrecord.count_records(replay)
+  if records != POSE_EPISODES:
+    raise RuntimeError(f"the replay holds {records} records, want "
+                       f"{POSE_EPISODES}")
+  out["collect"] = {"records": records, "wall_s": time.perf_counter() - start,
+                    "episode_reward_mean": collect[
+                        "collect/episode_reward_mean"]}
+
+  def record_generator():
+    return input_generators.DefaultRecordInputGenerator(
+        file_patterns=replay, batch_size=POSE_BATCH, seed=0)
+
+  # 2. The critic on the replay, on the card.
+  critic_dir = os.path.join(directory, "critic")
+  train_start = time.perf_counter()
+  train_eval.train_eval_model(
+      model=pose_models.PoseEnvContinuousMCModel(), model_dir=critic_dir,
+      mode="train", max_train_steps=CRITIC_STEPS,
+      checkpoint_every_n_steps=CRITIC_STEPS, log_every_n_steps=1,
+      input_generator_train=record_generator(), device=device)
+  torch.cuda.synchronize(device)
+  logged = _logged_losses(critic_dir)
+  _check_losses(logged, 1, CRITIC_STEPS)
+  _verified(checkpoints, critic_dir, [CRITIC_STEPS])
+  out["critic"] = {"steps": CRITIC_STEPS, "batch": POSE_BATCH,
+                   "loss_step_1": logged[0][1], "loss_last": logged[-1][1],
+                   "train_wall_s": time.perf_counter() - train_start}
+
+  # 3. CEM over the served critic against random, on the same env stream.
+  predictor = predictors.CheckpointPredictor(
+      model=pose_models.PoseEnvContinuousMCModel(), model_dir=critic_dir)
+  if not predictor.restore() or predictor.global_step != CRITIC_STEPS:
+    raise RuntimeError("the critic predictor did not restore step "
+                       f"{CRITIC_STEPS} ({predictor.global_step})")
+  if predictor.device.type != device.type:
+    raise RuntimeError(f"the critic is served on {predictor.device}")
+  cem = policies.CEMPolicy(predictor=predictor, action_size=2,
+                           cem_samples=64, cem_iterations=3, cem_elites=10,
+                           seed=0)
+  eval_env = pose_env.PoseToyEnv(seed=7)
+  with obs_metrics.isolated():
+    cem_stats = run_env.run_env(env=eval_env, policy=cem,
+                                num_episodes=POSE_EVAL_EPISODES, tag="eval")
+    cem_ms = _action_ms(obs_metrics, np)
+  random_stats = run_env.run_env(env=eval_env,
+                                 policy=pose_env.RandomPolicy(seed=9),
+                                 num_episodes=POSE_EVAL_EPISODES, tag="eval")
+  cem_reward = cem_stats["eval/episode_reward_mean"]
+  random_reward = random_stats["eval/episode_reward_mean"]
+  log(f"12a CEM reward {cem_reward:.4f} vs random {random_reward:.4f}; "
+      f"action ms {cem_ms}")
+  if not cem_reward > random_reward + CEM_MARGIN:
+    raise RuntimeError(f"CEM {cem_reward} does not beat random "
+                       f"{random_reward} by {CEM_MARGIN}")
+  out["cem"] = {"reward": cem_reward, "random_reward": random_reward,
+                "q_value_mean": cem_stats.get("eval/q_value_mean"),
+                "action_ms": cem_ms}
+
+  # 4. The regression model through train_pose_regression.gin on the
+  # replay, its predictor, RegressionPolicy in the loop.
+  regression_dir = os.path.join(directory, "regression")
+  every = REGRESSION_STEPS // 2
+  config.parse_config_files_and_bindings([POSE_REGRESSION_CONFIG], [
+      f"train_eval_model.model_dir = '{regression_dir}'",
+      f"train_eval_model.max_train_steps = {REGRESSION_STEPS}",
+      f"train_eval_model.eval_every_n_steps = {every}",
+      f"train_eval_model.checkpoint_every_n_steps = {every}",
+      "train_eval_model.eval_steps = 2",
+      "train_eval_model.input_generator_train = "
+      "@train/DefaultRecordInputGenerator()",
+      "train_eval_model.input_generator_eval = "
+      "@eval/DefaultRecordInputGenerator()",
+      f"DefaultRecordInputGenerator.file_patterns = '{replay}'",
+      f"DefaultRecordInputGenerator.batch_size = {POSE_BATCH}",
+      "DefaultRecordInputGenerator.seed = 0"])
+  try:
+    regression = train_eval.train_eval_model(device=device)
+  finally:
+    config.clear_config()
+  logged = [(step, loss) for step, loss, is_eval in
+            _logged_records(regression_dir) if not is_eval]
+  _check_losses(logged, 1, REGRESSION_STEPS)
+  _verified(checkpoints, regression_dir, [every, REGRESSION_STEPS])
+  evals = {k: v for k, v in regression.items() if k.startswith("eval/")}
+  if not evals or not all(np.isfinite(v) for v in evals.values()):
+    raise RuntimeError(f"regression evals {evals}")
+  predictor = predictors.CheckpointPredictor(
+      model=pose_models.PoseEnvRegressionModel(), model_dir=regression_dir)
+  if not predictor.restore() or predictor.global_step != REGRESSION_STEPS:
+    raise RuntimeError("the regression predictor did not restore")
+  images = np.stack([pose_env.PoseToyEnv(seed=s).reset()[0]["image"]
+                     for s in range(8)])
+  served = predictor.predict({"state/image": images})["inference_output"]
+  state = predictor.state
+  with torch.no_grad():
+    forward, _ = predictor.model.inference_network_fn(
+        state.eval_params(), state.mutable_state,
+        {"state/image": torch.as_tensor(images, device=device)}, "predict")
+  if not np.array_equal(served, forward["inference_output"].cpu().numpy()):
+    raise RuntimeError("the regression predictor differs from the "
+                       "eval-mode forward")
+  regression_policy = policies.RegressionPolicy(predictor=predictor)
+  with obs_metrics.isolated():
+    regression_stats = run_env.run_env(
+        env=StateObsEnv(pose_env.PoseToyEnv(seed=7)),
+        policy=regression_policy, num_episodes=POSE_EVAL_EPISODES,
+        tag="eval")
+    regression_ms = _action_ms(obs_metrics, np)
+  out["regression"] = {
+      "steps": REGRESSION_STEPS, "loss_step_1": logged[0][1],
+      "loss_last": logged[-1][1], "evals": evals,
+      "reward": regression_stats["eval/episode_reward_mean"],
+      "action_ms": regression_ms, "predict_equals_forward": True}
+
+  # 5. One f32 critic step, card against the port's CPU path.
+  model = pose_models.PoseEnvContinuousMCModel()
+  params = model.init_params(torch.Generator().manual_seed(0))
+  batch = _first_batch(input_generators.DefaultRecordInputGenerator(
+      file_patterns=replay, batch_size=PARITY_BATCH, seed=1), model)
+  results = {}
+  for name, where in (("card", device), ("cpu", torch.device("cpu"))):
+    loss, _, grads, _ = train_step.loss_and_grads(
+        model, _to(torch, params, where), _to(torch, batch["features"], where),
+        _to(torch, batch["labels"], where))
+    results[name] = (float(loss), grads)
+  loss_err = abs(results["card"][0] - results["cpu"][0]) / abs(
+      results["cpu"][0])
+  grad_errs = _grads_close(results["card"][1], results["cpu"][1])
+  worst = max(grad_errs.values())
+  log(f"12a critic step card vs CPU: loss {loss_err:.2e}, worst gradient "
+      f"{worst:.2e}")
+  if loss_err > LOSS_RTOL or worst > GRAD_TOL:
+    raise RuntimeError(f"critic step card vs CPU: loss {loss_err}, "
+                       f"gradients {grad_errs}")
+  out["parity"] = {"loss_rel_err": loss_err, "grad_scaled_err": worst,
+                   "batch": PARITY_BATCH}
+
+  # Step times on a fixed device batch.
+  for name, step_model in (("critic", model),
+                           ("regression",
+                            pose_models.PoseEnvRegressionModel())):
+    step_batch = _first_batch(record_generator(), step_model)
+    out[name]["step_ms"] = _median_step_ms(
+        torch, np, train_step.make_train_step(step_model),
+        train_step.create_train_state(
+            step_model, torch.Generator().manual_seed(0), device),
+        _to(torch, step_batch["features"], device),
+        _to(torch, step_batch["labels"], device), device)
+
+  # 6. Abort: an env crash mid-episode calls abort_episode and surfaces
+  # unchanged.
+  aborts = []
+
+  class _Spy(policies.CEMPolicy):
+    def abort_episode(self):
+      aborts.append(True)
+
+  error = RuntimeError("simulator died mid-episode")
+
+  class _Crashing(pose_env.PoseToyEnv):
+    def step(self, action):
+      raise error
+
+  spy = _Spy(predictor=predictors.CheckpointPredictor(
+      model=pose_models.PoseEnvContinuousMCModel(), model_dir=critic_dir),
+      action_size=2, seed=0)
+  spy.restore()
+  with obs_metrics.isolated() as registry:
+    try:
+      run_env.run_env(env=_Crashing(seed=0), policy=spy, num_episodes=3)
+      raised = None
+    except RuntimeError as e:
+      raised = e
+    aborted = registry.snapshot().get("counter/env/aborted_episodes")
+  if raised is not error or aborts != [True] or aborted != 1:
+    raise RuntimeError(f"abort contract: raised {raised!r}, aborts "
+                       f"{aborts}, counter {aborted}")
+  out["abort"] = {"error_unchanged": True, "abort_calls": len(aborts),
+                  "aborted_episodes": aborted}
+  out["phase_wall_s"] = time.perf_counter() - start
+  return out
+
+
+def _first_batch(generator, model):
+  """The first train batch of `generator` on `model`'s specs; the stream
+  and its loader threads closed after."""
+  generator.set_specification_from_model(model, "train")
+  stream = generator.create_dataset("train")
+  try:
+    return next(iter(stream))
+  finally:
+    if hasattr(stream, "close"):
+      stream.close()
+
+
+MAML_CONFIG = dict(num_inner_loop_steps=1, inner_learning_rate=0.05,
+                   num_condition_samples_per_task=2,
+                   num_inference_samples_per_task=2)
+
+
+def _config_maml(maml, pose_models, **overrides):
+  """MAMLModel at `train_pose_maml.gin`'s settings, less `overrides`."""
+  return maml.MAMLModel(base_model=pose_models.PoseEnvRegressionModel(),
+                        **{**MAML_CONFIG, **overrides})
+
+
+def _maml_parity(torch, np, train_step, maml, pose_models, end_task,
+                 device, dtype) -> dict:
+  """One meta-step, card against CPU, on the same parameters and batch
+  in `dtype` (float64 images as floats in [0, 1]): second order, first
+  order and learned inner rates at the config's settings (2 tasks); in
+  float64 also the end task's (4 tasks, 6 + 6, 2 inner steps at 0.2),
+  whose inner gradients (norm ~2e3 at init) scale f32 rounding past the
+  gradient limit on both devices alike."""
+  variants = [("second_order", {}), ("first_order", {"first_order": True}),
+              ("learned_inner_lr", {"learn_inner_lr": True})]
+  task = end_task.END_TASK
+  if dtype == torch.float64:
+    variants.append(("end_task_settings", dict(
+        num_inner_loop_steps=task["inner_steps"],
+        inner_learning_rate=task["inner_lr"],
+        num_condition_samples_per_task=task["cond"],
+        num_inference_samples_per_task=task["inf"])))
+  out = {}
+  for variant, kwargs in variants:
+    model = _config_maml(maml, pose_models, **kwargs)
+    counts = {**MAML_CONFIG, **kwargs}
+    features, labels = end_task.meta_tasks.offset_reach_batch(
+        np.random.RandomState(5),
+        task["tasks"] if variant == "end_task_settings" else 2,
+        counts["num_condition_samples_per_task"],
+        counts["num_inference_samples_per_task"], 32)
+    if dtype == torch.float64:
+      features = {k: v.astype(np.float64) / 255.0 if v.dtype == np.uint8
+                  else v for k, v in features.items()}
+    params = model.init_params(torch.Generator().manual_seed(0))
+    got = {}
+    for name, where in (("card", device), ("cpu", torch.device("cpu"))):
+      outputs, _ = model.inference_network_fn(
+          _to(torch, params, where, dtype), {},
+          _to(torch, features, where, dtype), "train", train=True)
+      loss, _, grads, _ = train_step.loss_and_grads(
+          model, _to(torch, params, where, dtype),
+          _to(torch, features, where, dtype),
+          _to(torch, labels, where, dtype))
+      got[name] = (loss, outputs["inner_losses"].detach(), grads)
+    loss_err = abs(float(got["card"][0]) - float(got["cpu"][0])) / abs(
+        float(got["cpu"][0]))
+    inner = got["cpu"][1].double()
+    inner_err = float((got["card"][1].double().cpu() - inner).abs().max()
+                      / inner.abs().max())
+    grad_errs = _grads_close(got["card"][2], got["cpu"][2])
+    worst = max(grad_errs.values())
+    lr_worst = max([v for k, v in grad_errs.items()
+                    if k.startswith("inner_lr.")] or [0.0])
+    if loss_err > LOSS_RTOL or inner_err > LOSS_RTOL or worst > GRAD_TOL:
+      raise RuntimeError(f"MAML {variant} {dtype} card vs CPU: loss "
+                         f"{loss_err}, inner {inner_err}, gradients "
+                         f"{grad_errs}")
+    out[variant] = {"loss_rel_err": loss_err, "inner_rel_err": inner_err,
+                    "grad_scaled_err": worst,
+                    **({"inner_lr_grad_scaled_err": lr_worst}
+                       if "learn_inner_lr" in kwargs else {})}
+  return out
+
+
+class _Recording:
+  """A predictor's `predict`, keeping the last features it was given."""
+
+  def __init__(self, predictor):
+    self.predictor = predictor
+    self.features = None
+
+  def predict(self, features):
+    self.features = {k: v.copy() for k, v in features.items()}
+    return self.predictor.predict(features)
+
+  def restore(self):
+    return self.predictor.restore()
+
+  @property
+  def global_step(self):
+    return self.predictor.global_step
+
+
+def run_meta(torch, np, port, device, card: str, directory: str) -> dict:
+  """Phase 12b: MAML over the pose regression model (see the module
+  docstring)."""
+  (config, train_eval, checkpoints, train_step, optimizers, predictors,
+   obs_metrics, pose_models, end_task, maml, meta_policies, pose_env,
+   run_meta_env) = port
+  start = time.perf_counter()
+  out = {"card": card}
+
+  # 1. One meta-step, card against CPU.
+  out["parity"] = {
+      str(dtype).split(".")[1]: _maml_parity(
+          torch, np, train_step, maml, pose_models, end_task, device,
+          dtype) for dtype in (torch.float64, torch.float32)}
+  log(f"12b meta-step card vs CPU: {out['parity']}")
+
+  # 2. train_pose_maml.gin through train_eval_model.
+  maml_dir = os.path.join(directory, "maml")
+  config.parse_config_files_and_bindings([POSE_MAML_CONFIG], [
+      f"train_eval_model.model_dir = '{maml_dir}'",
+      f"train_eval_model.max_train_steps = {MAML_STEPS}",
+      "train_eval_model.checkpoint_every_n_steps = 10"])
+  try:
+    train_start = time.perf_counter()
+    train_eval.train_eval_model(device=device)
+    torch.cuda.synchronize(device)
+    train_wall = time.perf_counter() - train_start
+  finally:
+    config.clear_config()
+  logged = _logged_losses(maml_dir)
+  _check_losses(logged, 1, MAML_STEPS)
+  _verified(checkpoints, maml_dir, [10, 20, 30])
+  out["train"] = {"steps": MAML_STEPS, "loss_step_1": logged[0][1],
+                  "loss_last": logged[-1][1], "train_wall_s": train_wall}
+  features, labels = end_task.meta_tasks.offset_reach_batch(
+      np.random.RandomState(6), 2, 2, 2, 32)
+  for variant, first_order in (("second_order", False),
+                               ("first_order", True)):
+    model = _config_maml(maml, pose_models, first_order=first_order)
+    out["train"][f"meta_step_ms_{variant}"] = _median_step_ms(
+        torch, np, train_step.make_train_step(model),
+        train_step.create_train_state(model, torch.Generator().manual_seed(0),
+                                      device),
+        _to(torch, features, device), _to(torch, labels, device), device)
+
+  # 3. The end task.
+  task = end_task.END_TASK
+  model = end_task.make_model()
+  end_start = time.perf_counter()
+  state, losses = end_task.train(model, device, END_TASK_STEPS)
+  losses = [float(v) for v in losses]
+  end_wall = time.perf_counter() - end_start
+  cond_mae, uncond_mae, maes = end_task.held_out_mae(model, state, device)
+  log(f"12b end task: loss {losses[0]:.4f} -> {losses[-1]:.4f}; MAE "
+      f"conditioned {cond_mae:.4f} vs unconditioned {uncond_mae:.4f} "
+      f"(held-out batches {maes})")
+  if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+          and cond_mae < END_TASK_MAE_RATIO * uncond_mae):
+    raise RuntimeError(f"MAML end task: losses {losses[0]} -> "
+                       f"{losses[-1]}, MAE {cond_mae} vs {uncond_mae}")
+  out["end_task"] = {**task, "steps": END_TASK_STEPS,
+                     "mae_ratio": END_TASK_MAE_RATIO,
+                     "loss_first": losses[0], "loss_last": losses[-1],
+                     "wall_s": end_wall, "conditioned_mae": cond_mae,
+                     "unconditioned_mae": uncond_mae,
+                     "mae_ratio_measured": cond_mae / uncond_mae,
+                     "held_out_batches": maes}
+
+  # 4. The end task's model served inside run_meta_env.
+  served_dir = os.path.join(directory, "end_task")
+  manager = checkpoints.CheckpointManager(
+      os.path.join(served_dir, checkpoints.CHECKPOINT_DIRNAME),
+      async_checkpointing=False)
+  manager.save(END_TASK_STEPS, state)
+  predictor = predictors.CheckpointPredictor(model=end_task.make_model(),
+                                             model_dir=served_dir)
+  if not predictor.restore() or predictor.device.type != device.type:
+    raise RuntimeError("the MAML predictor did not restore on the card")
+  recording = _Recording(predictor)
+  policy = meta_policies.MAMLRegressionPolicy(
+      predictor=recording, num_inference_samples=task["inf"])
+  env = pose_env.PoseToyEnv(image_size=task["image"], seed=0)
+
+  class _Oracle:
+    def sample_action(self, obs, explore_prob=0.0):
+      return env._target.copy()
+
+    def reset(self):
+      pass
+
+  def demo_to_condition(episodes):
+    steps = [s for e in episodes for s in e]
+    return ({"state/image": np.stack([s["obs"]["state/image"]
+                                      for s in steps])},
+            {"target_pose": np.stack([np.asarray(s["action"], np.float32)
+                                      for s in steps])})
+
+  with obs_metrics.isolated():
+    meta_stats = run_meta_env.run_meta_env(
+        env=StateObsEnv(env), policy=policy, demo_policy=_Oracle(),
+        num_tasks=META_TASKS, num_demos_per_task=task["cond"],
+        num_trials_per_task=1, demo_to_condition_fn=demo_to_condition)
+    action_ms = _action_ms(obs_metrics, np)
+  cpu_predictor = predictors.CheckpointPredictor(
+      model=end_task.make_model(), model_dir=served_dir, device="cpu")
+  cpu_predictor.restore()
+  card_out = predictor.predict(recording.features)
+  cpu_out = cpu_predictor.predict(recording.features)
+  adapted_err = max(
+      float(np.abs(card_out[k] - cpu_out[k]).max())
+      / max(1.0, float(np.abs(cpu_out[k]).max()))
+      for k in cpu_out if k.startswith("conditioned_output/"))
+  moved = float(np.abs(card_out["conditioned_output/inference_output"]
+                       - card_out["unconditioned_output/inference_output"])
+                .max())
+  log(f"12b served: {meta_stats}; adapted output card vs CPU "
+      f"{adapted_err:.2e}; action ms {action_ms}")
+  if not (adapted_err <= LOSS_RTOL and moved > 0.0
+          and np.isfinite(meta_stats["meta_eval/reward_mean"])):
+    raise RuntimeError(f"served MAML: card vs CPU {adapted_err}, adapted "
+                       f"moved {moved}, stats {meta_stats}")
+  out["served"] = {"tasks": META_TASKS, "demos_per_task": task["cond"],
+                   "reward_mean": meta_stats["meta_eval/reward_mean"],
+                   "adapted_rel_err": adapted_err,
+                   "adaptation_moved_output": moved,
+                   "action_ms": action_ms}
+  out["phase_wall_s"] = time.perf_counter() - start
+  return out
+
+
 def main() -> int:
   import torch
 
@@ -3367,6 +3942,15 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   from tensor2robot_tpu_torch import specs
   from tensor2robot_tpu_torch import train_eval
   from tensor2robot_tpu_torch.bin import export_saved_model
+  from tensor2robot_tpu_torch.bin import maml_end_task
+  from tensor2robot_tpu_torch.bin import run_collect_eval
+  from tensor2robot_tpu_torch.data import tfrecord
+  from tensor2robot_tpu_torch.envs import pose_env
+  from tensor2robot_tpu_torch.envs import run_env
+  from tensor2robot_tpu_torch.envs import run_meta_env
+  from tensor2robot_tpu_torch.meta_learning import maml
+  from tensor2robot_tpu_torch.meta_learning import meta_policies
+  from tensor2robot_tpu_torch.research.pose_env import models as pose_models
   from tensor2robot_tpu_torch.data import input_generators
   from tensor2robot_tpu_torch.hooks import core as hooks_core
   from tensor2robot_tpu_torch.models import optimizers
@@ -3549,6 +4133,27 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   finally:
     shutil.rmtree(lstm_dir, ignore_errors=True)
   torch.cuda.empty_cache()
+
+  # Phase 12: the pose environment's robot loop and MAML (no custom kernel
+  # on their path).
+  pose_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  try:
+    launches_before = custom_launches()
+    pose_report = run_pose(torch, np, (
+        config, train_eval, checkpoints, train_step, input_generators,
+        predictors, policies, tfrecord, obs_metrics, pose_models, pose_env,
+        run_env, run_collect_eval), device, card, pose_dir)
+    torch.cuda.empty_cache()
+    meta_report = run_meta(torch, np, (
+        config, train_eval, checkpoints, train_step, optimizers, predictors,
+        obs_metrics, pose_models, maml_end_task, maml, meta_policies,
+        pose_env, run_meta_env), device, card, pose_dir)
+    meta_report["custom_kernel_launches"] = [
+        now - before for now, before in zip(custom_launches(),
+                                            launches_before)]
+  finally:
+    shutil.rmtree(pose_dir, ignore_errors=True)
+  torch.cuda.empty_cache()
   fwd_src = "tensor2robot_tpu_torch/csrc/flash_fwd.cu"
   bwd_src = "tensor2robot_tpu_torch/csrc/flash_bwd.cu"
   kernels = [
@@ -3620,7 +4225,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
             "train": train_report, "qtopt": qtopt_report,
             "serve_qtopt": serve_report, "records": records_report,
             "deploy": deploy_report, "surface": surface_report,
-            "lstm": lstm_report}
+            "lstm": lstm_report, "pose": pose_report, "meta": meta_report}
   os.makedirs(os.path.dirname(REPORT), exist_ok=True)
   with open(REPORT, "w") as f:
     json.dump(report, f, indent=1)
@@ -3632,6 +4237,8 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   print(json.dumps({"deploy": deploy_report}))
   print(json.dumps({"surface": surface_report}))
   print(json.dumps({"lstm": lstm_report}))
+  print(json.dumps({"pose": pose_report}))
+  print(json.dumps({"meta": meta_report}))
   print(json.dumps({"kernels": kernels}))
   print(card_line(), flush=True)
   print(json.dumps({"ok": True, "device": {

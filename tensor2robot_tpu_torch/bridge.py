@@ -19,12 +19,21 @@
   torch's LSTM uses, and `bias_hh` [4H], the hidden biases in that order
   (the port's cell has no input bias).
 
+* a module's own array parameters `bias_transform` (`PoseHead`) and
+  `log_temperature` (`SpatialSoftmax`) keep their names and shapes;
+* MAML with learned inner learning rates (`{"base": params, "inner_lr":
+  tree}`): the base tree maps as above under `base.`, and each scalar
+  rate of the mirror tree maps to the name its parameter has, under
+  `inner_lr.` (`inner_lr.torso.conv_0.weight` for the kernel of
+  `torso/conv_0`).
+
 So `{"attn_0": {"q_proj": {"kernel", "bias"}}}` becomes
 `attn_0.q_proj.weight` / `attn_0.q_proj.bias`. A leaf this mapping does
 not know raises.
 `mutable_state_from_flax` maps flax's `batch_stats` (`mean` / `var` per
 BatchNorm) onto the port's mutable state, `<name>.running_mean` /
-`<name>.running_var`.
+`<name>.running_var` (under a `prefix`, e.g. `base` for a MAML model
+with learned inner rates, whose module nests the base's buffers).
 
 `train_state_from_jax` carries a whole JAX `TrainState` across — step,
 params, optax state, EMA and batch_stats — so a JAX run can continue in
@@ -58,6 +67,11 @@ __all__ = ["LSTM_GATES", "state_dict_from_flax", "mutable_state_from_flax",
 
 
 LSTM_GATES = ("i", "f", "g", "o")
+# Array parameters a module owns directly, carried as they are.
+RAW_LEAVES = ("bias_transform", "log_temperature")
+# flax leaf name -> the port's, for a MAML inner-rate mirror tree.
+_MIRROR_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                 **{leaf: leaf for leaf in RAW_LEAVES}}
 
 
 def _lstm_cell(tree: Mapping[str, Any], name: str
@@ -79,9 +93,34 @@ def _is_lstm_cell(tree: Mapping[str, Any]) -> bool:
   return set(tree) == {p + g for p in "ih" for g in LSTM_GATES}
 
 
+def _tensor(value: Any) -> torch.Tensor:
+  return torch.from_numpy(np.array(value, np.float32))
+
+
+def _inner_rates(tree: Mapping[str, Any], path: Tuple[str, ...],
+                 out: Dict[str, torch.Tensor]) -> None:
+  """A MAML mirror tree of scalar inner rates under the port's names."""
+  if _is_lstm_cell(tree):
+    raise ValueError(f"{'.'.join(path)}: no bridge for learned inner rates "
+                     "of an LSTM cell (the port stacks its gates)")
+  for key, value in tree.items():
+    if isinstance(value, Mapping):
+      _inner_rates(value, path + (key,), out)
+    elif key in _MIRROR_NAMES:
+      out[".".join(path + (_MIRROR_NAMES[key],))] = _tensor(value)
+    else:
+      raise ValueError(f"{'.'.join(path + (key,))}: no bridge for an inner "
+                       "rate of this flax leaf")
+
+
 def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
   """A flax param tree as the port's flat f32 `state_dict`."""
   out: Dict[str, torch.Tensor] = {}
+  if set(params) == {"base", "inner_lr"}:  # MAML, learned inner rates
+    out.update({f"base.{k}": v
+                for k, v in state_dict_from_flax(params["base"]).items()})
+    _inner_rates(params["inner_lr"], ("inner_lr",), out)
+    return out
 
   def visit(tree: Mapping[str, Any], path: Tuple[str, ...]) -> None:
     if _is_lstm_cell(tree):
@@ -91,6 +130,9 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for key, value in tree.items():
       if isinstance(value, Mapping):
         visit(value, path + (key,))
+    for key in RAW_LEAVES:
+      if key in leaves:
+        out[".".join(path + (key,))] = _tensor(leaves.pop(key))
     if not leaves:
       return
     name = ".".join(path)
@@ -120,11 +162,14 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
   return out
 
 
-def mutable_state_from_flax(batch_stats: Mapping[str, Any]
-                            ) -> Dict[str, torch.Tensor]:
+def mutable_state_from_flax(batch_stats: Mapping[str, Any],
+                            prefix: str = "") -> Dict[str, torch.Tensor]:
   """flax `batch_stats` ({name: {"mean", "var"}}, nested by module path)
   as the port's flat f32 mutable state: `<name>.running_mean` and
-  `<name>.running_var`."""
+  `<name>.running_var`, under `<prefix>.` when a prefix is given."""
+  if prefix:
+    return {f"{prefix}.{k}": v
+            for k, v in mutable_state_from_flax(batch_stats).items()}
   out: Dict[str, torch.Tensor] = {}
 
   def visit(tree: Mapping[str, Any], path: Tuple[str, ...]) -> None:

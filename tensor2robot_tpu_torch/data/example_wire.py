@@ -3,9 +3,11 @@
 Encodes and decodes `Example`, `SequenceExample`, `Features`,
 `FeatureLists`, `FeatureList` and `Feature` (bytes, float and int64
 lists) as `example.proto` beside this file defines them. The encoder
-writes what protobuf writes for these messages: float and int64 lists
-packed, every map entry with its key and value, an empty list as a
-present empty submessage. The decoder reads packed and unpacked lists
+writes what protobuf's deterministic serialization writes for these
+messages: float and int64 lists packed, every map entry with its key and
+value, map entries in key order, an empty list as a present empty
+submessage. (Protobuf's default serialization writes map entries in its
+hash table's order; the message is the same.) The decoder reads packed and unpacked lists
 alike, merges repeated submessages, lets the last of duplicate map keys
 win and skips unknown fields, as protobuf does.
 
@@ -103,9 +105,10 @@ def encode_feature(feature: Feature) -> bytes:
 
 
 def _encode_map(entries: Mapping[str, bytes]) -> bytes:
-  return b"".join(
-      _field(1, _field(1, key.encode("utf-8")) + _field(2, value))
-      for key, value in entries.items())
+  encoded = sorted((key.encode("utf-8"), value)
+                   for key, value in entries.items())
+  return b"".join(_field(1, _field(1, key) + _field(2, value))
+                  for key, value in encoded)
 
 
 def _encode_features(features: Mapping[str, Feature]) -> bytes:

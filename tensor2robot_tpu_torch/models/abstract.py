@@ -208,15 +208,19 @@ class T2RModel(abc.ABC):
 
   def init_params(self, generator: torch.Generator) -> Params:
     """Fresh parameters with flax's default initializers, drawn from
-    `generator` on the CPU: Dense and Conv kernels lecun normal (or the
-    layer's own `kernel_init(weight, generator)` where the module sets
-    one), zero biases; LayerNorm and BatchNorm scale 1, bias 0; a layer
-    with an `initial_params(generator)` method (the LSTM cell) its
-    own."""
+    `generator` on the CPU: a layer with an `initial_params(generator)`
+    method (the LSTM cell, the vision layers) its own parameters (its
+    direct ones: its children are visited in turn); else Dense and Conv
+    kernels lecun normal (or the layer's own `kernel_init(weight,
+    generator)` where the module sets one), zero biases; LayerNorm and
+    BatchNorm scale 1, bias 0."""
     params: Params = {}
     for name, module in self.module.named_modules():
       prefix = f"{name}." if name else ""
-      if isinstance(module, (nn.Linear, nn.Conv2d)):
+      if hasattr(module, "initial_params"):  # a layer with its own init
+        params.update({prefix + k: v for k, v in
+                       module.initial_params(generator).items()})
+      elif isinstance(module, (nn.Linear, nn.Conv2d)):
         weight = torch.empty_like(module.weight, device="cpu")
         getattr(module, "kernel_init", lecun_normal_)(weight, generator)
         params[prefix + "weight"] = weight
@@ -228,9 +232,6 @@ class T2RModel(abc.ABC):
           params[prefix + "weight"] = torch.ones_like(module.weight,
                                                       device="cpu")
         params[prefix + "bias"] = torch.zeros_like(module.bias, device="cpu")
-      elif hasattr(module, "initial_params"):  # a layer with its own init
-        params.update({prefix + k: v for k, v in
-                       module.initial_params(generator).items()})
     missing = set(dict(self.module.named_parameters())) - set(params)
     if missing:
       raise NotImplementedError(

@@ -148,9 +148,17 @@ class _TorchPredictorBase(AbstractPredictor):
     return features
 
   def predict(self, features) -> Dict[str, np.ndarray]:
+    return self._timed_predict(features, self._preprocess)
+
+  def predict_preprocessed(self, features) -> Dict[str, np.ndarray]:
+    """Predict on model-layout (already preprocessed) features: the
+    layout a model's `pack_features` builds, not the wire layout."""
+    return self._timed_predict(features, self._to_device)
+
+  def _timed_predict(self, features, prepare) -> Dict[str, np.ndarray]:
     self.assert_is_loaded()
     start = time.perf_counter()
-    outputs = self._predict_fn(self._state, self._preprocess(features))
+    outputs = self._predict_fn(self._state, prepare(features))
     result = {k: v.cpu().numpy() for k, v in outputs.items()}
     obs_metrics.histogram("serve/predict_ms").record(
         (time.perf_counter() - start) * 1e3)

@@ -113,6 +113,16 @@ class TensorSpec:
   def replace(self, **overrides) -> "TensorSpec":
     return dataclasses.replace(self, **overrides)
 
+  def with_batch(self, batch_size: Optional[int] = None) -> "TensorSpec":
+    """The spec with a leading batch dimension prepended."""
+    return self.replace(shape=(batch_size,) + self.shape)
+
+  def without_batch(self) -> "TensorSpec":
+    """The spec with its leading dimension stripped."""
+    if not self.shape:
+      raise ValueError(f"Spec {self} has no batch dimension to strip.")
+    return self.replace(shape=self.shape[1:])
+
   @property
   def is_image(self) -> bool:
     return self.data_format is not None

@@ -436,3 +436,90 @@ def test_export_config_binds_only_port_configurables():
         "train_and_evaluate"
   finally:
     config.clear_config()
+
+
+# The pose environment's robot loop and meta-learning: every module the
+# scans above must cover.
+SLICE_12_MODULES = (
+    "tensor2robot_tpu_torch.layers.spatial_softmax",
+    "tensor2robot_tpu_torch.layers.vision",
+    "tensor2robot_tpu_torch.research.pose_env.models",
+    "tensor2robot_tpu_torch.research.pose_env.meta_tasks",
+    "tensor2robot_tpu_torch.envs.pose_env",
+    "tensor2robot_tpu_torch.envs.run_env",
+    "tensor2robot_tpu_torch.envs.run_meta_env",
+    "tensor2robot_tpu_torch.obs.trace",
+    "tensor2robot_tpu_torch.utils.mocks",
+    "tensor2robot_tpu_torch.meta_learning.batch_utils",
+    "tensor2robot_tpu_torch.meta_learning.maml",
+    "tensor2robot_tpu_torch.meta_learning.preprocessors",
+    "tensor2robot_tpu_torch.meta_learning.meta_example",
+    "tensor2robot_tpu_torch.meta_learning.task_data",
+    "tensor2robot_tpu_torch.meta_learning.meta_policies",
+    "tensor2robot_tpu_torch.bin.run_collect_eval",
+    "tensor2robot_tpu_torch.bin.run_meta_collect_eval",
+    "tensor2robot_tpu_torch.bin.maml_end_task",
+)
+
+
+def test_the_scans_cover_the_pose_and_meta_modules():
+  assert set(SLICE_12_MODULES) <= set(_port_modules())
+  for name in ("train_pose_regression", "train_pose_mc_critic",
+               "train_pose_maml", "collect_random", "mock_train"):
+    text = (PORT / "configs" / f"{name}.gin").read_text()
+    assert "import tensor2robot_tpu." not in text, name
+    assert "device_type" not in text.split("\n\n", 1)[1], name
+
+
+def _pose_maml():
+  from tensor2robot_tpu_torch.meta_learning import maml
+  from tensor2robot_tpu_torch.research.pose_env import models as pose_models
+
+  return maml.MAMLModel(
+      base_model=pose_models.PoseEnvRegressionModel(image_size=16),
+      num_condition_samples_per_task=2, num_inference_samples_per_task=1)
+
+
+def test_meta_policy_runs_on_cuda_unless_told_cpu(no_cuda):
+  from tensor2robot_tpu_torch.meta_learning import meta_policies
+
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    predictors.CheckpointPredictor(model=_pose_maml())
+  predictor = predictors.CheckpointPredictor(model=_pose_maml(),
+                                             device="cpu")
+  predictor.init_randomly()
+  policy = meta_policies.MAMLRegressionPolicy(predictor=predictor)
+  rng = np.random.RandomState(0)
+  policy.adapt({"state/image": rng.randint(0, 256, (2, 16, 16, 1)).astype(
+      np.uint8)}, {"target_pose": rng.rand(2, 2).astype(np.float32)})
+  action = policy.select_action({"state/image": np.zeros((16, 16, 1),
+                                                         np.uint8)})
+  assert action.shape == (2,) and np.isfinite(action).all()
+
+
+def test_run_collect_eval_runs_on_cuda_unless_told_cpu(no_cuda, tmp_path):
+  from tensor2robot_tpu_torch.bin import run_collect_eval
+
+  flags = ["--config_files", str(PORT / "configs" / "collect_random.gin"),
+           "--config", f"collect_eval_loop.root_dir = '{tmp_path}'",
+           "--config", "collect_eval_loop.policy = @CEMPolicy()",
+           "--config", "CEMPolicy.action_size = 2",
+           "--config", "CEMPolicy.predictor = @CheckpointPredictor()",
+           "--config", "CheckpointPredictor.model = "
+                       "@PoseEnvContinuousMCModel()",
+           "--config", "collect_eval_loop.total_timeout_secs = 0.2",
+           "--config", "collect_eval_loop.poll_interval_secs = 0.05",
+           "--config", "import tensor2robot_tpu_torch.predictors.predictors",
+           "--config", "import tensor2robot_tpu_torch.policies.policies",
+           "--config",
+           "import tensor2robot_tpu_torch.research.pose_env.models"]
+  try:
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+      run_collect_eval.main(flags)
+    config.clear_config()
+    # Told the CPU, it runs: no checkpoint yet, so it times out polling.
+    stats = run_collect_eval.main(
+        flags + ["--config", "CheckpointPredictor.device = 'cpu'"])
+    assert stats == {}
+  finally:
+    config.clear_config()
