@@ -225,6 +225,39 @@ and prints no result):
       `MAMLRegressionPolicy` in `run_meta_env` on toy-env tasks with an
       oracle demo, each action adapting on the card under `no_grad`, one
       action's adapted output against the CPU's within 1e-5.
+13. Grasp2Vec and BC-Z at their configs' widths, weights from seed 0. No
+   custom kernel is on their path (cuDNN and cuBLAS; phase 13 must
+   launch none).
+   a. BC-Z, `configs/train_bcz.gin` (FiLM-ResNet-18 on 64x64, a 32-wide
+      language embedding, 10 waypoints, batch 16, bf16;
+      `BCZPreprocessor` 96 -> crop 80 -> 64): one step at batch 2, card
+      against the port's CPU path with TF32 off, in float64 and f32,
+      under phase 6a's limits (loss and each `loss/<component>`,
+      gradients, batch statistics), and the bf16 eval-mode outputs
+      against the CPU's f32 ones under phase 6a's bf16 rule; the
+      preprocessor's train and eval paths at 16 x 96 x 96 x 3, card
+      against CPU on the same draws, 1e-6 absolute, the output left on
+      the card; the config through `train_eval_model` cut to 20 steps
+      with evals of 5 batches and checkpoints at 10 and 20 (finite losses
+      and eval metrics, verified checkpoints, the batch statistics moved);
+      `CheckpointPredictor(model_dir=...)` serves step 20 at batch 1
+      bit-identical to the eval-mode forward, `xyz_action_trajectory`
+      [1, 10, 6], 20 actions timed; the JAX `TestBCZLearns` task (150
+      steps, the loss below 0.3 x the first).
+   b. Grasp2Vec, `configs/train_grasp2vec.gin` (48x48, the conv towers,
+      n-pairs, batch 16, f32): one step per objective, with the TY loss
+      and with the resnet tower, card against CPU in float64 and f32
+      under the same limits; the config cut to 20 steps with checkpoints
+      10 and 20, its step-20 checkpoint evaluated on keypoint-labelled
+      scenes (`retrieval_accuracy`, `keypoint_accuracy`, `keypoint_ce`);
+      the JAX `TestGrasp2VecLearns` fixed-batch task (retrieval accuracy
+      reaches 0.9 and does not fall); the predictor bit-identical to the
+      eval-mode forward, its heatmaps through `save_heatmap_summaries`
+      into PNGs that decode to 48x48x3.
+   Each family's line: the step (median of 20 after 3; Grasp2Vec also
+   under bf16) and examples/s, `torch.profiler`'s device busy and idle
+   share over 5 more steps, the action p50 and p99 of 20, peak device
+   memory, `custom_kernel_launches`, the phase wall and its parts.
 
 Output: a `train` JSON line, a `slice` JSON line, a `qtopt` JSON line
 (the critic's checks, its step ms and grasps/s under each policy with
@@ -234,7 +267,9 @@ facts, checks and times with the card and its power limit), a `deploy`
 line (phase 9), a `surface` line (phase 10's checks and its timings), an
 `lstm` line (phase 11's checks, the tick error and the policy's action
 p50 and p99), `pose` and `meta` lines (phase 12's checks, step and action
-times, rewards and MAEs, with the card and its power limit), a `kernels`
+times, rewards and MAEs, with the card and its power limit), `bcz` and
+`grasp2vec` lines (phase 13's steps, actions, memory and walls), a
+`kernels`
 JSON line
 (one row per kernel, with its `design`: "wgmma+tma" for the bf16
 tensor-core kernels, "wgmma+tma, 3xtf32" for the f32 ones, "split-t,
@@ -3916,6 +3951,549 @@ def run_meta(torch, np, port, device, card: str, directory: str) -> dict:
   return out
 
 
+# -- phase 13: Grasp2Vec and BC-Z ----------------------------------------------
+
+BCZ_CONFIG = "tensor2robot_tpu_torch/configs/train_bcz.gin"
+GRASP2VEC_CONFIG = "tensor2robot_tpu_torch/configs/train_grasp2vec.gin"
+# The configs' own widths, for models built outside a parsed config.
+BCZ_WIDTHS = dict(image_size=64, num_waypoints=10, network="resnet_film",
+                  condition_size=32)
+GRASP2VEC_WIDTHS = dict(image_size=48, loss_type="npairs")
+FAMILY_STEPS = 20            # train steps of each config, cut in length
+FAMILY_EVERY = 10            # checkpoints (and BC-Z's evals)
+FAMILY_EVAL_STEPS = 5        # eval batches
+BCZ_PARITY_BATCH = 2
+GRASP2VEC_PARITY_BATCH = 4
+PREPROCESS_BATCH = 16
+PREPROCESS_TOL = 1e-6        # elementwise f32; the resize sums in another order
+BCZ_LEARN_STEPS = 150        # tests/test_convergence.py::TestBCZLearns
+BCZ_LEARN_RATIO = 0.3
+GRASP2VEC_LEARN_STEPS = 200  # tests/test_convergence.py::TestGrasp2VecLearns
+GRASP2VEC_LEARN_BAR = 0.9
+FAMILY_PROFILED = 5          # steps under torch.profiler (its read is slow)
+
+
+def _family_step(torch, train_step, model, params, mutable, features,
+                 labels, dtype, device):
+  """(loss, scalars, grads, new batch statistics) of one train-mode loss
+  and gradient in `dtype` on `device`, read back as float64 on the CPU."""
+  loss, scalars, grads, stats = train_step.loss_and_grads(
+      model, _to(torch, params, device, dtype),
+      _to(torch, features, device, dtype),
+      _to(torch, labels, device, dtype),
+      _to(torch, mutable, device, torch.promote_types(dtype, torch.float32)))
+  to_cpu = lambda tree: {k: v.double().cpu() for k, v in tree.items()}
+  return (float(loss), {k: float(v) for k, v in scalars.items()},
+          to_cpu(grads), to_cpu(stats))
+
+
+def _family_errors(got, want) -> dict:
+  """Loss and each scalar relative, the worst gradient against max(1,
+  max|g|), the worst batch statistic per leaf."""
+  (loss_g, scalars_g, grads_g, stats_g) = got
+  (loss_w, scalars_w, grads_w, stats_w) = want
+  if set(scalars_g) != set(scalars_w) or set(stats_g) != set(stats_w):
+    raise RuntimeError("the two steps returned other scalars or statistics")
+  rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+  return {"loss": rel(loss_g, loss_w),
+          "scalars": max([rel(scalars_g[k], scalars_w[k])
+                          for k in scalars_w], default=0.0),
+          "grads": max(_scaled_err(grads_g[k], grads_w[k]) for k in grads_w),
+          "batch_stats": max([_leaf_rel(stats_g[k], stats_w[k])
+                              for k in stats_w], default=0.0)}
+
+
+def check_family_step(torch, train_step, model, params, mutable, features,
+                      labels, device, what: str) -> dict:
+  """One train step card against the port's CPU path, TF32 off, under
+  phase 6a's limits: float64 on both (loss and scalars 1e-5 relative,
+  gradients 1e-4 x max(1, max|g|), batch statistics 1e-5 per leaf); each
+  device's float32 step against the CPU's float64 one, the card within 10x
+  the CPU's distance (or the float64 limit where that is larger)."""
+  if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+    raise RuntimeError("the strict step check needs TF32 off")
+  cpu = torch.device("cpu")
+  runs = {(name, dtype): _family_step(torch, train_step, model, params,
+                                      mutable, features, labels, dtype, dev)
+          for dtype in (torch.float64, torch.float32)
+          for name, dev in (("cpu", cpu), ("cuda", device))}
+  f64 = _family_errors(runs["cuda", torch.float64], runs["cpu", torch.float64])
+  f32_cuda = _family_errors(runs["cuda", torch.float32],
+                            runs["cpu", torch.float64])
+  f32_cpu = _family_errors(runs["cpu", torch.float32],
+                           runs["cpu", torch.float64])
+  limits = {"loss": QTOPT_RTOL, "scalars": QTOPT_RTOL, "grads": GRAD_TOL,
+            "batch_stats": QTOPT_RTOL}
+  bad = {k: v for k, v in f64.items() if not v <= limits[k]}
+  bad.update({f"f32 {k}": (v, f32_cpu[k]) for k, v in f32_cuda.items()
+              if not v <= max(QTOPT_F32_FACTOR * f32_cpu[k], limits[k])})
+  if bad:
+    raise RuntimeError(f"{what}: the step on the card disagrees with the "
+                       f"CPU: {bad}")
+  return {"loss": runs["cpu", torch.float64][0],
+          "f64_cuda_vs_cpu": f64, "f32_cuda_vs_cpu_f64": f32_cuda,
+          "f32_cpu_vs_cpu_f64": f32_cpu}
+
+
+def _generator_batch(input_generators, model, batch_size: int, seed: int):
+  """One train batch (features, labels) of the random generator through
+  the model's preprocessor, on the CPU."""
+  batch = _first_batch(input_generators.DefaultRandomInputGenerator(
+      batch_size=batch_size, seed=seed), model)
+  labels = batch["labels"] if "labels" in batch else {}
+  return dict(batch["features"].items()), dict(labels.items())
+
+
+def _eval_records(model_dir: str):
+  path = os.path.join(model_dir, "train", "metrics.jsonl")
+  with open(path) as f:
+    return [r for r in map(json.loads, f)
+            if any(k.startswith("eval/") for k in r)]
+
+
+def _moved_statistics(torch, state, initial) -> float:
+  """The largest distance of a batch-norm running statistic from its
+  init."""
+  return max(float((state[k].float().cpu() - initial[k].float()).abs().max())
+             for k in initial)
+
+
+def _family_step_ms(torch, np, train_step, device_profile, model, features,
+                    labels, device):
+  """The train step's median and p99 on one device batch from a fresh
+  state (`_median_step_ms`), then `torch.profiler`'s device busy and idle
+  share over FAMILY_PROFILED more steps."""
+  step_fn = train_step.make_train_step(model)
+  state = train_step.create_train_state(model,
+                                        torch.Generator().manual_seed(0),
+                                        device)
+  features = _to(torch, features, device, torch.float32)
+  labels = _to(torch, labels, device, torch.float32)
+  step_ms = _median_step_ms(torch, np, step_fn, state, features, labels,
+                            device)
+  return step_ms, _profile(device_profile,
+                           lambda: step_fn(state, features, labels),
+                           FAMILY_PROFILED)
+
+
+def _timed_predicts(np, predictor, request) -> dict:
+  times = []
+  for _ in range(ACTIONS_TIMED):
+    start = time.perf_counter()
+    predictor.predict(request)
+    times.append(1e3 * (time.perf_counter() - start))
+  return _percentiles(np, times)
+
+
+def _served_equals_forward(torch, np, predictor, request, device) -> None:
+  """The predictor's outputs bit for bit against the eval-mode forward
+  of its state on the same wire request (preprocessed on the card, as the
+  predictor does)."""
+  model, state = predictor.model, predictor.state
+  served = predictor.predict(request)
+  tensors = {k: torch.as_tensor(v, device=device) for k, v in request.items()}
+  prepared, _ = model.preprocessor.preprocess(tensors, None, "predict")
+  with torch.no_grad():
+    forward, _ = model.inference_network_fn(
+        state.eval_params(), state.mutable_state, prepared, "predict")
+  for key, value in served.items():
+    if not np.array_equal(value, forward[key].float().cpu().numpy()):
+      raise RuntimeError(f"served {key} differs from the eval-mode forward")
+  return served
+
+
+def _learn_bcz(torch, np, train_step, optimizers, bcz_models, device) -> dict:
+  """tests/test_convergence.py::TestBCZLearns on the card: waypoints from
+  a rendered 3x3 target, spatial-softmax trunk, Adam 1e-3, 150 steps of
+  16; the loss must fall below 0.3 x the first."""
+  model = bcz_models.BCZModel(
+      image_size=24, num_waypoints=2, components=(("xyz", 2, 1.0),),
+      predict_stop=False, network="spatial_softmax",
+      optimizer_fn=lambda: optimizers.create_adam_optimizer(1e-3))
+  rng = np.random.RandomState(0)
+
+  def make_batch(n=16):
+    images = np.zeros((n, 24, 24, 3), np.float32)
+    targets = np.zeros((n, 2, 2), np.float32)
+    for i in range(n):
+      y, x = rng.randint(2, 22, 2)
+      images[i, y - 1:y + 2, x - 1:x + 2] = 1.0
+      targets[i] = np.array([x / 24.0, y / 24.0], np.float32)[None]
+    return ({"image": torch.from_numpy(images).to(device)},
+            {"xyz": torch.from_numpy(targets).to(device)})
+
+  state = train_step.create_train_state(model,
+                                        torch.Generator().manual_seed(0),
+                                        device)
+  step_fn = train_step.make_train_step(model)
+  first = None
+  for _ in range(BCZ_LEARN_STEPS):
+    state, metrics = step_fn(state, *make_batch())
+    first = first if first is not None else float(metrics["loss"])
+  last = float(metrics["loss"])
+  if not last < BCZ_LEARN_RATIO * first:
+    raise RuntimeError(f"BC-Z did not learn: loss {first} -> {last}")
+  return {"steps": BCZ_LEARN_STEPS, "loss_first": first, "loss_last": last,
+          "ratio": last / first}
+
+
+def _learn_grasp2vec(torch, np, train_step, optimizers, g2v_models,
+                     device) -> dict:
+  """tests/test_convergence.py::TestGrasp2VecLearns on the card: 8 fixed
+  scenes whose pregrasp holds the goal's solid patch, image 24, Adam
+  1e-3, 200 steps; retrieval accuracy must reach 0.9 and not fall."""
+  model = g2v_models.Grasp2VecModel(
+      image_size=24,
+      optimizer_fn=lambda: optimizers.create_adam_optimizer(1e-3))
+  rng = np.random.RandomState(0)
+  n = 8
+  pre = rng.randint(0, 60, (n, 24, 24, 3)).astype(np.uint8)
+  post = pre.copy()
+  goal = np.zeros((n, 24, 24, 3), np.uint8)
+  for i in range(n):
+    colour = rng.randint(100, 255, (3,)).astype(np.uint8)
+    y, x = rng.randint(0, 16, 2)
+    pre[i, y:y + 8, x:x + 8] = colour
+    goal[i, 4:12, 4:12] = colour
+  fixed = {k: torch.from_numpy(v).to(device) for k, v in
+           (("pregrasp_image", pre), ("postgrasp_image", post),
+            ("goal_image", goal))}
+  state = train_step.create_train_state(model,
+                                        torch.Generator().manual_seed(0),
+                                        device)
+  step_fn = train_step.make_train_step(model)
+  eval_fn = train_step.make_eval_step(model)
+  before = float(eval_fn(state, fixed, {})["retrieval_accuracy"])
+  for _ in range(GRASP2VEC_LEARN_STEPS):
+    state, metrics = step_fn(state, fixed, {})
+  after = float(eval_fn(state, fixed, {})["retrieval_accuracy"])
+  if not (after >= before and after >= GRASP2VEC_LEARN_BAR):
+    raise RuntimeError(f"Grasp2Vec did not learn: retrieval accuracy "
+                       f"{before} -> {after}")
+  return {"steps": GRASP2VEC_LEARN_STEPS, "retrieval_before": before,
+          "retrieval_after": after, "loss_last": float(metrics["loss"])}
+
+
+def _check_bcz_preprocessor(torch, np, bcz_models, device) -> dict:
+  """BCZPreprocessor at the config's sizes, card against CPU on the same
+  draws (train: random crop, resize, photometric chain; eval: center
+  crop, resize): 1e-6 absolute; the output stays on the card."""
+  model = bcz_models.BCZModel(**BCZ_WIDTHS)
+  rng = np.random.RandomState(3)
+  features = {"image": rng.randint(0, 256, (PREPROCESS_BATCH, 96, 96, 3))
+              .astype(np.uint8),
+              "condition_embedding": rng.randn(PREPROCESS_BATCH, 32)
+              .astype(np.float32)}
+  out = {}
+  for mode in ("train", "eval"):
+    images = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("cuda", device)):
+      pre = bcz_models.BCZPreprocessor(
+          model_feature_specification_fn=model.get_feature_specification,
+          model_label_specification_fn=model.get_label_specification)
+      got, _ = pre.preprocess(
+          {k: torch.from_numpy(v).to(dev) for k, v in features.items()},
+          None, mode)
+      if got["image"].device.type != dev.type:
+        raise RuntimeError(f"the preprocessor moved the image off {dev}")
+      images[name] = got["image"]
+    err = max_abs(images["cuda"].cpu(), images["cpu"])
+    if images["cuda"].shape != (PREPROCESS_BATCH, 64, 64, 3) or not (
+        err <= PREPROCESS_TOL):
+      raise RuntimeError(f"BCZPreprocessor {mode}: card vs CPU {err}, shape "
+                         f"{tuple(images['cuda'].shape)}")
+    out[mode] = {"max_abs_err": err}
+  return out
+
+
+def _bcz_bf16_outputs(torch, bcz_models, params, mutable, features,
+                      device) -> dict:
+  """The bf16 policy's eval-mode action outputs on the card and the CPU
+  against the CPU's f32 ones (relative 2-norm over every output)."""
+  cpu = torch.device("cpu")
+  f32 = bcz_models.BCZModel(**BCZ_WIDTHS)
+  bf16 = bcz_models.BCZModel(**BCZ_WIDTHS, use_bfloat16=True)
+  vectors = {}
+  for name, model, dev in (("f32", f32, cpu), ("cpu", bf16, cpu),
+                           ("cuda", bf16, device)):
+    with torch.no_grad():
+      outputs, _ = model.inference_network_fn(
+          _to(torch, params, dev, torch.float32),
+          _to(torch, mutable, dev, torch.float32),
+          model.cast_features_for_compute(
+              _to(torch, features, dev, torch.float32)), "eval")
+    vectors[name] = torch.cat([outputs[k].float().cpu().reshape(-1)
+                               for k in sorted(outputs)])
+  return {"cuda_vs_cpu_f32": _rel_norm_err(vectors["cuda"], vectors["f32"]),
+          "cpu_vs_cpu_f32": _rel_norm_err(vectors["cpu"], vectors["f32"]),
+          "cuda_vs_cpu": _rel_norm_err(vectors["cuda"], vectors["cpu"])}
+
+
+def run_bcz(torch, np, port, device, card: str, directory: str) -> dict:
+  """Phase 13a: BC-Z at train_bcz.gin's width (see the module
+  docstring)."""
+  (config, train_eval, checkpoints, train_step, input_generators,
+   optimizers, predictors, device_profile, bcz_models) = port
+  start = time.perf_counter()
+  torch.cuda.synchronize(device)  # the peak counters need a CUDA context
+  torch.cuda.reset_peak_memory_stats(device)
+  out = {"card": card}
+
+  # 1. One step of the full model, card against CPU, and the bf16 forward.
+  model = bcz_models.BCZModel(**BCZ_WIDTHS)
+  params = model.init_params(torch.Generator().manual_seed(0))
+  mutable = model.init_mutable_state()
+  features, labels = _generator_batch(input_generators, model,
+                                      BCZ_PARITY_BATCH, 0)
+  out["strict"] = check_family_step(torch, train_step, model, params, mutable,
+                                    features, labels, device, "BC-Z")
+  bf16 = _bcz_bf16_outputs(torch, bcz_models, params, mutable, features,
+                           device)
+  out["strict"]["bf16_eval_outputs"] = bf16
+  walls = {"strict": time.perf_counter() - start}
+  log(f"13a BC-Z step card vs CPU: {out['strict']}")
+  if not bf16["cuda_vs_cpu_f32"] <= max(
+      QTOPT_BF16_REL_NORM, QTOPT_BF16_FACTOR * bf16["cpu_vs_cpu_f32"]):
+    raise RuntimeError(f"BC-Z bf16 forward on the card disagrees: {bf16}")
+
+  # 2. The preprocessor, card against CPU.
+  out["preprocessor"] = _check_bcz_preprocessor(torch, np, bcz_models, device)
+  walls["preprocessor"] = time.perf_counter() - start - sum(walls.values())
+  log(f"13a BCZPreprocessor card vs CPU: {out['preprocessor']}")
+
+  # 3. train_bcz.gin as it stands, cut to FAMILY_STEPS.
+  model_dir = os.path.join(directory, "bcz")
+  config.parse_config_files_and_bindings([BCZ_CONFIG], [
+      f"train_eval_model.model_dir = '{model_dir}'",
+      f"train_eval_model.max_train_steps = {FAMILY_STEPS}",
+      f"train_eval_model.eval_every_n_steps = {FAMILY_EVERY}",
+      f"train_eval_model.checkpoint_every_n_steps = {FAMILY_EVERY}",
+      f"train_eval_model.eval_steps = {FAMILY_EVAL_STEPS}",
+      "train_eval_model.log_every_n_steps = 1"])
+  train_start = time.perf_counter()
+  try:
+    train_eval.train_eval_model(device=device)
+  finally:
+    config.clear_config()
+  torch.cuda.synchronize(device)
+  train_wall = time.perf_counter() - train_start
+  logged = [(step, loss) for step, loss, is_eval in _logged_records(model_dir)
+            if not is_eval]
+  _check_losses(logged, 1, FAMILY_STEPS)
+  evals = _eval_records(model_dir)
+  if [r["step"] for r in evals] != [FAMILY_EVERY, FAMILY_STEPS] or not all(
+      np.isfinite(v) for r in evals for k, v in r.items()
+      if k.startswith("eval/")):
+    raise RuntimeError(f"BC-Z evals {evals}")
+  _verified(checkpoints, model_dir, [FAMILY_EVERY, FAMILY_STEPS])
+
+  # 4. Served from step 20 at batch 1.
+  served_model = bcz_models.BCZModel(**BCZ_WIDTHS, use_bfloat16=True)
+  predictor = predictors.CheckpointPredictor(model=served_model,
+                                             model_dir=model_dir)
+  if not predictor.restore() or predictor.global_step != FAMILY_STEPS:
+    raise RuntimeError(f"the BC-Z predictor restored step "
+                       f"{predictor.global_step}")
+  moved = _moved_statistics(torch, predictor.state.mutable_state,
+                            served_model.init_mutable_state())
+  if not moved > 0.0:
+    raise RuntimeError("BC-Z's batch statistics did not move in training")
+  rng = np.random.RandomState(4)
+  request = {"image": rng.randint(0, 256, (1, 96, 96, 3)).astype(np.uint8),
+             "condition_embedding": rng.randn(1, 32).astype(np.float32)}
+  served = _served_equals_forward(torch, np, predictor, request, device)
+  trajectory = bcz_models.xyz_action_trajectory(served)
+  if tuple(trajectory.shape) != (1, 10, 6) or not torch.isfinite(
+      trajectory).all():
+    raise RuntimeError(f"BC-Z trajectory {tuple(trajectory.shape)}")
+  action_ms = _timed_predicts(np, predictor, request)
+  out["train"] = {
+      "steps": FAMILY_STEPS, "batch": 16, "loss_step_1": logged[0][1],
+      "loss_last": logged[-1][1], "train_wall_s": train_wall,
+      "evals": {r["step"]: {k: v for k, v in r.items()
+                            if k.startswith("eval/")} for r in evals},
+      "batch_stats_moved": moved}
+  out["serve"] = {"predict_equals_forward": True,
+                  "trajectory_shape": list(trajectory.shape),
+                  "action_ms": action_ms}
+  walls["train_and_serve"] = time.perf_counter() - start - sum(walls.values())
+
+  # 5. The JAX package's BC-Z learning task.
+  out["learn"] = _learn_bcz(torch, np, train_step, optimizers, bcz_models,
+                            device)
+  walls["learn"] = time.perf_counter() - start - sum(walls.values())
+  log(f"13a BC-Z learns: {out['learn']}")
+
+  # Timed: the config's bf16 step at batch 16.
+  step_model = bcz_models.BCZModel(**BCZ_WIDTHS, use_bfloat16=True)
+  step_features, step_labels = _generator_batch(input_generators, step_model,
+                                                16, 1)
+  step, out["step_profile"] = _family_step_ms(
+      torch, np, train_step, device_profile, step_model, step_features,
+      step_labels, device)
+  out["step_ms"] = step
+  out["examples_per_s"] = 16 / (step["p50"] / 1e3)
+  out["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+  out["phase_wall_s"] = time.perf_counter() - start
+  walls["timed"] = out["phase_wall_s"] - sum(walls.values())
+  out["walls_s"] = walls
+  log(f"13a BC-Z: step {step}, action {action_ms}")
+  return out
+
+
+def _shapes_examples(np, mode: str):
+  """Shapes-style Grasp2Vec examples with a keypoint quadrant label: a
+  solid patch in one quadrant of the pregrasp scene, gone from the
+  postgrasp one, alone on the goal image."""
+  del mode
+  rng = np.random.RandomState(5)
+  while True:
+    pre = rng.randint(0, 60, (48, 48, 3)).astype(np.uint8)
+    post = pre.copy()
+    goal = np.zeros((48, 48, 3), np.uint8)
+    quadrant = int(rng.randint(4))
+    y = 4 + 24 * (quadrant // 2) + int(rng.randint(8))
+    x = 4 + 24 * (quadrant % 2) + int(rng.randint(8))
+    colour = rng.randint(100, 255, (3,)).astype(np.uint8)
+    pre[y:y + 8, x:x + 8] = colour
+    goal[20:28, 20:28] = colour
+    yield ({"pregrasp_image": pre, "postgrasp_image": post,
+            "goal_image": goal},
+           {"keypoint_quadrant": np.int64(quadrant),
+            "grasp_success": np.ones((1,), np.float32)})
+
+
+def run_grasp2vec(torch, np, port, device, card: str, directory: str) -> dict:
+  """Phase 13b: Grasp2Vec at train_grasp2vec.gin's width (see the module
+  docstring)."""
+  (config, train_eval, checkpoints, train_step, input_generators,
+   optimizers, predictors, device_profile, g2v_models, visualization) = port
+  start = time.perf_counter()
+  torch.cuda.synchronize(device)  # the peak counters need a CUDA context
+  torch.cuda.reset_peak_memory_stats(device)
+  out = {"card": card}
+
+  # 1. One step per objective (and with the TY loss, and the resnet
+  # tower), card against CPU.
+  strict = {}
+  cases = [(loss_type, {"loss_type": loss_type})
+           for loss_type in g2v_models.Grasp2VecModel.LOSS_TYPES]
+  cases += [("npairs+ty", {"loss_type": "npairs", "ty_loss_weight": 0.5}),
+            ("resnet", {"loss_type": "npairs", "tower": "resnet"})]
+  for name, kwargs in cases:
+    model = g2v_models.Grasp2VecModel(**{**GRASP2VEC_WIDTHS, **kwargs})
+    features, labels = _generator_batch(input_generators, model,
+                                        GRASP2VEC_PARITY_BATCH, 0)
+    labels["grasp_success"] = torch.tensor([[1.0], [0.0], [1.0], [1.0]])
+    strict[name] = check_family_step(
+        torch, train_step, model, model.init_params(
+            torch.Generator().manual_seed(0)), model.init_mutable_state(),
+        features, labels, device, f"Grasp2Vec {name}")
+  out["strict"] = strict
+  walls = {"strict": time.perf_counter() - start}
+  log(f"13b Grasp2Vec steps card vs CPU: {strict}")
+
+  # 2. train_grasp2vec.gin as it stands, cut to FAMILY_STEPS, then its
+  # checkpoint evaluated on keypoint-labelled scenes.
+  model_dir = os.path.join(directory, "grasp2vec")
+  config.parse_config_files_and_bindings([GRASP2VEC_CONFIG], [
+      f"train_eval_model.model_dir = '{model_dir}'",
+      f"train_eval_model.max_train_steps = {FAMILY_STEPS}",
+      f"train_eval_model.checkpoint_every_n_steps = {FAMILY_EVERY}",
+      "train_eval_model.log_every_n_steps = 1"])
+  train_start = time.perf_counter()
+  try:
+    train_eval.train_eval_model(device=device)
+  finally:
+    config.clear_config()
+  torch.cuda.synchronize(device)
+  train_wall = time.perf_counter() - train_start
+  logged = _logged_losses(model_dir)
+  _check_losses(logged, 1, FAMILY_STEPS)
+  _verified(checkpoints, model_dir, [FAMILY_EVERY, FAMILY_STEPS])
+  evals = train_eval.train_eval_model(
+      model=g2v_models.Grasp2VecModel(**GRASP2VEC_WIDTHS),
+      model_dir=model_dir, mode="evaluate", eval_steps=FAMILY_EVAL_STEPS,
+      input_generator_eval=input_generators.GeneratorInputGenerator(
+          generator_fn=lambda mode: _shapes_examples(np, mode),
+          batch_size=16), device=device)
+  wanted = ("retrieval_accuracy", "keypoint_accuracy", "keypoint_ce")
+  found = {k: v for k, v in evals.items()
+           if any(k.endswith(w) for w in wanted)}
+  if len(found) != len(wanted) or not all(np.isfinite(v)
+                                          for v in evals.values()):
+    raise RuntimeError(f"Grasp2Vec eval {evals}")
+  out["train"] = {"steps": FAMILY_STEPS, "batch": 16,
+                  "loss_step_1": logged[0][1], "loss_last": logged[-1][1],
+                  "train_wall_s": train_wall, "eval": evals}
+  walls["train_and_eval"] = time.perf_counter() - start - sum(walls.values())
+
+  # 3. The JAX package's Grasp2Vec learning task.
+  out["learn"] = _learn_grasp2vec(torch, np, train_step, optimizers,
+                                  g2v_models, device)
+  walls["learn"] = time.perf_counter() - start - sum(walls.values())
+  log(f"13b Grasp2Vec learns: {out['learn']}")
+
+  # 4. Served: heatmaps of step 20 through save_heatmap_summaries.
+  predictor = predictors.CheckpointPredictor(
+      model=g2v_models.Grasp2VecModel(**GRASP2VEC_WIDTHS),
+      model_dir=model_dir)
+  if not predictor.restore() or predictor.global_step != FAMILY_STEPS:
+    raise RuntimeError(f"the Grasp2Vec predictor restored step "
+                       f"{predictor.global_step}")
+  examples = _shapes_examples(np, "predict")
+  scenes = [next(examples)[0] for _ in range(4)]
+  request = {k: np.stack([s[k] for s in scenes]) for k in scenes[0]}
+  served = _served_equals_forward(torch, np, predictor, request, device)
+  from PIL import Image
+
+  paths = visualization.save_heatmap_summaries(
+      os.path.join(directory, "heatmaps"), FAMILY_STEPS,
+      request["pregrasp_image"], served["heatmap"])
+  shapes = [np.asarray(Image.open(p)).shape for p in paths]
+  if len(paths) != 4 or any(s != (48, 48, 3) for s in shapes):
+    raise RuntimeError(f"heatmap PNGs {paths} decode to {shapes}")
+  one = {k: v[:1] for k, v in request.items()}
+  action_ms = _timed_predicts(np, predictor, one)
+  out["serve"] = {"predict_equals_forward": True,
+                  "heatmap_shape": list(served["heatmap"].shape),
+                  "pngs": len(paths), "action_ms": action_ms}
+  walls["serve"] = time.perf_counter() - start - sum(walls.values())
+
+  # Timed: the config's step (float32) and the same under bf16, batch 16.
+  for key, bf16 in (("step", False), ("step_bf16", True)):
+    step_model = g2v_models.Grasp2VecModel(**GRASP2VEC_WIDTHS,
+                                           use_bfloat16=bf16)
+    step_features, step_labels = _generator_batch(input_generators,
+                                                  step_model, 16, 1)
+    out[f"{key}_ms"], out[f"{key}_profile"] = _family_step_ms(
+        torch, np, train_step, device_profile, step_model, step_features,
+        step_labels, device)
+  out["examples_per_s"] = 16 / (out["step_ms"]["p50"] / 1e3)
+  out["examples_per_s_bf16"] = 16 / (out["step_bf16_ms"]["p50"] / 1e3)
+  out["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+  out["phase_wall_s"] = time.perf_counter() - start
+  walls["timed"] = out["phase_wall_s"] - sum(walls.values())
+  out["walls_s"] = walls
+  log(f"13b Grasp2Vec: step {out['step_ms']}, bf16 {out['step_bf16_ms']}, "
+      f"action {action_ms}")
+  return out
+
+
+def _family_line(report: dict) -> dict:
+  """Phase 13's printed line: the step, throughput, action latency, peak
+  memory, custom launches and wall (the checks are in the report)."""
+  keys = ("card", "step_ms", "step_bf16_ms", "examples_per_s",
+          "examples_per_s_bf16", "peak_memory_gib", "custom_kernel_launches",
+          "phase_wall_s", "walls_s", "learn")
+  line = {k: report[k] for k in keys if k in report}
+  for key in ("step_profile", "step_bf16_profile"):
+    if key in report:
+      line[key] = {k: v for k, v in report[key].items() if k != "top_device"}
+  line["action_ms"] = report["serve"]["action_ms"]
+  return line
+
+
 def main() -> int:
   import torch
 
@@ -3951,6 +4529,9 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   from tensor2robot_tpu_torch.meta_learning import maml
   from tensor2robot_tpu_torch.meta_learning import meta_policies
   from tensor2robot_tpu_torch.research.pose_env import models as pose_models
+  from tensor2robot_tpu_torch.research.bcz import models as bcz_models
+  from tensor2robot_tpu_torch.research.grasp2vec import models as g2v_models
+  from tensor2robot_tpu_torch.research.grasp2vec import visualization
   from tensor2robot_tpu_torch.data import input_generators
   from tensor2robot_tpu_torch.hooks import core as hooks_core
   from tensor2robot_tpu_torch.models import optimizers
@@ -4154,6 +4735,35 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   finally:
     shutil.rmtree(pose_dir, ignore_errors=True)
   torch.cuda.empty_cache()
+
+  # Phase 13: Grasp2Vec and BC-Z trained and served (no custom kernel on
+  # their path).
+  family_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  try:
+    launches_before = custom_launches()
+    bcz_report = run_bcz(torch, np, (
+        config, train_eval, checkpoints, train_step, input_generators,
+        optimizers, predictors, device_profile, bcz_models), device, card,
+        family_dir)
+    bcz_report["custom_kernel_launches"] = [
+        now - before for now, before in zip(custom_launches(),
+                                            launches_before)]
+    torch.cuda.empty_cache()
+    launches_before = custom_launches()
+    grasp2vec_report = run_grasp2vec(torch, np, (
+        config, train_eval, checkpoints, train_step, input_generators,
+        optimizers, predictors, device_profile, g2v_models, visualization),
+        device, card, family_dir)
+    grasp2vec_report["custom_kernel_launches"] = [
+        now - before for now, before in zip(custom_launches(),
+                                            launches_before)]
+  finally:
+    shutil.rmtree(family_dir, ignore_errors=True)
+  torch.cuda.empty_cache()
+  for name, report in (("bcz", bcz_report), ("grasp2vec", grasp2vec_report)):
+    if any(report["custom_kernel_launches"]):
+      raise RuntimeError(f"phase 13 ({name}) launched a custom kernel: "
+                         f"{report['custom_kernel_launches']}")
   fwd_src = "tensor2robot_tpu_torch/csrc/flash_fwd.cu"
   bwd_src = "tensor2robot_tpu_torch/csrc/flash_bwd.cu"
   kernels = [
@@ -4225,7 +4835,8 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
             "train": train_report, "qtopt": qtopt_report,
             "serve_qtopt": serve_report, "records": records_report,
             "deploy": deploy_report, "surface": surface_report,
-            "lstm": lstm_report, "pose": pose_report, "meta": meta_report}
+            "lstm": lstm_report, "pose": pose_report, "meta": meta_report,
+            "bcz": bcz_report, "grasp2vec": grasp2vec_report}
   os.makedirs(os.path.dirname(REPORT), exist_ok=True)
   with open(REPORT, "w") as f:
     json.dump(report, f, indent=1)
@@ -4239,6 +4850,8 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   print(json.dumps({"lstm": lstm_report}))
   print(json.dumps({"pose": pose_report}))
   print(json.dumps({"meta": meta_report}))
+  print(json.dumps({"bcz": _family_line(bcz_report)}))
+  print(json.dumps({"grasp2vec": _family_line(grasp2vec_report)}))
   print(json.dumps({"kernels": kernels}))
   print(card_line(), flush=True)
   print(json.dumps({"ok": True, "device": {

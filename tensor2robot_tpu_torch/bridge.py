@@ -12,6 +12,14 @@
   BatchNorm with `use_scale=False` has a bias only). The port's
   LayerNorms use flax's eps, 1e-6, not torch's 1e-5.
 
+* 1-D Conv (snail's causal convs, TEC's temporal convs): `kernel [k,
+  in, out]` -> `weight [out, in, k]`;
+* `nn.Embed`: `embedding [num, features]` -> `weight` as is;
+* `nn.GRUCell`: the input denses `ir`, `iz`, `in` (kernels [in, H] and
+  biases) -> `weight_ih` [3H, in] and `bias_ih` [3H], the transposed
+  kernels and the biases stacked in the gate order r, z, n; the recurrent
+  denses `hr`, `hz`, `hn` ([H, H], only `hn` with a bias) -> `weight_hh`
+  [3H, H] and `bias_hn` [H] (`layers.bcz_networks.GRUCell`);
 * `nn.OptimizedLSTMCell`: the input kernels `ii`, `if`, `ig`, `io`
   ([in, H], no bias) and the hidden kernels `hi`, `hf`, `hg`, `ho` ([H,
   H], with biases) -> `weight_ih` [4H, in] and `weight_hh` [4H, H], the
@@ -61,12 +69,13 @@ import torch
 
 from tensor2robot_tpu_torch.parallel import train_step as ts
 
-__all__ = ["LSTM_GATES", "state_dict_from_flax", "mutable_state_from_flax",
+__all__ = ["LSTM_GATES", "GRU_GATES", "state_dict_from_flax", "mutable_state_from_flax",
            "bridge_train_state", "optimizer_state_from_optax",
            "train_state_from_jax", "export_variables_from_jax"]
 
 
 LSTM_GATES = ("i", "f", "g", "o")
+GRU_GATES = ("r", "z", "n")
 # Array parameters a module owns directly, carried as they are.
 RAW_LEAVES = ("bias_transform", "log_temperature")
 # flax leaf name -> the port's, for a MAML inner-rate mirror tree.
@@ -93,6 +102,26 @@ def _is_lstm_cell(tree: Mapping[str, Any]) -> bool:
   return set(tree) == {p + g for p in "ih" for g in LSTM_GATES}
 
 
+def _gru_cell(tree: Mapping[str, Any], name: str
+              ) -> Dict[str, torch.Tensor]:
+  """A GRUCell's six Dense params as the port's cell."""
+
+  def stacked(prefix: str, leaf: str, transpose: bool):
+    parts = [np.asarray(tree[prefix + gate][leaf], np.float32)
+             for gate in GRU_GATES]
+    return torch.from_numpy(np.concatenate(
+        [p.T if transpose else p for p in parts], axis=0).copy())
+
+  return {f"{name}.weight_ih": stacked("i", "kernel", True),
+          f"{name}.bias_ih": stacked("i", "bias", False),
+          f"{name}.weight_hh": stacked("h", "kernel", True),
+          f"{name}.bias_hn": _tensor(tree["hn"]["bias"])}
+
+
+def _is_gru_cell(tree: Mapping[str, Any]) -> bool:
+  return set(tree) == {p + g for p in "ih" for g in GRU_GATES}
+
+
 def _tensor(value: Any) -> torch.Tensor:
   return torch.from_numpy(np.array(value, np.float32))
 
@@ -100,9 +129,9 @@ def _tensor(value: Any) -> torch.Tensor:
 def _inner_rates(tree: Mapping[str, Any], path: Tuple[str, ...],
                  out: Dict[str, torch.Tensor]) -> None:
   """A MAML mirror tree of scalar inner rates under the port's names."""
-  if _is_lstm_cell(tree):
+  if _is_lstm_cell(tree) or _is_gru_cell(tree):
     raise ValueError(f"{'.'.join(path)}: no bridge for learned inner rates "
-                     "of an LSTM cell (the port stacks its gates)")
+                     "of a recurrent cell (the port stacks its gates)")
   for key, value in tree.items():
     if isinstance(value, Mapping):
       _inner_rates(value, path + (key,), out)
@@ -126,6 +155,9 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if _is_lstm_cell(tree):
       out.update(_lstm_cell(tree, ".".join(path)))
       return
+    if _is_gru_cell(tree):
+      out.update(_gru_cell(tree, ".".join(path)))
+      return
     leaves = {k: v for k, v in tree.items() if not isinstance(v, Mapping)}
     for key, value in tree.items():
       if isinstance(value, Mapping):
@@ -140,13 +172,17 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
       kernel = np.asarray(leaves["kernel"], np.float32)
       if kernel.ndim == 2:  # Dense [in, out] -> [out, in]
         weight = kernel.T
+      elif kernel.ndim == 3:  # 1-D Conv [k, in, out] -> [out, in, k]
+        weight = kernel.transpose(2, 1, 0)
       elif kernel.ndim == 4:  # Conv HWIO -> OIHW
         weight = kernel.transpose(3, 2, 0, 1)
       else:
         raise ValueError(f"{name}: only Dense kernels [in, out] and Conv "
-                         f"kernels [kh, kw, in, out] are bridged, got shape "
-                         f"{kernel.shape}")
+                         f"kernels [k, in, out] or [kh, kw, in, out] are "
+                         f"bridged, got shape {kernel.shape}")
       out[f"{name}.weight"] = torch.from_numpy(weight.copy())
+    elif set(leaves) == {"embedding"}:  # nn.Embed [num, features]
+      out[f"{name}.weight"] = _tensor(leaves.pop("embedding"))
     elif set(leaves) in ({"scale", "bias"}, {"bias"}):
       if "scale" in leaves:
         out[f"{name}.weight"] = torch.from_numpy(

@@ -8,6 +8,10 @@ from torch's stock ones:
   before and the rest after, so an odd total pads more at the bottom and
   right. Torch's `padding='same'` refuses strides above 1, and a symmetric
   padding is wrong on an odd total. max_pool pads with -inf.
+* `nn.Dense(dtype=...)` computes in its `dtype` when one is given and
+  else in the promoted dtype of its input and parameters (`dense`): a
+  float32 input (a one-hot, a noise draw) lifts a bfloat16 layer to
+  float32, where torch's `F.linear` refuses mixed dtypes.
 * `nn.BatchNorm`: `momentum` is the decay of the running averages
   (`ra = momentum * ra + (1 - momentum) * batch`); the running variance
   takes the *biased* batch variance, flax's fast E[x^2] - E[x]^2 clamped
@@ -31,8 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["same_padding", "conv2d", "max_pool", "moments", "normalize",
-           "layer_norm", "BatchNorm"]
+__all__ = ["same_padding", "conv2d", "max_pool", "dense", "moments",
+           "normalize", "layer_norm", "BatchNorm"]
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -70,6 +74,16 @@ def max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
   if any(pads):
     x = F.pad(x, pads, value=float("-inf"))
   return F.max_pool2d(x, window, stride)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor] = None,
+          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+  """flax `nn.Dense(dtype=dtype)` with torch's [out, in] weight."""
+  if dtype is None:
+    dtype = torch.promote_types(x.dtype, weight.dtype)
+  return F.linear(x.to(dtype), weight.to(dtype),
+                  None if bias is None else bias.to(dtype))
 
 
 def _feature_shape(x: torch.Tensor, dim: int) -> Tuple[int, ...]:

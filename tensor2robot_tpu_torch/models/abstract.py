@@ -220,7 +220,7 @@ class T2RModel(abc.ABC):
       if hasattr(module, "initial_params"):  # a layer with its own init
         params.update({prefix + k: v for k, v in
                        module.initial_params(generator).items()})
-      elif isinstance(module, (nn.Linear, nn.Conv2d)):
+      elif isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
         weight = torch.empty_like(module.weight, device="cpu")
         getattr(module, "kernel_init", lecun_normal_)(weight, generator)
         params[prefix + "weight"] = weight

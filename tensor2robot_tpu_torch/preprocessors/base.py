@@ -20,7 +20,7 @@ from tensor2robot_tpu_torch import specs as specs_lib
 from tensor2robot_tpu_torch.utils import config
 
 __all__ = ["AbstractPreprocessor", "NoOpPreprocessor",
-           "Bfloat16DevicePolicy"]
+           "SpecTransformationPreprocessor", "Bfloat16DevicePolicy"]
 
 SpecGetter = Callable[[str], specs_lib.SpecStruct]
 
@@ -118,6 +118,37 @@ class NoOpPreprocessor(AbstractPreprocessor):
 
   def _preprocess_fn(self, features, labels, mode):
     return features, labels
+
+
+class SpecTransformationPreprocessor(AbstractPreprocessor):
+  """Base for preprocessors whose out-specs equal the model specs and whose
+  in-specs are rewrites of them, leaf by leaf.
+
+  Subclasses override `update_in_spec(spec, key)` to rewrite single leaves
+  (a float32 model image becomes a larger uint8 image on the wire) and
+  `_preprocess_fn` to do the matching tensor transformation.
+  """
+
+  def get_out_feature_specification(self, mode):
+    return self.model_feature_specification(mode)
+
+  def get_out_label_specification(self, mode):
+    return self.model_label_specification(mode)
+
+  def get_in_feature_specification(self, mode):
+    return specs_lib.SpecStruct(
+        {key: self.update_in_spec(spec, key) for key, spec in
+         self.model_feature_specification(mode).items()})
+
+  def get_in_label_specification(self, mode):
+    return specs_lib.SpecStruct(
+        {key: self.update_in_spec(spec, key) for key, spec in
+         self.model_label_specification(mode).items()})
+
+  def update_in_spec(self, spec: specs_lib.TensorSpec,
+                     key: str) -> specs_lib.TensorSpec:
+    del key  # every leaf kept as it is
+    return spec
 
 
 @config.configurable

@@ -523,3 +523,65 @@ def test_run_collect_eval_runs_on_cuda_unless_told_cpu(no_cuda, tmp_path):
     assert stats == {}
   finally:
     config.clear_config()
+
+
+# Grasp2Vec and BC-Z: every module the scans above must cover.
+SLICE_13_MODULES = (
+    "tensor2robot_tpu_torch.preprocessors.image_ops",
+    "tensor2robot_tpu_torch.preprocessors.base",
+    "tensor2robot_tpu_torch.layers.film_resnet",
+    "tensor2robot_tpu_torch.layers.snail",
+    "tensor2robot_tpu_torch.layers.bcz_networks",
+    "tensor2robot_tpu_torch.layers.tec",
+    "tensor2robot_tpu_torch.research.grasp2vec.losses",
+    "tensor2robot_tpu_torch.research.grasp2vec.models",
+    "tensor2robot_tpu_torch.research.grasp2vec.visualization",
+    "tensor2robot_tpu_torch.research.bcz.models",
+)
+
+
+def test_the_scans_cover_the_grasp2vec_and_bcz_modules():
+  assert set(SLICE_13_MODULES) <= set(_port_modules())
+
+
+@pytest.mark.parametrize("name,widths", [
+    ("train_bcz", {"BCZModel.image_size": 64, "BCZModel.num_waypoints": 10,
+                   "BCZModel.network": "resnet_film",
+                   "BCZModel.condition_size": 32,
+                   "BCZModel.use_bfloat16": True,
+                   "BCZPreprocessor.input_size": (96, 96),
+                   "BCZPreprocessor.crop_size": (80, 80),
+                   "BCZPreprocessor.model_size": (64, 64),
+                   "DefaultRandomInputGenerator.batch_size": 16,
+                   "train_eval_model.mode": "train_and_evaluate"}),
+    ("train_grasp2vec", {"Grasp2VecModel.image_size": 48,
+                         "Grasp2VecModel.loss_type": "npairs",
+                         "DefaultRandomInputGenerator.batch_size": 16,
+                         "train_eval_model.mode": "train"})])
+def test_bcz_and_grasp2vec_configs_bind_only_port_configurables(name, widths):
+  text = (PORT / "configs" / f"{name}.gin").read_text()
+  assert "device_type" not in text.split("\n\n", 1)[1]
+  try:
+    config.parse_config_file(str(PORT / "configs" / f"{name}.gin"))
+    registry = config._REGISTRY
+    assert registry.imports and all(
+        m.startswith("tensor2robot_tpu_torch.") for m in registry.imports)
+    for _, binding, _ in registry.bindings:
+      module = getattr(config.get_configurable(binding), "__module__", "")
+      assert module.startswith("tensor2robot_tpu_torch."), (binding, module)
+    for key, value in widths.items():
+      assert config.query_parameter(key) == value, key
+    model = config.query_parameter("train_eval_model.model")
+    assert type(model).__module__.startswith("tensor2robot_tpu_torch.")
+  finally:
+    config.clear_config()
+
+
+def test_bcz_and_grasp2vec_pipelined_variants_name_item_14():
+  from tensor2robot_tpu_torch.research.bcz import models as bcz_models
+  from tensor2robot_tpu_torch.research.grasp2vec import models as g2v_models
+
+  with pytest.raises(NotImplementedError, match="Queue A item 14"):
+    g2v_models.Grasp2VecModel(tower="pipelined_conv")
+  with pytest.raises(NotImplementedError, match="Queue A item 14"):
+    bcz_models.BCZModel(network="pipelined_berkeley")
