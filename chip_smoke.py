@@ -258,6 +258,40 @@ and prints no result):
    under bf16) and examples/s, `torch.profiler`'s device busy and idle
    share over 5 more steps, the action p50 and p99 of 20, peak device
    memory, `custom_kernel_launches`, the phase wall and its parts.
+14. VRGripper (f32, TF32 off; no custom kernel on its path, and phase 14
+   must launch none). Each config runs as it stands through
+   `train_eval_model`, cut to 20 steps with checkpoints at 10 and 20
+   (finite losses at every step, verified checkpoints).
+   a. Episode BC, `configs/train_vrgripper_mdn.gin` (episodes of 8 at
+      48x48, 5 mixtures, batch 8): one step card against the port's CPU
+      path in float64 and f32 under phase 6a's limits;
+      `CheckpointPredictor` serves step 20 at batch 1 bit-identical to
+      the eval-mode forward, the action [1, 8, 7], 20 actions timed; the
+      JAX `TestVRGripperLearns` task (200 steps, the last MSE below 0.5x
+      the first).
+   b. The domain-adaptive model under MAML,
+      `configs/train_vrgripper_da_maml.gin` (episodes of 8 at 48x48, 2 +
+      2 samples, 1 inner step at 0.01, batch 2): the meta-step card
+      against the CPU, float64 and f32, second and first order (loss,
+      inner losses, every gradient under phase 6a's limits; the learned
+      loss's gradients nonzero second order, zero first order); the
+      inner forward ignores the pose exactly and the outer does not; the
+      JAX `test_maml_da_learns_and_adapts_learned_loss` task (60 steps,
+      the last loss below 0.7x the first, `ll_conv_0` moved).
+   c. Watch-Try-Learn: `configs/train_wtl_retrial.gin` (obs 32, episodes
+      of 40, 'temporal', batch 4), its step-20 checkpoint behind
+      `WTLPolicy` for 20 timed actions; `configs/train_wtl_maml.gin`
+      (MAML over the TEC base, batch 4), then 3 meta-steps fed a
+      `task_id` (the triplet term runs); the JAX
+      `test_retrial_beats_trial_only` task (250 steps each; held-out
+      retrial loss below 0.05 and a third of the trial-only model's);
+      `run_wtl_env` with `WTLPolicy`s over `CheckpointPredictor`s of
+      trial and retrial models on the JAX test's goal environment (the
+      oracle demo's reward at least 1.0, every stat finite).
+   The `vrgripper` line: per config the step (median of 20 after 3) and
+   examples/s, the device idle share over 5 more steps, peak memory, the
+   batch-1 action p50 and p99 (14a's predictor, 14c's `WTLPolicy`), the
+   walls, the learning tasks and `custom_kernel_launches`.
 
 Output: a `train` JSON line, a `slice` JSON line, a `qtopt` JSON line
 (the critic's checks, its step ms and grasps/s under each policy with
@@ -269,6 +303,7 @@ line (phase 9), a `surface` line (phase 10's checks and its timings), an
 p50 and p99), `pose` and `meta` lines (phase 12's checks, step and action
 times, rewards and MAEs, with the card and its power limit), `bcz` and
 `grasp2vec` lines (phase 13's steps, actions, memory and walls), a
+`vrgripper` line (phase 14's), a
 `kernels`
 JSON line
 (one row per kernel, with its `design`: "wgmma+tma" for the bf16
@@ -4480,6 +4515,594 @@ def run_grasp2vec(torch, np, port, device, card: str, directory: str) -> dict:
   return out
 
 
+VRGRIPPER_MDN_CONFIG = "tensor2robot_tpu_torch/configs/train_vrgripper_mdn.gin"
+VRGRIPPER_DA_CONFIG = (
+    "tensor2robot_tpu_torch/configs/train_vrgripper_da_maml.gin")
+WTL_MAML_CONFIG = "tensor2robot_tpu_torch/configs/train_wtl_maml.gin"
+WTL_RETRIAL_CONFIG = "tensor2robot_tpu_torch/configs/train_wtl_retrial.gin"
+# The configs' own widths, for models built outside a parsed config.
+MDN_WIDTHS = dict(episode_length=8, image_size=48, num_mixture_components=5)
+MDN_BATCH = 8
+DA_WIDTHS = dict(episode_length=8, image_size=48)
+DA_MAML = dict(num_inner_loop_steps=1, inner_learning_rate=0.01,
+               num_condition_samples_per_task=2,
+               num_inference_samples_per_task=2)
+DA_BATCH = 2
+WTL_MAML = dict(num_inner_loop_steps=1, inner_learning_rate=0.1,
+                num_condition_samples_per_task=2,
+                num_inference_samples_per_task=2)
+WTL_MAML_BATCH = 4
+RETRIAL_WIDTHS = dict(retrial=True, obs_size=32, action_size=7,
+                      episode_length=40, embed_type="temporal")
+RETRIAL_BATCH = 4
+VR_STEPS = 20                # train steps of each config, cut in length
+VR_EVERY = 10                # checkpoints
+MDN_LEARN_STEPS = 200        # tests/test_convergence.py::TestVRGripperLearns
+MDN_LEARN_RATIO = 0.5
+DA_LEARN_STEPS = 60          # tests/test_wtl_da.py::TestDomainAdaptive
+DA_LEARN_RATIO = 0.7
+RETRIAL_LEARN_STEPS = 250    # tests/test_wtl_da.py::TestWTLRetrial
+RETRIAL_LEARN_BAR = 0.05
+WTL_TASKS = 2                # run_wtl_env tasks on the goal environment
+WTL_TASK_ID_STEPS = 3        # WTL-MAML steps fed a task_id
+
+
+def _meta_step_run(torch, train_step, model, params, features, labels,
+                   dtype, device):
+  """(loss, inner losses, grads) of one meta-step in `dtype` on
+  `device`, read back as float64 on the CPU."""
+  params = _to(torch, params, device, dtype)
+  features = _to(torch, features, device, dtype)
+  labels = _to(torch, labels, device, dtype)
+  with torch.no_grad():
+    outputs, _ = model.inference_network_fn(params, {}, features, "train",
+                                            train=True)
+  loss, _, grads, _ = train_step.loss_and_grads(model, params, features,
+                                                labels)
+  return (float(loss), outputs["inner_losses"].double().cpu(),
+          {k: v.double().cpu() for k, v in grads.items()})
+
+
+def _meta_errors(got, want) -> dict:
+  rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+  inner = want[1]
+  return {"loss": rel(got[0], want[0]),
+          "inner_losses": float((got[1] - inner).abs().max()
+                                / inner.abs().max()),
+          "grads": max(_grads_close(got[2], want[2]).values())}
+
+
+def check_meta_step(torch, train_step, model, params, features, labels,
+                    device, what: str) -> dict:
+  """One meta-step card against the port's CPU path, TF32 off, under
+  phase 6a's limits: float64 on both (loss and inner losses 1e-5
+  relative, every gradient 1e-4 x max(1, max|g|)); each device's float32
+  step against the CPU's float64 one, the card within 10x the CPU's
+  distance (or the float64 limit where that is larger)."""
+  if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+    raise RuntimeError("the strict meta-step check needs TF32 off")
+  cpu = torch.device("cpu")
+  runs = {(name, dtype): _meta_step_run(torch, train_step, model, params,
+                                        features, labels, dtype, dev)
+          for dtype in (torch.float64, torch.float32)
+          for name, dev in (("cpu", cpu), ("cuda", device))}
+  f64 = _meta_errors(runs["cuda", torch.float64], runs["cpu", torch.float64])
+  f32_cuda = _meta_errors(runs["cuda", torch.float32],
+                          runs["cpu", torch.float64])
+  f32_cpu = _meta_errors(runs["cpu", torch.float32],
+                         runs["cpu", torch.float64])
+  limits = {"loss": LOSS_RTOL, "inner_losses": LOSS_RTOL, "grads": GRAD_TOL}
+  bad = {k: v for k, v in f64.items() if not v <= limits[k]}
+  bad.update({f"f32 {k}": (v, f32_cpu[k]) for k, v in f32_cuda.items()
+              if not v <= max(QTOPT_F32_FACTOR * f32_cpu[k], limits[k])})
+  if bad:
+    raise RuntimeError(f"{what}: the meta-step on the card disagrees with "
+                       f"the CPU: {bad}")
+  grads = runs["cpu", torch.float64][2]
+  return {"loss": runs["cpu", torch.float64][0],
+          "f64_cuda_vs_cpu": f64, "f32_cuda_vs_cpu_f64": f32_cuda,
+          "f32_cpu_vs_cpu_f64": f32_cpu}, grads
+
+
+def _train_config(config, train_eval, checkpoints, path: str, model_dir: str,
+                  device) -> dict:
+  """A VRGripper config as it stands, cut to VR_STEPS with checkpoints
+  every VR_EVERY: finite losses at every step, verified checkpoints."""
+  config.parse_config_files_and_bindings([path], [
+      f"train_eval_model.model_dir = '{model_dir}'",
+      f"train_eval_model.max_train_steps = {VR_STEPS}",
+      f"train_eval_model.checkpoint_every_n_steps = {VR_EVERY}",
+      "train_eval_model.log_every_n_steps = 1"])
+  start = time.perf_counter()
+  try:
+    train_eval.train_eval_model(device=device)
+  finally:
+    config.clear_config()
+  train_wall = time.perf_counter() - start
+  logged = _logged_losses(model_dir)
+  _check_losses(logged, 1, VR_STEPS)
+  _verified(checkpoints, model_dir, list(range(VR_EVERY, VR_STEPS + 1,
+                                               VR_EVERY)))
+  return {"steps": VR_STEPS, "loss_step_1": logged[0][1],
+          "loss_last": logged[-1][1], "train_wall_s": train_wall}
+
+
+def _learn_mdn_episode(torch, np, train_step, optimizers, vr, device) -> dict:
+  """tests/test_convergence.py::TestVRGripperLearns on the card: actions
+  a fixed linear map of the gripper pose, episode 3 at 24x24, Adam 3e-3,
+  200 steps of 8; the last MSE below 0.5 x the first."""
+  model = vr.VRGripperRegressionModel(
+      episode_length=3, image_size=24, action_size=4, use_gripper_pose=True,
+      optimizer_fn=lambda: optimizers.create_adam_optimizer(3e-3))
+  rng = np.random.RandomState(0)
+  w = rng.randn(7, 4).astype(np.float32)
+
+  def make_batch(n=8):
+    image = rng.rand(n, 3, 24, 24, 3).astype(np.float32)
+    pose = rng.randn(n, 3, 7).astype(np.float32)
+    return ({"image": torch.from_numpy(image).to(device),
+             "gripper_pose": torch.from_numpy(pose).to(device)},
+            {"action": torch.from_numpy(pose @ w).to(device)})
+
+  state = train_step.create_train_state(model,
+                                        torch.Generator().manual_seed(0),
+                                        device)
+  step_fn = train_step.make_train_step(model)
+  first = None
+  for _ in range(MDN_LEARN_STEPS):
+    state, metrics = step_fn(state, *make_batch())
+    first = first if first is not None else float(metrics["loss"])
+  last = float(metrics["loss"])
+  if not last < MDN_LEARN_RATIO * first:
+    raise RuntimeError(f"episode BC did not learn: MSE {first} -> {last}")
+  return {"steps": MDN_LEARN_STEPS, "loss_first": first, "loss_last": last,
+          "ratio": last / first}
+
+
+def _timed_step(torch, np, train_step, device_profile, model, features,
+                labels, device, batch: int) -> dict:
+  step, profile = _family_step_ms(torch, np, train_step, device_profile,
+                                  model, features, labels, device)
+  profile = {k: v for k, v in profile.items() if k != "top_device"}
+  return {"step_ms": step, "examples_per_s": batch / (step["p50"] / 1e3),
+          "step_profile": profile}
+
+
+def run_vrgripper_mdn(torch, np, port, device, card: str,
+                      directory: str) -> dict:
+  """Phase 14a: episode BC with the MDN head (see the module docstring)."""
+  (config, train_eval, checkpoints, train_step, input_generators,
+   optimizers, predictors, device_profile, vr) = port
+  start = time.perf_counter()
+  torch.cuda.synchronize(device)
+  torch.cuda.reset_peak_memory_stats(device)
+  out = {"card": card}
+  model = vr.VRGripperRegressionModel(**MDN_WIDTHS)
+  params = model.init_params(torch.Generator().manual_seed(0))
+  features, labels = _generator_batch(input_generators, model, MDN_BATCH, 0)
+  out["strict"] = check_family_step(torch, train_step, model, params, {},
+                                    features, labels, device, "VRGripper MDN")
+  log(f"14a MDN step card vs CPU: {out['strict']}")
+  model_dir = os.path.join(directory, "vrgripper_mdn")
+  out["train"] = _train_config(config, train_eval, checkpoints,
+                               VRGRIPPER_MDN_CONFIG, model_dir, device)
+  predictor = predictors.CheckpointPredictor(
+      model=vr.VRGripperRegressionModel(**MDN_WIDTHS), model_dir=model_dir)
+  if not predictor.restore() or predictor.global_step != VR_STEPS:
+    raise RuntimeError(f"the MDN predictor restored step "
+                       f"{predictor.global_step}")
+  request = {"image": np.random.RandomState(4).rand(1, 8, 48, 48, 3).astype(
+      np.float32)}
+  served = _served_equals_forward(torch, np, predictor, request, device)
+  if served["action"].shape != (1, 8, 7) or not np.isfinite(
+      served["action"]).all():
+    raise RuntimeError(f"MDN action {served['action'].shape}")
+  out["serve"] = {"predict_equals_forward": True,
+                  "action_shape": list(served["action"].shape),
+                  "action_ms": _timed_predicts(np, predictor, request)}
+  out["learn"] = _learn_mdn_episode(torch, np, train_step, optimizers, vr,
+                                    device)
+  log(f"14a episode BC learns: {out['learn']}")
+  out.update(_timed_step(torch, np, train_step, device_profile, model,
+                         features, labels, device, MDN_BATCH))
+  out["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+  out["phase_wall_s"] = time.perf_counter() - start
+  return out
+
+
+def _da_maml(maml, vr, **overrides):
+  return maml.MAMLModel(
+      base_model=vr.VRGripperDomainAdaptiveModel(**DA_WIDTHS),
+      **{**DA_MAML, **overrides})
+
+
+def _check_inner_forward(torch, np, vr, device) -> dict:
+  """The domain-adaptive forward on the card: `inner=True` ignores the
+  gripper pose exactly, the outer forward does not."""
+  model = vr.VRGripperDomainAdaptiveModel(**DA_WIDTHS)
+  params = _to(torch, model.init_params(torch.Generator().manual_seed(1)),
+               device)
+  rng = np.random.RandomState(6)
+  image = torch.from_numpy(rng.rand(2, 8, 48, 48, 3).astype(
+      np.float32)).to(device)
+  pose = torch.from_numpy(rng.randn(2, 8, 7).astype(np.float32)).to(device)
+  actions = {}
+  with torch.no_grad():
+    for inner in (True, False):
+      for shift in (0.0, 1.0):
+        outputs, _ = model.inference_network_fn(
+            params, {}, {"image": image, "gripper_pose": pose + shift},
+            "eval", inner=inner)
+        actions[inner, shift] = outputs["action"]
+  outer_delta = float((actions[False, 0.0] - actions[False, 1.0]).abs().max())
+  if not torch.equal(actions[True, 0.0], actions[True, 1.0]) or not (
+      outer_delta > 1e-6):
+    raise RuntimeError(f"the inner forward reads the pose, or the outer "
+                       f"does not ({outer_delta})")
+  return {"inner_ignores_pose": True, "outer_pose_delta": outer_delta}
+
+
+def _learn_da(torch, np, train_step, optimizers, maml, vr, specs,
+              device) -> dict:
+  """tests/test_wtl_da.py::test_maml_da_learns_and_adapts_learned_loss on
+  the card: episode 3 at 16x16, action 2, Adam 1e-3, one fixed random
+  batch of 2 tasks, 60 meta-steps; the last loss below 0.7 x the first
+  and the `ll_conv_0` kernel moved."""
+  base = vr.VRGripperDomainAdaptiveModel(
+      episode_length=3, image_size=16, action_size=2,
+      optimizer_fn=lambda: optimizers.create_adam_optimizer(1e-3))
+  model = maml.MAMLModel(base_model=base, **DA_MAML)
+  features = _to(torch, specs.make_random_numpy(
+      model.get_feature_specification("train"), batch_size=2, seed=0),
+      device)
+  labels = _to(torch, specs.make_random_numpy(
+      model.get_label_specification("train"), batch_size=2, seed=1), device)
+  state = train_step.create_train_state(model,
+                                        torch.Generator().manual_seed(0),
+                                        device)
+  before = state.params["ll_conv_0.weight"].clone()
+  step_fn = train_step.make_train_step(model)
+  first = None
+  for _ in range(DA_LEARN_STEPS):
+    state, metrics = step_fn(state, features, labels)
+    first = first if first is not None else float(metrics["loss"])
+  last = float(metrics["loss"])
+  moved = float((state.params["ll_conv_0.weight"] - before).abs().max())
+  if not (np.isfinite(last) and last < DA_LEARN_RATIO * first
+          and moved > 1e-9):
+    raise RuntimeError(f"DA-MAML did not learn: loss {first} -> {last}, "
+                       f"ll_conv_0 moved {moved}")
+  return {"steps": DA_LEARN_STEPS, "loss_first": first, "loss_last": last,
+          "ratio": last / first, "ll_conv_0_moved": moved}
+
+
+def run_vrgripper_da(torch, np, port, device, card: str,
+                     directory: str) -> dict:
+  """Phase 14b: the domain-adaptive model under MAML (see the module
+  docstring)."""
+  (config, train_eval, checkpoints, train_step, input_generators,
+   optimizers, device_profile, maml, specs, vr) = port
+  start = time.perf_counter()
+  torch.cuda.synchronize(device)
+  torch.cuda.reset_peak_memory_stats(device)
+  out = {"card": card, "strict": {}}
+  for order in ("second_order", "first_order"):
+    model = _da_maml(maml, vr, first_order=order == "first_order")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    features, labels = _generator_batch(input_generators, model, DA_BATCH, 0)
+    out["strict"][order], grads = check_meta_step(
+        torch, train_step, model, params, features, labels, device,
+        f"DA-MAML {order}")
+    learned = [k for k in grads if k.startswith(("ll_conv_", "ll_ln_"))]
+    norms = {k: float(grads[k].abs().max()) for k in learned}
+    if order == "second_order" and not all(v > 0 for v in norms.values()):
+      raise RuntimeError(f"the learned loss got no meta-gradient: {norms}")
+    if order == "first_order" and any(norms.values()):
+      raise RuntimeError(f"first order reached the learned loss: {norms}")
+    out["strict"][order]["learned_loss_grad_max"] = max(norms.values())
+  log(f"14b DA-MAML meta-step card vs CPU: {out['strict']}")
+  out["inner_forward"] = _check_inner_forward(torch, np, vr, device)
+  out["train"] = _train_config(config, train_eval, checkpoints,
+                               VRGRIPPER_DA_CONFIG,
+                               os.path.join(directory, "vrgripper_da"),
+                               device)
+  out["learn"] = _learn_da(torch, np, train_step, optimizers, maml, vr,
+                           specs, device)
+  log(f"14b DA-MAML learns: {out['learn']}")
+  model = _da_maml(maml, vr)
+  features, labels = _generator_batch(input_generators, model, DA_BATCH, 1)
+  out.update(_timed_step(torch, np, train_step, device_profile, model,
+                         features, labels, device, DA_BATCH))
+  out["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+  out["phase_wall_s"] = time.perf_counter() - start
+  return out
+
+
+class GoalEnv:
+  """tests/test_wtl_da.py's toy task family: reach a hidden per-task goal
+  in R^2; the observation's `full_state_pose` holds the position in its
+  first two dims; reward 1.0 per step within 0.2 of the goal."""
+
+  HORIZON = 4
+  OBS = 8
+
+  def __init__(self, np):
+    self.np = np
+    self.goal = None
+    self.pos = None
+    self.t = 0
+
+  def reset(self, seed=0):
+    np = self.np
+    self.goal = np.random.RandomState(seed).uniform(-1, 1, 2).astype(
+        np.float32)
+    self.pos = np.zeros(2, np.float32)
+    self.t = 0
+    return self._obs(), {}
+
+  def _obs(self):
+    state = self.np.zeros(self.OBS, self.np.float32)
+    state[:2] = self.pos
+    return _Obs(full_state_pose=state)
+
+  def step(self, action):
+    np = self.np
+    self.pos = self.pos + np.clip(np.asarray(action, np.float32), -1, 1)
+    self.t += 1
+    reward = 1.0 if float(np.linalg.norm(self.pos - self.goal)) < 0.2 else 0.0
+    return self._obs(), reward, self.t >= self.HORIZON, False, {}
+
+
+class _Obs:
+  def __init__(self, **fields):
+    self.__dict__.update(fields)
+
+
+class OracleDemoPolicy:
+  """The 'watch' phase: walks straight to the goal."""
+
+  def __init__(self, env):
+    self.env = env
+
+  def reset(self):
+    pass
+
+  def sample_action(self, obs, explore_prob=0.0):
+    return self.env.goal - self.env.pos
+
+
+def wtl_batch(np, seed, batch, obs_size, action_size, episode_length):
+  """tests/test_wtl_da.py's synthetic retrial tasks: the demo is noise,
+  the prior trial's frames carry the hidden target action."""
+  rng = np.random.RandomState(seed)
+  target = rng.uniform(-1.0, 1.0, (batch, action_size)).astype(np.float32)
+  demo = rng.randn(batch, episode_length, obs_size).astype(np.float32)
+  trial = rng.randn(batch, episode_length, obs_size).astype(np.float32)
+  trial[:, :, :action_size] = target[:, None, :]
+  features = {
+      "condition/features/full_state_pose": np.stack([demo, trial], axis=1),
+      "condition/labels/action": rng.randn(
+          batch, 2, episode_length, action_size).astype(np.float32),
+      "condition/labels/success": np.ones((batch, 2, episode_length, 1),
+                                          np.float32),
+      "inference/features/full_state_pose": rng.randn(
+          batch, 1, episode_length, obs_size).astype(np.float32)}
+  labels = {"action": np.tile(target[:, None, None, :],
+                              (1, 1, episode_length, 1)),
+            "success": np.ones((batch, 1, episode_length, 1), np.float32)}
+  return features, labels
+
+
+def _learn_retrial(torch, np, train_step, optimizers, vr, device) -> dict:
+  """tests/test_wtl_da.py::test_retrial_beats_trial_only on the card: obs
+  8, action 2, episodes of 4, batch 16, fresh tasks every step, Adam
+  3e-3, 250 steps; held-out retrial loss below 0.05 and a third of the
+  trial-only model's."""
+  held_f, held_l = wtl_batch(np, 9999, 16, 8, 2, 4)
+  losses = {}
+  for retrial in (False, True):
+    model = vr.WTLStateTrialModel(
+        obs_size=8, action_size=2, episode_length=4, retrial=retrial,
+        num_condition_episodes=2, num_mixture_components=0,
+        optimizer_fn=lambda: optimizers.create_adam_optimizer(3e-3))
+    state = train_step.create_train_state(
+        model, torch.Generator().manual_seed(0), device)
+    step_fn = train_step.make_train_step(model)
+    for seed in range(RETRIAL_LEARN_STEPS):
+      f, l = wtl_batch(np, seed, 16, 8, 2, 4)
+      state, _ = step_fn(state, _to(torch, f, device), _to(torch, l, device))
+    losses["retrial" if retrial else "trial"] = float(
+        train_step.make_eval_step(model)(
+            state, _to(torch, held_f, device),
+            _to(torch, held_l, device))["loss"])
+  if not (losses["retrial"] < RETRIAL_LEARN_BAR
+          and losses["retrial"] < losses["trial"] / 3.0):
+    raise RuntimeError(f"the retrial model did not learn: {losses}")
+  return {"steps": RETRIAL_LEARN_STEPS, "held_out_loss": losses}
+
+
+def _wtl_env_loop(torch, np, train_eval, input_generators, predictors,
+                  meta_policies, run_meta_env, optimizers, vr,
+                  directory: str, device) -> dict:
+  """Watch-Try-Learn on the goal environment: trial and retrial models
+  trained VR_STEPS through `train_eval_model`, served by
+  `CheckpointPredictor`s behind `WTLPolicy`s, through `run_wtl_env`."""
+  env = GoalEnv(np)
+
+  def make_model(retrial):
+    return vr.WTLStateTrialModel(
+        obs_size=GoalEnv.OBS, action_size=2, episode_length=GoalEnv.HORIZON,
+        retrial=retrial, num_condition_episodes=2,
+        optimizer_fn=lambda: optimizers.create_adam_optimizer(1e-3))
+
+  policies = {}
+  for name, retrial in (("trial", False), ("retrial", True)):
+    model_dir = os.path.join(directory, f"wtl_env_{name}")
+    train_eval.train_eval_model(
+        model=make_model(retrial), model_dir=model_dir, mode="train",
+        max_train_steps=VR_STEPS, checkpoint_every_n_steps=VR_STEPS,
+        input_generator_train=input_generators.DefaultRandomInputGenerator(
+            batch_size=2, seed=0), log_every_n_steps=VR_STEPS, device=device)
+    predictor = predictors.CheckpointPredictor(model=make_model(retrial),
+                                               model_dir=model_dir)
+    if not predictor.restore() or predictor.global_step != VR_STEPS:
+      raise RuntimeError(f"the WTL {name} predictor restored step "
+                         f"{predictor.global_step}")
+    policies[name] = meta_policies.WTLPolicy(model=make_model(retrial),
+                                             predictor=predictor)
+  stats = run_meta_env.run_wtl_env(
+      env=env, trial_policy=policies["trial"],
+      retrial_policy=policies["retrial"], demo_policy=OracleDemoPolicy(env),
+      num_tasks=WTL_TASKS, root_dir=os.path.join(directory, "wtl_out"))
+  if not (stats["wtl_eval/reward_demo"] >= 1.0
+          and all(np.isfinite(v) for v in stats.values())):
+    raise RuntimeError(f"run_wtl_env: {stats}")
+  return stats
+
+
+def _wtl_action_ms(torch, np, predictors, meta_policies, vr, model_dir: str
+                   ) -> dict:
+  """The retrial config's model (obs 32, episodes of 40) served from its
+  checkpoint behind `WTLPolicy`: ACTIONS_TIMED actions at batch 1."""
+  model = vr.WTLStateTrialModel(**RETRIAL_WIDTHS)
+  predictor = predictors.CheckpointPredictor(model=model, model_dir=model_dir)
+  if not predictor.restore():
+    raise RuntimeError("the WTL retrial predictor found no checkpoint")
+  policy = meta_policies.WTLPolicy(model=vr.WTLStateTrialModel(
+      **RETRIAL_WIDTHS), predictor=predictor)
+  rng = np.random.RandomState(8)
+  episode = lambda reward: [
+      (_Obs(full_state_pose=rng.randn(32).astype(np.float32)),
+       rng.randn(7).astype(np.float32), reward) for _ in range(40)]
+  policy.adapt([episode(1.0), episode(0.0)])
+  obs = _Obs(full_state_pose=rng.randn(32).astype(np.float32))
+  times = []
+  for _ in range(ACTIONS_TIMED):
+    start = time.perf_counter()
+    action = policy.select_action(obs)
+    times.append(1e3 * (time.perf_counter() - start))
+    if action.shape != (7,) or not np.isfinite(action).all():
+      raise RuntimeError(f"WTL action {action}")
+  return _percentiles(np, times)
+
+
+def _wtl_maml_task_id_steps(torch, np, train_step, maml, vr, specs,
+                            device) -> dict:
+  """WTL-MAML (the TEC base at its defaults) fed a `task_id`: distinct
+  ids inside each task's condition split, one id per task in the outer
+  labels, so the outer loss carries the triplet term."""
+  model = maml.MAMLModel(base_model=vr.VRGripperTECModel(), **WTL_MAML)
+  features = specs.make_random_numpy(model.get_feature_specification(
+      "train"), batch_size=WTL_MAML_BATCH, seed=2)
+  labels = specs.make_random_numpy(model.get_label_specification("train"),
+                                   batch_size=WTL_MAML_BATCH, seed=3)
+  features = dict(features.items())
+  cond = WTL_MAML["num_condition_samples_per_task"]
+  inf = WTL_MAML["num_inference_samples_per_task"]
+  features["condition/labels/task_id"] = np.arange(
+      WTL_MAML_BATCH * cond).reshape(WTL_MAML_BATCH, cond).astype(np.int64)
+  labels = dict(labels.items())
+  labels["task_id"] = np.repeat(np.arange(WTL_MAML_BATCH), inf).reshape(
+      WTL_MAML_BATCH, inf).astype(np.int64)
+  state = train_step.create_train_state(model,
+                                        torch.Generator().manual_seed(0),
+                                        device)
+  step_fn = train_step.make_train_step(model)
+  triplet = []
+  for _ in range(WTL_TASK_ID_STEPS):
+    state, metrics = step_fn(state, _to(torch, features, device),
+                             _to(torch, labels, device))
+    triplet.append(float(metrics["embedding_triplet"]))
+    if not np.isfinite(float(metrics["loss"])):
+      raise RuntimeError("WTL-MAML with task_id: non-finite loss")
+  if not all(np.isfinite(triplet)) or not max(triplet) > 0.0:
+    raise RuntimeError(f"the triplet term did not run: {triplet}")
+  return {"steps": WTL_TASK_ID_STEPS, "embedding_triplet": triplet}
+
+
+def run_wtl(torch, np, port, device, card: str, directory: str) -> dict:
+  """Phase 14c: Watch-Try-Learn (see the module docstring)."""
+  (config, train_eval, checkpoints, train_step, input_generators,
+   optimizers, predictors, device_profile, maml, meta_policies,
+   run_meta_env, specs, vr) = port
+  start = time.perf_counter()
+  out = {"card": card, "retrial": {}, "maml": {}}
+  torch.cuda.synchronize(device)
+  torch.cuda.reset_peak_memory_stats(device)
+  retrial_dir = os.path.join(directory, "wtl_retrial")
+  out["retrial"]["train"] = _train_config(config, train_eval, checkpoints,
+                                          WTL_RETRIAL_CONFIG, retrial_dir,
+                                          device)
+  out["retrial"]["action_ms"] = _wtl_action_ms(torch, np, predictors,
+                                               meta_policies, vr, retrial_dir)
+  model = vr.WTLStateTrialModel(**RETRIAL_WIDTHS)
+  features, labels = _generator_batch(input_generators, model,
+                                      RETRIAL_BATCH, 0)
+  out["retrial"].update(_timed_step(torch, np, train_step, device_profile,
+                                    model, features, labels, device,
+                                    RETRIAL_BATCH))
+  out["retrial"]["peak_memory_gib"] = (
+      torch.cuda.max_memory_allocated(device) / 2**30)
+  torch.cuda.reset_peak_memory_stats(device)
+  out["maml"]["train"] = _train_config(config, train_eval, checkpoints,
+                                       WTL_MAML_CONFIG,
+                                       os.path.join(directory, "wtl_maml"),
+                                       device)
+  out["maml"]["task_id"] = _wtl_maml_task_id_steps(torch, np, train_step,
+                                                   maml, vr, specs, device)
+  model = maml.MAMLModel(base_model=vr.VRGripperTECModel(), **WTL_MAML)
+  features, labels = _generator_batch(input_generators, model,
+                                      WTL_MAML_BATCH, 0)
+  out["maml"].update(_timed_step(torch, np, train_step, device_profile,
+                                 model, features, labels, device,
+                                 WTL_MAML_BATCH))
+  out["maml"]["peak_memory_gib"] = (
+      torch.cuda.max_memory_allocated(device) / 2**30)
+  out["learn"] = _learn_retrial(torch, np, train_step, optimizers, vr, device)
+  log(f"14c WTL retrial learns: {out['learn']}")
+  out["env"] = _wtl_env_loop(torch, np, train_eval, input_generators,
+                             predictors, meta_policies, run_meta_env,
+                             optimizers, vr, directory, device)
+  log(f"14c run_wtl_env: {out['env']}")
+  out["phase_wall_s"] = time.perf_counter() - start
+  return out
+
+
+def _vrgripper_line(mdn: dict, da: dict, wtl: dict, card: str) -> dict:
+  """Phase 14's printed line: per config the median step and examples/s,
+  the device idle share, peak memory, the batch-1 action p50 and p99
+  where the config serves, and the phase wall; the checks are in the
+  report."""
+
+  def cell(report, action_ms=None, wall=None):
+    row = {"step_ms": report["step_ms"],
+           "examples_per_s": report["examples_per_s"],
+           "device_idle_share": report["step_profile"]["device_idle_share"],
+           "device_busy_ms_per_step": report["step_profile"][
+               "device_busy_ms_per_call"],
+           "peak_memory_gib": report["peak_memory_gib"]}
+    if action_ms is not None:
+      row["action_ms"] = action_ms
+    if wall is not None:
+      row["phase_wall_s"] = wall
+    return row
+
+  return {"card": card,
+          "train_vrgripper_mdn": cell(mdn, mdn["serve"]["action_ms"],
+                                      mdn["phase_wall_s"]),
+          "train_vrgripper_da_maml": cell(da, wall=da["phase_wall_s"]),
+          "train_wtl_retrial": cell(wtl["retrial"],
+                                    wtl["retrial"]["action_ms"]),
+          "train_wtl_maml": cell(wtl["maml"]),
+          "wtl_phase_wall_s": wtl["phase_wall_s"],
+          "learn": {"mdn": mdn["learn"], "da_maml": da["learn"],
+                    "wtl_retrial": wtl["learn"]},
+          "custom_kernel_launches": {
+              "mdn": mdn["custom_kernel_launches"],
+              "da_maml": da["custom_kernel_launches"],
+              "wtl": wtl["custom_kernel_launches"]}}
+
+
 def _family_line(report: dict) -> dict:
   """Phase 13's printed line: the step, throughput, action latency, peak
   memory, custom launches and wall (the checks are in the report)."""
@@ -4532,6 +5155,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   from tensor2robot_tpu_torch.research.bcz import models as bcz_models
   from tensor2robot_tpu_torch.research.grasp2vec import models as g2v_models
   from tensor2robot_tpu_torch.research.grasp2vec import visualization
+  from tensor2robot_tpu_torch.research.vrgripper import models as vr_models
   from tensor2robot_tpu_torch.data import input_generators
   from tensor2robot_tpu_torch.hooks import core as hooks_core
   from tensor2robot_tpu_torch.models import optimizers
@@ -4764,6 +5388,37 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
     if any(report["custom_kernel_launches"]):
       raise RuntimeError(f"phase 13 ({name}) launched a custom kernel: "
                          f"{report['custom_kernel_launches']}")
+
+  # Phase 14: VRGripper (episode BC with the MDN head, the domain-adaptive
+  # model under MAML, Watch-Try-Learn) trained and served (no custom
+  # kernel on its path).
+  vr_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  vr_reports = {}
+  try:
+    for name, run, port in (
+        ("mdn", run_vrgripper_mdn, (
+            config, train_eval, checkpoints, train_step, input_generators,
+            optimizers, predictors, device_profile, vr_models)),
+        ("da_maml", run_vrgripper_da, (
+            config, train_eval, checkpoints, train_step, input_generators,
+            optimizers, device_profile, maml, specs, vr_models)),
+        ("wtl", run_wtl, (
+            config, train_eval, checkpoints, train_step, input_generators,
+            optimizers, predictors, device_profile, maml, meta_policies,
+            run_meta_env, specs, vr_models))):
+      launches_before = custom_launches()
+      vr_reports[name] = run(torch, np, port, device, card, vr_dir)
+      vr_reports[name]["custom_kernel_launches"] = [
+          now - before for now, before in zip(custom_launches(),
+                                              launches_before)]
+      if any(vr_reports[name]["custom_kernel_launches"]):
+        raise RuntimeError(f"phase 14 ({name}) launched a custom kernel: "
+                           f"{vr_reports[name]['custom_kernel_launches']}")
+      torch.cuda.empty_cache()
+  finally:
+    shutil.rmtree(vr_dir, ignore_errors=True)
+  vrgripper_line = _vrgripper_line(vr_reports["mdn"], vr_reports["da_maml"],
+                                   vr_reports["wtl"], card)
   fwd_src = "tensor2robot_tpu_torch/csrc/flash_fwd.cu"
   bwd_src = "tensor2robot_tpu_torch/csrc/flash_bwd.cu"
   kernels = [
@@ -4836,7 +5491,8 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
             "serve_qtopt": serve_report, "records": records_report,
             "deploy": deploy_report, "surface": surface_report,
             "lstm": lstm_report, "pose": pose_report, "meta": meta_report,
-            "bcz": bcz_report, "grasp2vec": grasp2vec_report}
+            "bcz": bcz_report, "grasp2vec": grasp2vec_report,
+            "vrgripper": vr_reports}
   os.makedirs(os.path.dirname(REPORT), exist_ok=True)
   with open(REPORT, "w") as f:
     json.dump(report, f, indent=1)
@@ -4852,6 +5508,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   print(json.dumps({"meta": meta_report}))
   print(json.dumps({"bcz": _family_line(bcz_report)}))
   print(json.dumps({"grasp2vec": _family_line(grasp2vec_report)}))
+  print(json.dumps({"vrgripper": vrgripper_line}))
   print(json.dumps({"kernels": kernels}))
   print(card_line(), flush=True)
   print(json.dumps({"ok": True, "device": {

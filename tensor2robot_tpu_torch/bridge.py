@@ -27,8 +27,10 @@
   torch's LSTM uses, and `bias_hh` [4H], the hidden biases in that order
   (the port's cell has no input bias).
 
-* a module's own array parameters `bias_transform` (`PoseHead`) and
-  `log_temperature` (`SpatialSoftmax`) keep their names and shapes;
+* a module's own array parameters `bias_transform` (`PoseHead`),
+  `log_temperature` (`SpatialSoftmax`) and MADE's `w1`, `b1`, `w_shift`,
+  `w_scale`, `b_shift`, `b_scale` (`research/vrgripper/maf.py`, used as
+  `x @ (w * mask)`) keep their names and shapes, untransposed;
 * MAML with learned inner learning rates (`{"base": params, "inner_lr":
   tree}`): the base tree maps as above under `base.`, and each scalar
   rate of the mirror tree maps to the name its parameter has, under
@@ -76,8 +78,10 @@ __all__ = ["LSTM_GATES", "GRU_GATES", "state_dict_from_flax", "mutable_state_fro
 
 LSTM_GATES = ("i", "f", "g", "o")
 GRU_GATES = ("r", "z", "n")
-# Array parameters a module owns directly, carried as they are.
-RAW_LEAVES = ("bias_transform", "log_temperature")
+# Array parameters a module owns directly, carried as they are (MADE's
+# masked matrices keep their [in, out] layout).
+RAW_LEAVES = ("bias_transform", "log_temperature", "w1", "b1", "w_shift",
+              "w_scale", "b_shift", "b_scale")
 # flax leaf name -> the port's, for a MAML inner-rate mirror tree.
 _MIRROR_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                  **{leaf: leaf for leaf in RAW_LEAVES}}

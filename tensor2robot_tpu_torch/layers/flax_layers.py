@@ -7,7 +7,8 @@ from torch's stock ones:
   pad_total = max((ceil(n / s) - 1) * s + k - n, 0), pad_total // 2
   before and the rest after, so an odd total pads more at the bottom and
   right. Torch's `padding='same'` refuses strides above 1, and a symmetric
-  padding is wrong on an odd total. max_pool pads with -inf.
+  padding is wrong on an odd total. max_pool pads with -inf. The 1-D
+  conv (`conv1d_same`) pads its time axis the same way.
 * `nn.Dense(dtype=...)` computes in its `dtype` when one is given and
   else in the promoted dtype of its input and parameters (`dense`): a
   float32 input (a one-hot, a noise draw) lifts a bfloat16 layer to
@@ -35,7 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["same_padding", "conv2d", "max_pool", "dense", "moments",
+__all__ = ["same_padding", "conv2d", "conv1d_same", "max_pool", "dense",
+           "moments",
            "normalize", "layer_norm", "BatchNorm"]
 
 
@@ -66,6 +68,19 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
   if left == right and top == bottom:
     return F.conv2d(x, weight, bias, stride, (top, left))
   return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, bias, stride)
+
+
+def conv1d_same(x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+  """flax 1-D `nn.Conv(padding='SAME')`, stride 1, on channels-last
+  [B, T, C] with an [out, in, k] weight, in the promoted dtype of input
+  and weight: an even kernel pads one more after than before (k = 10:
+  4 and 5)."""
+  dtype = torch.promote_types(x.dtype, weight.dtype)
+  before, after = same_padding(x.shape[-2], weight.shape[-1], 1)
+  y = F.conv1d(F.pad(x.to(dtype).transpose(-1, -2), (before, after)),
+               weight.to(dtype), None if bias is None else bias.to(dtype))
+  return y.transpose(-1, -2)
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:

@@ -28,10 +28,13 @@ GUMBEL_MIN = 1e-10  # the JAX package's uniform minval and log offset
 
 def _grid(h: int, w: int, dtype: torch.dtype, device) -> torch.Tensor:
   """[H * W, 2]: (x, y) of each pixel in row-major order, as
-  `jnp.meshgrid(linspace(-1, 1, w), linspace(-1, 1, h))` ravels them."""
+  `jnp.meshgrid(linspace(-1, 1, w), linspace(-1, 1, h))` ravels them;
+  the linspace in at least float32, as JAX's default dtype is."""
+  wide = torch.promote_types(dtype, torch.float32)
   pos_y, pos_x = torch.meshgrid(
-      torch.linspace(-1.0, 1.0, h, device=device),
-      torch.linspace(-1.0, 1.0, w, device=device), indexing="ij")
+      torch.linspace(-1.0, 1.0, h, device=device, dtype=wide),
+      torch.linspace(-1.0, 1.0, w, device=device, dtype=wide),
+      indexing="ij")
   return torch.stack([pos_x.reshape(-1), pos_y.reshape(-1)],
                      dim=-1).to(dtype)
 

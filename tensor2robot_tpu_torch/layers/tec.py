@@ -161,14 +161,8 @@ class TemporalConvEmbedding(nn.Module):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     for i in range(len(self.conv1d_layers)):
-      conv = getattr(self, f"conv1d_{i}")
-      dtype = torch.promote_types(x.dtype, conv.weight.dtype)
-      before, after = flax_layers.same_padding(x.shape[1],
-                                               conv.weight.shape[-1], 1)
-      y = F.conv1d(F.pad(x.to(dtype).transpose(1, 2), (before, after)),
-                   conv.weight.to(dtype))
-      x = _layer_norm(F.relu(y.transpose(1, 2)),
-                      getattr(self, f"conv_ln_{i}"))
+      y = flax_layers.conv1d_same(x, getattr(self, f"conv1d_{i}").weight)
+      x = _layer_norm(F.relu(y), getattr(self, f"conv_ln_{i}"))
     x = x.mean(dim=-2)
     for i in range(len(self.fc_hidden_layers)):
       x = _layer_norm(F.relu(_dense(x, getattr(self, f"fc_{i}"))),

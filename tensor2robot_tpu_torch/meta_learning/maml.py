@@ -191,21 +191,27 @@ class MAMLModel(abstract_model.T2RModel):
   # -- the meta forward pass ------------------------------------------------
 
   def inference_network_fn(self, params: Params, mutable_state: Params,
-                           features, mode: str, train: bool = False
+                           features, mode: str, train: bool = False,
+                           **module_kwargs
                            ) -> Tuple[specs_lib.SpecStruct, Params]:
     """Per task: adapt the base parameters on the condition split, then
     run the inference split on the adapted (`conditioned_output`) and
     the unadapted (`unconditioned_output`) parameters; `inner_losses`
     [task, steps + 1] holds the condition loss before each step and after
     the last. The new mutable state is {} (`train` is not used: the
-    inner loop keeps batch statistics frozen)."""
+    inner loop keeps batch statistics frozen).
+
+    A base model may customise the adaptation: its
+    `inner_loop_forward_kwargs` (module kwargs, updated by the caller's
+    `module_kwargs`) go to the condition-split forwards only, the
+    inference forwards get the caller's `module_kwargs` alone; its
+    `inner_loop_loss_fn(features, labels, outputs, mode)` replaces
+    `model_train_fn` as the adaptation objective."""
     del train
     base = self._base_model
-    if getattr(base, "inner_loop_forward_kwargs", None):
-      raise NotImplementedError(
-          "inner_loop_forward_kwargs (module kwargs of the adaptation "
-          "forwards) wait for the VRGripper family: ROADMAP.md, Queue A "
-          "item 13, step 5.")
+    inner_fwd_kwargs = dict(
+        getattr(base, "inner_loop_forward_kwargs", None) or {})
+    inner_fwd_kwargs.update(module_kwargs)
     base.module  # built here: a module built inside vmap draws its init
     base_params = self._split(params, BASE)
     lrs = self._split(params, INNER_LR) if self._learn_inner_lr else None
@@ -214,13 +220,14 @@ class MAMLModel(abstract_model.T2RModel):
     custom_inner_loss = getattr(base, "inner_loop_loss_fn", None)
     steps = self._num_inner_loop_steps
 
-    def base_forward(p: Params, task_features) -> Dict[str, torch.Tensor]:
+    def base_forward(p: Params, task_features,
+                     kwargs=module_kwargs) -> Dict[str, torch.Tensor]:
       outputs, _ = base.inference_network_fn(p, base_state, task_features,
-                                             mode, train=False)
+                                             mode, train=False, **kwargs)
       return _float32(outputs)
 
     def inner_loss(p: Params, task_features, task_labels) -> torch.Tensor:
-      outputs = base_forward(p, task_features)
+      outputs = base_forward(p, task_features, inner_fwd_kwargs)
       if custom_inner_loss is not None:
         return custom_inner_loss(task_features, task_labels, outputs, mode)
       loss, _ = base.model_train_fn(task_features, task_labels, outputs,

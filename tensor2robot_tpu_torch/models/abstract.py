@@ -259,19 +259,22 @@ class T2RModel(abc.ABC):
             for k, v in params.items()}
 
   def inference_network_fn(self, params: Params, mutable_state: Params,
-                           features, mode: str, train: bool = False
+                           features, mode: str, train: bool = False,
+                           **module_kwargs
                            ) -> Tuple[Mapping[str, torch.Tensor], Params]:
     """Pure forward pass of the module on `params` and `mutable_state`;
     returns (outputs, new mutable state). With `train`, batch norm
     normalises by the batch and the new state holds its updated running
     statistics; otherwise it uses the running statistics and the new
-    state is {} (the JAX package's `inference_network_fn`). Forwards of
-    one model from several threads run one at a time."""
+    state is {} (the JAX package's `inference_network_fn`). Extra
+    `module_kwargs` go to the module's forward (a static flag such as the
+    domain-adaptive model's `inner`). Forwards of one model from several
+    threads run one at a time."""
     variables = {**self.params_for_compute(params), **mutable_state}
     with self._module_lock:
-      return torch.func.functional_call(self.module, variables, (features,),
-                                        {"mode": mode, "train": train},
-                                        strict=True)
+      return torch.func.functional_call(
+          self.module, variables, (features,),
+          {"mode": mode, "train": train, **module_kwargs}, strict=True)
 
   @property
   def compute_dtype(self) -> torch.dtype:

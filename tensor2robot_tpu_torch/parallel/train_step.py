@@ -150,7 +150,9 @@ def loss_and_grads(model, params: Params, features, labels,
   `mutable_state` (default {}), the gradients taken with respect to
   `params` (f32 masters: under the bfloat16 policy the forward casts them
   to bf16 and the gradients flow back through the cast). loss and scalars
-  are detached; the new mutable state is {} for a model without one."""
+  are detached; the new mutable state is {} for a model without one. A
+  parameter the loss does not reach (the domain-adaptive model's learned
+  loss outside MAML) gets a zero gradient, as `jax.grad` gives it."""
   names = list(params)
   leaves = _leaves(params)
   outputs, new_mutable = _train_forward(model, leaves, features,
@@ -158,7 +160,8 @@ def loss_and_grads(model, params: Params, features, labels,
   loss, scalars = model.model_train_fn(features, labels, outputs,
                                        modes_lib.TRAIN)
   grads = dict(zip(names, torch.autograd.grad(
-      loss, [leaves[k] for k in names])))
+      loss, [leaves[k] for k in names], allow_unused=True,
+      materialize_grads=True)))
   return (loss.detach(), {k: v.detach() for k, v in scalars.items()},
           grads, new_mutable)
 

@@ -585,3 +585,100 @@ def test_bcz_and_grasp2vec_pipelined_variants_name_item_14():
     g2v_models.Grasp2VecModel(tower="pipelined_conv")
   with pytest.raises(NotImplementedError, match="Queue A item 14"):
     bcz_models.BCZModel(network="pipelined_berkeley")
+
+
+# VRGripper and the last helpers: every module the scans above must cover.
+SLICE_14_MODULES = (
+    "tensor2robot_tpu_torch.layers.mdn",
+    "tensor2robot_tpu_torch.research.vrgripper.maf",
+    "tensor2robot_tpu_torch.research.vrgripper.models",
+    "tensor2robot_tpu_torch.ops.rotations",
+    "tensor2robot_tpu_torch.utils.subsample",
+    "tensor2robot_tpu_torch.utils.test_fixture",
+)
+
+
+def test_the_scans_cover_the_vrgripper_and_helper_modules():
+  assert set(SLICE_14_MODULES) <= set(_port_modules())
+
+
+@pytest.mark.parametrize("name,widths", [
+    ("train_vrgripper_mdn", {
+        "VRGripperRegressionModel.episode_length": 8,
+        "VRGripperRegressionModel.image_size": 48,
+        "VRGripperRegressionModel.num_mixture_components": 5,
+        "DefaultRandomInputGenerator.batch_size": 8}),
+    ("train_vrgripper_da_maml", {
+        "MAMLModel.num_inner_loop_steps": 1,
+        "MAMLModel.inner_learning_rate": 0.01,
+        "MAMLModel.num_condition_samples_per_task": 2,
+        "MAMLModel.num_inference_samples_per_task": 2,
+        "VRGripperDomainAdaptiveModel.episode_length": 8,
+        "VRGripperDomainAdaptiveModel.image_size": 48,
+        "DefaultRandomInputGenerator.batch_size": 2}),
+    ("train_wtl_maml", {
+        "MAMLModel.num_inner_loop_steps": 1,
+        "MAMLModel.inner_learning_rate": 0.1,
+        "MAMLModel.num_condition_samples_per_task": 2,
+        "MAMLModel.num_inference_samples_per_task": 2,
+        "DefaultRandomInputGenerator.batch_size": 4}),
+    ("train_wtl_retrial", {
+        "WTLStateTrialModel.retrial": True,
+        "WTLStateTrialModel.obs_size": 32,
+        "WTLStateTrialModel.action_size": 7,
+        "WTLStateTrialModel.episode_length": 40,
+        "WTLStateTrialModel.embed_type": "temporal",
+        "DefaultRandomInputGenerator.batch_size": 4})])
+def test_vrgripper_configs_bind_only_port_configurables(name, widths):
+  text = (PORT / "configs" / f"{name}.gin").read_text()
+  assert "device_type" not in "\n".join(
+      line for line in text.splitlines() if not line.startswith("#"))
+  try:
+    config.parse_config_file(str(PORT / "configs" / f"{name}.gin"))
+    registry = config._REGISTRY
+    assert registry.imports and all(
+        m.startswith("tensor2robot_tpu_torch.") for m in registry.imports)
+    for _, binding, _ in registry.bindings:
+      module = getattr(config.get_configurable(binding), "__module__", "")
+      assert module.startswith("tensor2robot_tpu_torch."), (binding, module)
+    for key, value in widths.items():
+      assert config.query_parameter(key) == value, key
+    assert config.query_parameter("train_eval_model.mode") == "train"
+    model = config.query_parameter("train_eval_model.model")
+    assert type(model).__module__.startswith("tensor2robot_tpu_torch.")
+  finally:
+    config.clear_config()
+
+
+def test_maml_takes_a_base_with_inner_loop_forward_kwargs():
+  from tensor2robot_tpu_torch.meta_learning import maml
+  from tensor2robot_tpu_torch.research.vrgripper import models as vr
+
+  base = vr.VRGripperDomainAdaptiveModel(episode_length=2, image_size=12,
+                                         action_size=2)
+  model = maml.MAMLModel(base_model=base, num_condition_samples_per_task=2,
+                         num_inference_samples_per_task=2)
+  rng = np.random.RandomState(0)
+  features = {}
+  for split in ("condition", "inference"):
+    features[f"{split}/features/image"] = torch.from_numpy(
+        rng.rand(1, 2, 2, 12, 12, 3)).float()
+    features[f"{split}/features/gripper_pose"] = torch.from_numpy(
+        rng.randn(1, 2, 2, 7)).float()
+  features["condition/labels/action"] = torch.zeros(1, 2, 2, 2)
+  outputs, _ = model.inference_network_fn(
+      model.init_params(torch.Generator().manual_seed(0)), {}, features,
+      "train")
+  assert outputs["inner_losses"].shape == (1, 2)
+  assert torch.isfinite(outputs["inner_losses"]).all()
+
+
+def test_wtl_policy_and_vrgripper_predictor_run_on_cuda_unless_told_cpu(
+    no_cuda):
+  from tensor2robot_tpu_torch.research.vrgripper import models as vr
+
+  model = vr.WTLStateTrialModel(obs_size=4, action_size=2, episode_length=3)
+  with pytest.raises(RuntimeError):
+    predictors.CheckpointPredictor(model=model, model_dir="/nonexistent")
+  predictor = predictors.CheckpointPredictor(model=model, device="cpu")
+  assert predictor.device.type == "cpu"

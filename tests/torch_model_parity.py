@@ -59,6 +59,24 @@ def bridged(tree, batch_stats: bool = False):
   return {k: hi[k].double() + lo[k].double() for k in hi}
 
 
+class _WideJnp:
+  """`jax.numpy` with `float32` meaning float64."""
+
+  float32 = jnp.float64
+
+  def __getattr__(self, name):
+    return getattr(jnp, name)
+
+
+def widen_float32_casts(monkeypatch, *modules):
+  """Under x64, the JAX spatial softmax and MDN head still round to
+  float32 (`astype(jnp.float32)`); this makes those casts float64 in
+  `modules` for one test, so a float64 case holds the rest of JAX's
+  float64 path to float64 precision."""
+  for module in modules:
+    monkeypatch.setattr(module, "jnp", _WideJnp())
+
+
 def init_variables(model, features, seed: int = 0):
   """`model.init_variables` (jitted) on numpy features, as numpy."""
   features = JaxSpecStruct({k: jnp.asarray(v) for k, v in features.items()})
@@ -69,6 +87,19 @@ def init_variables(model, features, seed: int = 0):
 
 def cast_tree(tree, dtype):
   return jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), tree)
+
+
+def flat_outputs(outputs) -> dict:
+  """JAX outputs as numpy by the port's flat keys: a NamedTuple leaf (an
+  MDN head's `MDNParams`) as `<key>/<field>`."""
+  out = {}
+  for key, value in outputs.items():
+    if hasattr(value, "_fields"):
+      out.update({f"{key}/{field}": np.asarray(getattr(value, field))
+                  for field in value._fields})
+    else:
+      out[key] = np.asarray(value)
+  return out
 
 
 def jax_train(model, variables, features, labels, dtype, rng=None):
@@ -88,16 +119,16 @@ def jax_train(model, variables, features, labels, dtype, rng=None):
       outputs, new_state = model.inference_network_fn(
           {**variables, "params": params}, features, jax_modes.TRAIN,
           rng=rng, train=True)
-      outputs = jax.tree_util.tree_map(
+      outputs = JaxSpecStruct(jax.tree_util.tree_map(
           lambda x: x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x,
-          dict(outputs.items()))
+          dict(outputs.items())))
       loss, scalars = model.model_train_fn(features, labels, outputs,
                                            jax_modes.TRAIN)
       return loss, (outputs, scalars, new_state)
 
     (loss, (outputs, scalars, new_state)), grads = jax.jit(
         jax.value_and_grad(loss_fn, has_aux=True))(variables["params"])
-    outputs = {k: np.asarray(v) for k, v in outputs.items()}
+    outputs = flat_outputs(outputs)
     scalars = {k: np.asarray(v) for k, v in scalars.items()}
     grads = bridged(jax.tree_util.tree_map(np.asarray, grads))
     stats = (bridged(jax.tree_util.tree_map(
