@@ -1,0 +1,701 @@
+"""graftscope reader CLI: reports, run history, regression diffs and
+postmortems of the port's telemetry.
+
+The write side lives in `tensor2robot_tpu_torch/obs/` (span tracer,
+metrics registry, step stats, runlog, sentinel, flight recorder); this is
+the read side, the port's copy of the JAX package's CLI. On the same
+files the two render the same text (the heading of a profiler directory
+aside), so either reads a model_dir written by either package; the
+heartbeat keeps the JAX package's name, `tunnel heartbeat`:
+
+  python -m tensor2robot_tpu_torch.bin.graftscope <model_dir> [--top N]
+      walk the model_dir for `metrics.jsonl` streams, Chrome trace
+      JSONs, `runs.jsonl` and profiler dirs; render the step-time
+      breakdown, counters, gauges, histograms, slowest spans and the
+      latest run's summary ("report" may be spelled explicitly);
+  python -m tensor2robot_tpu_torch.bin.graftscope history <dir-or-runs.jsonl>
+      one line per recorded run (index, run_id, key metrics);
+  python -m tensor2robot_tpu_torch.bin.graftscope diff <runA> <runB>
+      metric deltas with direction-aware regression thresholds
+      (`obs.runlog.DEFAULT_THRESHOLDS`; override per metric with
+      --threshold name=rel). A run reference is a model_dir, a
+      runs.jsonl path, or either with `#run_id` / `#index` (negative
+      from the end); bare paths mean the LATEST record. Exit 3 = a
+      delta crossed its regression threshold (0 ok, 2 bad reference).
+      `diff --trend <source>` instead evaluates the drift across the
+      last 2K records of one runs.jsonl (median of the last K runs vs
+      the prior K, per key metric);
+  python -m tensor2robot_tpu_torch.bin.graftscope postmortem <dir>
+      render a flight-recorder bundle (`obs.flightrec`, written on
+      crash/SIGTERM/hang/fatal incident): the last N recorded steps,
+      the incident timeline (bundle + the model_dir's incidents.jsonl),
+      the heartbeat transitions, and the crash traceback. <dir> is a
+      bundle dir, a flightrec/ dir, a model_dir (searched recursively;
+      latest bundle by default, select with --index), or a
+      postmortem.json path; --list enumerates bundles.
+
+The JAX package's `cache`, `forge`, `audit`, `timeline` and `watch`
+subcommands read modules the port has not yet (its executable cache,
+compile farm, lint audit, request-trace merge and live fleet view:
+ROADMAP.md, Queue A item 15); here each exits 2 with a message naming
+that item.
+
+Robustness contract: a torn tail line of a live run, a truncated trace
+JSON, or binary garbage in any telemetry file is skipped with a warning
+counter (`graftscope/corrupt_lines`, surfaced in the report) — the
+reader NEVER raises on files a crashed writer left behind; a missing
+model_dir is a clear message + exit 2. Framework-free (argparse, stdlib
+only): safe to run beside a job that owns the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+from tensor2robot_tpu_torch.obs import flightrec as flightrec_lib
+from tensor2robot_tpu_torch.obs import metrics as metrics_lib
+from tensor2robot_tpu_torch.obs import runlog as runlog_lib
+
+__all__ = ["build_report", "render_postmortem", "main"]
+
+_PROG = "python -m tensor2robot_tpu_torch.bin.graftscope"
+
+_SKIP_DIRS = {"checkpoints", "__pycache__", ".git"}
+# Per-step record signature written by obs.stepstats via StepStatsHook.
+_STEP_KEYS = ("data_wait_ms", "device_ms", "examples_per_sec")
+_BREAKDOWN_ROWS = ("step_ms", "device_ms", "data_wait_ms", "host_ms",
+                   "dispatch_ms")
+
+
+def _discover(model_dir: str) -> Tuple[List[str], List[str], List[str]]:
+  """(metrics.jsonl files, chrome-trace JSONs, profiler dirs)."""
+  metrics_files: List[str] = []
+  trace_files: List[str] = []
+  profile_dirs: List[str] = []
+  for dirpath, dirnames, filenames in os.walk(model_dir):
+    dirnames[:] = sorted(d for d in dirnames if d not in _SKIP_DIRS)
+    for name in sorted(filenames):
+      path = os.path.join(dirpath, name)
+      if name == "metrics.jsonl":
+        metrics_files.append(path)
+      elif name.endswith(".json") and "trace" in name:
+        trace_files.append(path)
+    if (os.path.basename(dirpath) == "profile"
+        or "plugins" in dirnames):  # TensorBoard profiles: plugins/profile
+      profile_dirs.append(dirpath)
+  return metrics_files, trace_files, sorted(set(profile_dirs))
+
+
+def _load_jsonl(path: str) -> Tuple[List[dict], int]:
+  """(records, corrupt-line count) — torn tail lines of a live run and
+  garbage are skipped, counted, and warned, never raised (the shared
+  tolerant reader, `obs.runlog.read_jsonl`)."""
+  return runlog_lib.read_jsonl(path,
+                               counter_name="graftscope/corrupt_lines")
+
+
+def _split_records(records: List[dict]
+                   ) -> Tuple[List[dict], Dict[str, float]]:
+  """(step-stats records, merged registry-snapshot values)."""
+  step_records = []
+  snapshot: Dict[str, float] = {}
+  for record in records:
+    if all(k in record for k in _STEP_KEYS):
+      step_records.append(record)
+    for key, value in record.items():
+      if key.startswith(("counter/", "gauge/", "hist/")):
+        snapshot[key] = value  # later snapshots win (counters grow)
+  return step_records, snapshot
+
+
+def _breakdown_table(step_records: List[dict]) -> List[str]:
+  steps = [r.get("step") for r in step_records if "step" in r]
+  lines = [f"step-time breakdown ({len(step_records)} records, "
+           f"steps {min(steps)}..{max(steps)})" if steps else
+           "step-time breakdown (no step records)"]
+  header = f"  {'metric':<14}{'mean':>10}{'p50':>10}{'p90':>10}{'p99':>10}"
+  lines.append(header)
+  for key in _BREAKDOWN_ROWS:
+    values = [float(r[key]) for r in step_records if key in r]
+    if not values:
+      continue
+    p50, p90, p99 = metrics_lib.percentiles(values)
+    mean = sum(values) / len(values)
+    lines.append(f"  {key:<14}{mean:>10.2f}{p50:>10.2f}{p90:>10.2f}"
+                 f"{p99:>10.2f}")
+  eps = [float(r["examples_per_sec"]) for r in step_records
+         if "examples_per_sec" in r]
+  if eps:
+    lines.append(f"  throughput: mean {sum(eps) / len(eps):.1f} "
+                 f"examples/sec (max {max(eps):.1f})")
+  compiles = sum(int(r.get("compile", 0)) for r in step_records)
+  lines.append(f"  compile events: {compiles}")
+  return lines
+
+
+def _counter_lines(snapshot: Dict[str, float]) -> List[str]:
+  counters = {k[len("counter/"):]: v for k, v in snapshot.items()
+              if k.startswith("counter/")}
+  if not counters:
+    return []
+  lines = ["counter totals"]
+  for name in sorted(counters):
+    lines.append(f"  {name:<36}{counters[name]:>12.0f}")
+  return lines
+
+
+def _gauge_lines(snapshot: Dict[str, float]) -> List[str]:
+  gauges = {k[len("gauge/"):]: v for k, v in snapshot.items()
+            if k.startswith("gauge/")}
+  if not gauges:
+    return []
+  lines = ["gauges (last value)"]
+  for name in sorted(gauges):
+    lines.append(f"  {name:<36}{gauges[name]:>14.2f}")
+  return lines
+
+
+def _hist_lines(snapshot: Dict[str, float]) -> List[str]:
+  """hist/<name>/<stat> snapshot entries regrouped per histogram."""
+  hists: Dict[str, Dict[str, float]] = {}
+  for key, value in snapshot.items():
+    if key.startswith("hist/"):
+      name, _, stat = key[len("hist/"):].rpartition("/")
+      hists.setdefault(name, {})[stat] = value
+  if not hists:
+    return []
+  lines = ["histograms",
+           f"  {'name':<28}{'count':>8}{'mean':>10}{'p50':>10}"
+           f"{'p90':>10}{'p99':>10}"]
+  for name in sorted(hists):
+    h = hists[name]
+    lines.append(
+        f"  {name:<28}{h.get('count', 0):>8.0f}{h.get('mean', 0):>10.2f}"
+        f"{h.get('p50', 0):>10.2f}{h.get('p90', 0):>10.2f}"
+        f"{h.get('p99', 0):>10.2f}")
+  return lines
+
+
+def _span_lines(trace_files: List[str], top: int) -> List[str]:
+  spans: Dict[str, List[float]] = {}
+  loaded = []
+  for path in trace_files:
+    try:
+      with open(path) as f:
+        payload = json.load(f)
+    except (OSError, ValueError) as e:
+      metrics_lib.counter("graftscope/corrupt_trace_files").inc()
+      print(f"graftscope: skipping corrupt trace {path} "
+            f"({type(e).__name__})", file=sys.stderr)
+      continue
+    events = payload.get("traceEvents", payload) \
+        if isinstance(payload, dict) else payload
+    if not isinstance(events, list):
+      continue
+    loaded.append(path)
+    for event in events:
+      if isinstance(event, dict) and event.get("ph") == "X":
+        spans.setdefault(event.get("name", "?"), []).append(
+            float(event.get("dur", 0.0)) / 1e3)  # us -> ms
+  if not loaded:
+    return []
+  lines = [f"slowest spans (by total time, {len(loaded)} trace file(s) — "
+           "open in https://ui.perfetto.dev)"]
+  lines.append(f"  {'span':<28}{'count':>8}{'total_ms':>12}{'max_ms':>10}")
+  ranked = sorted(spans.items(), key=lambda kv: -sum(kv[1]))[:top]
+  for name, durs in ranked:
+    lines.append(f"  {name:<28}{len(durs):>8}{sum(durs):>12.2f}"
+                 f"{max(durs):>10.2f}")
+  return lines
+
+
+def _compile_lines(record: dict) -> List[str]:
+  """xray compile-telemetry table from one runlog record."""
+  compiles = record.get("compile") or []
+  if not compiles:
+    return []
+  lines = ["xray compile telemetry (latest run)",
+           f"  {'executable':<22}{'compile_s':>10}{'eqns':>8}"
+           f"{'GF':>10}{'GB':>8}{'AI':>8}{'roofline_ms':>12}"]
+  for rec in compiles:
+    flops = rec.get("flops")
+    nbytes = rec.get("bytes_accessed")
+    ai = rec.get("arithmetic_intensity")
+    roofline = rec.get("roofline_ms")
+    fmt = lambda v, scale=1.0: (f"{v / scale:.2f}" if v is not None
+                                else "—")
+    lines.append(
+        f"  {str(rec.get('name', '?')):<22}"
+        f"{fmt(rec.get('compile_s')):>10}"
+        f"{rec.get('jaxpr_eqns', 0):>8}"
+        f"{fmt(flops, 1e9):>10}{fmt(nbytes, 1e9):>8}"
+        f"{fmt(ai):>8}{fmt(roofline):>12}")
+  return lines
+
+
+def _runlog_sections(model_dir: str) -> Tuple[List[List[str]], int]:
+  """(run-history summary + xray compile table sections for the latest
+  record, corrupt-line count) — runs.jsonl garbage lands in the same
+  report head count / graftscope counter as every other telemetry file."""
+  path = os.path.join(model_dir, runlog_lib.RUNS_FILENAME)
+  records, skipped = _load_jsonl(path)
+  if not records:
+    return [], skipped
+  latest = records[-1]
+  lines = [f"run history ({len(records)} record(s) in "
+           f"{runlog_lib.RUNS_FILENAME}; compare with "
+           "`graftscope diff`)"]
+  metrics = runlog_lib.key_metrics(latest)
+  for name in sorted(metrics):
+    lines.append(f"  {name:<24}{metrics[name]:>16.6g}")
+  memory = latest.get("memory") or {}
+  if memory.get("hbm_watermark_bytes"):
+    lines.append(f"  {'hbm_watermark':<24}"
+                 f"{memory['hbm_watermark_bytes'] / 2**30:>13.3f} GiB"
+                 "  (per-shard estimate)")
+  sections = [lines]
+  compile_sec = _compile_lines(latest)
+  if compile_sec:
+    sections.append(compile_sec)
+  return sections, skipped
+
+
+def build_report(model_dir: str, top: int = 10) -> Optional[str]:
+  """Renders the text report; None when no telemetry exists at all."""
+  metrics_files, trace_files, profile_dirs = _discover(model_dir)
+  runs_path = os.path.join(model_dir, runlog_lib.RUNS_FILENAME)
+  sections: List[List[str]] = []
+  all_records: List[dict] = []
+  corrupt = 0
+  for path in metrics_files:
+    records, skipped = _load_jsonl(path)
+    all_records.extend(records)
+    corrupt += skipped
+  step_records, snapshot = _split_records(all_records)
+  if step_records:
+    sections.append(_breakdown_table(step_records))
+  counter_sec = _counter_lines(snapshot)
+  if counter_sec:
+    sections.append(counter_sec)
+  gauge_sec = _gauge_lines(snapshot)
+  if gauge_sec:
+    sections.append(gauge_sec)
+  hist_sec = _hist_lines(snapshot)
+  if hist_sec:
+    sections.append(hist_sec)
+  span_sec = _span_lines(trace_files, top)
+  if span_sec:
+    sections.append(span_sec)
+  runlog_sections, runlog_skipped = _runlog_sections(model_dir)
+  sections.extend(runlog_sections)
+  corrupt += runlog_skipped
+  if profile_dirs:
+    sections.append(["profiler traces (TensorBoard/Perfetto)"]
+                    + [f"  {d}" for d in profile_dirs])
+  if (not metrics_files and not trace_files and not profile_dirs
+      and not os.path.isfile(runs_path)):
+    return None
+  head = [f"graftscope report: {model_dir}",
+          f"  {len(metrics_files)} metrics.jsonl file(s), "
+          f"{len(all_records)} records, {len(trace_files)} trace file(s)"]
+  if corrupt:
+    head.append(f"  {corrupt} corrupt/truncated line(s) skipped "
+                "(counter graftscope/corrupt_lines)")
+  if not sections:
+    sections = [["(telemetry files present but no graftscope records — "
+                 "was the run made with step_stats_every_n_steps=0?)"]]
+  return "\n\n".join("\n".join(s) for s in [head] + sections) + "\n"
+
+
+def _main_report(argv: List[str]) -> int:
+  parser = argparse.ArgumentParser(
+      prog=f"{_PROG} [report]",
+      description="Summarize graftscope telemetry (metrics.jsonl + "
+                  "trace JSON + runs.jsonl) under a model_dir into a "
+                  "text report.")
+  parser.add_argument("model_dir", help="train/eval output directory")
+  parser.add_argument("--top", type=int, default=10,
+                      help="span rows in the slowest-spans table")
+  args = parser.parse_args(argv)
+  if not os.path.isdir(args.model_dir):
+    print(f"graftscope: no such directory: {args.model_dir}",
+          file=sys.stderr)
+    return 2
+  report = build_report(args.model_dir, top=args.top)
+  if report is None:
+    print(f"graftscope: no telemetry under {args.model_dir} "
+          "(no metrics.jsonl, trace JSON, runs.jsonl, or profiler dirs)",
+          file=sys.stderr)
+    return 1
+  print(report, end="")
+  return 0
+
+
+def _main_history(argv: List[str]) -> int:
+  parser = argparse.ArgumentParser(
+      prog=f"{_PROG} history",
+      description="List the run records in a model_dir's (or file's) "
+                  "runs.jsonl, one line per run.")
+  parser.add_argument("source", help="model_dir or runs.jsonl path")
+  args = parser.parse_args(argv)
+  path = args.source
+  if os.path.isdir(path):
+    path = os.path.join(path, runlog_lib.RUNS_FILENAME)
+  if not os.path.isfile(path):
+    print(f"graftscope: no run history at {args.source} "
+          f"(no such file: {path})", file=sys.stderr)
+    return 2
+  records = runlog_lib.load_records(path)
+  if not records:
+    print(f"graftscope: no parseable run records in {path}",
+          file=sys.stderr)
+    return 1
+  print("\n".join(runlog_lib.history_lines(records, path)))
+  return 0
+
+
+def _parse_threshold(spec: str):
+  name, _, value = spec.partition("=")
+  if not name or not value:
+    raise argparse.ArgumentTypeError(
+        f"expected metric=relative_threshold, got {spec!r}")
+  try:
+    return name, float(value)
+  except ValueError:
+    raise argparse.ArgumentTypeError(
+        f"threshold for {name!r} is not a number: {value!r}")
+
+
+def _main_diff(argv: List[str]) -> int:
+  parser = argparse.ArgumentParser(
+      prog=f"{_PROG} diff",
+      description="Compare two run records' key metrics with "
+                  "direction-aware regression thresholds. A run "
+                  "reference is a model_dir or runs.jsonl path, "
+                  "optionally suffixed #run_id or #index (negative "
+                  "from the end); bare paths pick the latest record. "
+                  "With --trend, ONE source (model_dir or runs.jsonl) "
+                  "is trended instead: median of the last K records "
+                  "vs median of the prior K, per key metric. "
+                  "Exit 3 when a delta/trend crosses its threshold.")
+  parser.add_argument("run_a", help="baseline run reference "
+                                    "(--trend: the runs.jsonl source)")
+  parser.add_argument("run_b", nargs="?", default=None,
+                      help="candidate run reference (omitted with "
+                           "--trend)")
+  parser.add_argument("--trend", action="store_true",
+                      help="evaluate drift over the source's run "
+                           "history instead of diffing two records")
+  parser.add_argument("-k", "--trend-k", type=int, default=3,
+                      help="--trend window: median of the last K vs "
+                           "the prior K records (default 3)")
+  parser.add_argument("--threshold", action="append", default=[],
+                      type=_parse_threshold, metavar="METRIC=REL",
+                      help="override a metric's relative regression "
+                           "threshold (e.g. examples_per_sec=0.05); "
+                           "repeatable; direction stays the metric's "
+                           "default")
+  parser.add_argument("--default-threshold", type=float, default=0.10,
+                      help="|relative-change| threshold for metrics "
+                           "without a configured direction")
+  args = parser.parse_args(argv)
+  overrides = {}
+  for name, value in args.threshold:
+    direction = runlog_lib.DEFAULT_THRESHOLDS.get(name, ("abs", 0.0))[0]
+    overrides[name] = (direction, value)
+  if args.trend:
+    if args.run_b is not None:
+      print("graftscope diff --trend takes ONE source (a model_dir or "
+            "runs.jsonl), not two run references", file=sys.stderr)
+      return 2
+    path = args.run_a
+    if os.path.isdir(path):
+      path = os.path.join(path, runlog_lib.RUNS_FILENAME)
+    if not os.path.isfile(path):
+      print(f"graftscope: no run history at {args.run_a} "
+            f"(no such file: {path})", file=sys.stderr)
+      return 2
+    records = runlog_lib.load_records(path)
+    if not records:
+      print(f"graftscope: no parseable run records in {path}",
+            file=sys.stderr)
+      return 2
+    trends = runlog_lib.trend_records(
+        records, k=args.trend_k, thresholds=overrides,
+        default_threshold=args.default_threshold)
+    print(runlog_lib.format_trend(path, trends, k=args.trend_k), end="")
+    return 3 if any(t["regressed"] for t in trends) else 0
+  if args.run_b is None:
+    print("graftscope diff needs two run references (or --trend with "
+          "one source)", file=sys.stderr)
+    return 2
+  try:
+    record_a, _ = runlog_lib.resolve_run(args.run_a)
+    record_b, _ = runlog_lib.resolve_run(args.run_b)
+  except runlog_lib.RunResolveError as e:
+    print(f"graftscope: {e}", file=sys.stderr)
+    return 2
+  deltas = runlog_lib.diff_records(
+      record_a, record_b, thresholds=overrides,
+      default_threshold=args.default_threshold)
+  print(runlog_lib.format_diff(record_a, record_b, deltas), end="")
+  return 3 if any(d["regressed"] for d in deltas) else 0
+
+
+def _stamp(unix_time) -> str:
+  try:
+    return time.strftime("%Y-%m-%d %H:%M:%S",
+                         time.localtime(float(unix_time)))
+  except (TypeError, ValueError):
+    return "?"
+
+
+def _fmt_cell(value, width: int = 12) -> str:
+  """Step-record cell: bundle values are floats OR repr strings for
+  non-finites ('nan' is exactly the datum a postmortem is for)."""
+  if isinstance(value, (int, float)):
+    return f"{value:>{width}.2f}"
+  return f"{str(value):>{width}}"
+
+
+_STEP_COLUMNS = ("step_ms", "data_wait_ms", "device_ms",
+                 "examples_per_sec", "nonfinite_params")
+
+
+def _postmortem_steps_lines(steps: List[dict], last_n: int) -> List[str]:
+  if not steps:
+    return ["recorded steps: none (did the run crash before the first "
+            "stepstats window?)"]
+  shown = steps[-last_n:]
+  lines = [f"last {len(shown)} recorded step window(s) "
+           f"(of {len(steps)} in the ring buffer)"]
+  columns = [c for c in _STEP_COLUMNS
+             if any(c in record for record in shown)]
+  lines.append("  " + f"{'step':>8}"
+               + "".join(f"{c:>18}" for c in columns))
+  for record in shown:
+    lines.append("  " + f"{str(record.get('step', '?')):>8}"
+                 + "".join(_fmt_cell(record.get(c, "—"), 18)
+                           for c in columns))
+  return lines
+
+
+def _fmt_num(value) -> str:
+  """Tolerant numeric format: a wrong-typed field in an otherwise
+  parseable incident renders verbatim instead of raising (the CLI's
+  never-raise contract covers wrong TYPES, not just invalid JSON)."""
+  try:
+    return f"{float(value):.6g}"
+  except (TypeError, ValueError):
+    return str(value)
+
+
+def _postmortem_incident_lines(incidents: List[dict]) -> List[str]:
+  if not incidents:
+    return ["incident timeline: no incidents recorded"]
+  lines = [f"incident timeline ({len(incidents)} record(s))",
+           f"  {'time':<20}{'step':>8}  {'severity':<7} kind"]
+  for record in incidents:
+    detail = record.get("detail") if isinstance(record.get("detail"),
+                                                dict) else {}
+    extras = []
+    if record.get("value") is not None:
+      extras.append(f"value={_fmt_num(record['value'])}")
+    if detail.get("value_repr"):
+      extras.append(f"value={detail['value_repr']}")
+    if record.get("threshold") is not None:
+      extras.append(f"threshold={_fmt_num(record['threshold'])}")
+    if detail.get("metric"):
+      extras.append(f"metric={detail['metric']}")
+    lines.append(f"  {_stamp(record.get('unix_time')):<20}"
+                 f"{str(record.get('step', '—')):>8}  "
+                 f"{str(record.get('severity', '?')):<7} "
+                 f"{record.get('kind', '?')}"
+                 + ("  (" + ", ".join(extras) + ")" if extras else ""))
+  return lines
+
+
+def _postmortem_heartbeat_lines(heartbeat: Optional[dict]) -> List[str]:
+  if not heartbeat:
+    return ["tunnel heartbeat: no monitor data in this bundle"]
+  lines = [f"tunnel heartbeat: state={heartbeat.get('state', '?')}"
+           + (f" cause={heartbeat['cause']}" if heartbeat.get("cause")
+              else "")
+           + f" ({heartbeat.get('probes', 0)} probe(s))"]
+  for t in heartbeat.get("transitions") or []:
+    lines.append(f"  {_stamp(t.get('unix_time')):<20}-> "
+                 f"{t.get('state', '?'):<9}"
+                 f" source={t.get('source', '?')}"
+                 + (f" cause={t['cause']}" if t.get("cause") else ""))
+  if not (heartbeat.get("transitions") or []):
+    lines.append("  (no transitions recorded)")
+  return lines
+
+
+def render_postmortem(bundle: Dict[str, Any], source: str,
+                      last_n: int = 20,
+                      extra_incidents: Optional[List[dict]] = None) -> str:
+  """Text report for one `graftscope-postmortem-v1` bundle."""
+  head = [f"graftscope postmortem: {source}",
+          f"  reason: {bundle.get('reason', '?')}   "
+          f"at {_stamp(bundle.get('unix_time'))}   "
+          f"pid {bundle.get('pid', '?')}"]
+  watchdog = bundle.get("watchdog") or {}
+  if watchdog.get("hang_timeout_secs"):
+    head.append(f"  watchdog: timeout {watchdog['hang_timeout_secs']:.1f}s,"
+                f" stalled {watchdog.get('stalled_secs', 0.0):.1f}s at dump")
+  exception = bundle.get("exception")
+  if exception:
+    head.append(f"  exception: {exception.get('type', '?')}: "
+                f"{exception.get('message', '')}"[:200])
+  incidents = list(bundle.get("incidents") or [])
+  seen = {(r.get("unix_time"), r.get("kind"), r.get("step"))
+          for r in incidents}
+  for record in extra_incidents or []:
+    key = (record.get("unix_time"), record.get("kind"), record.get("step"))
+    if key not in seen:
+      incidents.append(record)
+      seen.add(key)
+  def _incident_order(record):
+    try:
+      when = float(record.get("unix_time") or 0.0)
+    except (TypeError, ValueError):
+      when = 0.0
+    try:
+      step = int(record.get("step") or 0)
+    except (TypeError, ValueError):
+      step = 0
+    return (when, step)
+
+  incidents.sort(key=_incident_order)
+  sections = [head,
+              _postmortem_steps_lines(list(bundle.get("steps") or []),
+                                      last_n),
+              _postmortem_incident_lines(incidents),
+              _postmortem_heartbeat_lines(bundle.get("heartbeat"))]
+  metrics = bundle.get("metrics") or {}
+  highlights = {k: v for k, v in sorted(metrics.items())
+                if "/sentinel/" in k or "/flightrec/" in k
+                or k.startswith(("counter/sentinel", "counter/flightrec"))}
+  if highlights:
+    sections.append(["sentinel/flightrec counters"]
+                    + [f"  {k:<44}{_fmt_cell(v)}"
+                       for k, v in highlights.items()])
+  if exception and exception.get("traceback"):
+    tail = exception["traceback"].strip().splitlines()[-12:]
+    sections.append(["traceback (tail)"] + [f"  {line}" for line in tail])
+  return "\n\n".join("\n".join(s) for s in sections) + "\n"
+
+
+def _load_bundle(path: str) -> Optional[Dict[str, Any]]:
+  """Tolerant bundle read: a torn/corrupt bundle is a warning + None,
+  never a raise (the writer may have died mid-crash)."""
+  try:
+    with open(path, errors="replace") as f:
+      bundle = json.load(f)
+    if not isinstance(bundle, dict):
+      raise ValueError("bundle is not an object")
+    return bundle
+  except (OSError, ValueError) as e:
+    metrics_lib.counter("graftscope/corrupt_bundles").inc()
+    print(f"graftscope: skipping corrupt bundle {path} "
+          f"({type(e).__name__}: {e})", file=sys.stderr)
+    return None
+
+
+def _main_postmortem(argv: List[str]) -> int:
+  parser = argparse.ArgumentParser(
+      prog=f"{_PROG} postmortem",
+      description="Render a flight-recorder postmortem bundle: last "
+                  "steps, incident timeline, tunnel-heartbeat "
+                  "transitions, crash traceback.")
+  parser.add_argument("source",
+                      help="bundle dir / flightrec dir / model_dir / "
+                           "postmortem.json path")
+  parser.add_argument("--index", type=int, default=-1,
+                      help="bundle to render when several exist "
+                           "(chronological; negative from the end; "
+                           "default: latest)")
+  parser.add_argument("--steps", type=int, default=20,
+                      help="step-window rows to show")
+  parser.add_argument("--list", action="store_true", dest="list_only",
+                      help="list discovered bundles and exit")
+  args = parser.parse_args(argv)
+  if not os.path.exists(args.source):
+    print(f"graftscope: no such path: {args.source}", file=sys.stderr)
+    return 2
+  bundles = flightrec_lib.find_bundles(args.source)
+  # The incident history file complements whatever the bundle rang.
+  incidents_path = (os.path.join(args.source,
+                                 runlog_lib.INCIDENTS_FILENAME)
+                    if os.path.isdir(args.source) else "")
+  extra_incidents, _ = (runlog_lib.read_jsonl(
+      incidents_path, counter_name="graftscope/corrupt_lines")
+      if incidents_path and os.path.isfile(incidents_path) else ([], 0))
+  if args.list_only:
+    if not bundles:
+      print(f"graftscope: no postmortem bundles under {args.source}",
+            file=sys.stderr)
+      return 1
+    for i, path in enumerate(bundles):
+      print(f"[{i}] {os.path.dirname(path)}")
+    return 0
+  if not bundles:
+    if extra_incidents:
+      # No crash bundle, but the run DID log incidents: the timeline is
+      # still the answer to "what went wrong".
+      print(f"graftscope postmortem: {args.source} (no flight-recorder "
+            "bundle; incident history only)\n")
+      print("\n".join(_postmortem_incident_lines(extra_incidents)))
+      return 0
+    print(f"graftscope: no postmortem bundles (or incidents.jsonl) "
+          f"under {args.source}", file=sys.stderr)
+    return 1
+  try:
+    path = bundles[args.index]
+  except IndexError:
+    print(f"graftscope: bundle index {args.index} out of range "
+          f"({len(bundles)} bundle(s))", file=sys.stderr)
+    return 2
+  bundle = _load_bundle(path)
+  if bundle is None:
+    return 2
+  print(render_postmortem(bundle, path, last_n=args.steps,
+                          extra_incidents=extra_incidents), end="")
+  return 0
+
+
+def _not_ported(name: str):
+  def _main(argv: List[str]) -> int:
+    print(f"graftscope {name}: not ported yet; it needs the port of the "
+          "JAX package's compiler and fleet tooling (ROADMAP.md, Queue A "
+          "item 15)", file=sys.stderr)
+    return 2
+  return _main
+
+
+_SUBCOMMANDS = {"report": _main_report, "history": _main_history,
+                "diff": _main_diff, "postmortem": _main_postmortem,
+                **{name: _not_ported(name)
+                   for name in ("cache", "forge", "audit", "timeline",
+                                "watch")}}
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+  argv = list(sys.argv[1:] if argv is None else argv)
+  # `graftscope <model_dir>` (no subcommand) is a report. Subcommand names
+  # win over a same-named relative model_dir — report a directory
+  # literally called `diff` via `graftscope report diff` or
+  # `graftscope ./diff`.
+  if argv and argv[0] in _SUBCOMMANDS:
+    return _SUBCOMMANDS[argv[0]](argv[1:])
+  return _main_report(argv)
+
+
+if __name__ == "__main__":
+  sys.exit(main())

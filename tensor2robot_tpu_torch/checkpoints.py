@@ -22,6 +22,11 @@ through `bridge.train_state_from_jax`). Layout under `directory`
 ones to the newest verified step; an explicit corrupt step raises
 `CheckpointCorruptionError`. `max_to_keep` newest steps are kept.
 
+The `obs.faultlab` points `ckpt.torn` and `ckpt.bitflip` (one arrival
+per `save` that writes) corrupt the step just written AFTER its manifest
+captured the good bytes: truncated to half, or one byte flipped mid-file,
+in its largest file — exactly the damage the manifest exists to catch.
+
 Saves are asynchronous by default (`async_checkpointing=True`, as in the
 JAX package): `save` copies the state to the host on the caller's thread
 and returns; one worker thread writes, fsyncs, renames, writes the
@@ -62,6 +67,7 @@ from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
 
 import torch
 
+from tensor2robot_tpu_torch.obs import faultlab as faultlab_lib
 from tensor2robot_tpu_torch.obs import metrics as metrics_lib
 from tensor2robot_tpu_torch.parallel import train_step as ts
 from tensor2robot_tpu_torch.utils import retry as retry_lib
@@ -109,6 +115,30 @@ def _step_files(step_dir: str) -> List[str]:
     for name in sorted(filenames):
       out.append(os.path.relpath(os.path.join(dirpath, name), step_dir))
   return out
+
+
+def _corrupt_step_for_faultlab(directory: str, step: int, mode: str) -> None:
+  """Enacts a ckpt.torn ("torn") / ckpt.bitflip ("bitflip") fault on the
+  LARGEST file of a written step directory (a deterministic target)."""
+  step_dir = os.path.join(directory, str(int(step)))
+  candidates = [(os.path.getsize(os.path.join(step_dir, rel)), rel)
+                for rel in _step_files(step_dir)]
+  candidates = [(size, rel) for size, rel in candidates if size > 1]
+  if not candidates:
+    return
+  _, rel = max(candidates)
+  path = os.path.join(step_dir, rel)
+  size = os.path.getsize(path)
+  with open(path, "r+b") as f:
+    if mode == "torn":
+      f.truncate(size // 2)
+    else:  # bitflip: one byte mid-file, the silent-corruption case
+      f.seek(size // 2)
+      byte = f.read(1)
+      f.seek(size // 2)
+      f.write(bytes([byte[0] ^ 0xFF]))
+    f.flush()
+    os.fsync(f.fileno())
 
 
 class CheckpointManager:
@@ -168,24 +198,32 @@ class CheckpointManager:
                             "ema_params": state.ema_params,
                             "opt_state": state.opt_state,
                             "mutable_state": state.mutable_state})}
+    # The fault plan's arrival is counted here, on the caller's thread,
+    # so a plan fires on the same save however the writes interleave.
+    fault = (faultlab_lib.maybe_fire(faultlab_lib.CKPT_TORN)
+             or faultlab_lib.maybe_fire(faultlab_lib.CKPT_BITFLIP))
+    corrupt = (None if fault is None else
+               "torn" if fault.point == faultlab_lib.CKPT_TORN else "bitflip")
     if not self._async:
-      self._write(step, payload)
+      self._write(step, payload, corrupt)
       return True
     self._worker_step = step
     self._worker = threading.Thread(target=self._write_in_worker,
-                                    args=(step, payload),
+                                    args=(step, payload, corrupt),
                                     name=f"ckpt-save-{step}")
     self._worker.start()
     return True
 
-  def _write_in_worker(self, step: int, payload: dict) -> None:
+  def _write_in_worker(self, step: int, payload: dict,
+                       corrupt: Optional[str]) -> None:
     try:
-      self._write(step, payload)
+      self._write(step, payload, corrupt)
     except BaseException as e:  # noqa: BLE001 - re-raised on the caller
       _log.exception("checkpoint step %d: async save failed", step)
       self._error = e
 
-  def _write(self, step: int, payload: dict) -> None:
+  def _write(self, step: int, payload: dict,
+             corrupt: Optional[str] = None) -> None:
     tmp = os.path.join(self._directory, f".{step}.tmp-{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
@@ -196,6 +234,8 @@ class CheckpointManager:
       os.fsync(f.fileno())
     os.replace(tmp, self._step_dir(step))
     self._write_manifest(step)
+    if corrupt is not None:
+      _corrupt_step_for_faultlab(self._directory, step, corrupt)
     metrics_lib.counter("ckpt/saves").inc()
     self._prune()
 

@@ -20,11 +20,14 @@ to parse or preprocess is skipped and its records counted
 (`data/corrupt_records_skipped`, `data/corrupt_batches_skipped`), and a
 record-source I/O error ends the current epoch early (counted as
 `data/source_io_errors`); past the quota the error is raised. The quota
-is 0 by default: eval and parity paths raise at once.
-
-The JAX package's fault-injection seams and trace spans are not ported
-(ROADMAP.md, Queue A): they act only while a fault plan or a tracer is
-active, so leaving them out changes no batch.
+is 0 by default: eval and parity paths raise at once. The
+`obs.faultlab` points `data.record_io` (the record stream raises an
+`IOError` mid-epoch), `data.corrupt_record` (a batch's first record is
+overwritten with 0xFF bytes before parse) and `data.preprocess` (the
+preprocess stage raises) inject exactly these failures; the record-IO
+seam is wrapped in only while a plan is active, so a run without one
+changes no batch. While the tracer is on (a run with step telemetry),
+each consumer wait on the prefetch queue is a `data/prefetch_wait` span.
 """
 
 from __future__ import annotations
@@ -44,7 +47,9 @@ from tensor2robot_tpu_torch import specs as specs_lib
 from tensor2robot_tpu_torch.data import overlap as overlap_lib
 from tensor2robot_tpu_torch.data import parsing, tfrecord
 from tensor2robot_tpu_torch.data import stager as stager_lib
+from tensor2robot_tpu_torch.obs import faultlab as faultlab_lib
 from tensor2robot_tpu_torch.obs import metrics as obs_metrics
+from tensor2robot_tpu_torch.obs import trace as obs_trace
 from tensor2robot_tpu_torch.utils import config
 
 __all__ = ["resolve_file_patterns", "RecordBatchPipeline",
@@ -61,6 +66,24 @@ _FLUSH_EVERY = 64
 # Sentinel for a batch dropped under the corrupt-record quota (filtered
 # out of the serial chain before the consumer).
 _SKIP = object()
+
+
+def _corrupted_copy(batch):
+  """faultlab `data.corrupt_record` payload: `batch` with the FIRST
+  record's bytes overwritten with 0xFF (an invalid proto wire tag), so
+  the parser fails exactly the way real corruption fails. Copies — the
+  raw batch may be shared with telemetry or retries."""
+  if isinstance(batch, stager_lib.StagedBatch):
+    arena = batch.arena.copy()
+    offset = int(batch.offsets[0])
+    length = int(batch.lengths[0])
+    arena[offset:offset + length] = 0xFF
+    return stager_lib.StagedBatch(arena, batch.offsets, batch.lengths)
+  batch = list(batch)
+  first = {key: b"\xff" * max(len(value), 4)
+           for key, value in batch[0].items()}
+  batch[0] = first
+  return batch
 
 
 def as_tensors(values: specs_lib.SpecStruct) -> specs_lib.SpecStruct:
@@ -240,6 +263,7 @@ def prefetch(stream: Iterator[Any], size: int = 2) -> Iterator[Any]:
   # `finally` flush keeps totals exact at stream end.
   wait_hist = obs_metrics.histogram("data/prefetch_wait_ms")
   batch_counter = obs_metrics.counter("data/batches")
+  tracer = obs_trace.get_tracer()
   pending_ms: List[float] = []
   perf_counter_ns = time.perf_counter_ns
   try:
@@ -247,6 +271,8 @@ def prefetch(stream: Iterator[Any], size: int = 2) -> Iterator[Any]:
       t0 = perf_counter_ns()
       item = q.get()
       dur_ns = perf_counter_ns() - t0
+      if tracer.enabled:
+        tracer.add_complete("data/prefetch_wait", t0, dur_ns, cat="data")
       if item is _END:
         if error:
           raise error[0]
@@ -441,6 +467,15 @@ class RecordBatchPipeline:
     obs_metrics.counter("data/source_io_errors").inc()
     return True
 
+  def _inject_record_faults(self, stream: Iterator[Any]) -> Iterator[Any]:
+    """`data.record_io` faultlab seam: the stream raises a (real-
+    IOError-subclass) injected error mid-epoch."""
+    for item in stream:
+      if faultlab_lib.maybe_fire(faultlab_lib.DATA_RECORD_IO) is not None:
+        raise faultlab_lib.InjectedIOError(
+            "faultlab: injected record-source I/O error")
+      yield item
+
   def _guarded(self, fn):
     """Quota-absorbing wrapper for the serial parse/preprocess chain:
     a failed batch becomes the `_SKIP` sentinel (filtered before the
@@ -478,6 +513,8 @@ class RecordBatchPipeline:
           files, self._cycle_length)
     else:
       stream = interleave_records(files, self._cycle_length)
+    if faultlab_lib.active() is not None:
+      stream = self._inject_record_faults(stream)
     return stream
 
   def _record_tuples(self, epoch_seed: Optional[int]
@@ -519,6 +556,8 @@ class RecordBatchPipeline:
               shuffle_buffer=self._shuffle_buffer_size,
               seed=epoch_seed,
               drop_remainder=self._drop_remainder)
+          if faultlab_lib.active() is not None:
+            epoch_batches = self._inject_record_faults(epoch_batches)
           yield from epoch_batches
         else:
           stream: Iterator[Dict[str, bytes]] = self._record_tuples(epoch_seed)
@@ -608,6 +647,8 @@ class RecordBatchPipeline:
     return stream
 
   def _parse_only(self, batch: Any) -> specs_lib.SpecStruct:
+    if faultlab_lib.maybe_fire(faultlab_lib.DATA_CORRUPT_RECORD) is not None:
+      batch = _corrupted_copy(batch)
     if isinstance(batch, stager_lib.StagedBatch):
       # Arena batch from the native staging plane: hand it through
       # whole — the native parser reads records in place (parse_arena),
@@ -622,6 +663,9 @@ class RecordBatchPipeline:
 
   def _apply_preprocess(self, parsed: specs_lib.SpecStruct
                         ) -> specs_lib.SpecStruct:
+    if faultlab_lib.maybe_fire(faultlab_lib.DATA_PREPROCESS) is not None:
+      raise faultlab_lib.InjectedPreprocessError(
+          "faultlab: injected preprocess failure")
     features = parsed["features"] if "features" in parsed \
         else specs_lib.SpecStruct()
     labels = parsed["labels"] if "labels" in parsed else specs_lib.SpecStruct()

@@ -9,7 +9,8 @@ are configurables that make hooks.
 
 `after_step` receives the step's metrics as 0-dim tensors on the device:
 reading one waits for the device, so a hook reads them only at its own
-cadence and the loop adds no sync per step.
+cadence and the loop adds no sync per step. `after_rewind` follows a
+divergence rewind to a verified checkpoint.
 
 `ExportHook` exports a serving bundle after each checkpoint, keeps the
 newest `num_versions`, and can keep a one-version-lagged directory (the
@@ -20,8 +21,11 @@ holds the weights of its own step, and its `global_step` says which)
 into a latest-wins pending slot, and one worker drains it. A failed
 export is logged and counted (`export/failures`), and `end` raises it.
 
-`StepStatsHook` and `SentinelHook` need the port of `obs/stepstats` and
-`obs/sentinel` (ROADMAP.md, Queue A item 11); they raise when made.
+`StepStatsHook` writes the step-stats windows into the run's
+`metrics.jsonl`, the registry snapshot and the Chrome trace at the end;
+`SentinelHook` feeds host-side scalars to the sentinel and writes its
+incident totals at the end. `train_eval_model` appends both when step
+telemetry is on.
 """
 
 from __future__ import annotations
@@ -55,15 +59,23 @@ _log = logging.getLogger(__name__)
 
 class TrainContext:
   """What hooks see: the model, the model_dir, the live state through
-  `get_state()`, and the run's summary writer (or None)."""
+  `get_state()`, and the run's summary writer (or None).
+
+  `step_stats` is the loop's live `obs.stepstats.StepStatsRecorder`,
+  `sentinel` the run's `obs.sentinel.Sentinel`, `flight_recorder` its
+  `obs.flightrec.FlightRecorder` (each None when disabled)."""
 
   def __init__(self, model, model_dir: str,
                get_state: Callable[[], Optional[ts.TrainState]],
-               summary_writer=None):
+               summary_writer=None, step_stats=None, sentinel=None,
+               flight_recorder=None):
     self.model = model
     self.model_dir = model_dir
     self.get_state = get_state
     self.summary_writer = summary_writer
+    self.step_stats = step_stats
+    self.sentinel = sentinel
+    self.flight_recorder = flight_recorder
 
 
 class Hook:
@@ -76,6 +88,11 @@ class Hook:
 
   def after_checkpoint(self, ctx: TrainContext, step: int) -> Optional[str]:
     pass
+
+  def after_rewind(self, ctx: TrainContext, step: int) -> None:
+    """Called after a divergence rewind restored a verified checkpoint
+    (`step` = the step now resumed from): a hook holding work above it
+    (a pending publish) drops it, since those steps are re-trained."""
 
   def after_eval(self, ctx: TrainContext, step: int,
                  metrics: Mapping[str, Any]) -> None:
@@ -166,22 +183,68 @@ class VariableLoggerHook(Hook):
                 float(torch.linalg.vector_norm(leaf.float())))
 
 
+@config.configurable
 class StepStatsHook(Hook):
-  """Needs `obs/stepstats`, not ported yet."""
+  """Writes graftscope step records through the run's `SummaryWriter`.
 
-  def __init__(self, *args, **kwargs):
-    raise NotImplementedError(
-        "StepStatsHook needs obs/stepstats, which is not ported yet "
-        "(ROADMAP.md, Queue A item 11: step telemetry)")
+  The loop-side measurement lives in `obs.stepstats.StepStatsRecorder`
+  (`TrainContext.step_stats`); this hook is the write path: each
+  window's record into `metrics.jsonl` (its own row, beside the loss
+  rows), a final metrics-registry snapshot, and the Chrome trace JSON
+  next to them (`trace.graftscope.json` — open in Perfetto)."""
+
+  def __init__(self, trace_filename: str = "trace.graftscope.json"):
+    self._trace_filename = trace_filename
+
+  def _flush(self, ctx: TrainContext) -> None:
+    if ctx.step_stats is None or ctx.summary_writer is None:
+      return
+    for step, record in ctx.step_stats.drain():
+      ctx.summary_writer.write_scalars(step, record)
+
+  def after_step(self, ctx: TrainContext, step: int, metrics) -> None:
+    self._flush(ctx)
+
+  def end(self, ctx: TrainContext) -> None:
+    from tensor2robot_tpu_torch.obs import trace as trace_lib
+
+    self._flush(ctx)
+    if ctx.summary_writer is None:
+      return
+    snapshot = metrics_lib.snapshot()
+    if snapshot:
+      ctx.summary_writer.write_scalars(int(ctx.get_state().step), snapshot)
+    tracer = trace_lib.get_tracer()
+    if tracer.events():
+      log_dir = os.path.dirname(ctx.summary_writer.path)
+      tracer.save(os.path.join(log_dir, self._trace_filename))
 
 
+@config.configurable
 class SentinelHook(Hook):
-  """Needs `obs/sentinel`, not ported yet."""
+  """Feeds per-step HOST-side scalars to the run's `obs.sentinel` and
+  writes its incident totals when training ends.
 
-  def __init__(self, *args, **kwargs):
-    raise NotImplementedError(
-        "SentinelHook needs obs/sentinel, which is not ported yet "
-        "(ROADMAP.md, Queue A item 11: step telemetry)")
+  Per-step metrics are 0-dim tensors on the device; reading them here
+  would wait for the device every step, so `Sentinel.observe_metrics`
+  inspects only values already on the host (numbers, numpy) and skips
+  tensors; the loop feeds it the log-cadence scalars once they are read
+  for logging anyway."""
+
+  def after_step(self, ctx: TrainContext, step: int, metrics) -> None:
+    if ctx.sentinel is not None:
+      ctx.sentinel.observe_metrics(step, metrics)
+
+  def end(self, ctx: TrainContext) -> None:
+    if ctx.sentinel is None or ctx.summary_writer is None:
+      return
+    summary = ctx.sentinel.summary()
+    if summary["incidents"]:
+      ctx.summary_writer.write_scalars(
+          int(ctx.get_state().step),
+          {"sentinel/incidents": float(summary["incidents"]),
+           **{f"sentinel/{kind}": float(count)
+              for kind, count in summary["by_kind"].items()}})
 
 
 def _serving_snapshot(state: ts.TrainState) -> ts.TrainState:

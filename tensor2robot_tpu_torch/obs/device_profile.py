@@ -5,6 +5,7 @@ clock (no profiler, ends in a synchronize), then runs them again under
 `torch.profiler` (CPU + CUDA activity) and sums the device-side events:
 kernels and copies, one stream, so they do not overlap. Host-side ops are
 left out, as they carry their kernels' time too. Needs a CUDA device.
+Torch is imported inside the functions, so `obs/` imports without it.
 """
 
 from __future__ import annotations
@@ -12,15 +13,13 @@ from __future__ import annotations
 import time
 from typing import Callable, Dict, List, Tuple
 
-import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
-
 __all__ = ["device_events", "profile_window"]
 
 
 def device_events(prof) -> List[Tuple[str, float]]:
   """(name, device ms) of every device-side event, largest first."""
+  from torch.autograd import DeviceType
+
   out = []
   for event in prof.key_averages():
     if event.device_type != DeviceType.CUDA:
@@ -36,6 +35,9 @@ def profile_window(fn: Callable[[], object], count: int,
   """Wall ms per call, device-busy ms per call, the device's idle share
   and the `top` device events by time per call; `events` keeps every
   (name, ms per call)."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+
   torch.cuda.synchronize()
   start = time.perf_counter()
   for _ in range(count):

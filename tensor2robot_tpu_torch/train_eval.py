@@ -55,14 +55,50 @@ with evals in between. Semantics kept from the JAX package:
 * checkpoints are saved asynchronously; the save in flight is drained
   before the run returns, however it ends.
 
-Telemetry (step stats, sentinel, flight recorder), the executable cache
-and divergence rewind are not ported yet (ROADMAP.md, Queue A).
+Telemetry and recovery, on by default for a training run as in the JAX
+package:
+
+* step stats (`obs.stepstats`, every `step_stats_every_n_steps`; None =
+  per step on the CPU, the log cadence on CUDA, 0 = off): each window's
+  `step_ms`, `device_ms`, `data_wait_ms`, `host_ms`, `examples_per_sec`
+  row in `metrics.jsonl` (beside the loss rows), a Chrome trace
+  `trace.graftscope.json` and a final registry snapshot there, and one
+  schema-versioned record per run in `<model_dir>/runs.jsonl`
+  (`obs.runlog`; `python -m tensor2robot_tpu_torch.bin.graftscope`
+  renders and diffs them). A window ends in a barrier
+  (`utils.backend.state_barrier`) after the next batch is dequeued, so
+  the prefetch still overlaps the device. The process-global registry
+  and trace buffer are reset when the run starts, before its data
+  pipeline does (`reset_run_telemetry=False` keeps them for an owner
+  that outlives the run, as a served model in the same process);
+* with `enable_sentinel`, the sentinel (`obs.sentinel`: step-time
+  spikes, data starvation, non-finite parameters at the barrier and
+  non-finite log scalars, allocator drift) writes incidents to
+  `<model_dir>/incidents.jsonl`, and the flight recorder
+  (`obs.flightrec`) dumps a postmortem bundle under
+  `<model_dir>/flightrec/` on a crash, a SIGTERM (main thread only), a
+  hang past `watchdog_timeout_secs` (None: no watchdog) or a fatal
+  incident;
+* divergence rewind: with `rewind_on_divergence`, a fatal non-finite
+  incident restores the newest VERIFIED checkpoint (after the save in
+  flight lands; a corrupt step is quarantined and the next newest
+  serves), calls `after_rewind`, restarts the input stream from its
+  seed (so a rewound run equals a clean resume from that checkpoint)
+  and continues; a quarantined step is saved again when the replay
+  crosses it. Past `max_rewinds`, or with no verified checkpoint, it
+  dumps a bundle and raises `RuntimeError`. The run record counts the
+  rewinds and their targets (`extra.graftguard`) beside the active
+  `obs.faultlab` plan's injections (`extra.faultlab`).
+
+The JAX package's executable cache, its compile records and its
+preemption exit are not ported (ROADMAP.md, Queue A items 14 and 15).
 """
 
 from __future__ import annotations
 
 import itertools
 import logging
+import math
 import os
 import sys
 import time
@@ -73,8 +109,17 @@ import torch
 from tensor2robot_tpu_torch import checkpoints as checkpoints_lib
 from tensor2robot_tpu_torch import modes as modes_lib
 from tensor2robot_tpu_torch.hooks import core as hooks_lib
+from tensor2robot_tpu_torch.obs import faultlab as faultlab_lib
+from tensor2robot_tpu_torch.obs import flightrec as flightrec_lib
+from tensor2robot_tpu_torch.obs import metrics as metrics_lib
+from tensor2robot_tpu_torch.obs import runlog as runlog_lib
+from tensor2robot_tpu_torch.obs import sentinel as sentinel_lib
+from tensor2robot_tpu_torch.obs import stepstats as stepstats_lib
+from tensor2robot_tpu_torch.obs import trace as trace_lib
+from tensor2robot_tpu_torch.obs import xray as xray_lib
 from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 from tensor2robot_tpu_torch.parallel import train_step as ts
+from tensor2robot_tpu_torch.utils import backend
 from tensor2robot_tpu_torch.utils import config
 from tensor2robot_tpu_torch.utils import device as device_lib
 from tensor2robot_tpu_torch.utils import summaries as summaries_lib
@@ -174,6 +219,12 @@ def train_eval_model(
     device_prefetch_depth: int = 2,
     host_overlap_workers: Optional[int] = None,
     host_overlap_queue_mb: Optional[float] = None,
+    step_stats_every_n_steps: Optional[int] = None,
+    enable_sentinel: bool = True,
+    watchdog_timeout_secs: Optional[float] = None,
+    rewind_on_divergence: bool = True,
+    max_rewinds: int = 2,
+    reset_run_telemetry: bool = True,
     device=None,
 ) -> dict:
   """Trains `model` to `max_train_steps` (with evals in
@@ -189,7 +240,16 @@ def train_eval_model(
   kept placed ahead on the device (0: each placed inline);
   `host_overlap_workers` parse threads and a `host_overlap_queue_mb`
   output queue are handed to record-backed generators (None keeps
-  theirs)."""
+  theirs).
+
+  Telemetry and divergence rewind: the JAX package's parameters and
+  defaults (module docstring). `step_stats_every_n_steps` None picks
+  per-step on the CPU and `log_every_n_steps` on CUDA, 0 turns step
+  telemetry off (and with it the sentinel, the flight recorder and the
+  rewind); `enable_sentinel`, `watchdog_timeout_secs` (None: no hang
+  watchdog), `rewind_on_divergence` and `max_rewinds` as named;
+  `reset_run_telemetry=False` keeps the process-global registry and
+  trace buffer for an owner that outlives this run."""
   if mode not in _MODES:
     raise ValueError(f"Unknown train_eval mode {mode!r}")
   needs_train = mode in ("train", "train_and_evaluate")
@@ -215,6 +275,23 @@ def train_eval_model(
       os.path.join(model_dir, checkpoints_lib.CHECKPOINT_DIRNAME),
       max_to_keep=keep_checkpoints)
 
+  if step_stats_every_n_steps is None:
+    # One barrier per window serializes the launch queue on the card:
+    # per step on the CPU, the log cadence on CUDA.
+    step_stats_every_n_steps = (1 if device.type == "cpu"
+                                else max(int(log_every_n_steps), 1))
+  step_stats = stepstats_lib.StepStatsRecorder(
+      batch_size=(input_generator_train.batch_size if needs_train else 0),
+      every_n_steps=step_stats_every_n_steps if needs_train else 0)
+  if step_stats.enabled and reset_run_telemetry:
+    # Per-run telemetry: the saved trace, the final snapshot and the run
+    # record cover exactly this run. Before any data pipeline starts: a
+    # loader caches its registry objects when it is made, and a later
+    # reset would orphan them.
+    trace_lib.clear()
+    metrics_lib.reset()
+    xray_lib.clear_records()
+
   eval_step = None
   if needs_eval:
     input_generator_eval.set_specification_from_model(model, modes_lib.EVAL)
@@ -234,13 +311,31 @@ def train_eval_model(
   writer = summaries_lib.SummaryWriter(
       os.path.join(model_dir, "train" if needs_train else "eval"))
   state = None
-  ctx = hooks_lib.TrainContext(model, model_dir, get_state=lambda: state,
-                               summary_writer=writer)
+  sentinel = flight_recorder = None
+  # Divergence-rewind latch: set by a sentinel sink on a fatal
+  # non-finite incident, consumed once per loop iteration.
+  rewind_state = {"pending": False, "count": 0, "targets": []}
+  run_memory: dict = {}
+  tracer_preenabled = trace_lib.get_tracer().enabled
   try:
     if dataset is not None:
       first_batch = next(dataset)
     if mode != "continuous_eval":
       state = _initial_state(model, manager, seed, device)
+    if step_stats.enabled:
+      hooks.append(hooks_lib.StepStatsHook())
+      if enable_sentinel:
+        sentinel, flight_recorder = _watch(model_dir, step_stats, hooks,
+                                           rewind_state, rewind_on_divergence,
+                                           watchdog_timeout_secs)
+      try:
+        run_memory = xray_lib.memory_accounting(state, batch=first_batch)
+      except Exception:  # noqa: BLE001 - telemetry never kills a run
+        _log.exception("graftscope-xray: memory accounting failed")
+    ctx = hooks_lib.TrainContext(
+        model, model_dir, get_state=lambda: state, summary_writer=writer,
+        step_stats=step_stats if step_stats.enabled else None,
+        sentinel=sentinel, flight_recorder=flight_recorder)
     for hook in hooks:
       hook.begin(ctx)
 
@@ -273,11 +368,66 @@ def train_eval_model(
     train_step = ts.make_train_step(model)
     loop_k = max(1, int(iterations_per_loop))
 
+    def group_size(step: int) -> int:
+      return loop_k if (max_train_steps - step) >= loop_k else 1
+
     def checkpoint(step: int) -> None:
+      # A step already on disk is not written again (`save` returns
+      # False), so a step a rewind's restore walk quarantined is saved
+      # anew when the replay crosses it.
       if manager.save(step, state):
         _log.info("Saved checkpoint step %d", step)
         for hook in hooks:
           hook.after_checkpoint(ctx, step)
+
+    def rewind(diverged_at: int) -> None:
+      """Restores the newest verified checkpoint after a divergence at
+      `diverged_at` and restarts the input stream from its seed, so a
+      rewound run and a clean resume from that checkpoint consume the
+      same batches. Past the `max_rewinds` budget, or with no verified
+      checkpoint, dumps a flight-recorder bundle and raises
+      `RuntimeError`."""
+      nonlocal state, batches, dataset
+      rewind_state["pending"] = False
+      rewind_state["count"] += 1
+      started = time.perf_counter()
+      # A save in flight is not yet a step on disk: commit it first, or
+      # the walk below may miss the newest checkpoint.
+      manager.wait_until_finished()
+      target = manager.latest_verified_step()
+      if rewind_state["count"] > max(int(max_rewinds), 0) or target is None:
+        reason = ("rewind budget exhausted" if target is not None
+                  else "no verified checkpoint to rewind to")
+        if flight_recorder is not None:
+          flight_recorder.dump(f"rewind-escalation:{reason}")
+        raise RuntimeError(
+            f"graftguard: divergence at step {diverged_at} not recoverable "
+            f"({reason}; rewinds={rewind_state['count'] - 1}, "
+            f"max_rewinds={max_rewinds})")
+      _log.warning("graftguard: divergence at step %d — rewinding to "
+                   "verified checkpoint step %d (rewind %d/%d)", diverged_at,
+                   target, rewind_state["count"], max_rewinds)
+      batches.close()
+      _close_dataset(dataset)
+      # The verified walk: a step that fails its manifest is quarantined
+      # and the next newest serves.
+      state = manager.restore(device=device)
+      rewind_state["targets"].append(state.step)
+      metrics_lib.counter("train/rewinds").inc()
+      for hook in hooks:
+        hook.after_rewind(ctx, state.step)
+      dataset = input_generator_train.create_dataset(modes_lib.TRAIN)
+      batches = _device_batches(dataset, device, device_prefetch_depth,
+                                max(max_train_steps - state.step, 0),
+                                source=dataset)
+      metrics_lib.histogram("train/rewind_ms").record(
+          (time.perf_counter() - started) * 1e3)
+      if sentinel is not None:
+        # A NaN that recurs on the first observation after the restore is
+        # a new divergence: it must trigger again (and spend the budget).
+        sentinel.reset_nonfinite_latch()
+      if flight_recorder is not None:
+        flight_recorder.touch()  # a restore is legitimate non-train time
 
     final_metrics: dict = {}
     step = state.step
@@ -286,64 +436,208 @@ def train_eval_model(
                               max(max_train_steps - step, 0), source=dataset)
     last_log, last_log_step = time.time(), step
     last_eval_time = 0.0
-    while step < max_train_steps:
-      k = loop_k if (max_train_steps - step) >= loop_k else 1
-      group = _take(batches, k)
-      if not group:
-        raise StopIteration(f"finite train stream exhausted after step "
-                            f"{step}")
-      prev_step = step
-      # A finite stream that ended mid-group still trains the batches it
-      # gave.
-      per_step = []
-      for features, labels in group:
-        state, metrics = train_step(state, features, labels)
-        per_step.append(metrics)
-      step = state.step
-      for i, step_metrics in enumerate(per_step):
-        for hook in hooks:
-          hook.after_step(ctx, prev_step + i + 1, step_metrics)
-      if _crossed(log_every_n_steps, prev_step, step) \
-          or step == max_train_steps:
-        scalars = {key: float(value) for key, value in metrics.items()}
-        writer.write_scalars(step, scalars)
-        now = time.time()
-        _log.info("step %d: loss=%.5f (%.1f steps/s)", step,
-                  scalars.get("loss", float("nan")),
-                  (step - last_log_step) / max(now - last_log, 1e-6))
-        last_log, last_log_step = now, step
-        final_metrics = scalars
-      if _crossed(checkpoint_every_n_steps, prev_step, step):
-        checkpoint(step)
-      if eval_step is not None and (
-          _crossed(eval_every_n_steps, prev_step, step)
-          or step == max_train_steps):
-        now = time.time()
-        throttled = (eval_throttle_secs and step != max_train_steps
-                     and now - last_eval_time < eval_throttle_secs)
-        if not throttled:
-          last_eval_time = now
-          eval_metrics = evaluate(state)
-          writer.write_scalars(step, {f"eval/{key}": value
-                                      for key, value in eval_metrics.items()})
+    try:
+      if step_stats.enabled:
+        trace_lib.enable()
+      if flight_recorder is not None:
+        # The SIGTERM handler (main thread only) and the hang watchdog,
+        # for exactly the loop's lifetime.
+        flight_recorder.install()
+      group = []
+      if step < max_train_steps:
+        step_stats.start()
+        with step_stats.data_wait():
+          group = _take(batches, group_size(step))
+      while step < max_train_steps:
+        if flight_recorder is not None:
+          flight_recorder.touch()
+        if not group:
+          raise StopIteration(f"finite train stream exhausted after step "
+                              f"{step}")
+        k = group_size(step)
+        # A finite stream that ended mid-group still trains the batches
+        # it gave.
+        stream_exhausted = len(group) < k
+        prev_step = step
+        per_step = []
+        step_stats.before_dispatch()
+        for features, labels in group:
+          state, metrics = train_step(state, features, labels)
+          per_step.append(metrics)
+        step_stats.after_dispatch()
+        step = state.step
+        # The next group is dequeued while the device runs the steps just
+        # launched; the window's barrier comes after it.
+        group = []
+        if step < max_train_steps and not stream_exhausted:
+          with step_stats.data_wait():
+            group = _take(batches, group_size(step))
+        step_stats.end_step(step, state, num_steps=step - prev_step)
+        for i, step_metrics in enumerate(per_step):
           for hook in hooks:
-            hook.after_eval(ctx, step, eval_metrics)
-          _log.info("eval @%d: %s", step, eval_metrics)
-          final_metrics.update({f"eval/{key}": value
-                                for key, value in eval_metrics.items()})
-      if len(group) < k:
-        checkpoint(step)
-        raise StopIteration(f"finite train stream exhausted after step "
-                            f"{step}")
+            hook.after_step(ctx, prev_step + i + 1, step_metrics)
+        if _crossed(log_every_n_steps, prev_step, step) \
+            or step == max_train_steps:
+          scalars = {key: float(value) for key, value in metrics.items()}
+          if faultlab_lib.maybe_fire(faultlab_lib.TRAIN_NONFINITE) is not None:
+            # Chaos seam: a non-finite loss exactly where a real
+            # divergence surfaces, at the host read of the log scalars.
+            scalars["loss"] = float("nan")
+          if sentinel is not None:
+            sentinel.observe_metrics(step, scalars)
+          writer.write_scalars(step, scalars)
+          now = time.time()
+          _log.info("step %d: loss=%.5f (%.1f steps/s)", step,
+                    scalars.get("loss", float("nan")),
+                    (step - last_log_step) / max(now - last_log, 1e-6))
+          last_log, last_log_step = now, step
+          final_metrics = scalars
+        if rewind_state["pending"]:
+          # Before the checkpoint cadence: a diverged state is never
+          # saved. The incident's postmortem bundle is already on disk
+          # (the flight recorder's sink runs first).
+          rewind(step)
+          step = state.step
+          with step_stats.data_wait():
+            group = (_take(batches, group_size(step))
+                     if step < max_train_steps else [])
+          continue
+        if _crossed(checkpoint_every_n_steps, prev_step, step):
+          checkpoint(step)
+        if eval_step is not None and (
+            _crossed(eval_every_n_steps, prev_step, step)
+            or step == max_train_steps):
+          now = time.time()
+          throttled = (eval_throttle_secs and step != max_train_steps
+                       and now - last_eval_time < eval_throttle_secs)
+          if not throttled:
+            last_eval_time = now
+            eval_metrics = evaluate(state)
+            writer.write_scalars(step, {f"eval/{key}": value
+                                        for key, value in eval_metrics.items()})
+            for hook in hooks:
+              hook.after_eval(ctx, step, eval_metrics)
+            _log.info("eval @%d: %s", step, eval_metrics)
+            final_metrics.update({f"eval/{key}": value
+                                  for key, value in eval_metrics.items()})
+            if flight_recorder is not None:
+              flight_recorder.touch()  # an eval is legitimate non-train time
+        if stream_exhausted:
+          checkpoint(step)
+          raise StopIteration(f"finite train stream exhausted after step "
+                              f"{step}")
+    except Exception as e:
+      # An unhandled crash dumps the flight-recorder bundle before
+      # unwinding. A finite train stream ending is the documented exit,
+      # not a crash.
+      if flight_recorder is not None and not isinstance(e, StopIteration):
+        flight_recorder.dump("exception", exc=e)
+      raise
+    finally:
+      if flight_recorder is not None:
+        flight_recorder.close()  # disarm the watchdog, restore SIGTERM
+      if step_stats.enabled and not tracer_preenabled:
+        # Only a tracer this run enabled: an owner that enabled it before
+        # keeps tracing after this run returns.
+        trace_lib.disable()
     checkpoint(step)
     for hook in hooks:
       hook.end(ctx)
+    if step_stats.enabled:
+      _append_run_record(model_dir, run_memory, final_metrics, step, device,
+                         sentinel=sentinel, rewinds=rewind_state["count"],
+                         rewind_steps=rewind_state["targets"])
     return final_metrics
   finally:
     if batches is not None:
       batches.close()
     _close_dataset(dataset)
     _drain(hooks, manager, writer)
+
+
+def _watch(model_dir: str, step_stats, hooks, rewind_state: dict,
+           rewind_on_divergence: bool, watchdog_timeout_secs):
+  """(sentinel, flight recorder) of a run, wired as in the JAX package:
+  incidents go to `<model_dir>/incidents.jsonl`, then to the flight
+  recorder (which dumps a bundle on the first fatal one of each kind),
+  then to the rewind latch; the recorder rings each step window before
+  the sentinel sees it, so a bundle holds the window that triggered
+  it. Appends a `SentinelHook`."""
+  flight_recorder = flightrec_lib.FlightRecorder(
+      os.path.join(model_dir, flightrec_lib.FLIGHTREC_DIRNAME),
+      hang_timeout_secs=watchdog_timeout_secs)
+  incidents_path = os.path.join(model_dir, runlog_lib.INCIDENTS_FILENAME)
+
+  def rewind_sink(record):
+    if (rewind_on_divergence and record.get("severity") == "fatal"
+        and record.get("kind") in (sentinel_lib.NONFINITE_METRIC,
+                                   sentinel_lib.NONFINITE_PARAMS)):
+      rewind_state["pending"] = True
+
+  sentinel = sentinel_lib.Sentinel(sinks=[
+      lambda record: runlog_lib.append_record(incidents_path, record),
+      flight_recorder.record_incident,
+      rewind_sink])
+  step_stats.add_observer(flight_recorder.record_step)
+  step_stats.add_observer(sentinel.observe_step_record)
+  hooks.append(hooks_lib.SentinelHook())
+  return sentinel, flight_recorder
+
+
+def _append_run_record(model_dir: str, run_memory: dict,
+                       final_metrics: dict, final_step: int, device,
+                       sentinel=None, rewinds: int = 0,
+                       rewind_steps: Optional[List[int]] = None) -> None:
+  """Appends this run's schema-versioned record to
+  `<model_dir>/runs.jsonl` (`obs.runlog`): the step-stat summary from
+  the registry, the memory accounting with the allocator's counters and
+  the watermark estimate, the finite final metrics, the heartbeat block,
+  the sentinel's totals, the rewinds and the active fault plan's
+  injections. No compile records: eager PyTorch compiles nothing.
+  Best-effort: the run's result never depends on its telemetry."""
+  try:
+    memory = dict(run_memory)
+    memory.update(backend.device_memory_stats(device))
+    memory["hbm_watermark_bytes"] = xray_lib.hbm_watermark_estimate(
+        memory, xray_lib.records())
+    stamped = metrics_lib.get_registry().stamped_snapshot()
+    summary = runlog_lib.step_stats_summary(stamped["snapshot"])
+    # runs.jsonl is strict JSON: a NaN loss costs that one scalar.
+    finite_metrics = {}
+    for key, value in final_metrics.items():
+      try:
+        value = float(value)
+      except (TypeError, ValueError):
+        continue
+      if math.isfinite(value):
+        finite_metrics[key] = value
+    extra = {"model_dir": model_dir, "final_step": int(final_step),
+             "final_metrics": finite_metrics,
+             "clock": stamped["clock"],
+             "tunnel_health": backend.tunnel_health()}
+    if sentinel is not None:
+      extra["sentinel"] = sentinel.summary()
+    extra["graftguard"] = {"rewinds": int(rewinds),
+                           "rewind_steps": [int(s) for s in
+                                            (rewind_steps or [])]}
+    plan = faultlab_lib.active()
+    if plan is not None:
+      extra["faultlab"] = plan.summary()
+    on_card = device.type == "cuda"
+    record = runlog_lib.make_record(
+        "train",
+        platform="gpu" if on_card else device.type,
+        device_kind=(torch.cuda.get_device_name(device) if on_card
+                     else device.type),
+        num_devices=1,
+        step_stats=summary,
+        compile_records=xray_lib.records(),
+        memory=memory,
+        extra=extra)
+    runlog_lib.append_record(
+        os.path.join(model_dir, runlog_lib.RUNS_FILENAME), record)
+  except Exception:  # noqa: BLE001 - telemetry never kills a run
+    _log.exception("graftscope: run-record append failed")
 
 
 def _initial_state(model, manager, seed: int, device) -> ts.TrainState:

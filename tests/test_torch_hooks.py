@@ -324,7 +324,28 @@ def test_td3_builder_writes_warmups_beside_synchronous_exports(tmp_path):
   quiet.end(ctx)
   (path,) = [e["path"] for e in quiet.exports]
   assert not os.path.exists(os.path.join(path, td3.WARMUP_FILENAME))
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    hooks.StepStatsHook()
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    hooks.SentinelHook()
+  # The telemetry hooks are ported: StepStatsHook writes a window row and
+  # the trace, SentinelHook the incident totals.
+  from tensor2robot_tpu_torch.obs import sentinel as sentinel_lib
+  from tensor2robot_tpu_torch.obs import stepstats
+  from tensor2robot_tpu_torch.utils import summaries
+
+  recorder = stepstats.StepStatsRecorder(batch_size=4, barrier=lambda s: None,
+                                         device_gauges=False)
+  watcher = sentinel_lib.Sentinel()
+  writer = summaries.SummaryWriter(str(tmp_path / "telemetry"))
+  telemetry_ctx = hooks.TrainContext(model, str(tmp_path),
+                                     get_state=lambda: state,
+                                     summary_writer=writer,
+                                     step_stats=recorder, sentinel=watcher)
+  recorder.start()
+  recorder.end_step(1, state)
+  step_hook, sentinel_hook = hooks.StepStatsHook(), hooks.SentinelHook()
+  step_hook.after_step(telemetry_ctx, 1, {})
+  sentinel_hook.after_step(telemetry_ctx, 1, {"loss": float("nan")})
+  step_hook.end(telemetry_ctx)
+  sentinel_hook.end(telemetry_ctx)
+  writer.close()
+  rows = [json.loads(line) for line in open(writer.path)]
+  assert rows[0]["step"] == 1 and rows[0]["examples_per_sec"] > 0
+  assert rows[-1]["sentinel/nonfinite_metric"] == 1.0

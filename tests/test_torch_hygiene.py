@@ -77,6 +77,19 @@ def test_no_port_file_imports_jax_or_the_jax_package():
   assert len(_port_files()) > 20
 
 
+def test_the_scans_cover_the_telemetry_modules():
+  """The import scans above and below walk every module of the port; the
+  telemetry slice's modules are among them."""
+  telemetry = ["obs/faultlab.py", "obs/flightrec.py", "obs/runlog.py",
+               "obs/sentinel.py", "obs/stepstats.py", "obs/xray.py",
+               "utils/backend.py", "bin/graftscope.py"]
+  files = set(_port_files())
+  modules = set(_port_modules())
+  for rel in telemetry:
+    assert PORT / rel in files, rel
+    assert "tensor2robot_tpu_torch." + rel[:-3].replace("/", ".") in modules
+
+
 def test_no_port_module_names_a_path_in_the_jax_package():
   offenders = []
   for path in sorted(PORT.rglob("*.py")):

@@ -59,8 +59,10 @@ def _train(model_dir, model=None, **kwargs):
 
 
 def _logged(model_dir):
+  """The loss rows of a run's metrics.jsonl (its step-stats windows and
+  final registry snapshot are rows of their own)."""
   with open(os.path.join(model_dir, "train", "metrics.jsonl")) as f:
-    return [json.loads(line) for line in f]
+    return [r for r in map(json.loads, f) if "loss" in r]
 
 
 def _manager(model_dir):
