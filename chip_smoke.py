@@ -322,6 +322,42 @@ and prints no result):
       cadences, the step wall (after_step 10 to 30, a synchronize at
       each end) off against on, and the record's `hbm_watermark_bytes`
       against `torch.cuda.max_memory_allocated`.
+16. The serving observability seams (`obs/graftrace.py`, `obs/usage.py`,
+   `obs/slo.py`, `obs/aggregate.py`, `graftscope timeline` and `watch`),
+   with graftrace's shard exporter armed (role "smoke") and one
+   `UsageLedger`:
+   b. phase 4's step-30 sequence policy at `serve_session.gin`'s widths
+      behind a `SessionBatcher` (usage group "session"): 8 client threads
+      tick their own sessions 50 times each; every tick within phase 3's
+      limit (1e-4) of the stateless predict; decode_tick launches exactly
+      blocks x the engine's dispatches (counts to 0 just before); one
+      `queue_wait` and one `dispatch` stage record per tick.
+   c. phase 6's step-30 critic at `serve_qtopt.gin`'s bindings (rungs
+      1-16, 33 ms deadline) behind `MicroBatcher` -> `BucketedEngine`
+      (usage group "critic"). In registry windows of their own: 16
+      probes that give the batcher's worker thread its first dispatches
+      (a thread's first cuDNN and cuBLAS calls create its handles), then
+      8 closed-loop clients x 12 probes, whose stage breakdown is
+      reported. Then, after a full garbage collection: one request with
+      a 1e-3 ms deadline sheds with `DeadlineError` and makes
+      `serve/slo_breaches` exactly 1; 8 robots at 30 Hz (the config's
+      33 ms control loop) send 12 1-row probes each, every row held to
+      phase 6a's bf16 limit against an eager predict (a probe shed at 33
+      ms is counted, one breach each); `stage_breakdown()`'s
+      reconciliation ratio in [0.95, 1.05]; 0 <
+      `serve/engine/device_busy_ms` <= the ledger's critic busy ms; an
+      `SloEngine` over an explicit breach-over-requests spec reads the
+      burn.
+   d. The ledger's busy + idle against wall x devices per group (1e-6
+      relative plus its 4-place rounding); every flush wrote its shards;
+      `python -m tensor2robot_tpu_torch.bin.graftscope timeline <dir>`
+      exits 0 and its merged events chain a `serve/request` to its
+      `serve/batcher/dispatch` and a tick's `serve/stage/dispatch` to its
+      `serve/session/batch`; `graftscope watch <dir> --snapshot --json`
+      exits 0 and lists this process.
+   e. What tracing costs (reported, not limited): a lone robot's tick
+      and a lone 1-row probe, p50 and p99, tracer on against off in
+      alternated runs within this process.
 
 Output: a `train` JSON line, a `slice` JSON line, a `qtopt` JSON line
 (the critic's checks, its step ms and grasps/s under each policy with
@@ -334,7 +370,9 @@ p50 and p99), `pose` and `meta` lines (phase 12's checks, step and action
 times, rewards and MAEs, with the card and its power limit), `bcz` and
 `grasp2vec` lines (phase 13's steps, actions, memory and walls), a
 `vrgripper` line (phase 14's), a `telemetry` line (phase 15's checks
-and numbers with the card and its power limit), a
+and numbers with the card and its power limit), an `observe` line
+(phase 16's counts, ratios, exit codes and tracing cost with the card
+and its power limit), a
 `kernels`
 JSON line
 (one row per kernel, with its `design`: "wgmma+tma" for the bf16
@@ -345,12 +383,15 @@ pass; the decode row times the served bucket of 8 lanes and, under
 dQ and dK/dV rows carry the split pass's time as `split_ms` and compare
 dQ + dK/dV + split with the library's whole backward; the f32 flash
 rows carry `launches_remat`, phase 10c's counts, and the bf16 ones
-`launches_rewind`, phase 15a's), the card line,
+`launches_rewind`, phase 15a's; the decode row `launches_observed`,
+phase 16b's), the card line,
 and as the last line `{"ok": true, "device": {...}}`. The same numbers go
 to `chiprun_out/chip_smoke_report.json`.
 """
 
+import collections
 import contextlib
+import gc
 import itertools
 import json
 import os
@@ -5553,6 +5594,445 @@ def run_telemetry(torch, np, port, card: str, directory: str) -> dict:
           "phase_wall_s": time.perf_counter() - start}
 
 
+# -- phase 16: the serving observability seams --------------------------------
+
+OBSERVE_CLIENTS = 8          # client threads: sessions ticked, 1-row probers
+OBSERVE_TICKS = 50           # ticks per client session
+OBSERVE_PROBES = 12          # 1-row probes per client
+# The served critic's clients: arms at 30 Hz (`serve_qtopt.gin`: a ~33 ms
+# control loop), one 1-row probe a period each, their phases spread.
+ROBOT_PERIOD_S = 1.0 / 30.0
+# A positive deadline far below one dispatch: shed every time (a falsy
+# deadline, 0 or None, is no deadline at all).
+UNMEETABLE_DEADLINE_MS = 1e-3
+# The graftrace stage contract: queue_wait + batch_form + dispatch +
+# split against the mean `serve/request_ms`.
+STAGE_RECONCILE = (0.95, 1.05)
+# busy + idle against wall x devices per ledger group: the JAX test's
+# 1e-6 relative, plus the summary's rounding of busy, idle and wall to
+# 4 places each.
+LEDGER_RTOL = 1e-6
+LEDGER_ABS_TOL = 1.5e-4
+# What tracing costs: runs alternated tracer on / off, rounds x 2 each.
+COST_ROUNDS = 3
+COST_TICKS = 40              # <= OBSERVE_TICKS: one episode's observations
+COST_PROBES = 25
+
+
+def _task_cpu_s() -> dict:
+  """CPU seconds of every thread of this process, native ones too, from
+  /proc (10 ms ticks), keyed by the Python thread's name where there is
+  one and by its kernel name and id otherwise; {} without /proc."""
+  names = {t.native_id: t.name for t in threading.enumerate()}
+  out = {}
+  try:
+    tasks = os.listdir("/proc/self/task")
+  except OSError:
+    return out
+  tick = os.sysconf("SC_CLK_TCK")
+  for tid in tasks:
+    try:
+      with open(f"/proc/self/task/{tid}/stat") as f:
+        comm, rest = f.read().split(" (", 1)[1].rsplit(") ", 1)
+    except OSError:
+      continue  # ended since the listing
+    fields = rest.split()
+    key = names.get(int(tid)) or f"{comm}:{tid}"
+    out[key] = (int(fields[11]) + int(fields[12])) / tick
+  return out
+
+
+def _graftscope(*argv):
+  """`python -m tensor2robot_tpu_torch.bin.graftscope ...` in its own
+  process: the CLI a user runs over a run's shards."""
+  return subprocess.run(
+      [sys.executable, "-m", "tensor2robot_tpu_torch.bin.graftscope",
+       *argv], cwd=REPO_DIR, capture_output=True, text=True, timeout=120)
+
+
+def _run_clients(count: int, fn) -> float:
+  """fn(i) on `count` threads at once; re-raises the first error.
+  Returns the wall seconds."""
+  errors = []
+
+  def client(i):
+    try:
+      fn(i)
+    except Exception as e:  # noqa: BLE001 - re-raised below
+      errors.append(e)
+
+  threads = [threading.Thread(target=client, args=(i,))
+             for i in range(count)]
+  start = time.perf_counter()
+  for thread in threads:
+    thread.start()
+  for thread in threads:
+    thread.join(timeout=600)
+  wall = time.perf_counter() - start
+  if errors:
+    raise errors[0]
+  if any(thread.is_alive() for thread in threads):
+    raise RuntimeError("a client thread did not finish")
+  return wall
+
+
+def _tracing_cost(np, trace, fn, count: int) -> dict:
+  """fn() timed `count` times a run, in runs alternated tracer on and
+  off (on, off / off, on / ...) within this process: p50 and p99 ms of
+  each mode's pooled calls and their ratio."""
+  samples = {"on": [], "off": []}
+  for round_index in range(COST_ROUNDS):
+    order = ("on", "off") if round_index % 2 == 0 else ("off", "on")
+    for mode in order:
+      (trace.enable if mode == "on" else trace.disable)()
+      for _ in range(count):
+        start = time.perf_counter()
+        fn()
+        samples[mode].append(1e3 * (time.perf_counter() - start))
+  trace.enable()
+  out = {mode: {"p50_ms": float(np.percentile(v, 50)),
+                "p99_ms": float(np.percentile(v, 99)), "n": len(v)}
+         for mode, v in samples.items()}
+  out["on_over_off_p50"] = out["on"]["p50_ms"] / out["off"]["p50_ms"]
+  out["on_over_off_p99"] = out["on"]["p99_ms"] / out["off"]["p99_ms"]
+  return out
+
+
+def _observe_session(np, port, ledger, sequence_dir: str) -> dict:
+  """16b: full-width session ticks through a `SessionBatcher` with the
+  usage hook, in a registry window of their own."""
+  (config, sequence_model, predictors, session, serving, flagship,
+   decode_kernels, obs_metrics, graftrace, trace) = port
+  config.clear_config()
+  config.parse_config_file(os.path.join(REPO_DIR, SESSION_CONFIG))
+  predictor = predictors.CheckpointPredictor(
+      model=sequence_model.SequenceRegressionModel(), model_dir=sequence_dir)
+  if not predictor.restore() or predictor.global_step != 30:
+    raise RuntimeError(f"16b: the predictor did not restore step 30 "
+                       f"({predictor.global_step})")
+  engine = session.SessionEngine(predictor=predictor).warmup()
+  blocks = config.query_parameter("SequenceRegressionModel.num_blocks")
+  t_max = predictor.model.decode_max_ticks
+  obs_size = WIDTHS["obs_size"]
+  rng = np.random.RandomState(16)
+  obs = rng.randn(OBSERVE_CLIENTS, OBSERVE_TICKS, obs_size).astype(
+      np.float32)
+  actions = np.zeros((OBSERVE_CLIENTS, OBSERVE_TICKS, WIDTHS["action_size"]),
+                     np.float32)
+  with obs_metrics.isolated() as registry:
+    ledger.open_group("session")
+    batcher = session.SessionBatcher(engine=engine, max_delay_ms=2.0,
+                                     usage=ledger.recorder("session"))
+    try:
+      def robot(i):
+        sid = batcher.open()
+        for t in range(OBSERVE_TICKS):
+          actions[i, t] = batcher.step(sid, {"observation": obs[i, t]})[
+              "action"]
+        batcher.close_session(sid)
+
+      decode_kernels.fused_decode_attention.launches = 0
+      wall = _run_clients(OBSERVE_CLIENTS, robot)
+      launches = decode_kernels.fused_decode_attention.launches
+      snap = registry.snapshot()
+      dispatches = int(snap["counter/serve/session/dispatches"])
+      ticks = OBSERVE_CLIENTS * OBSERVE_TICKS
+      stages = {name: int(snap.get(f"hist/serve/stage/{name}_ms/count", 0))
+                for name in ("queue_wait", "dispatch")}
+      log(f"16b: {ticks} ticks in {dispatches} dispatches, {wall:.2f} s; "
+          f"decode_tick launches {launches}; stage records {stages}")
+      if launches != blocks * dispatches:
+        raise RuntimeError(f"16b: decode_tick launched {launches} times, "
+                           f"want blocks x dispatches = {blocks} x "
+                           f"{dispatches}")
+      if int(snap["counter/serve/session/ticks"]) != ticks or stages != {
+          "queue_wait": ticks, "dispatch": ticks}:
+        raise RuntimeError(f"16b: {snap['counter/serve/session/ticks']} "
+                           f"ticks, stage records {stages}; want one "
+                           f"queue_wait and one dispatch per tick ({ticks})")
+      busy_requests = snap["counter/serve/fleet/busy_requests/session"]
+      if busy_requests != ticks:
+        raise RuntimeError(f"16b: the ledger counted {busy_requests} ticks")
+
+      # What tracing costs a lone robot's tick (a new episode each run).
+      lone = {"sid": batcher.open(), "t": 0}
+
+      def lone_tick():
+        if lone["t"] == COST_TICKS:
+          batcher.close_session(lone["sid"])
+          lone.update(sid=batcher.open(), t=0)
+        batcher.step(lone["sid"], {"observation": obs[0, lone["t"]]})
+        lone["t"] += 1
+
+      cost = _tracing_cost(np, trace, lone_tick, COST_TICKS)
+      batcher.close_session(lone["sid"])
+    finally:
+      batcher.close()  # flushes a shard when its worker ends
+      ledger.close_group("session")
+
+  # Every tick against the stateless predict of its episode.
+  padded = np.zeros((OBSERVE_CLIENTS, t_max, obs_size), np.float32)
+  padded[:, :OBSERVE_TICKS] = obs
+  full = predictor.predict({"observation": padded})["action"][
+      :, :OBSERVE_TICKS]
+  tick_err = float(np.abs(actions - full).max())
+  log(f"16b: max |tick - predict| {tick_err:.3e}; tracing cost {cost}")
+  if not (np.isfinite(actions).all() and tick_err <= F32_TOL):
+    raise RuntimeError(f"16b: ticks disagree with predict: {tick_err}")
+  return {"ticks": ticks, "dispatches": dispatches,
+          "decode_tick_launches": launches, "blocks": blocks,
+          "stage_records": stages, "tick_max_abs_err": tick_err,
+          "wall_s": wall, "tracing_cost": cost}
+
+
+def _observe_critic(np, port, ledger, critic_dir: str,
+                    bf16_limit: float) -> dict:
+  """16c: the step-30 critic behind `MicroBatcher` -> `BucketedEngine`
+  at `serve_qtopt.gin`'s bindings with the usage hook. The worker's
+  first dispatches, then 8 closed-loop clients (reported), each in a
+  registry window of its own; then, in the caller's window, one
+  unmeetable deadline and 8 robots at 30 Hz sending 1-row probes, each
+  row held to phase 6a's bf16 limit against an eager predict."""
+  (config, sequence_model, predictors, session, serving, flagship,
+   decode_kernels, obs_metrics, graftrace, trace, slo, specs, loadgen) = port
+  config.clear_config()
+  config.parse_config_file(os.path.join(REPO_DIR, SERVE_CONFIG))
+  predictor = predictors.CheckpointPredictor(
+      model=flagship.make_flagship_model(), model_dir=critic_dir)
+  if not predictor.restore() or predictor.global_step != 30:
+    raise RuntimeError(f"16c: the predictor did not restore step 30 "
+                       f"({predictor.global_step})")
+  engine = serving.BucketedEngine(predictor=predictor).warmup()
+  if engine.buckets != SERVE_LADDER:
+    raise RuntimeError(f"16c: ladder {engine.buckets}")
+  pool = specs.make_random_numpy(predictor.get_feature_specification(),
+                                 batch_size=SERVE_POOL,
+                                 seed=16)["state/image"]
+  registry = obs_metrics.get_registry()
+  spec = slo.SloSpec("critic_deadline", budget=0.01, fast_window_s=60.0,
+                     slow_window_s=300.0,
+                     bad_key="counter/serve/slo_breaches",
+                     total_key="counter/serve/batcher/requests")
+  incidents = []
+  ledger.open_group("critic")
+  batcher = serving.MicroBatcher(backend=engine,
+                                 usage=ledger.recorder("critic"))
+  out = {"deadline_ms": batcher._default_deadline_ms}
+  try:
+    # Every request is made before the clients start: a client's own
+    # work between two requests runs while the others wait on the
+    # interpreter to wake, inside their `serve/request_ms` and outside
+    # every stage.
+    warm = [_serve_request(np, pool, 1, 10_000 + i)
+            for i in range(2 * OBSERVE_CLIENTS)]
+    closed = [_serve_request(np, pool, 1, 20_000 + i)
+              for i in range(OBSERVE_CLIENTS * OBSERVE_PROBES)]
+    probes = [_serve_request(np, pool, 1, 100 + i)
+              for i in range(OBSERVE_CLIENTS * OBSERVE_PROBES)]
+    # The batcher's worker thread makes its first dispatches in a window
+    # of their own: a thread's first cuDNN and cuBLAS calls create its
+    # handles (tens of ms), which `BucketedEngine.warmup()`, on the
+    # caller's thread, does not.
+    with obs_metrics.isolated():
+      out["worker_warm"] = _check_load(loadgen.run_load(
+          batcher.predict, lambda i: warm[i], concurrency=OBSERVE_CLIENTS,
+          requests_per_thread=2))
+    # Closed loop (each client sends again as soon as it is served): all
+    # 8 clients are woken by one completion and take the interpreter lock
+    # in turn, so their wakeup, outside every stage, is largest here.
+    with obs_metrics.isolated():
+      load = _check_load(loadgen.run_load(
+          batcher.predict, lambda i: closed[i], concurrency=OBSERVE_CLIENTS,
+          requests_per_thread=OBSERVE_PROBES))
+      out["closed_loop"] = {
+          "qps": load["qps"], "sheds": load["sheds"],
+          **{k: v for k, v in graftrace.stage_breakdown().items()
+             if k != "stages"}}
+    # A full collection first, as `timeit` does: a collection of this
+    # process's heap (every earlier phase's objects) pauses whichever
+    # thread triggers it, and is no part of the stage accounting.
+    gc.collect()
+    slo_engine = slo.SloEngine([spec], sinks=[incidents.append])
+    slo_engine.observe(registry.snapshot(), now=time.monotonic())
+    try:
+      batcher.predict(_serve_request(np, pool, 1, 0),
+                      deadline_ms=UNMEETABLE_DEADLINE_MS)
+    except serving.DeadlineError:
+      pass
+    else:
+      raise RuntimeError(f"16c: a {UNMEETABLE_DEADLINE_MS} ms deadline was "
+                         "met")
+    breaches = registry.snapshot().get("counter/serve/slo_breaches", 0.0)
+    if breaches != 1.0:
+      raise RuntimeError(f"16c: serve/slo_breaches {breaches} after one "
+                         "unmeetable deadline, want 1")
+    served, lock, shed = [], threading.Lock(), []
+    cpu_before = _task_cpu_s()
+    t0 = time.perf_counter()
+
+    def robot(i):
+      due = t0 + i * ROBOT_PERIOD_S / OBSERVE_CLIENTS
+      for request in probes[i * OBSERVE_PROBES:(i + 1) * OBSERVE_PROBES]:
+        time.sleep(max(due - time.perf_counter(), 0.0))
+        due += ROBOT_PERIOD_S
+        try:
+          result = batcher.predict(request)
+        except serving.DeadlineError:
+          with lock:
+            shed.append(i)  # the 33 ms budget missed: an outcome, counted
+          continue
+        with lock:
+          served.append((request, result))
+
+    wall = _run_clients(OBSERVE_CLIENTS, robot)
+    sheds = len(shed)
+    cpu = {name: round(t - cpu_before.get(name, 0.0), 2)
+           for name, t in _task_cpu_s().items()}
+    out["cpu_s_by_thread"] = {name: t for name, t in sorted(
+        cpu.items(), key=lambda kv: -kv[1]) if t > 0}
+    out["threads"] = {"python": threading.active_count(),
+                      "tasks": len(cpu)}
+    breakdown = graftrace.stage_breakdown()
+    rows = _check_rows(np, served, predictor, bf16_limit)
+    snap = registry.snapshot()
+    ratio = breakdown["reconciliation_ratio"]
+    device_ms = snap["counter/serve/engine/device_busy_ms"]
+    busy_ms = snap["counter/serve/fleet/busy_ms/critic"]
+    log(f"16c: {len(probes)} probes in {wall:.2f} s, "
+        f"{sheds} shed at {out['deadline_ms']} ms; stages "
+        f"{breakdown}; device {device_ms:.2f} ms of {busy_ms:.2f} busy")
+    if snap["counter/serve/slo_breaches"] != 1.0 + sheds:
+      raise RuntimeError(f"16c: {snap['counter/serve/slo_breaches']} "
+                         f"breaches for 1 + {sheds} sheds")
+    if not STAGE_RECONCILE[0] <= ratio <= STAGE_RECONCILE[1]:
+      raise RuntimeError(f"16c: stage sum / request mean {ratio} outside "
+                         f"{STAGE_RECONCILE}")
+    if not 0.0 < device_ms <= busy_ms:
+      raise RuntimeError(f"16c: device_busy_ms {device_ms} against the "
+                         f"ledger's busy {busy_ms} ms")
+    slo_engine.observe(snap, now=time.monotonic())
+    burn = slo_engine.state()["critic_deadline"]
+    if not (burn["bad"] >= 1.0 and burn["fast_burn"] > 0.0):
+      raise RuntimeError(f"16c: the SLO engine read no burn: {burn}")
+    out.update({"probes": len(probes), "probe_sheds": sheds,
+                "wall_s": wall,
+                "slo_breaches": snap["counter/serve/slo_breaches"],
+                "requests": snap["counter/serve/batcher/requests"],
+                "rows": rows, "reconciliation_ratio": ratio,
+                "stage_sum_mean_ms": breakdown["stage_sum_mean_ms"],
+                "request_mean_ms": breakdown["request_mean_ms"],
+                "stages": breakdown["stages"],
+                "device_busy_ms": device_ms, "ledger_busy_ms": busy_ms,
+                "slo": burn, "slo_incidents": len(incidents)})
+
+    # What tracing costs a lone 1-row probe.
+    probe = _serve_request(np, pool, 1, 7)
+    out["tracing_cost"] = _tracing_cost(np, trace,
+                                        lambda: batcher.predict(probe),
+                                        COST_PROBES)
+    log(f"16c: tracing cost {out['tracing_cost']}")
+  finally:
+    batcher.close()  # flushes when its worker ends and at close
+    ledger.close_group("critic")
+  return out
+
+
+def _check_ledger(summary: dict) -> dict:
+  """busy + idle reconciles with wall x devices in every group."""
+  for group, entry in summary["groups"].items():
+    wall = entry["wall_s"] * entry["devices"]
+    total = entry["device_seconds_busy"] + entry["device_seconds_idle"]
+    if not (abs(total - wall) <= LEDGER_RTOL * wall + LEDGER_ABS_TOL
+            and entry["device_seconds_busy"] < wall):
+      raise RuntimeError(f"16d: ledger group {group}: busy + idle {total} "
+                         f"against wall x devices {wall}")
+  return summary
+
+
+def run_observe(torch, np, port, card: str, directory: str,
+                sequence_dir: str, critic_dir: str, bf16_limit: float
+                ) -> dict:
+  """Phase 16 (module docstring): graftrace armed over 16b's session
+  ticks and 16c's served critic, then the ledger, the merged timeline,
+  the watch frame and the SLO engine over the shards."""
+  (config, sequence_model, predictors, session, serving, flagship,
+   decode_kernels, obs_metrics, graftrace, trace, usage, slo, aggregate,
+   specs, loadgen) = port
+  start = time.perf_counter()
+  shards = os.path.join(directory, "graftrace")
+  trace.disable()
+  trace.clear()
+  # Generations enough that the ring prunes none of this phase's shards.
+  graftrace.configure(shards, role="smoke", max_gens=64)
+  ledger = usage.UsageLedger()
+  try:
+    with obs_metrics.isolated() as registry:
+      session_report = _observe_session(np, (
+          config, sequence_model, predictors, session, serving, flagship,
+          decode_kernels, obs_metrics, graftrace, trace), ledger,
+          sequence_dir)
+      torch.cuda.empty_cache()
+      critic_report = _observe_critic(np, (
+          config, sequence_model, predictors, session, serving, flagship,
+          decode_kernels, obs_metrics, graftrace, trace, slo, specs,
+          loadgen), ledger, critic_dir, bf16_limit)
+      summary = _check_ledger(ledger.summary())
+      final = graftrace.flush()
+  finally:
+    trace.disable()
+    config.clear_config()
+  pid = os.getpid()
+  # Every flush wrote its pair of shards: the session batcher's when its
+  # worker ended, the micro-batcher's then and at close (the batchers
+  # drop the paths), and the final one.
+  generations = 4
+  want = sorted(f"{kind}-{pid}-{gen:06d}.json" for kind in ("trace",
+                                                          "metrics")
+                for gen in range(generations))
+  if final is None or sorted(os.listdir(shards)) != want:
+    raise RuntimeError(f"16d: flush returned {final}; shards "
+                       f"{sorted(os.listdir(shards))}, want {want}")
+
+  timeline = _graftscope("timeline", shards)
+  if timeline.returncode != 0:
+    raise RuntimeError(f"16d: graftscope timeline exited "
+                       f"{timeline.returncode}: {timeline.stderr[-800:]}")
+  with open(os.path.join(shards, "timeline.json")) as f:
+    events = json.load(f)["traceEvents"]
+  chains = {"request_to_dispatch": ["serve/request",
+                                    "serve/batcher/dispatch"],
+            "tick_to_batch": ["serve/stage/dispatch",
+                              "serve/session/batch"]}
+  chains = {name: aggregate.has_causal_chain(events, names)
+            for name, names in chains.items()}
+  names = collections.Counter(e.get("name") for e in events)
+  log(f"16d: {timeline.stdout.strip()}; chains {chains}")
+  if not all(chains.values()):
+    raise RuntimeError(f"16d: causal chains missing from the timeline: "
+                       f"{chains}")
+  watch = _graftscope("watch", shards, "--snapshot", "--json")
+  if watch.returncode != 0:
+    raise RuntimeError(f"16d: graftscope watch exited {watch.returncode}: "
+                       f"{watch.stdout[-800:]}{watch.stderr[-800:]}")
+  view = json.loads(watch.stdout)
+  if pid not in [w["pid"] for w in view["workers"]]:
+    raise RuntimeError(f"16d: the watch frame lists {view['workers']}, not "
+                       f"pid {pid}")
+  log(f"16d: watch {view['workers']}, healthy {view['healthy']}, "
+      f"utilization {view['utilization']}")
+  return {
+      "card": card, "session": session_report, "critic": critic_report,
+      "ledger": summary, "flushes": generations,
+      "timeline": {"exit": timeline.returncode, "chains": chains,
+                   "events": len(events),
+                   "stage_events": {k: v for k, v in names.items()
+                                    if k and k.startswith("serve/")}},
+      "watch": {"exit": watch.returncode, "healthy": view["healthy"],
+                "live_workers": view["live_workers"],
+                "busy_s_by_group": view["utilization"]["busy_s_by_group"]},
+      "phase_wall_s": time.perf_counter() - start}
+
+
 def _vrgripper_line(mdn: dict, da: dict, wtl: dict, card: str) -> dict:
   """Phase 14's printed line: per config the median step and examples/s,
   the device idle share, peak memory, the batch-1 action p50 and p99
@@ -5588,6 +6068,40 @@ def _vrgripper_line(mdn: dict, da: dict, wtl: dict, card: str) -> dict:
               "wtl": wtl["custom_kernel_launches"]}}
 
 
+def _observe_line(report: dict) -> dict:
+  """Phase 16's printed line: counts, ratios, exit codes, what tracing
+  costs, the card (the whole report goes to the JSON file)."""
+  session, critic = report["session"], report["critic"]
+  return {
+      "card": report["card"],
+      "session": {k: session[k] for k in (
+          "ticks", "dispatches", "blocks", "decode_tick_launches",
+          "stage_records", "tick_max_abs_err", "wall_s")},
+      "critic": {k: critic[k] for k in (
+          "probes", "probe_sheds", "slo_breaches", "requests",
+          "reconciliation_ratio", "stage_sum_mean_ms", "request_mean_ms",
+          "device_busy_ms", "ledger_busy_ms",
+          "slo_incidents", "wall_s")},
+      "critic_closed_loop": {k: critic["closed_loop"][k] for k in (
+          "reconciliation_ratio", "stage_sum_mean_ms", "request_mean_ms",
+          "qps", "sheds")},
+      "critic_max_row_err": critic["rows"]["max_row_err"],
+      "critic_window_threads": critic["threads"],
+      "critic_window_cpu_s": dict(list(critic["cpu_s_by_thread"].items())[:8]),
+      "slo_fast_burn": critic["slo"]["fast_burn"],
+      "ledger": {group: {k: entry[k] for k in (
+          "wall_s", "device_seconds_busy", "device_seconds_idle",
+          "utilization", "requests")}
+                 for group, entry in report["ledger"]["groups"].items()},
+      "flushes": report["flushes"],
+      "timeline": {k: report["timeline"][k] for k in ("exit", "chains",
+                                                      "events")},
+      "watch": report["watch"],
+      "tracing_cost": {"tick": session["tracing_cost"],
+                       "probe": critic["tracing_cost"]},
+      "phase_wall_s": report["phase_wall_s"]}
+
+
 def _family_line(report: dict) -> dict:
   """Phase 13's printed line: the step, throughput, action latency, peak
   memory, custom launches and wall (the checks are in the report)."""
@@ -5609,8 +6123,9 @@ def main() -> int:
     print("chip_smoke: torch.cuda.is_available() is false; this script runs "
           "only on a CUDA card.", file=sys.stderr)
     return 1
-  # Phase 4 trains the sequence policy here; phase 9 exports from it.
-  # Phase 6 trains the critic into `critic_dir`; phases 7 and 10 read it.
+  # Phase 4 trains the sequence policy here; phases 9 and 16 read it.
+  # Phase 6 trains the critic into `critic_dir`; phases 7, 10 and 16 read
+  # it.
   os.makedirs(os.path.join(REPO_DIR, RUNS_DIR), exist_ok=True)
   sequence_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
   critic_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
@@ -5649,10 +6164,15 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   from tensor2robot_tpu_torch.ops import attention as attention_ops
   from tensor2robot_tpu_torch import serving
   from tensor2robot_tpu_torch.obs import device_profile
+  from tensor2robot_tpu_torch.obs import aggregate
   from tensor2robot_tpu_torch.obs import faultlab
   from tensor2robot_tpu_torch.obs import flightrec
+  from tensor2robot_tpu_torch.obs import graftrace
   from tensor2robot_tpu_torch.obs import metrics as obs_metrics
   from tensor2robot_tpu_torch.obs import runlog
+  from tensor2robot_tpu_torch.obs import slo
+  from tensor2robot_tpu_torch.obs import trace as obs_trace
+  from tensor2robot_tpu_torch.obs import usage
   from tensor2robot_tpu_torch.ops import cem
   from tensor2robot_tpu_torch.ops import decode_kernels
   from tensor2robot_tpu_torch.ops import pcgrad
@@ -5919,6 +6439,19 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
     shutil.rmtree(telemetry_dir, ignore_errors=True)
   torch.cuda.empty_cache()
   rewind_launches = telemetry_report["rewind"]["launches"]
+
+  # Phase 16: the serving observability seams over the step-30 sequence
+  # policy's session ticks (the decode tick) and the step-30 critic.
+  observe_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  try:
+    observe_report = run_observe(torch, np, (
+        config, sequence_model, predictors, session, serving, flagship,
+        decode_kernels, obs_metrics, graftrace, obs_trace, usage, slo,
+        aggregate, specs, loadgen), card, observe_dir, sequence_dir,
+        critic_dir, bf16_limit)
+  finally:
+    shutil.rmtree(observe_dir, ignore_errors=True)
+  torch.cuda.empty_cache()
   fwd_src = "tensor2robot_tpu_torch/csrc/flash_fwd.cu"
   bwd_src = "tensor2robot_tpu_torch/csrc/flash_bwd.cu"
   kernels = [
@@ -5930,6 +6463,8 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
        "chunk_rows": decode_kernels.DECODE_CHUNK, "build": decode_build,
        "launches_deploy": deploy_report["sequence_bundle"]["launches"][
            "decode_tick"],
+       "launches_observed": observe_report["session"][
+           "decode_tick_launches"],
        **decode_t, "single_lane": decode_b1_t},
       # The stateless f32 predict of the serving slice.
       {"name": "flash_fwd", "route": "cuda", "design": "wgmma+tma, 3xtf32",
@@ -5994,7 +6529,8 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
             "deploy": deploy_report, "surface": surface_report,
             "lstm": lstm_report, "pose": pose_report, "meta": meta_report,
             "bcz": bcz_report, "grasp2vec": grasp2vec_report,
-            "vrgripper": vr_reports, "telemetry": telemetry_report}
+            "vrgripper": vr_reports, "telemetry": telemetry_report,
+            "observe": observe_report}
   os.makedirs(os.path.dirname(REPORT), exist_ok=True)
   with open(REPORT, "w") as f:
     json.dump(report, f, indent=1)
@@ -6013,6 +6549,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   print(json.dumps({"vrgripper": vrgripper_line}))
   print(json.dumps({"telemetry": {k: v for k, v in telemetry_report.items()
                                   if k != "runs"}}))
+  print(json.dumps({"observe": _observe_line(observe_report)}))
   print(json.dumps({"kernels": kernels}))
   print(card_line(), flush=True)
   print(json.dumps({"ok": True, "device": {

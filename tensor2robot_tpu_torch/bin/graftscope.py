@@ -34,11 +34,22 @@ heartbeat keeps the JAX package's name, `tunnel heartbeat`:
       latest bundle by default, select with --index), or a
       postmortem.json path; --list enumerates bundles.
 
-The JAX package's `cache`, `forge`, `audit`, `timeline` and `watch`
-subcommands read modules the port has not yet (its executable cache,
-compile farm, lint audit, request-trace merge and live fleet view:
-ROADMAP.md, Queue A item 15); here each exits 2 with a message naming
-that item.
+  python -m tensor2robot_tpu_torch.bin.graftscope timeline <dir> [--out P]
+      merge every graftrace `trace-<pid>-<gen>.json` shard under <dir>
+      (`obs.graftrace.flush`) into one clock-aligned Perfetto JSON with
+      flow arrows along the causal edges (`obs.aggregate`); exit 0
+      merged, 1 no usable shards, 2 usage;
+  python -m tensor2robot_tpu_torch.bin.graftscope watch <dir> [--snapshot]
+      a dashboard over the `metrics-<pid>-<gen>.json` shards: workers
+      and shard ages (stale ones excluded), request counters and
+      latency, per-group busy time and point-in-time SLO judgments
+      (`obs.slo.default_serving_slos`); `--json` emits the frame; exit 0
+      within budget, 1 over budget, 2 unreadable.
+
+The JAX package's `cache`, `forge` and `audit` subcommands read modules
+the port has not yet (its executable cache, compile farm and lint
+audit: ROADMAP.md, Queue A item 15.3); here each exits 2 with a message
+naming that item.
 
 Robustness contract: a torn tail line of a live run, a truncated trace
 JSON, or binary garbage in any telemetry file is skipped with a warning
@@ -672,18 +683,270 @@ def _main_postmortem(argv: List[str]) -> int:
 
 def _not_ported(name: str):
   def _main(argv: List[str]) -> int:
-    print(f"graftscope {name}: not ported yet; it needs the port of the "
-          "JAX package's compiler and fleet tooling (ROADMAP.md, Queue A "
-          "item 15)", file=sys.stderr)
+    print(f"graftscope {name}: not ported yet; it reads the JAX package's "
+          "executable cache, compile farm and lint audit, which the port "
+          "has not yet (ROADMAP.md, Queue A item 15.3)", file=sys.stderr)
     return 2
   return _main
 
 
+def _main_timeline(argv: List[str]) -> int:
+  parser = argparse.ArgumentParser(
+      prog=f"{_PROG} timeline",
+      description="graftrace merge (obs.aggregate): collect every "
+                  "trace-<pid>-<gen>.json shard under a directory into "
+                  "ONE clock-aligned Perfetto/chrome://tracing JSON "
+                  "with synthesized flow arrows along the causal edges "
+                  "(request -> batch dispatch; session tick -> session "
+                  "batch). "
+                  "Tolerant: corrupt shards are counted and skipped. "
+                  "Exit codes: 0 merged events, 1 no usable shards, "
+                  "2 usage.")
+  parser.add_argument("root",
+                      help="directory to search recursively for "
+                           "graftrace shards (a model_dir or a "
+                           "GRAFTRACE_DIR)")
+  parser.add_argument("--out", default=None,
+                      help="output path (default: "
+                           "<root>/timeline.json)")
+  args = parser.parse_args(argv)
+  if not os.path.isdir(args.root):
+    print(f"graftscope timeline: no such directory: {args.root}",
+          file=sys.stderr)
+    return 2
+  from tensor2robot_tpu_torch.obs import aggregate as aggregate_lib
+
+  out = args.out or os.path.join(args.root, "timeline.json")
+  stats = aggregate_lib.write_timeline(args.root, out)
+  print(f"graftscope timeline: {stats['shards']} shard(s) over "
+        f"{stats['processes']} process(es) -> {stats['events']} events, "
+        f"{stats['flow_links']} flow link(s)"
+        + (f", {stats['skipped']} unreadable shard(s) skipped"
+           if stats["skipped"] else ""))
+  if stats["skew_corrected_pids"]:
+    shifts = ", ".join(f"pid {p}: +{ms}ms" for p, ms
+                       in sorted(stats["skew_corrected_pids"].items()))
+    print(f"  clock-skew repair (happened-before): {shifts}")
+  print(f"  wrote {out} (load in https://ui.perfetto.dev or "
+        "chrome://tracing)")
+  return 0 if stats["events"] else 1
+
+
+# -- graftwatch: live dashboard over graftrace metrics shards --
+
+_BUSY_PREFIX = "counter/serve/fleet/busy_ms/"
+
+
+def build_watch_view(root: str, stale_s: float = 30.0) -> Dict[str, Any]:
+  """One dashboard frame from the shard directory alone: workers (with
+  shard age from the paired epoch stamp), the fleet-wide merged
+  snapshot, point-in-time SLO judgments, and the usage-ledger rollup.
+  Stale workers (shard older than `stale_s` — a dead worker's FINAL
+  flush keeps its last counters forever) are listed but excluded from
+  the merge, so the SLO/utilization read reflects the live fleet."""
+  from tensor2robot_tpu_torch.obs import aggregate as aggregate_lib
+  from tensor2robot_tpu_torch.obs import slo as slo_lib
+
+  found = aggregate_lib.latest_metrics_shards(root)
+  now_ns = time.time_ns()
+  workers: List[Dict[str, Any]] = []
+  live: List[Dict[str, Any]] = []
+  for shard in found["shards"]:
+    clock = shard.get("clock")
+    clock = clock if isinstance(clock, dict) else {}
+    epoch_ns = clock.get("epoch_ns")
+    age_s: Optional[float] = None
+    if isinstance(epoch_ns, (int, float)) and epoch_ns > 0:
+      age_s = max((now_ns - int(epoch_ns)) / 1e9, 0.0)
+    # No stamp (a shard written without the clock pair) -> age unknown;
+    # treat as live so old telemetry still renders rather than
+    # vanishing.
+    stale = age_s is not None and age_s > stale_s
+    workers.append({"pid": shard.get("pid"), "role": shard.get("role"),
+                    "gen": shard.get("gen"),
+                    "age_s": None if age_s is None else round(age_s, 1),
+                    "stale": stale})
+    if not stale:
+      live.append(shard)
+  merged = aggregate_lib.sum_snapshots(live)
+  slos = slo_lib.evaluate_snapshot(slo_lib.default_serving_slos(),
+                                   merged)
+  groups = {key[len(_BUSY_PREFIX):]: round(value / 1e3, 3)
+            for key, value in sorted(merged.items())
+            if key.startswith(_BUSY_PREFIX)}
+  fleet = {
+      "requests": merged.get("counter/serve/fleet/requests", 0.0),
+      "shed": merged.get("counter/serve/fleet/shed", 0.0),
+      "slo_breaches": merged.get("counter/serve/slo_breaches", 0.0),
+      "latency_p50_ms": merged.get("hist/serve/request_ms/p50"),
+      "latency_p99_ms": merged.get("hist/serve/request_ms/p99"),
+  }
+  utilization = {
+      "utilization": merged.get("gauge/serve/fleet/utilization"),
+      "device_seconds_busy":
+          merged.get("gauge/serve/fleet/device_seconds_busy"),
+      "device_seconds_idle":
+          merged.get("gauge/serve/fleet/device_seconds_idle"),
+      "cost_per_request_usd":
+          merged.get("gauge/serve/fleet/cost_per_request_usd"),
+      "busy_s_by_group": groups,
+  }
+  return {"root": root, "workers": workers, "skipped": found["skipped"],
+          "live_workers": len(live), "fleet": fleet, "slo": slos,
+          "utilization": utilization,
+          "healthy": all(s["ok"] for s in slos.values())}
+
+
+def _fmt_opt(value, fmt: str = "{:.2f}") -> str:
+  return "—" if value is None else fmt.format(value)
+
+
+def format_watch_view(view: Dict[str, Any],
+                      qps: Optional[float] = None) -> str:
+  lines = [f"graftwatch: {view['root']}   "
+           f"{len(view['workers'])} worker(s), "
+           f"{view['live_workers']} live"
+           + (f", {view['skipped']} unreadable shard(s) skipped"
+              if view["skipped"] else "")]
+  lines.append(f"  {'role':<12}{'pid':>8}{'gen':>6}{'shard age':>12}"
+               "  status")
+  for worker in view["workers"]:
+    age = ("?" if worker["age_s"] is None
+           else f"{worker['age_s']:.1f}s")
+    lines.append(f"  {str(worker['role'] or '?'):<12}"
+                 f"{str(worker['pid'] or '?'):>8}"
+                 f"{str(worker['gen'] if worker['gen'] is not None else '?'):>6}"
+                 f"{age:>12}"
+                 f"  {'STALE (excluded)' if worker['stale'] else 'ok'}")
+  fleet = view["fleet"]
+  lines.append("")
+  lines.append(
+      f"fleet: requests {fleet['requests']:.0f}   "
+      f"shed {fleet['shed']:.0f}   "
+      f"slo breaches {fleet['slo_breaches']:.0f}"
+      + (f"   qps {qps:.1f}" if qps is not None else ""))
+  lines.append(
+      f"  latency p50 {_fmt_opt(fleet['latency_p50_ms'])} ms   "
+      f"p99 {_fmt_opt(fleet['latency_p99_ms'])} ms")
+  util = view["utilization"]
+  lines.append(
+      f"  utilization {_fmt_opt(util['utilization'], '{:.1%}')}   "
+      f"device-s busy {_fmt_opt(util['device_seconds_busy'])} / idle "
+      f"{_fmt_opt(util['device_seconds_idle'])}   cost/request "
+      f"{_fmt_opt(util['cost_per_request_usd'], '${:.6f}')}")
+  for group, busy_s in util["busy_s_by_group"].items():
+    lines.append(f"    {group:<12} busy {busy_s:.3f}s")
+  lines.append("")
+  lines.append(f"slo ({'HEALTHY' if view['healthy'] else 'BURNING'})")
+  for name, state in view["slo"].items():
+    if state["kind"] == "ratio":
+      lines.append(
+          f"  {name:<20}{'ok' if state['ok'] else 'OVER BUDGET':<12}"
+          f"bad {state['bad']:.0f}/{state['total']:.0f}"
+          f" = {state['ratio']:.4f} vs budget {state['budget']:.4f}"
+          f"  (consumed {state['budget_consumed']:.2f}x)")
+    else:
+      lines.append(
+          f"  {name:<20}{'ok' if state['ok'] else 'BREACHED':<12}"
+          f"value {_fmt_opt(state['value'], '{:.4g}')} vs ceiling "
+          f"{state['ceiling']:.4g}")
+  return "\n".join(lines) + "\n"
+
+
+def _main_watch(argv: List[str]) -> int:
+  parser = argparse.ArgumentParser(
+      prog=f"{_PROG} watch",
+      description="graftwatch: live fleet dashboard over the graftrace "
+                  "metrics-<pid>-<gen>.json shard directory — worker "
+                  "health with shard-age staleness, fleet counters + "
+                  "QPS, latency percentiles, per-replica device time, "
+                  "and point-in-time SLO judgments. Renders from "
+                  "shards alone (backend-free). Exit 0 = every SLO "
+                  "within budget, 1 = an SLO over budget/breached, "
+                  "2 = unreadable directory or no usable shards.")
+  parser.add_argument("root",
+                      help="directory to search recursively for "
+                           "graftrace metrics shards (a model_dir or "
+                           "GRAFTRACE_DIR)")
+  parser.add_argument("--snapshot", action="store_true",
+                      help="render one frame and exit (CI mode)")
+  parser.add_argument("--json", action="store_true", dest="as_json",
+                      help="emit the frame as JSON instead of the "
+                           "text dashboard")
+  parser.add_argument("--stale-s", type=float, default=30.0,
+                      help="shard age beyond which a worker is "
+                           "reported stale and excluded from the "
+                           "merge (default 30)")
+  parser.add_argument("--interval", type=float, default=2.0,
+                      help="refresh period in seconds (tail mode)")
+  parser.add_argument("--frames", type=int, default=0,
+                      help="stop tail mode after N frames (0 = until "
+                           "interrupted; snapshot mode ignores this)")
+  args = parser.parse_args(argv)
+  if not os.path.isdir(args.root):
+    print(f"graftscope watch: no such directory: {args.root}",
+          file=sys.stderr)
+    return 2
+
+  def frame() -> Tuple[Optional[Dict[str, Any]], int]:
+    view = build_watch_view(args.root, stale_s=args.stale_s)
+    if not view["workers"]:
+      return None, 2
+    return view, (0 if view["healthy"] else 1)
+
+  if args.snapshot:
+    view, code = frame()
+    if view is None:
+      print(f"graftscope watch: no graftrace metrics shards under "
+            f"{args.root}"
+            + (" (unreadable shards were skipped)" if
+               build_watch_view(args.root)["skipped"] else ""),
+            file=sys.stderr)
+      return 2
+    if args.as_json:
+      print(json.dumps(view, sort_keys=True))
+    else:
+      print(format_watch_view(view), end="")
+    return code
+
+  last_requests: Optional[float] = None
+  last_t: Optional[float] = None
+  code = 2
+  frames = 0
+  try:
+    while True:
+      view, code = frame()
+      now = time.monotonic()
+      qps = None
+      if view is not None:
+        requests = view["fleet"]["requests"]
+        if last_requests is not None and now > last_t:
+          qps = max(requests - last_requests, 0.0) / (now - last_t)
+        last_requests, last_t = requests, now
+      # ANSI clear-screen + home keeps the dashboard in place; piped
+      # output just sees frame separators.
+      print("\x1b[2J\x1b[H" if sys.stdout.isatty() else "\n---\n",
+            end="")
+      if view is None:
+        print(f"graftscope watch: waiting for shards under {args.root} "
+              "…")
+      elif args.as_json:
+        print(json.dumps(view, sort_keys=True))
+      else:
+        print(format_watch_view(view), end="")
+      frames += 1
+      if args.frames and frames >= args.frames:
+        return code
+      time.sleep(max(args.interval, 0.05))
+  except KeyboardInterrupt:
+    return code
+
+
 _SUBCOMMANDS = {"report": _main_report, "history": _main_history,
                 "diff": _main_diff, "postmortem": _main_postmortem,
+                "timeline": _main_timeline, "watch": _main_watch,
                 **{name: _not_ported(name)
-                   for name in ("cache", "forge", "audit", "timeline",
-                                "watch")}}
+                   for name in ("cache", "forge", "audit")}}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

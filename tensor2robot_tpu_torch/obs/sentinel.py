@@ -64,9 +64,10 @@ NONFINITE_PARAMS = "nonfinite_params"
 NONFINITE_METRIC = "nonfinite_metric"
 HBM_DRIFT = "hbm_drift"
 SLO_BREACH = "serving_slo_breach"
-# Kinds emitted by the JAX package's serving fleet, actor/learner loop
-# and SLO engine, which the port has not yet (ROADMAP.md): kept so that
-# records of both packages share one vocabulary.
+# Kinds emitted by the JAX package's serving fleet and actor/learner
+# loop, which the port has not yet (ROADMAP.md): kept so that records of
+# both packages share one vocabulary. `SLO_BURN` is the SLO engine's
+# (`obs/slo.py`).
 REPLICA_UNHEALTHY = "replica_unhealthy"
 LOOP_WORKER_RESTART = "loop_worker_restart"
 LOOP_WORKER_LOST = "loop_worker_lost"

@@ -14,10 +14,12 @@ per-dispatch overhead by N. It never imports torch: the wrapped
   (partial batches flush at the deadline: latency is bounded, not
   traded away);
 * per-request deadlines: a request whose deadline expires before its
-  batch dispatches is shed (NOT served: the robot has already moved on)
-  and completes with `DeadlineError` (`serve/batcher/shed_deadline`).
-  Requests larger than `max_batch_size` bypass the queue and are never
-  checked against a deadline;
+  batch dispatches is shed (NOT served: the robot has already moved on),
+  completes with `DeadlineError` (`serve/batcher/shed_deadline`) and
+  feeds the `serve/slo_breaches` counter via
+  `obs.sentinel.observe_serving_latency`. A falsy deadline (None or 0)
+  is no deadline. Requests larger than `max_batch_size` bypass the
+  queue and are never checked against a deadline;
 * outputs are split back per request by row offsets: callers see
   exactly the arrays an unbatched `predict` would have returned;
 * shutdown: `close()` JOINS the worker, waiting out an in-flight
@@ -25,11 +27,23 @@ per-dispatch overhead by N. It never imports torch: the wrapped
   `ShutdownError`.
 
 Telemetry (`obs.metrics`): serve/batcher/requests, batches, bypass,
-shed_queue_full, shed_deadline, shed_shutdown (counters);
-serve/request_rows, serve/batch_rows, serve/request_ms (histograms).
-The JAX package's trace spans, per-stage latency decomposition, SLO
-sentinel and usage-ledger hooks are not ported (ROADMAP Queue A item
-15).
+shed_queue_full, shed_deadline, shed_shutdown, serve/slo_breaches
+(counters); serve/request_rows, serve/batch_rows, serve/request_ms
+(histograms, the last with a worst-request trace-id exemplar).
+
+Request tracing (`obs.graftrace`), as in the JAX package: each request
+gets a trace context at admission (a child of the caller's active
+context, else a fresh root) that rides the request object to the
+worker; the per-request stages `queue_wait` (enqueue -> gather pop),
+`batch_form` (pop -> dispatch start), `dispatch` (backend call) and
+`split` (output split + bookkeeping) go to `serve/stage/<name>_ms` and
+sum to `serve/request_ms` less the client's wakeup. With the tracer on,
+each request leaves a `serve/request` event and its four stage events,
+and each dispatch a `serve/batcher/dispatch` span whose `links` name
+its requests. `usage=` (`obs.usage.UsageLedger.recorder(group)`) is
+called `(busy_seconds, requests)` once per dispatch window. The worker
+drains the tracer to the graftrace shard exporter (`graftrace.flush`,
+a no-op unless configured) when it dies and at `close()`.
 
 The batcher duck-types the predictor contract (`predict` /
 `get_feature_specification` / `restore` / `warmup` / `global_step`), so
@@ -46,7 +60,10 @@ from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 
+from tensor2robot_tpu_torch.obs import graftrace
 from tensor2robot_tpu_torch.obs import metrics as obs_metrics
+from tensor2robot_tpu_torch.obs import sentinel as obs_sentinel
+from tensor2robot_tpu_torch.obs import trace as obs_trace
 from tensor2robot_tpu_torch.utils import config
 
 __all__ = ["MicroBatcher", "ShedError", "DeadlineError", "ShutdownError"]
@@ -65,13 +82,20 @@ class ShutdownError(ShedError):
 
 
 class _Request:
-  """One in-flight predict: features, result slot, completion event."""
+  """One in-flight predict: features, result slot, completion event.
+
+  Carries its graftrace context (minted at admission) and the
+  perf-clock stamps (`enq_ns` at enqueue, `pop_ns` when `_gather` pops
+  it) the per-request stage decomposition is computed from: the context
+  rides the request object across the client->worker thread boundary.
+  """
 
   __slots__ = ("features", "rows", "deadline", "enqueued_s", "event",
-               "result", "error")
+               "result", "error", "ctx", "enq_ns", "pop_ns")
 
   def __init__(self, features: Dict[str, np.ndarray], rows: int,
-               deadline: Optional[float], enqueued_s: float):
+               deadline: Optional[float], enqueued_s: float,
+               ctx: Optional[graftrace.TraceContext] = None):
     self.features = features
     self.rows = rows
     self.deadline = deadline  # absolute monotonic seconds, or None
@@ -79,6 +103,9 @@ class _Request:
     self.event = threading.Event()
     self.result: Optional[Dict[str, np.ndarray]] = None
     self.error: Optional[BaseException] = None
+    self.ctx = ctx
+    self.enq_ns = time.perf_counter_ns()
+    self.pop_ns = 0
 
   def complete(self, result=None, error=None) -> None:
     self.result = result
@@ -157,7 +184,8 @@ class MicroBatcher:
                max_batch_size: int = 8,
                max_delay_ms: float = 5.0,
                max_queue: int = 64,
-               default_deadline_ms: Optional[float] = None):
+               default_deadline_ms: Optional[float] = None,
+               usage: Optional[Callable[[float, int], None]] = None):
     if backend is None:
       raise ValueError("backend is required.")
     if max_batch_size < 1:
@@ -170,6 +198,9 @@ class MicroBatcher:
     self._max_delay_s = max_delay_ms / 1e3
     self._max_queue = max_queue
     self._default_deadline_ms = default_deadline_ms
+    # Device-time ledger hook (`obs.usage.UsageLedger.recorder(group)`):
+    # called `(busy_seconds, requests)` once per backend dispatch window.
+    self._usage = usage
     self._pending: "collections.deque[_Request]" = collections.deque()
     self._pending_rows = 0
     self._lock = threading.Lock()
@@ -204,6 +235,9 @@ class MicroBatcher:
     # Observed request-size stream: the reservoir behind the
     # traffic-derived bucket ladder (`engine.observed_request_rows`).
     obs_metrics.histogram("serve/request_rows").record(float(rows))
+    # Trace admission: a child of the caller's active context, a fresh
+    # root otherwise.
+    ctx = graftrace.request_context()
     if rows > self._max_batch_size:
       # Already a full batch (e.g. a CEM candidate sweep): coalescing
       # cannot help, dispatch directly — but never after close(): the
@@ -213,12 +247,23 @@ class MicroBatcher:
           obs_metrics.counter("serve/batcher/shed_shutdown").inc()
           raise ShutdownError("batcher is closed")
       obs_metrics.counter("serve/batcher/bypass").inc()
-      result = dict(self._predict_backend(features))
-      self._observe(start)
+      t0_ns = time.perf_counter_ns()
+      with graftrace.activate(ctx):
+        with obs_trace.span("serve/batcher/bypass", cat="serve"):
+          result = dict(self._predict_backend(features))
+      # The whole bypass window IS its dispatch stage: recorded so the
+      # stage sums still reconcile with serve/request_ms when traffic
+      # mixes bypass and coalesced requests.
+      end_ns = time.perf_counter_ns()
+      graftrace.record_stage(
+          "dispatch", (end_ns - t0_ns) / 1e6, ctx=ctx, start_ns=t0_ns)
+      if self._usage is not None:
+        self._usage((end_ns - t0_ns) / 1e9, 1)
+      self._observe(start, ctx)
       return result
     request = _Request(features, rows,
                        None if not deadline_ms
-                       else start + deadline_ms / 1e3, start)
+                       else start + deadline_ms / 1e3, start, ctx=ctx)
     with self._have_work:
       if self._closed:
         obs_metrics.counter("serve/batcher/shed_shutdown").inc()
@@ -240,12 +285,23 @@ class MicroBatcher:
     request.event.wait()
     if request.error is not None:
       raise request.error
-    self._observe(start)
+    if obs_trace.get_tracer().enabled:
+      # The client-visible request window: the parent span every stage
+      # event nests under in the merged timeline.
+      end_ns = time.perf_counter_ns()
+      obs_trace.add_complete("serve/request", request.enq_ns,
+                             end_ns - request.enq_ns, cat="serve",
+                             args={**ctx.args(), "rows": rows})
+    self._observe(start, ctx)
     return request.result
 
-  def _observe(self, start: float) -> None:
+  def _observe(self, start: float,
+               ctx: Optional[graftrace.TraceContext] = None) -> None:
+    # The exemplar ties the window's WORST request to its trace id: the
+    # link from a p99 regression to the timeline.
     obs_metrics.histogram("serve/request_ms").record(
-        (time.monotonic() - start) * 1e3)
+        (time.monotonic() - start) * 1e3,
+        exemplar=ctx.trace_id if ctx is not None else None)
 
   # -- worker side ----------------------------------------------------------
 
@@ -289,6 +345,9 @@ class MicroBatcher:
         batch.append(request)
         rows += request.rows
       self._pending_rows -= rows
+      pop_ns = time.perf_counter_ns()
+      for request in batch:
+        request.pop_ns = pop_ns  # queue_wait ends at flush-time pop
       return batch
 
   def _serve_batch(self, batch: List[_Request]) -> None:
@@ -296,30 +355,81 @@ class MicroBatcher:
     live: List[_Request] = []
     for request in batch:
       if request.deadline is not None and now > request.deadline:
-        # Stale before dispatch: shed, never serve.
+        # Stale before dispatch: shed, never serve — and count it as the
+        # SLO breach it is (the deadline is the per-request SLO).
         elapsed_ms = (now - request.enqueued_s) * 1e3
         slo_ms = (request.deadline - request.enqueued_s) * 1e3
         request.complete(error=DeadlineError(
             f"deadline {slo_ms:.1f} ms expired after "
             f"{elapsed_ms:.1f} ms in queue; request shed unserved"))
+        obs_sentinel.observe_serving_latency(elapsed_ms, slo_ms)
         obs_metrics.counter("serve/batcher/shed_deadline").inc()
         continue
       live.append(request)
     if not live:
       return
     self._phase[0] = "dispatch"
+    # The dispatch runs under a fresh batch-level context whose span
+    # `links` name every coalesced request: the aggregator draws one
+    # flow arrow per request into the shared dispatch, and everything
+    # the engine records inside (pad/device stages, engine spans)
+    # attaches the batch context via the thread-local.
+    batch_ctx = graftrace.mint()
     try:
-      outputs = self._predict_backend(_concat_requests(live))
+      dispatch_ns = time.perf_counter_ns()
+      with graftrace.activate(batch_ctx):
+        with obs_trace.span("serve/batcher/dispatch", cat="serve",
+                            requests=len(live),
+                            rows=sum(r.rows for r in live),
+                            links=[r.ctx.span_id for r in live
+                                   if r.ctx is not None]):
+          outputs = self._predict_backend(_concat_requests(live))
+      split_ns = time.perf_counter_ns()
       splits = _split_outputs(outputs, live)
+      end_ns = time.perf_counter_ns()
     finally:
       self._phase[0] = "gather"
     # Record batch telemetry BEFORE completing: a caller woken by
-    # complete() may snapshot the registry immediately.
+    # complete() may snapshot the registry immediately. A telemetry
+    # failure here cannot orphan a request: the `_run` handler fails
+    # every not-yet-completed request in the batch.
+    self._record_stages(live, dispatch_ns, split_ns, end_ns)
+    if self._usage is not None:
+      # The dispatch window (backend call wall) is the device-busy time
+      # this batch bought; split/bookkeeping is host work, not charged.
+      self._usage((split_ns - dispatch_ns) / 1e9, len(live))
     obs_metrics.counter("serve/batcher/batches").inc()
     obs_metrics.histogram("serve/batch_rows").record(
         float(sum(r.rows for r in live)))
     for request, split in zip(live, splits):
       request.complete(result=split)
+
+  def _record_stages(self, live: List[_Request], dispatch_ns: int,
+                     split_ns: int, end_ns: int) -> None:
+    """Per-request latency decomposition (the graftrace stage contract):
+    queue_wait + batch_form + dispatch + split sums to the client's
+    serve/request_ms window minus its wakeup latency. Histograms are
+    batch-amortized; per-request trace events only when the tracer is
+    on."""
+    dispatch_ms = (split_ns - dispatch_ns) / 1e6
+    split_ms = (end_ns - split_ns) / 1e6
+    graftrace.record_stage_many(
+        "queue_wait", [(r.pop_ns - r.enq_ns) / 1e6 for r in live])
+    graftrace.record_stage_many(
+        "batch_form", [(dispatch_ns - r.pop_ns) / 1e6 for r in live])
+    graftrace.record_stage_many("dispatch", [dispatch_ms] * len(live))
+    graftrace.record_stage_many("split", [split_ms] * len(live))
+    if obs_trace.get_tracer().enabled:
+      for r in live:
+        args = r.ctx.args() if r.ctx else None
+        for name, start_ns, stop_ns in (
+            ("queue_wait", r.enq_ns, r.pop_ns),
+            ("batch_form", r.pop_ns, dispatch_ns),
+            ("dispatch", dispatch_ns, split_ns),
+            ("split", split_ns, end_ns)):
+          obs_trace.add_complete(graftrace.STAGE_PREFIX + name, start_ns,
+                                 stop_ns - start_ns, cat="stage",
+                                 args=args)
 
   def _run(self) -> None:
     try:
@@ -352,6 +462,10 @@ class MicroBatcher:
       for request in pending:
         obs_metrics.counter("serve/batcher/shed_shutdown").inc()
         request.complete(error=ShutdownError("batcher worker exited"))
+      # Worker teardown drains buffered spans to the shard exporter
+      # (no-op unless graftrace is configured): a worker that dies
+      # outside close() must not silently drop its trace window.
+      graftrace.flush()
 
   # -- lifecycle ------------------------------------------------------------
 
@@ -374,6 +488,7 @@ class MicroBatcher:
     while True:
       self._worker.join(timeout=1.0)
       if not self._worker.is_alive():
+        graftrace.flush()  # teardown drain (no-op unless configured)
         return
       if self._phase[0] == "dispatch":
         deadline = None  # device op in flight: wait it out, full stop

@@ -25,10 +25,19 @@ small bucket ladder so that a handful of batch shapes, each run once at
 derive a ladder from observed request sizes and price it (pure Python).
 
 Telemetry (`obs.metrics`): serve/engine/warmups, rows, padded_rows,
-reladders (counters); serve/engine/predict_ms (histogram);
-serve/engine/warmup_ms (gauge). The JAX engine's executable-cache, xray
-and forge seams (`cache=`, `rung_traces`, `rung_cache_keys`,
-`warmup_provenance`) are not ported (ROADMAP Queue A item 15).
+reladders, device_busy_ms (counters); serve/engine/predict_ms
+(histogram); serve/engine/warmup_ms (gauge). Each dispatch records the
+graftrace sub-stages `pad` (padding the model-layout batch up to its
+rung) and `device` (the predict call through the end of its host fetch,
+the fetch being the barrier) under the caller's active context
+(`graftrace.current()`: the batcher's batch context), and adds `device`
+to the exact `serve/engine/device_busy_ms` counter. Both stages lie
+inside the batcher's `dispatch` window and are not summed. The JAX
+engine's executable-cache and compile-provenance seams (`cache=`,
+`cache_namespace`, `rung_cache_keys`, `rung_traces`,
+`warmup_provenance`) describe compiled executables, which eager PyTorch
+does not have (ROADMAP Queue A item 15.3); nor does it have JAX's
+`exec_fallbacks` path: a rung that fails raises.
 """
 
 from __future__ import annotations
@@ -41,7 +50,9 @@ import numpy as np
 import torch
 
 from tensor2robot_tpu_torch import specs as specs_lib
+from tensor2robot_tpu_torch.obs import graftrace
 from tensor2robot_tpu_torch.obs import metrics as obs_metrics
+from tensor2robot_tpu_torch.obs import trace as obs_trace
 from tensor2robot_tpu_torch.utils import config
 
 __all__ = ["BucketedEngine", "bucket_ladder", "traffic_bucket_ladder",
@@ -307,25 +318,26 @@ class BucketedEngine:
       raise ValueError("request must have at least one row (got 0)")
     start = time.perf_counter()
     top = self._max_batch_size
-    if rows <= top:
-      result = self._predict_chunk(features, rows)
-    else:
-      chunks = []
-      chunk_rows = []
-      for offset in range(0, rows, top):
-        chunk = {k: v[offset:offset + top] for k, v in features.items()}
-        chunk_rows.append(next(iter(chunk.values())).shape[0])
-        chunks.append(self._predict_chunk(chunk, chunk_rows[-1]))
-      result = {}
-      for k in chunks[0]:
-        first = chunks[0][k]
-        # Batched outputs (leading dim == that chunk's rows) re-join
-        # across chunks; non-batched ones (scalars / fixed-size
-        # diagnostics) are identical per chunk — keep the first.
-        if first.ndim and first.shape[0] == chunk_rows[0]:
-          result[k] = np.concatenate([c[k] for c in chunks], axis=0)
-        else:
-          result[k] = first
+    with obs_trace.span("serve/engine/predict", cat="serve", rows=rows):
+      if rows <= top:
+        result = self._predict_chunk(features, rows)
+      else:
+        chunks = []
+        chunk_rows = []
+        for offset in range(0, rows, top):
+          chunk = {k: v[offset:offset + top] for k, v in features.items()}
+          chunk_rows.append(next(iter(chunk.values())).shape[0])
+          chunks.append(self._predict_chunk(chunk, chunk_rows[-1]))
+        result = {}
+        for k in chunks[0]:
+          first = chunks[0][k]
+          # Batched outputs (leading dim == that chunk's rows) re-join
+          # across chunks; non-batched ones (scalars / fixed-size
+          # diagnostics) are identical per chunk — keep the first.
+          if first.ndim and first.shape[0] == chunk_rows[0]:
+            result[k] = np.concatenate([c[k] for c in chunks], axis=0)
+          else:
+            result[k] = first
     obs_metrics.histogram("serve/engine/predict_ms").record(
         (time.perf_counter() - start) * 1e3)
     obs_metrics.counter("serve/engine/rows").inc(rows)
@@ -342,11 +354,20 @@ class BucketedEngine:
     # `batcher._split_outputs` use.
     model_features = bundle.preprocess(features)
     if bucket != rows:
+      # `pad` is an informational sub-stage of the batcher's dispatch
+      # window (graftrace.INFO_STAGES), excluded from the reconciliation
+      # sum, which would otherwise count it twice inside `dispatch`.
+      pad_ns = time.perf_counter_ns()
       obs_metrics.counter("serve/engine/padded_rows").inc(bucket - rows)
       model_features = specs_lib.SpecStruct({
           k: _pad_rows(v, bucket) if v.ndim and v.shape[0] == rows else v
           for k, v in model_features.items()})
-    outputs = bundle.predict_fn(bundle.get_state(), model_features)
+      graftrace.record_stage(
+          "pad", (time.perf_counter_ns() - pad_ns) / 1e6,
+          ctx=graftrace.current(), start_ns=pad_ns)
+    state = bundle.get_state()
+    device_ns = time.perf_counter_ns()
+    outputs = bundle.predict_fn(state, model_features)
     # The fetch is the barrier; pad rows are sliced off AFTER it so the
     # device sees only full-rung shapes. Only outputs whose leading dim
     # IS the padded batch get sliced.
@@ -356,6 +377,16 @@ class BucketedEngine:
       if v.ndim and v.shape[0] == bucket:
         v = v[:rows]
       out[k] = v
+    # `device` = predict call + host fetch (the real barrier): host wall
+    # from launch to fetch, not kernel time; the other dispatch-internal
+    # sub-stage, same exclusion rule as `pad`.
+    device_ms = (time.perf_counter_ns() - device_ns) / 1e6
+    graftrace.record_stage(
+        "device", device_ms, ctx=graftrace.current(), start_ns=device_ns)
+    # Cumulative device-occupancy counter: the engine-level busy signal
+    # a usage ledger's per-group numbers cross-check against (stage
+    # histograms are reservoir-sampled; this is exact).
+    obs_metrics.counter("serve/engine/device_busy_ms").inc(device_ms)
     return out
 
   # -- predictor duck-type passthroughs -------------------------------------

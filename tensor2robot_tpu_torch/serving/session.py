@@ -38,7 +38,16 @@ session appears at most once per dispatch).
 
 Telemetry (`obs.metrics`): serve/session/active, slot_occupancy,
 cache_bytes (gauges); tick_ms (histogram); opens, closes, evictions,
-shed, ticks, dispatches, padded_lanes, shed_queue_full (counters).
+shed, ticks, dispatches, padded_lanes, shed_queue_full (counters). Each
+dispatch is a `serve/session/dispatch` span. `SessionBatcher` adds the
+JAX package's request tracing (`obs.graftrace`): a context per tick at
+admission, a `serve/session/batch` span per dispatch whose `links` name
+its ticks, the `queue_wait` and `dispatch` stages per tick, a
+`usage=(busy_s, ticks)` call per dispatch, and a shard flush when its
+worker ends. The JAX engine's compile records and provenance
+(`rung_traces`, `compile_records`, `warmup_provenance`) describe
+compiled executables, which eager PyTorch does not have (ROADMAP Queue
+A item 15.3).
 """
 
 from __future__ import annotations
@@ -47,12 +56,15 @@ import collections
 import itertools
 import threading
 import time
-from typing import (Any, Dict, List, Mapping, Optional, Sequence, Tuple)
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch.obs import graftrace
 from tensor2robot_tpu_torch.obs import metrics as obs_metrics
+from tensor2robot_tpu_torch.obs import trace as obs_trace
 from tensor2robot_tpu_torch.serving import batcher as batcher_lib
 from tensor2robot_tpu_torch.serving import engine as engine_lib
 from tensor2robot_tpu_torch.utils import config
@@ -421,7 +433,9 @@ class SessionEngine:
       features = self._stack_features([f for _, f in items], bucket)
       bundle = self._bundle
       state = bundle.get_state()
-      with self._arena_lock, torch.no_grad():
+      with self._arena_lock, torch.no_grad(), \
+          obs_trace.span("serve/session/dispatch", cat="serve",
+                         sessions=n, bucket=bucket):
         outputs = self._dispatch(
             bundle, state, torch.from_numpy(slot_arr).to(self._device),
             {k: torch.from_numpy(v).to(self._device)
@@ -504,12 +518,16 @@ class SessionBatcher:
 
   def __init__(self, engine: Optional[SessionEngine] = None,
                max_delay_ms: float = 2.0,
-               max_queue: int = 256):
+               max_queue: int = 256,
+               usage: Optional[Callable[[float, int], None]] = None):
     if engine is None:
       raise ValueError("engine is required.")
     self._engine = engine
     self._max_delay_s = max_delay_ms / 1e3
     self._max_queue = max_queue
+    # Device-time ledger hook (same `(busy_s, requests)` contract as
+    # `MicroBatcher`): one call per step_many dispatch window.
+    self._usage = usage
     self._pending: "collections.deque[_TickRequest]" = collections.deque()
     self._lock = threading.Lock()
     self._have_work = threading.Condition(self._lock)
@@ -529,7 +547,8 @@ class SessionBatcher:
 
   def step(self, session_id: int, features: Mapping[str, Any]
            ) -> Dict[str, np.ndarray]:
-    request = _TickRequest(session_id, dict(features))
+    request = _TickRequest(session_id, dict(features),
+                           ctx=graftrace.request_context())
     with self._have_work:
       if self._closed:
         raise batcher_lib.ShutdownError("session batcher is closed")
@@ -580,6 +599,7 @@ class SessionBatcher:
           kept.append(request)  # affinity: serialize same-session ticks
           continue
         seen.add(request.session_id)
+        request.pop_ns = time.perf_counter_ns()
         batch.append(request)
       for request in reversed(kept):
         self._pending.appendleft(request)
@@ -588,9 +608,18 @@ class SessionBatcher:
   def _serve_batch(self, batch: List["_TickRequest"]) -> None:
     self._phase = "dispatch"
     try:
+      items = [(r.session_id, r.features) for r in batch]
+      dispatch_ns = time.perf_counter_ns()
+      # A fresh batch-level context whose span `links` name every tick:
+      # the merged timeline draws one flow arrow per tick into the
+      # shared dispatch.
+      batch_ctx = graftrace.mint()
       try:
-        results = self._engine.step_many(
-            [(r.session_id, r.features) for r in batch])
+        with graftrace.activate(batch_ctx):
+          with obs_trace.span(
+              "serve/session/batch", cat="serve", ticks=len(batch),
+              links=[r.ctx.span_id for r in batch if r.ctx is not None]):
+            results = self._engine.step_many(items)
       except SessionError as e:
         # A lifecycle error names ONE session: fail that tick, retry the
         # rest once as a batch.
@@ -603,6 +632,25 @@ class SessionBatcher:
         if rest:
           self._serve_batch(rest)
         return
+      end_ns = time.perf_counter_ns()
+      graftrace.record_stage_many(
+          "queue_wait",
+          [(r.pop_ns - r.enq_ns) / 1e6 for r in batch if r.pop_ns])
+      graftrace.record_stage_many(
+          "dispatch", [(end_ns - dispatch_ns) / 1e6] * len(batch))
+      if self._usage is not None:
+        self._usage((end_ns - dispatch_ns) / 1e9, len(batch))
+      if obs_trace.get_tracer().enabled:
+        for r in batch:
+          if r.ctx is None:
+            continue
+          if r.pop_ns:
+            obs_trace.add_complete(
+                "serve/stage/queue_wait", r.enq_ns, r.pop_ns - r.enq_ns,
+                cat="serve", args=r.ctx.args())
+          obs_trace.add_complete(
+              "serve/stage/dispatch", dispatch_ns, end_ns - dispatch_ns,
+              cat="serve", args=r.ctx.args())
       for request, result in zip(batch, results):
         request.complete(result=result)
     finally:
@@ -631,6 +679,7 @@ class SessionBatcher:
       for request in pending:
         request.complete(
             error=batcher_lib.ShutdownError("session batcher worker exited"))
+      graftrace.flush()  # teardown drain (no-op unless configured)
 
   # -- lifecycle ------------------------------------------------------------
 
@@ -677,18 +726,23 @@ class SessionBatcher:
 
 
 class _TickRequest:
-  """One queued session tick: features, result slot, completion event."""
+  """One queued session tick: features, result slot, completion event,
+  its graftrace context and its enqueue/pop perf-clock stamps."""
 
   __slots__ = ("session_id", "features", "enqueued_s", "event", "result",
-               "error")
+               "error", "ctx", "enq_ns", "pop_ns")
 
-  def __init__(self, session_id: int, features: Dict[str, Any]):
+  def __init__(self, session_id: int, features: Dict[str, Any],
+               ctx: Optional[graftrace.TraceContext] = None):
     self.session_id = session_id
     self.features = features
     self.enqueued_s = time.monotonic()
     self.event = threading.Event()
     self.result: Optional[Dict[str, np.ndarray]] = None
     self.error: Optional[BaseException] = None
+    self.ctx = ctx
+    self.enq_ns = time.perf_counter_ns()
+    self.pop_ns = 0
 
   def complete(self, result=None, error=None) -> None:
     self.result = result

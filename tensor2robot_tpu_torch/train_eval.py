@@ -523,7 +523,8 @@ def train_eval_model(
             if flight_recorder is not None:
               flight_recorder.touch()  # an eval is legitimate non-train time
         if stream_exhausted:
-          checkpoint(step)
+          # The documented finite-stream exit, as in the JAX package: no
+          # save here, and the raise skips the forced save after the loop.
           raise StopIteration(f"finite train stream exhausted after step "
                               f"{step}")
     except Exception as e:

@@ -695,3 +695,53 @@ def test_wtl_policy_and_vrgripper_predictor_run_on_cuda_unless_told_cpu(
     predictors.CheckpointPredictor(model=model, model_dir="/nonexistent")
   predictor = predictors.CheckpointPredictor(model=model, device="cpu")
   assert predictor.device.type == "cpu"
+
+
+# The serving observability seams: framework-free modules (their twins in
+# the JAX package import no jax either).
+OBSERVABILITY_FILES = ("obs/graftrace.py", "obs/aggregate.py",
+                       "obs/usage.py", "obs/slo.py", "bin/graftscope.py",
+                       "serving/batcher.py")
+
+
+@pytest.mark.parametrize("rel", OBSERVABILITY_FILES)
+def test_observability_modules_import_neither_torch_nor_jax(rel):
+  """AST scan: no import of torch or of a JAX module, at any depth."""
+  path = PORT / rel
+  names = []
+  for node in ast.walk(ast.parse(path.read_text(), str(path))):
+    if isinstance(node, ast.Import):
+      names += [alias.name for alias in node.names]
+    elif isinstance(node, ast.ImportFrom) and node.level == 0:
+      names.append(node.module or "")
+  roots = {name.split(".")[0] for name in names}
+  assert not roots & ({"torch", "triton"} | set(FORBIDDEN)), (rel, roots)
+  assert path in set(_port_files())
+
+
+def test_observability_modules_load_with_torch_and_jax_blocked():
+  """Loaded by path in a process where torch and jax cannot be imported
+  (the serving package's __init__ imports the engines, so the batcher is
+  loaded by its file), the CLIs' timeline and watch run."""
+  code = (
+      "import importlib, importlib.util, os, sys, tempfile\n"
+      "for name in ('torch', 'jax', 'tensor2robot_tpu'):\n"
+      "  sys.modules[name] = None\n"
+      "for name in ('graftrace', 'aggregate', 'usage', 'slo'):\n"
+      "  importlib.import_module('tensor2robot_tpu_torch.obs.' + name)\n"
+      "path = os.path.join('tensor2robot_tpu_torch', 'serving', "
+      "'batcher.py')\n"
+      "spec = importlib.util.spec_from_file_location('batcher', path)\n"
+      "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+      "from tensor2robot_tpu_torch.bin import graftscope\n"
+      "from tensor2robot_tpu_torch.obs import graftrace\n"
+      "root = tempfile.mkdtemp()\n"
+      "graftrace.configure(root)\n"
+      "assert graftrace.flush() is not None\n"
+      "assert graftscope.main(['timeline', root]) == 1\n"
+      "assert graftscope.main(['watch', root, '--snapshot']) == 0\n"
+      "print('OBSERVABILITY_FRAMEWORK_FREE_OK')\n")
+  result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=120)
+  assert result.returncode == 0, result.stderr[-3000:]
+  assert "OBSERVABILITY_FRAMEWORK_FREE_OK" in result.stdout
