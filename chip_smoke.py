@@ -358,6 +358,44 @@ and prints no result):
    e. What tracing costs (reported, not limited): a lone robot's tick
       and a lone 1-row probe, p50 and p99, tracer on against off in
       alternated runs within this process.
+17. The export leftovers and the serving fleet:
+   a. Phase 4's step-30 sequence policy at `serve_session.gin`'s widths
+      (f32) exported with `DefaultExportGenerator(write_saved_model=True)`
+      (a `torch.export` program that records `t2r::flash_fwd`) and served
+      by `SavedModelPredictor` on cuda:0 at batches 1 and 3 from one
+      artifact: the f32 flash forward launches exactly blocks x 2 times
+      (counts to 0 just before), and the outputs stay within phase 3's
+      limit (1e-4) of the eager `ExportedModelPredictor` on the same
+      bundle. The step-30 critic (train_qtopt.gin's bindings, bf16) the
+      same way, its logits within phase 6a's bf16 limit of the bundle's
+      (over the rms logit), no custom kernel launched. Export and load
+      seconds, and the 1-row predict p50 of artifact and bundle in turns.
+   b. Two `SessionEngine` replicas of the step-30 sequence policy on the
+      device list [cuda:0, cuda:0] (one card listed twice: two replicas,
+      each with its own weights and arenas) behind `ServingFleet`: 16
+      keyed sessions of 48 ticks from 16 threads through `fleet.open` /
+      `fleet.step`; every session stays on its replica, every tick is
+      within 1e-4 of the stateless predict of its prefix, and the decode
+      tick launches exactly blocks x the dispatches summed over both
+      replicas (counts to 0 just before). Then `mark_unhealthy(0)`: the
+      displaced sessions re-open on replica 1 (`serve/fleet/session_reopens`
+      counts them) and their first tick matches a fresh episode's.
+   c. Two `BucketedEngine` replicas of the step-20 critic on [cuda:0,
+      cuda:0] (rungs 1-16, no per-request deadline) under 8 clients of
+      1-row probes, rolled out to step 30: no failed probe, `warm_count`
+      unchanged on both replicas (no rung warmed anew), the fleet serving
+      step 30, and the canary's probe outputs bit for bit an eager
+      predict of step 30.
+   d. `python -m tensor2robot_tpu_torch.bin.run_graftserve --replicas 2
+      --devices cuda:0,cuda:0` on 17a's critic bundle with
+      `serve_fleet.gin` (its 33 ms deadline unbound): ok > 0 and no error;
+      `python -m tensor2robot_tpu_torch.bin.run_graftloop` with the
+      port's `loop_qtopt.gin` (3 rounds, learner and replicas on the
+      card): at least 2 verified publishes rolled into the fleet, replay
+      shards on disk, no worker escalated, no unverified version served.
+   e. A `ProfilerHook` window over steps [3, 8) of the full-width bf16
+      flash trainer: its Chrome trace names `flash_fwd_tc_kernel`,
+      `flash_bwd_dq_tc_kernel` and `flash_bwd_dkv_tc_kernel`.
 
 Output: a `train` JSON line, a `slice` JSON line, a `qtopt` JSON line
 (the critic's checks, its step ms and grasps/s under each policy with
@@ -373,6 +411,9 @@ times, rewards and MAEs, with the card and its power limit), `bcz` and
 and numbers with the card and its power limit), an `observe` line
 (phase 16's counts, ratios, exit codes and tracing cost with the card
 and its power limit), a
+`fleet` line (phase 17's export and load times, artifact and bundle
+predict p50, the fleet's tick p50, the rollout's wall, the loop's
+rounds and publishes, with the card and its power limit), a
 `kernels`
 JSON line
 (one row per kernel, with its `design`: "wgmma+tma" for the bf16
@@ -384,7 +425,8 @@ dQ and dK/dV rows carry the split pass's time as `split_ms` and compare
 dQ + dK/dV + split with the library's whole backward; the f32 flash
 rows carry `launches_remat`, phase 10c's counts, and the bf16 ones
 `launches_rewind`, phase 15a's; the decode row `launches_observed`,
-phase 16b's), the card line,
+phase 16b's, and `launches_fleet`, phase 17b's; the f32 forward row
+`launches_artifact`, phase 17a's), the card line,
 and as the last line `{"ok": true, "device": {...}}`. The same numbers go
 to `chiprun_out/chip_smoke_report.json`.
 """
@@ -392,6 +434,7 @@ to `chiprun_out/chip_smoke_report.json`.
 import collections
 import contextlib
 import gc
+import glob
 import itertools
 import json
 import os
@@ -6033,6 +6076,559 @@ def run_observe(torch, np, port, card: str, directory: str,
       "phase_wall_s": time.perf_counter() - start}
 
 
+LOOP_CONFIG = "tensor2robot_tpu_torch/configs/loop_qtopt.gin"
+FLEET_CONFIG = "tensor2robot_tpu_torch/configs/serve_fleet.gin"
+FLEET_DEVICE = "cuda:0"      # both replicas of each fleet, one card
+LOOP_BINDINGS = ()           # extra bindings of the run_graftloop call
+CRITIC_OUTPUT = "logits"     # the critic output 17a holds to the bf16 limit
+ARTIFACT_BATCHES = (1, 3)    # predicts of each artifact, one per batch size
+ARTIFACT_TIMED = 10          # 1-row predicts, artifact and bundle in turns
+FLEET_SESSIONS = 16          # keyed sessions through the session fleet
+FLEET_TICKS = 48             # ticks per session
+ROLLOUT_CLIENTS = 8          # 1-row probers through the critic rollout
+GRAFTSERVE_REQUESTS = 25     # per client of the run_graftserve CLI
+LOOP_MIN_PUBLISHES = 2
+PROFILE_START = 3            # ProfilerHook window over steps [3, 8)
+PROFILED_STEPS = 5
+PROFILED_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+                    "flash_bwd_dkv_tc_kernel")
+
+
+def _turns_p50(np, fns: dict, count: int) -> dict:
+  """Each fn() `count` times, the fns in turns; p50 host ms of each."""
+  samples = {name: [] for name in fns}
+  for i in range(count):
+    names = list(fns) if i % 2 == 0 else list(reversed(list(fns)))
+    for name in names:
+      start = time.perf_counter()
+      fns[name]()
+      samples[name].append(1e3 * (time.perf_counter() - start))
+  return {f"{name}_p50_ms": float(np.percentile(v, 50))
+          for name, v in samples.items()}
+
+
+def _export_artifacts(torch, np, port, directory: str, sequence_dir: str,
+                      critic_dir: str, bf16_limit: float) -> dict:
+  """17a: the step-30 sequence policy (serve_session.gin, f32) and the
+  step-30 critic (train_qtopt.gin's bindings, bf16) exported with
+  `write_saved_model=True`, each served by `SavedModelPredictor` at
+  batches 1 and 3 against the eager `ExportedModelPredictor` of the same
+  bundle."""
+  (config, sequence_model, predictors, saved_model_predictor,
+   export_saved_model, qtopt_models, attention_ops, decode_kernels,
+   specs) = port
+  card = torch.device(FLEET_DEVICE)
+  fwd = attention_ops.flash_forward
+  out = {}
+
+  config.clear_config()
+  config.parse_config_file(os.path.join(REPO_DIR, SESSION_CONFIG))
+  blocks = config.query_parameter("SequenceRegressionModel.num_blocks")
+  seq_export = os.path.join(directory, "sequence_export")
+  start = time.perf_counter()
+  export_saved_model.export_checkpoint(
+      model=sequence_model.SequenceRegressionModel(), model_dir=sequence_dir,
+      export_dir=seq_export, write_saved_model=True)
+  export_s = time.perf_counter() - start
+  start = time.perf_counter()
+  artifact = saved_model_predictor.SavedModelPredictor(export_dir=seq_export,
+                                                       device=card)
+  if not artifact.restore() or artifact.global_step != 30:
+    raise RuntimeError(f"17a: the sequence artifact did not restore step 30 "
+                       f"({artifact.global_step})")
+  load_s = time.perf_counter() - start
+  bundle = predictors.ExportedModelPredictor(
+      export_dir=seq_export, model=sequence_model.SequenceRegressionModel())
+  if not bundle.restore():
+    raise RuntimeError("17a: the sequence bundle did not restore")
+  rng = np.random.RandomState(17)
+  obs = {b: rng.randn(b, WIDTHS["sequence_length"],
+                      WIDTHS["obs_size"]).astype(np.float32)
+         for b in ARTIFACT_BATCHES}
+  # The main path of 17a: counts to 0 just before, read just after.
+  fwd.launches = 0
+  got = {b: artifact.predict({"observation": obs[b]})
+         for b in ARTIFACT_BATCHES}
+  torch.cuda.synchronize()
+  launches = fwd.launches
+  if launches != blocks * len(ARTIFACT_BATCHES):
+    raise RuntimeError(f"17a: the artifact launched flash_fwd {launches} "
+                       f"times for {len(ARTIFACT_BATCHES)} predicts of "
+                       f"{blocks} blocks")
+  err = 0.0
+  for b in ARTIFACT_BATCHES:
+    want = bundle.predict({"observation": obs[b]})
+    for key in want:
+      if got[b][key].shape != want[key].shape:
+        raise RuntimeError(f"17a: {key} at batch {b}: "
+                           f"{got[b][key].shape} vs {want[key].shape}")
+      err = max(err, float(np.abs(got[b][key] - want[key]).max()))
+  if not err <= F32_TOL:
+    raise RuntimeError(f"17a: the sequence artifact is {err:.3e} from the "
+                       f"eager bundle (limit {F32_TOL})")
+  one = {"observation": obs[1]}
+  timed = _turns_p50(np, {"artifact": lambda: artifact.predict(one),
+                          "bundle": lambda: bundle.predict(one)},
+                     ARTIFACT_TIMED)
+  out["sequence"] = {"export_s": export_s, "load_s": load_s,
+                     "flash_fwd_launches": launches, "blocks": blocks,
+                     "batches": list(ARTIFACT_BATCHES),
+                     "max_abs_err": err, **timed}
+  log(f"17a: sequence artifact {out['sequence']}")
+
+  config.clear_config()
+  config.parse_config_file(os.path.join(REPO_DIR, QTOPT_CONFIG))
+  critic_export = os.path.join(directory, "critic_export")
+  start = time.perf_counter()
+  export_saved_model.export_checkpoint(
+      model=qtopt_models.QTOptModel(), model_dir=critic_dir,
+      export_dir=critic_export, write_saved_model=True)
+  export_s = time.perf_counter() - start
+  start = time.perf_counter()
+  artifact = saved_model_predictor.SavedModelPredictor(
+      export_dir=critic_export, device=card)
+  if not artifact.restore() or artifact.global_step != 30:
+    raise RuntimeError(f"17a: the critic artifact did not restore step 30 "
+                       f"({artifact.global_step})")
+  load_s = time.perf_counter() - start
+  bundle = predictors.ExportedModelPredictor(
+      export_dir=critic_export, model=qtopt_models.QTOptModel())
+  if not bundle.restore():
+    raise RuntimeError("17a: the critic bundle did not restore")
+  spec = artifact.get_feature_specification()
+  requests = {b: dict(specs.make_random_numpy(spec, batch_size=b,
+                                              seed=170 + b))
+              for b in ARTIFACT_BATCHES}
+  custom = (fwd.launches, decode_kernels.fused_decode_attention.launches)
+  pairs = [(artifact.predict(requests[b]), bundle.predict(requests[b]))
+           for b in ARTIFACT_BATCHES]
+  if (fwd.launches, decode_kernels.fused_decode_attention.launches) != custom:
+    raise RuntimeError("17a: the critic's artifact launched a custom kernel")
+  logits = np.concatenate([want[CRITIC_OUTPUT].ravel() for _, want in pairs])
+  scale = float(np.sqrt(np.mean(logits.astype(np.float64) ** 2)))
+  err = max(float(np.abs(got[CRITIC_OUTPUT] - want[CRITIC_OUTPUT]).max())
+            for got, want in pairs) / scale
+  q_err = max(float(np.abs(got["q_predicted"] - want["q_predicted"]).max())
+              for got, want in pairs)
+  if not (err <= bf16_limit and all(
+      got[k].shape == want[k].shape for got, want in pairs for k in want)):
+    raise RuntimeError(f"17a: the critic artifact's logits are {err:.3e} "
+                       f"(of the rms logit) from the bundle's, limit "
+                       f"{bf16_limit:.3e}")
+  one = requests[1]
+  timed = _turns_p50(np, {"artifact": lambda: artifact.predict(one),
+                          "bundle": lambda: bundle.predict(one)},
+                     ARTIFACT_TIMED)
+  out["critic"] = {"export_s": export_s, "load_s": load_s,
+                   "batches": list(ARTIFACT_BATCHES),
+                   "max_logit_err_over_rms": err, "rms_logit": scale,
+                   "max_q_abs_err": q_err, "bf16_limit": bf16_limit,
+                   **timed}
+  out["critic_export"] = critic_export
+  log(f"17a: critic artifact {out['critic']}")
+  config.clear_config()
+  return out
+
+
+def _session_fleet(torch, np, port, sequence_dir: str) -> dict:
+  """17b: two SessionEngine replicas of the step-30 sequence policy on
+  [cuda:0, cuda:0] behind the fleet: 16 keyed sessions of 48 ticks, each
+  tick against the stateless predict of its prefix; then replica 0 is
+  evicted and its sessions re-open on replica 1."""
+  (config, sequence_model, predictors, session, serving, decode_kernels,
+   obs_metrics) = port
+  card = torch.device(FLEET_DEVICE)
+  config.clear_config()
+  config.parse_config_file(os.path.join(REPO_DIR, SESSION_CONFIG))
+  blocks = config.query_parameter("SequenceRegressionModel.num_blocks")
+  t_max = WIDTHS["sequence_length"]
+  obs_size, action_size = WIDTHS["obs_size"], WIDTHS["action_size"]
+  made = []
+
+  def factory(index, group):
+    predictor = predictors.CheckpointPredictor(
+        model=sequence_model.SequenceRegressionModel(),
+        model_dir=sequence_dir)
+    if not predictor.restore() or predictor.global_step != 30:
+      raise RuntimeError(f"17b: replica {index} did not restore step 30")
+    predictor.place_on_device(group[0])
+    made.append(predictor)
+    return session.SessionEngine(predictor=predictor,
+                                 device=group[0]).warmup()
+
+  rng = np.random.RandomState(171)
+  obs = rng.randn(FLEET_SESSIONS, FLEET_TICKS, obs_size).astype(np.float32)
+  after = rng.randn(FLEET_SESSIONS, obs_size).astype(np.float32)
+  actions = np.zeros((FLEET_SESSIONS, FLEET_TICKS, action_size), np.float32)
+  tick_ms = []
+  with obs_metrics.isolated() as registry:
+    fleet = serving.ServingFleet(replica_factory=factory, num_replicas=2,
+                                 devices=[card, card])
+    try:
+      if made[0] is made[1] or made[0].state is made[1].state:
+        raise RuntimeError("17b: the replicas share one predictor")
+      sids = [fleet.open(session_key=f"robot-{i}")
+              for i in range(FLEET_SESSIONS)]
+      owners = [fleet.session_replica(sid) for sid in sids]
+      if sorted(set(owners)) != [0, 1]:
+        raise RuntimeError(f"17b: the ring placed every session on one "
+                           f"replica: {owners}")
+      lock = threading.Lock()
+
+      def robot(i):
+        for t in range(FLEET_TICKS):
+          start = time.perf_counter()
+          actions[i, t] = fleet.step(sids[i], {"observation": obs[i, t]})[
+              "action"]
+          elapsed = 1e3 * (time.perf_counter() - start)
+          with lock:
+            tick_ms.append(elapsed)
+          if fleet.session_replica(sids[i]) != owners[i]:
+            raise RuntimeError(f"17b: session {i} moved replicas")
+
+      decode = decode_kernels.fused_decode_attention
+      # The main path of 17b: counts to 0 just before, read just after.
+      decode.launches = 0
+      wall = _run_clients(FLEET_SESSIONS, robot)
+      torch.cuda.synchronize()
+      launches = decode.launches
+      snap = registry.snapshot()
+      dispatches = int(snap["counter/serve/session/dispatches"])
+      ticks = FLEET_SESSIONS * FLEET_TICKS
+      if int(snap["counter/serve/session/ticks"]) != ticks:
+        raise RuntimeError(f"17b: {snap['counter/serve/session/ticks']} "
+                           f"ticks served, want {ticks}")
+      if launches != blocks * dispatches:
+        raise RuntimeError(f"17b: decode_tick launched {launches} times, "
+                           f"want blocks x dispatches = {blocks} x "
+                           f"{dispatches}")
+
+      # Evict replica 0: its sessions re-open on replica 1 at their next
+      # tick (a fresh episode), the others tick on.
+      displaced = [i for i, owner in enumerate(owners) if owner == 0]
+      fleet.mark_unhealthy(0, reason="smoke drill")
+      reopened = np.zeros((FLEET_SESSIONS, action_size), np.float32)
+      for i, sid in enumerate(sids):
+        reopened[i] = fleet.step(sid, {"observation": after[i]})["action"]
+      snap = registry.snapshot()
+      reopens = int(snap.get("counter/serve/fleet/session_reopens", 0))
+      if reopens != len(displaced) or any(
+          fleet.session_replica(sid) != 1 for sid in sids):
+        raise RuntimeError(f"17b: {reopens} re-opens for {len(displaced)} "
+                           f"displaced sessions")
+      for sid in sids:
+        fleet.close_session(sid)
+    finally:
+      fleet.close()
+  # Every tick against the stateless predict of its episode's prefix.
+  padded = np.zeros((FLEET_SESSIONS, t_max, obs_size), np.float32)
+  padded[:, :FLEET_TICKS] = obs
+  full = made[1].predict({"observation": padded})["action"][:, :FLEET_TICKS]
+  tick_err = float(np.abs(actions - full).max())
+  fresh = np.zeros((FLEET_SESSIONS, t_max, obs_size), np.float32)
+  index = np.full(FLEET_SESSIONS, FLEET_TICKS)
+  fresh[:, :FLEET_TICKS] = obs
+  for i in displaced:
+    fresh[i, :FLEET_TICKS] = 0.0
+    index[i] = 0
+  fresh[np.arange(FLEET_SESSIONS), index] = after
+  want = made[1].predict({"observation": fresh})["action"][
+      np.arange(FLEET_SESSIONS), index]
+  reopen_err = float(np.abs(reopened - want).max())
+  log(f"17b: {ticks} ticks in {dispatches} dispatches over 2 replicas, "
+      f"{wall:.2f} s; decode_tick launches {launches}; max |tick - "
+      f"predict| {tick_err:.3e}, after eviction {reopen_err:.3e}; "
+      f"{reopens} re-opens")
+  if not (np.isfinite(actions).all() and tick_err <= F32_TOL
+          and reopen_err <= F32_TOL):
+    raise RuntimeError(f"17b: fleet ticks disagree with the predict: "
+                       f"{tick_err}, {reopen_err}")
+  return {"sessions": FLEET_SESSIONS, "ticks": ticks,
+          "dispatches": dispatches, "blocks": blocks,
+          "decode_tick_launches": launches,
+          "sessions_per_replica": [owners.count(0), owners.count(1)],
+          "tick_max_abs_err": tick_err, "reopened": len(displaced),
+          "reopen_max_abs_err": reopen_err,
+          "tick_p50_ms": float(np.percentile(tick_ms, 50)),
+          "tick_p99_ms": float(np.percentile(tick_ms, 99)), "wall_s": wall}
+
+
+def _critic_rollout(torch, np, port, directory: str,
+                    critic_dir: str) -> dict:
+  """17c: two BucketedEngine replicas of the step-20 critic on
+  [cuda:0, cuda:0] under 8 clients of 1-row probes, rolled out to step
+  30: no failed request, no new warm, the canary's probe outputs bit for
+  bit an eager predict of step 30."""
+  (config, checkpoints, predictors, serving, flagship, specs) = port
+  card = torch.device(FLEET_DEVICE)
+  config.clear_config()
+  rollout_dir = os.path.join(directory, "rollout")
+  _copy_checkpoint(checkpoints, critic_dir, rollout_dir, 20)
+
+  def factory(index, group):
+    predictor = predictors.CheckpointPredictor(
+        model=flagship.make_flagship_model(), model_dir=rollout_dir)
+    if not predictor.restore() or predictor.global_step != 20:
+      raise RuntimeError(f"17c: replica {index} did not restore step 20")
+    predictor.place_on_device(group[0])
+    return serving.BucketedEngine(predictor=predictor,
+                                  max_batch_size=SERVE_LADDER[-1])
+
+  eager = predictors.CheckpointPredictor(
+      model=flagship.make_flagship_model(), model_dir=critic_dir)
+  if not eager.restore() or eager.global_step != 30:
+    raise RuntimeError("17c: the eager predictor did not restore step 30")
+  pool = specs.make_random_numpy(eager.get_feature_specification(),
+                                 batch_size=SERVE_POOL,
+                                 seed=172)["state/image"]
+  probe = _serve_request(np, pool, 1, 1720)
+  want = eager.predict(probe)
+  canary = {}
+
+  def verify(outputs):
+    canary.update(outputs)
+    return set(outputs) == set(want) and all(
+        np.array_equal(outputs[k], want[k]) for k in want)
+
+  # serve_fleet.gin's fronts, without a per-request deadline: a probe
+  # that waits out a swap must be served, not shed.
+  fleet = serving.ServingFleet(replica_factory=factory, num_replicas=2,
+                               devices=[card, card], warmup=True,
+                               max_batch_size=SERVE_LADDER[-1],
+                               max_delay_ms=2.0, max_queue=128)
+  try:
+    warms = fleet.warm_counts()
+    if warms != [len(SERVE_LADDER)] * 2:
+      raise RuntimeError(f"17c: warm counts {warms} after warmup")
+    stop = threading.Event()
+    outcomes = {"ok": 0, "failed": []}
+    lock = threading.Lock()
+
+    def client(i):
+      n = 0
+      while not stop.is_set():
+        request = _serve_request(np, pool, 1, 20000 + 1000 * i + n)
+        n += 1
+        try:
+          fleet.predict(request)
+          with lock:
+            outcomes["ok"] += 1
+        except Exception as e:  # noqa: BLE001 - counted: the pin is none
+          with lock:
+            outcomes["failed"].append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(ROLLOUT_CLIENTS)]
+    for thread in threads:
+      thread.start()
+    time.sleep(0.5)
+    dst = os.path.join(rollout_dir, checkpoints.CHECKPOINT_DIRNAME)
+    src = os.path.join(critic_dir, checkpoints.CHECKPOINT_DIRNAME)
+    shutil.copy2(os.path.join(src, checkpoints.MANIFEST_DIRNAME, "30.json"),
+                 os.path.join(dst, checkpoints.MANIFEST_DIRNAME))
+    shutil.copytree(os.path.join(src, "30"), os.path.join(dst, "30"))
+    start = time.perf_counter()
+    report = fleet.rollout(probe_request=probe, verify=verify)
+    rollout_s = time.perf_counter() - start
+    time.sleep(0.5)
+    stop.set()
+    for thread in threads:
+      thread.join(timeout=60)
+    after = fleet.warm_counts()
+    step = fleet.global_step
+  finally:
+    fleet.close()
+  log(f"17c: rollout {json.dumps(report)} in {rollout_s:.3f} s; probes "
+      f"ok {outcomes['ok']}, failed {len(outcomes['failed'])}")
+  if (report["swapped"] != 2 or report["aborted"] is not None
+      or not report["parity_ok"] or report["fresh_warms"] != 0
+      or after != warms or step != 30):
+    raise RuntimeError(f"17c: rollout {report}, warms {warms} -> {after}, "
+                       f"serving step {step}")
+  if outcomes["failed"] or not outcomes["ok"]:
+    raise RuntimeError(f"17c: {len(outcomes['failed'])} probes failed "
+                       f"during the rollout: {outcomes['failed'][:3]}")
+  if not verify(canary):
+    raise RuntimeError("17c: the canary's probe differs from an eager "
+                       "predict of step 30")
+  config.clear_config()
+  return {"replicas": 2, "clients": ROLLOUT_CLIENTS,
+          "probes_ok": outcomes["ok"], "probes_failed": 0,
+          "warm_counts": after, "fresh_warms": report["fresh_warms"],
+          "canary_bit_identical": True, "rollout_s": rollout_s,
+          "probe_ms": [r.get("probe_ms") for r in report["replicas"]],
+          "drained": [r.get("drained") for r in report["replicas"]]}
+
+
+def _last_json(stdout: str) -> dict:
+  return json.loads(stdout.strip().splitlines()[-1])
+
+
+def _run_clis(directory: str, critic_export: str) -> dict:
+  """17d: `run_graftserve --replicas 2` on the critic bundle and
+  `run_graftloop` on the port's `loop_qtopt.gin` (3 rounds), each in a
+  process of its own on the card."""
+  start = time.perf_counter()
+  serve = subprocess.run(
+      [sys.executable, "-m", "tensor2robot_tpu_torch.bin.run_graftserve",
+       "--export_dir", critic_export, "--replicas", "2",
+       "--devices", f"{FLEET_DEVICE},{FLEET_DEVICE}",
+       "--concurrency", str(ROLLOUT_CLIENTS),
+       "--requests_per_thread", str(GRAFTSERVE_REQUESTS),
+       "--config_files", os.path.join(REPO_DIR, FLEET_CONFIG),
+       # Closed-loop clients count every request: no deadline sheds.
+       "--config", "MicroBatcher.default_deadline_ms = None"],
+      cwd=REPO_DIR, capture_output=True, text=True, timeout=300)
+  serve_s = time.perf_counter() - start
+  if serve.returncode != 0:
+    raise RuntimeError(f"17d: run_graftserve exited {serve.returncode}: "
+                       f"{serve.stderr[-2000:]}")
+  line = _last_json(serve.stdout)
+  if not (line["ok"] > 0 and not line["errors"]
+          and line["engine_warms"] == [len(SERVE_LADDER)] * 2):
+    raise RuntimeError(f"17d: run_graftserve {line}")
+  log(f"17d: run_graftserve {json.dumps(line)} ({serve_s:.1f} s)")
+
+  loop_dir = os.path.join(directory, "loop")
+  start = time.perf_counter()
+  loop = subprocess.run(
+      [sys.executable, "-m", "tensor2robot_tpu_torch.bin.run_graftloop",
+       "--config_files", os.path.join(REPO_DIR, LOOP_CONFIG),
+       "--config", f"run_graftloop.model_dir = '{loop_dir}'",
+       *[arg for b in LOOP_BINDINGS for arg in ("--config", b)]],
+      cwd=REPO_DIR, capture_output=True, text=True, timeout=600)
+  loop_s = time.perf_counter() - start
+  if loop.returncode != 0:
+    raise RuntimeError(f"17d: run_graftloop exited {loop.returncode}: "
+                       f"{loop.stderr[-2000:]}")
+  summary = _last_json(loop.stdout)
+  published = [h for h in summary["publish_history"]
+               if h["published"] and h["verified"] is True]
+  shards = sorted(glob.glob(os.path.join(loop_dir, "replay",
+                                         "shard-*.tfrecord")))
+  out = {"graftserve": line, "graftserve_s": serve_s, "loop_s": loop_s,
+         "loop": {k: summary[k] for k in (
+             "episodes", "wall_sec", "episodes_per_sec", "publishes",
+             "learner_rounds", "unverified_served", "max_seen_staleness",
+             "staleness_bound_held", "worker_restarts",
+             "worker_escalations", "publish_to_serve_ms_max",
+             "publish_to_first_action_ms_max", "worker_states")},
+         "verified_publishes": len(published), "replay_shards": len(shards)}
+  log(f"17d: run_graftloop {json.dumps(out['loop'])}; {len(shards)} shards")
+  if (len(published) < LOOP_MIN_PUBLISHES or not shards
+      or summary["worker_escalations"] or summary["unverified_served"]
+      or summary["learner_rounds"] != 3):
+    raise RuntimeError(f"17d: the loop: {out}")
+  return out
+
+
+def _profiled_train(torch, port, directory: str) -> dict:
+  """17e: a `ProfilerHook` window over steps [3, 8) of the full-width
+  bf16 flash trainer; the Chrome trace must name the hand-written flash
+  kernels."""
+  config, train_eval, profiler, attention_ops = port
+  model_dir = os.path.join(directory, "profiled")
+  config.clear_config()
+  config.parse_config_file(os.path.join(REPO_DIR, TRAIN_CONFIG))
+  steps = PROFILE_START + PROFILED_STEPS
+  for binding in (f"train_eval_model.model_dir = '{model_dir}'",
+                  f"train_eval_model.max_train_steps = {steps}",
+                  f"train_eval_model.checkpoint_every_n_steps = {steps}",
+                  "train_eval_model.log_every_n_steps = 1"):
+    config.parse_config(binding)
+  start = time.perf_counter()
+  train_eval.train_eval_model(
+      hook_builders=[profiler.ProfilerHookBuilder(
+          start_step=PROFILE_START, num_steps=PROFILED_STEPS)],
+      reset_run_telemetry=False)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - start
+  config.clear_config()
+  path = os.path.join(model_dir, "profile",
+                      f"steps_{PROFILE_START}-{steps}.chrome.json")
+  size = os.path.getsize(path)
+  with open(path) as f:
+    events = json.load(f)["traceEvents"]
+  kernels = collections.Counter()
+  for event in events:
+    if event.get("cat") == "kernel":
+      for name in PROFILED_KERNELS:
+        if name in event.get("name", ""):
+          kernels[name] += 1
+  log(f"17e: {wall:.2f} s for {steps} steps; trace {size} bytes, "
+      f"{len(events)} events; hand-written kernels {dict(kernels)}")
+  if set(kernels) != set(PROFILED_KERNELS):
+    raise RuntimeError(f"17e: the trace names {dict(kernels)}, want each "
+                       f"of {PROFILED_KERNELS}")
+  return {"steps": [PROFILE_START, steps], "trace_bytes": size,
+          "events": len(events), "kernel_events": dict(kernels),
+          "wall_s": wall}
+
+
+def run_fleet(torch, np, port, card: str, directory: str,
+              sequence_dir: str, critic_dir: str, bf16_limit: float
+              ) -> dict:
+  """Phase 17 (module docstring): the exported artifacts, the session
+  fleet, the critic fleet's rollout, the two CLIs and the profiler hook."""
+  (config, sequence_model, predictors, saved_model_predictor,
+   export_saved_model, qtopt_models, attention_ops, decode_kernels, specs,
+   session, serving, obs_metrics, checkpoints, flagship, train_eval,
+   profiler) = port
+  start = time.perf_counter()
+  out = {"card": card}
+  out["artifacts"] = _export_artifacts(torch, np, (
+      config, sequence_model, predictors, saved_model_predictor,
+      export_saved_model, qtopt_models, attention_ops, decode_kernels,
+      specs), directory, sequence_dir, critic_dir, bf16_limit)
+  torch.cuda.empty_cache()
+  out["session_fleet"] = _session_fleet(torch, np, (
+      config, sequence_model, predictors, session, serving, decode_kernels,
+      obs_metrics), sequence_dir)
+  torch.cuda.empty_cache()
+  out["rollout"] = _critic_rollout(torch, np, (
+      config, checkpoints, predictors, serving, flagship, specs), directory,
+      critic_dir)
+  torch.cuda.empty_cache()
+  out["clis"] = _run_clis(directory, out["artifacts"].pop("critic_export"))
+  out["profiled_train"] = _profiled_train(torch, (
+      config, train_eval, profiler, attention_ops), directory)
+  out["phase_wall_s"] = time.perf_counter() - start
+  return out
+
+
+def _fleet_line(report: dict) -> dict:
+  """Phase 17's printed line."""
+  artifacts, fleet = report["artifacts"], report["session_fleet"]
+  rollout, clis = report["rollout"], report["clis"]
+  return {
+      "card": report["card"],
+      "artifact": {name: {k: artifacts[name][k] for k in (
+          "export_s", "load_s", "artifact_p50_ms", "bundle_p50_ms")}
+                   for name in ("sequence", "critic")},
+      "artifact_flash_fwd_launches": artifacts["sequence"][
+          "flash_fwd_launches"],
+      "artifact_errors": {
+          "sequence_max_abs": artifacts["sequence"]["max_abs_err"],
+          "critic_logit_over_rms": artifacts["critic"][
+              "max_logit_err_over_rms"]},
+      "session_fleet": {k: fleet[k] for k in (
+          "ticks", "dispatches", "decode_tick_launches",
+          "sessions_per_replica", "tick_p50_ms", "tick_p99_ms",
+          "tick_max_abs_err", "reopened", "reopen_max_abs_err")},
+      "rollout": {k: rollout[k] for k in (
+          "rollout_s", "probes_ok", "probes_failed", "fresh_warms",
+          "canary_bit_identical")},
+      "graftserve": {k: clis["graftserve"][k] for k in (
+          "qps", "ok", "errors", "latency_ms")},
+      "loop": {"rounds": clis["loop"]["learner_rounds"],
+               "publishes": clis["verified_publishes"],
+               "episodes": clis["loop"]["episodes"],
+               "replay_shards": clis["replay_shards"],
+               "escalations": clis["loop"]["worker_escalations"]},
+      "profiled_kernels": report["profiled_train"]["kernel_events"],
+      "phase_wall_s": report["phase_wall_s"]}
+
+
 def _vrgripper_line(mdn: dict, da: dict, wtl: dict, card: str) -> dict:
   """Phase 14's printed line: per config the median step and examples/s,
   the device idle share, peak memory, the batch-1 action p50 and p99
@@ -6123,8 +6719,8 @@ def main() -> int:
     print("chip_smoke: torch.cuda.is_available() is false; this script runs "
           "only on a CUDA card.", file=sys.stderr)
     return 1
-  # Phase 4 trains the sequence policy here; phases 9 and 16 read it.
-  # Phase 6 trains the critic into `critic_dir`; phases 7, 10 and 16 read
+  # Phase 4 trains the sequence policy here; phases 9, 16 and 17 read it.
+  # Phase 6 trains the critic into `critic_dir`; phases 7, 10, 16 and 17 read
   # it.
   os.makedirs(os.path.join(REPO_DIR, RUNS_DIR), exist_ok=True)
   sequence_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
@@ -6158,6 +6754,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   from tensor2robot_tpu_torch.research.vrgripper import models as vr_models
   from tensor2robot_tpu_torch.data import input_generators
   from tensor2robot_tpu_torch.hooks import core as hooks_core
+  from tensor2robot_tpu_torch.hooks import profiler
   from tensor2robot_tpu_torch.models import optimizers
   from tensor2robot_tpu_torch.models import sequence_model
   from tensor2robot_tpu_torch.ops import _kernels
@@ -6180,6 +6777,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   from tensor2robot_tpu_torch.policies import device_cem
   from tensor2robot_tpu_torch.policies import policies
   from tensor2robot_tpu_torch.predictors import predictors
+  from tensor2robot_tpu_torch.predictors import saved_model_predictor
   from tensor2robot_tpu_torch.research.qtopt import flagship
   from tensor2robot_tpu_torch.research.qtopt import models as qtopt_models
   from tensor2robot_tpu_torch.serving import loadgen
@@ -6452,6 +7050,21 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   finally:
     shutil.rmtree(observe_dir, ignore_errors=True)
   torch.cuda.empty_cache()
+
+  # Phase 17: the exported artifacts (the f32 flash forward from a
+  # torch.export program), the session fleet (the decode tick through two
+  # replicas), the critic fleet's rollout, the CLIs and the profiler hook.
+  fleet_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  try:
+    fleet_report = run_fleet(torch, np, (
+        config, sequence_model, predictors, saved_model_predictor,
+        export_saved_model, qtopt_models, attention_ops, decode_kernels,
+        specs, session, serving, obs_metrics, checkpoints, flagship,
+        train_eval, profiler), card, fleet_dir, sequence_dir, critic_dir,
+        bf16_limit)
+  finally:
+    shutil.rmtree(fleet_dir, ignore_errors=True)
+  torch.cuda.empty_cache()
   fwd_src = "tensor2robot_tpu_torch/csrc/flash_fwd.cu"
   bwd_src = "tensor2robot_tpu_torch/csrc/flash_bwd.cu"
   kernels = [
@@ -6465,6 +7078,8 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
            "decode_tick"],
        "launches_observed": observe_report["session"][
            "decode_tick_launches"],
+       "launches_fleet": fleet_report["session_fleet"][
+           "decode_tick_launches"],
        **decode_t, "single_lane": decode_b1_t},
       # The stateless f32 predict of the serving slice.
       {"name": "flash_fwd", "route": "cuda", "design": "wgmma+tma, 3xtf32",
@@ -6474,6 +7089,8 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
        "launches_deploy": deploy_report["sequence_bundle"]["launches"][
            "flash_fwd"],
        "launches_remat": remat_launches["flash_fwd"],
+       "launches_artifact": fleet_report["artifacts"]["sequence"][
+           "flash_fwd_launches"],
        "max_abs_err": flash_err["float32"], "max_err": flash_err["float32"],
        "rel_norm_err": flash_rel["float32"],
        "sass_mma": sass["flash_fwd_tc_split_kernel"], **flash_t},
@@ -6530,7 +7147,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
             "lstm": lstm_report, "pose": pose_report, "meta": meta_report,
             "bcz": bcz_report, "grasp2vec": grasp2vec_report,
             "vrgripper": vr_reports, "telemetry": telemetry_report,
-            "observe": observe_report}
+            "observe": observe_report, "fleet": fleet_report}
   os.makedirs(os.path.dirname(REPORT), exist_ok=True)
   with open(REPORT, "w") as f:
     json.dump(report, f, indent=1)
@@ -6550,6 +7167,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   print(json.dumps({"telemetry": {k: v for k, v in telemetry_report.items()
                                   if k != "runs"}}))
   print(json.dumps({"observe": _observe_line(observe_report)}))
+  print(json.dumps({"fleet": _fleet_line(fleet_report)}))
   print(json.dumps({"kernels": kernels}))
   print(card_line(), flush=True)
   print(json.dumps({"ok": True, "device": {

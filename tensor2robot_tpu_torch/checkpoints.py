@@ -38,7 +38,8 @@ write is logged by the worker and raised by the next `save`,
 
 Beside the manager, the functions a deployment needs:
 
-* `latest_step(directory)`, without a manager;
+* `latest_step(directory)`, `write_manifest(directory, step)` and
+  `verify_step_files(directory, step)`, without a manager;
 * `checkpoints_iterator`: new steps as they land, each only once its
   manifest exists (a step is renamed into place before its manifest is
   written, so a step without one may still be in flight), polled with a
@@ -76,6 +77,7 @@ __all__ = ["CheckpointManager", "CheckpointCorruptionError",
            "CHECKPOINT_DIRNAME", "MANIFEST_DIRNAME", "QUARANTINE_DIRNAME",
            "MANIFEST_SCHEMA", "STATE_FILENAME", "latest_step",
            "checkpoints_iterator", "backup_checkpoint", "warm_start_params",
+           "write_manifest", "verify_step_files",
            "average_checkpoints", "remove_backup", "host_copy"]
 
 # A trainer's checkpoints live in <model_dir>/checkpoints.
@@ -141,6 +143,54 @@ def _corrupt_step_for_faultlab(directory: str, step: int, mode: str) -> None:
     os.fsync(f.fileno())
 
 
+def _manifest_path(directory: str, step: int) -> str:
+  return os.path.join(directory, MANIFEST_DIRNAME, f"{int(step)}.json")
+
+
+def write_manifest(directory: str, step: int) -> str:
+  """Writes the manifest of step `step` under `directory` from the bytes
+  on disk (size and crc32 of every file of the step); returns its path."""
+  step_dir = os.path.join(directory, str(int(step)))
+  files: Dict[str, Dict[str, int]] = {}
+  for rel in _step_files(step_dir):
+    full = os.path.join(step_dir, rel)
+    files[rel] = {"size": os.path.getsize(full), "crc32": _file_crc32(full)}
+  manifest = {"schema": MANIFEST_SCHEMA, "schema_version": 1,
+              "step": int(step), "files": files}
+  path = _manifest_path(directory, step)
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  tmp = path + ".tmp"
+  with open(tmp, "w") as f:
+    json.dump(manifest, f, sort_keys=True)
+    f.flush()
+    os.fsync(f.fileno())
+  os.replace(tmp, path)
+  return path
+
+
+def verify_step_files(directory: str, step: int) -> Optional[bool]:
+  """True when every file the manifest of step `step` lists is present
+  with its size and crc32; False on a mismatch (counted
+  `ckpt/verify_failures`); None when the step has no readable manifest."""
+  try:
+    with open(_manifest_path(directory, step)) as f:
+      listed = json.load(f)["files"]
+  except (OSError, ValueError, KeyError, TypeError):
+    return None
+  step_dir = os.path.join(directory, str(int(step)))
+  for rel, meta in listed.items():
+    full = os.path.join(step_dir, rel)
+    try:
+      ok = (os.path.getsize(full) == int(meta["size"])
+            and _file_crc32(full) == int(meta["crc32"]))
+    except OSError:
+      ok = False
+    if not ok:
+      metrics_lib.counter("ckpt/verify_failures").inc()
+      return False
+  return True
+
+
 class CheckpointManager:
   """Saves and restores `TrainState`s under one directory."""
 
@@ -167,7 +217,7 @@ class CheckpointManager:
     return os.path.join(self._directory, str(int(step)))
 
   def _manifest_path(self, step: int) -> str:
-    return os.path.join(self._directory, MANIFEST_DIRNAME, f"{int(step)}.json")
+    return _manifest_path(self._directory, step)
 
   def all_steps(self) -> List[int]:
     """Finished steps on disk (digit-named directories), oldest first."""
@@ -261,21 +311,7 @@ class CheckpointManager:
     self.close()
 
   def _write_manifest(self, step: int) -> None:
-    step_dir = self._step_dir(step)
-    files: Dict[str, Dict[str, int]] = {}
-    for rel in _step_files(step_dir):
-      full = os.path.join(step_dir, rel)
-      files[rel] = {"size": os.path.getsize(full), "crc32": _file_crc32(full)}
-    manifest = {"schema": MANIFEST_SCHEMA, "schema_version": 1,
-                "step": int(step), "files": files}
-    path = self._manifest_path(step)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-      json.dump(manifest, f, sort_keys=True)
-      f.flush()
-      os.fsync(f.fileno())
-    os.replace(tmp, path)
+    write_manifest(self._directory, step)
 
   def _prune(self) -> None:
     if not self._max_to_keep or self._max_to_keep <= 0:
@@ -289,26 +325,8 @@ class CheckpointManager:
   # -- verify, quarantine, restore ---------------------------------------------
 
   def verify_step(self, step: int) -> Optional[bool]:
-    """True when every file the manifest lists is present with its size
-    and crc32; False on a mismatch (counted `ckpt/verify_failures`);
-    None when the step has no readable manifest."""
-    try:
-      with open(self._manifest_path(step)) as f:
-        listed = json.load(f)["files"]
-    except (OSError, ValueError, KeyError, TypeError):
-      return None
-    step_dir = self._step_dir(step)
-    for rel, meta in listed.items():
-      full = os.path.join(step_dir, rel)
-      try:
-        ok = (os.path.getsize(full) == int(meta["size"])
-              and _file_crc32(full) == int(meta["crc32"]))
-      except OSError:
-        ok = False
-      if not ok:
-        metrics_lib.counter("ckpt/verify_failures").inc()
-        return False
-    return True
+    """`verify_step_files` of this manager's directory."""
+    return verify_step_files(self._directory, step)
 
   def latest_verified_step(self) -> Optional[int]:
     """Newest step that does not fail verification."""

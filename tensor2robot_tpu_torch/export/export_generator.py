@@ -12,7 +12,10 @@ Counterpart of `tensor2robot_tpu.export.export_generator`. A bundle under
   from which a predictor without a model object rebuilds it;
 * `params/variables.pt`: `torch.save` of {"params": the eval-time
   parameters (the EMA shadow when the state keeps one), "mutable": the
-  mutable state (batch-norm statistics)}, tensors on the CPU.
+  mutable state (batch-norm statistics)}, tensors on the CPU;
+* with `write_saved_model=True`, `saved_model/`: a `torch.export`
+  program of the predict function (`export.saved_model`), served by
+  `predictors.saved_model_predictor.SavedModelPredictor`.
 
 `version` is microseconds since the epoch, above every version already
 under `base`. The JAX package creates the version directory and then
@@ -20,8 +23,11 @@ fills it; here a version is written into a hidden `.<version>.tmp-<pid>`
 directory and renamed into place, as the port's checkpoints are, so a
 poller never sees a half-written digit-named bundle.
 
-The jax2tf SavedModel (`write_saved_model=True`) has no port yet: a
-`torch.export` artifact is a later slice (ROADMAP.md, Queue A).
+As in the JAX package, the SavedModel embeds the preprocessor when it is
+not the identity and runs on torch ops alone (it runs on fake tensors);
+a preprocessor that computes on the host is refused at
+`set_specification_from_model` unless `export_raw_receivers=True`, where
+clients feed model-layout features.
 """
 
 from __future__ import annotations
@@ -38,17 +44,21 @@ import torch
 
 from tensor2robot_tpu_torch import modes as modes_lib
 from tensor2robot_tpu_torch import specs as specs_lib
+from tensor2robot_tpu_torch.export import saved_model as saved_model_lib
 from tensor2robot_tpu_torch.parallel import train_step as ts
+from tensor2robot_tpu_torch.preprocessors import base as preprocessors_lib
 from tensor2robot_tpu_torch.utils import config
 
 __all__ = ["AbstractExportGenerator", "DefaultExportGenerator",
            "SIGNATURE_FILENAME", "PARAMS_DIRNAME", "VARIABLES_FILENAME",
-           "OPERATIVE_CONFIG_FILENAME", "directory_bytes"]
+           "OPERATIVE_CONFIG_FILENAME", "SAVED_MODEL_DIRNAME",
+           "directory_bytes"]
 
 SIGNATURE_FILENAME = "signature.json"
 PARAMS_DIRNAME = "params"
 VARIABLES_FILENAME = "variables.pt"
 OPERATIVE_CONFIG_FILENAME = "operative_config.gin"
+SAVED_MODEL_DIRNAME = saved_model_lib.SAVED_MODEL_DIRNAME
 
 _log = logging.getLogger(__name__)
 
@@ -57,6 +67,14 @@ def directory_bytes(path: str) -> int:
   """Bytes of every file under `path`."""
   return sum(os.path.getsize(os.path.join(root, name))
              for root, _, names in os.walk(path) for name in names)
+
+
+def _unwrap_preprocessor(preprocessor):
+  """The preprocessor under the bfloat16 device policy (its cast is
+  applied again by the predict path)."""
+  if isinstance(preprocessor, preprocessors_lib.Bfloat16DevicePolicy):
+    return preprocessor.inner
+  return preprocessor
 
 
 def _newest_version(base: str) -> int:
@@ -100,17 +118,37 @@ class DefaultExportGenerator(AbstractExportGenerator):
 
   def __init__(self, export_raw_receivers: bool = False,
                write_saved_model: bool = False):
-    if write_saved_model:
-      raise NotImplementedError(
-          "write_saved_model (a jax2tf SavedModel in the JAX package) is not "
-          "ported yet: a torch.export artifact is a later slice (ROADMAP.md, "
-          "Queue A: export)")
     super().__init__(export_raw_receivers=export_raw_receivers)
+    self._write_saved_model = write_saved_model
+    self._embed_preprocessor = False
     self._outputs: Optional[List[str]] = None
 
   def set_specification_from_model(self, model) -> None:
+    """With `write_saved_model`, fails fast (before any training or
+    write) when the SavedModel could not serve what the bundle serves."""
     super().set_specification_from_model(model)
     self._outputs = None
+    if self._write_saved_model:
+      self._check_saved_model_compat(model)
+
+  def _check_saved_model_compat(self, model) -> None:
+    """Decides whether the SavedModel embeds the preprocessor: not for
+    raw receivers or the identity, yes for one on torch ops; a
+    preprocessor that computes on the host raises."""
+    self._embed_preprocessor = False
+    inner = _unwrap_preprocessor(model.preprocessor)
+    if self._export_raw_receivers or isinstance(
+        inner, preprocessors_lib.NoOpPreprocessor):
+      return
+    if saved_model_lib.preprocess_is_traceable(model.preprocessor):
+      self._embed_preprocessor = True
+      return
+    raise ValueError(
+        f"write_saved_model=True with the non-embeddable host-side "
+        f"preprocessor {type(inner).__name__} requires "
+        "export_raw_receivers=True (clients feed model-layout, "
+        "already-preprocessed features); the bundle applies the "
+        "preprocessor and serves wire-layout features.")
 
   def prepare(self, state: ts.TrainState) -> None:
     """Probes the serving output keys once, with one row through the
@@ -154,6 +192,8 @@ class DefaultExportGenerator(AbstractExportGenerator):
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     try:
+      if self._write_saved_model:
+        self._check_saved_model_compat(model)  # the model may be new
       feature_spec = self._serving_feature_spec()
       assets = specs_lib.Assets(
           feature_spec=feature_spec,
@@ -180,13 +220,20 @@ class DefaultExportGenerator(AbstractExportGenerator):
                          f"{type(model).__qualname__}",
           "outputs": self._outputs,
           "raw_receivers": self._export_raw_receivers,
-          "preprocessor_embedded": False,
+          "preprocessor_embedded": self._embed_preprocessor,
           "global_step": step,
       }
       with open(os.path.join(tmp, SIGNATURE_FILENAME), "w") as f:
         json.dump(signature, f, indent=2)
       with open(os.path.join(tmp, OPERATIVE_CONFIG_FILENAME), "w") as f:
         f.write(config.operative_config_str())
+      if self._write_saved_model:
+        saved_model_dir = os.path.join(tmp, SAVED_MODEL_DIRNAME)
+        saved_model_lib.write_saved_model(
+            model, state.replace(step=step), feature_spec,
+            self._embed_preprocessor, saved_model_dir)
+        specs_lib.write_assets_pbtxt(assets, os.path.join(
+            saved_model_dir, "assets.extra", specs_lib.PBTXT_ASSET_FILENAME))
       os.replace(tmp, path)
     except BaseException:
       shutil.rmtree(tmp, ignore_errors=True)

@@ -33,9 +33,9 @@ both must exceed the factor to fire).
   shard files alone.
 
 The stock specs (`default_serving_slos`, `default_loop_slos`) read the
-counters of the JAX package's serving fleet and actor/learner loop,
-which the port has not yet (ROADMAP.md, Queue A item 14); where a shard
-holds none of them, a ratio spec judges 0 of 0 events and is healthy.
+counters of the serving fleet (`serving/fleet.py`) and the actor/learner
+loop (`loop/`); where a shard holds none of them, a ratio spec judges 0
+of 0 events and is healthy.
 
 Deterministic by construction: `observe(snapshot, now=...)` takes the
 clock as data and every derived number is pure arithmetic over the

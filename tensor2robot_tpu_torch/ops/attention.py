@@ -144,13 +144,40 @@ def flash_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
   """Flash attention forward over [batch*heads, T, D] (T already padded
   by the caller; keys and rows at or past `valid_len` are masked).
 
-  Returns (out [BH, T, D] in the input dtype, lse [BH, T, 1] f32). A CPU
-  tensor runs the plain version; a CUDA tensor launches
-  `csrc/flash_fwd.cu` or raises (f32 or bf16, head_dim in
+  Returns (out [BH, T, D] in the input dtype, lse [BH, T, 1] f32) through
+  the registered operator `t2r::flash_fwd`, so a `torch.export` program
+  records the call: a CPU tensor runs the plain version; a CUDA tensor
+  launches `csrc/flash_fwd.cu` or raises (f32 or bf16, head_dim in
   FLASH_HEAD_DIMS). `flash_forward.launches` counts kernel launches.
   """
-  if _check_flash_operands("flash_forward", (q3, k3, v3), valid_len) == "cpu":
-    return _flash_forward_plain(q3, k3, v3, causal, valid_len)
+  _check_flash_operands("flash_forward", (q3, k3, v3), valid_len)
+  return torch.ops.t2r.flash_fwd(q3, k3, v3, bool(causal), int(valid_len))
+
+
+flash_forward.launches = 0
+
+
+@torch.library.custom_op("t2r::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_fwd_op(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                  causal: bool, valid_len: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """`t2r::flash_fwd` on the CPU: the plain version. Its CUDA
+  implementation, the kernel launch, is registered below."""
+  return _flash_forward_plain(q3, k3, v3, causal, valid_len)
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q3, k3, v3, causal, valid_len):
+  bh, t, _ = q3.shape
+  return (torch.empty_like(q3),
+          q3.new_empty((bh, t, 1), dtype=torch.float32))
+
+
+@_flash_fwd_op.register_kernel("cuda")
+def _launch_flash_fwd(q3, k3, v3, causal, valid_len):
+  # Checked again here: a loaded program calls the operator directly.
+  _check_flash_operands("flash_forward", (q3, k3, v3), valid_len)
   bh, t, d = q3.shape
   q3, k3, v3 = q3.contiguous(), k3.contiguous(), v3.contiguous()
   out = torch.empty_like(q3)
@@ -164,9 +191,6 @@ def flash_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
   _kernels.check("flash_fwd", status)
   flash_forward.launches += 1
   return out, lse
-
-
-flash_forward.launches = 0
 
 
 def _flash_backward_plain(q3: torch.Tensor, k3: torch.Tensor,

@@ -1,7 +1,8 @@
-"""Host -> device batch placement: `place_batch` and `DevicePrefetcher`.
+"""Host -> device batch placement (`place_batch`, `DevicePrefetcher`) and
+the serving fleet's device carve-out (`replica_device_groups`).
 
 The part of `tensor2robot_tpu.parallel.mesh` the port's single-device
-trainer needs. `place_batch` moves one host batch to the device inline;
+trainer and the serving fleet need. `place_batch` moves one host batch to the device inline;
 `DevicePrefetcher` keeps `depth` batches already on the device, placed
 by background threads while the device runs the step.
 
@@ -39,12 +40,42 @@ from tensor2robot_tpu_torch import specs as specs_lib
 from tensor2robot_tpu_torch.obs import metrics as obs_metrics
 from tensor2robot_tpu_torch.utils import device as device_lib
 
-__all__ = ["place_batch", "DevicePrefetcher"]
+__all__ = ["place_batch", "DevicePrefetcher", "replica_device_groups"]
 
 _log = logging.getLogger(__name__)
 
 # Copy timings kept for `copy_ms()` (the newest ones).
 _TIMED_COPIES = 64
+
+
+def replica_device_groups(num_replicas: int, devices=None) -> list:
+  """Carves `devices` into `num_replicas` disjoint groups of contiguous
+  runs of the list (the serving fleet's per-replica device groups).
+
+  `devices` defaults to `torch.device('cuda', i)` for every visible
+  card. A remainder (len(devices) % num_replicas) is spread one extra
+  device over the FIRST groups rather than left idle; the fleet's
+  least-outstanding-work router absorbs the uneven capacity. The list is
+  carved as given: a caller that puts one card in it twice gets two
+  replicas on that card, each with its own state."""
+  if devices is None:
+    devices = [torch.device("cuda", i)
+               for i in range(torch.cuda.device_count())]
+  devices = list(devices)
+  if num_replicas < 1:
+    raise ValueError(f"num_replicas must be >= 1, got {num_replicas}")
+  if num_replicas > len(devices):
+    raise ValueError(
+        f"cannot carve {num_replicas} replica device groups out of "
+        f"{len(devices)} devices (>= 1 device per replica required)")
+  base, remainder = divmod(len(devices), num_replicas)
+  groups = []
+  offset = 0
+  for index in range(num_replicas):
+    size = base + (1 if index < remainder else 0)
+    groups.append(devices[offset:offset + size])
+    offset += size
+  return groups
 
 
 def _placed(values, device: torch.device) -> specs_lib.SpecStruct:

@@ -44,7 +44,7 @@ from tensor2robot_tpu_torch.ops import pcgrad as pcgrad_lib
 __all__ = ["TrainState", "init_train_state", "create_train_state",
            "loss_and_grads", "task_losses_and_grads", "make_train_step",
            "make_train_loop", "make_eval_step", "make_eval_loop",
-           "make_predict_fn", "map_tensors"]
+           "make_predict_fn", "eval_outputs", "map_tensors"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -265,7 +265,7 @@ def make_train_loop(model, num_steps: int) -> Callable:
   return loop_fn
 
 
-def _eval_outputs(model, state: TrainState, features, mode: str,
+def eval_outputs(model, state: TrainState, features, mode: str,
                   use_ema: bool):
   """Eval-mode outputs (running statistics, no update) of the EMA
   parameters when kept, with the live mutable state; bfloat16 outputs
@@ -282,7 +282,7 @@ def make_eval_step(model, use_ema: bool = True) -> Callable:
 
   @torch.no_grad()
   def eval_fn(state: TrainState, features, labels):
-    outputs = _eval_outputs(model, state, features, modes_lib.EVAL, use_ema)
+    outputs = eval_outputs(model, state, features, modes_lib.EVAL, use_ema)
     return model.model_eval_fn(features, labels, outputs)
 
   return eval_fn
@@ -314,7 +314,7 @@ def make_predict_fn(model, use_ema: bool = True) -> Callable:
 
   @torch.no_grad()
   def predict_fn(state: TrainState, features):
-    outputs = _eval_outputs(model, state, features, modes_lib.PREDICT,
+    outputs = eval_outputs(model, state, features, modes_lib.PREDICT,
                             use_ema)
     return model.create_export_outputs_fn(features, outputs)
 

@@ -136,6 +136,15 @@ class _TorchPredictorBase(AbstractPredictor):
     state = self._state
     return -1 if state is None else int(state.step)
 
+  def place_on_device(self, device) -> None:
+    """Moves the served state onto `device` and keeps it there: the
+    serving fleet's replica pinning seam. Every later `restore()` loads
+    onto this device, so a rollout never migrates a replica off its
+    device group."""
+    self.assert_is_loaded()
+    self._device = torch.device(device)
+    self._state = self._state.to(self._device)
+
   def _to_device(self, features: Mapping[str, Any]) -> specs_lib.SpecStruct:
     out = specs_lib.SpecStruct()
     for key, value in specs_lib.flatten_spec_structure(features).items():
@@ -285,7 +294,7 @@ class CheckpointPredictor(_TorchPredictorBase):
         staged = manager.restore(device=self._device).replace(opt_state=None)
     if staged is None:
       return False
-    self._state = staged
+    self._state = staged.to(self._device)
     return True
 
 

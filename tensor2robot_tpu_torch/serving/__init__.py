@@ -1,4 +1,4 @@
-"""Port of the tensor2robot_tpu.serving package (subset).
+"""Port of the tensor2robot_tpu.serving package.
 
 Layer order, robot to device — stateless requests:
 
@@ -12,7 +12,15 @@ and stateful autoregressive episodes:
            -> SessionEngine (device-resident state arena, session.py)
            -> predictor decode_bundle (decode step + state)
 
-plus `loadgen` (closed-loop concurrency sweeps, arrival processes).
+and, above both, the replica pool:
+
+  traffic  -> ServingFleet (least-outstanding router, session affinity,
+              health eviction, zero-downtime rollout, fleet.py)
+           -> per-replica MicroBatcher / SessionBatcher fronts
+           -> per-replica engines on their device groups
+
+plus `loadgen` (closed-loop concurrency sweeps, open-loop session and
+trace-driven loads over the arrival processes).
 """
 
 from tensor2robot_tpu_torch.serving.batcher import (DeadlineError,
@@ -22,6 +30,9 @@ from tensor2robot_tpu_torch.serving.engine import (BucketedEngine,
                                                    bucket_ladder,
                                                    ladder_padding_stats,
                                                    traffic_bucket_ladder)
+from tensor2robot_tpu_torch.serving.fleet import (FleetShedError,
+                                                  NoHealthyReplicaError,
+                                                  ServingFleet)
 from tensor2robot_tpu_torch.serving.session import (SessionBatcher,
                                                     SessionClosedError,
                                                     SessionEngine,
@@ -35,5 +46,6 @@ __all__ = ["MicroBatcher", "BucketedEngine", "bucket_ladder", "ShedError",
            "DeadlineError", "ShutdownError", "SessionEngine",
            "SessionBatcher", "SessionError", "SessionShedError",
            "SessionEvictedError", "UnknownSessionError",
-           "SessionClosedError", "SessionHorizonError",
+           "SessionClosedError", "SessionHorizonError", "ServingFleet",
+           "FleetShedError", "NoHealthyReplicaError",
            "traffic_bucket_ladder", "ladder_padding_stats"]

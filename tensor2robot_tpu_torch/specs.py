@@ -75,8 +75,10 @@ def _canonical_dtype(dtype: Any) -> Any:
   if dtype == "bfloat16" or dtype is torch.bfloat16:
     return torch.bfloat16
   if isinstance(dtype, torch.dtype):
-    # torch dtypes other than bfloat16 have a numpy twin.
-    return np.dtype(torch.empty((), dtype=dtype).numpy().dtype)
+    # torch dtypes other than bfloat16 have a numpy twin of the same
+    # name (read from the name, so that it works under a fake-tensor
+    # mode too).
+    return np.dtype(str(dtype).removeprefix("torch."))
   return np.dtype(dtype)
 
 

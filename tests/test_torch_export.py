@@ -14,6 +14,8 @@
   within 1e-5 relative).
 * A bundle that names a JAX class is refused, and a fresh process that
   tried to load one never imported `tensor2robot_tpu`.
+* With `write_saved_model=True` the bundle holds `saved_model/`, whose
+  program `SavedModelPredictor` serves, equal to the predict function.
 * `restore()` returns False after its timeout on an empty directory, and
   `close()` interrupts a `restore_async` that is waiting.
 * `EnsemblePredictor`'s mean equals the JAX package's over the same
@@ -48,6 +50,7 @@ from tensor2robot_tpu_torch.export import export_generator
 from tensor2robot_tpu_torch.hooks import core as hooks
 from tensor2robot_tpu_torch.parallel import train_step
 from tensor2robot_tpu_torch.predictors import predictors
+from tensor2robot_tpu_torch.predictors import saved_model_predictor
 from tensor2robot_tpu_torch.research.qtopt import models
 
 # The port's tests run in the same worker processes as the JAX suite;
@@ -188,8 +191,21 @@ def test_a_version_appears_whole_and_versions_are_kept(tmp_path,
   assert steps == [20, 30]
   assert [e["step"] for e in hook.exports] == [10, 20, 30]
   assert all(e["bytes"] > 0 for e in hook.exports)
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    export_generator.DefaultExportGenerator(write_saved_model=True)
+  # With write_saved_model the bundle also holds the torch.export
+  # program, and the SavedModel predictor serves it.
+  saved = export_generator.DefaultExportGenerator(write_saved_model=True)
+  saved.set_specification_from_model(model)
+  path = saved.export(state, str(tmp_path / "saved"), 40)
+  assert os.path.isdir(os.path.join(path, "saved_model"))
+  predictor = saved_model_predictor.SavedModelPredictor(
+      export_dir=str(tmp_path / "saved"), device="cpu")
+  assert predictor.restore() and predictor.global_step == 40
+  request = _request(model)
+  np.testing.assert_array_equal(
+      predictor.predict(request)["q_predicted"],
+      train_step.make_predict_fn(model)(state, specs.SpecStruct({
+          k: torch.as_tensor(v) for k, v in request.items()
+      }))["q_predicted"].numpy())
 
 
 def _jax_state(model, seed):

@@ -3,8 +3,8 @@ decomposition, shard export, cross-process aggregation, the serving
 seams and `graftscope timeline`.
 
 The port of the JAX package's `tests/test_graftrace.py` cases that have
-a subject in the port (its loop causality cases wait for the loop, and
-its lint rule for the analysis tooling). The framework-free cases run
+a subject in the port (all but its lint rule, which waits for the
+analysis tooling). The framework-free cases run
 on both packages (`pkg`): the same assertions hold for each, and where
 both read the same shards or record the same stages, their outputs are
 equal.
@@ -24,6 +24,9 @@ equal.
   request -> dispatch and tick -> batch links, the usage hook and the
   deadline breach, and on the CPU the stage sum reconciles with
   `serve/request_ms` within 5%;
+* the loop's causal chain: a replay shard's rotation event links the
+  episode spans that fed it, and a publish is parented on the learner
+  round that requested it;
 * two real processes with a skew far larger than any gap between their
   starts merge causally, and the whole surface runs with torch and jax
   blocked from import.
@@ -43,15 +46,21 @@ import numpy as np
 import pytest
 import torch
 
+from tensor2robot_tpu import checkpoints as jax_checkpoints
 from tensor2robot_tpu import serving as jax_serving
 from tensor2robot_tpu.bin import graftscope as jax_graftscope
 from tensor2robot_tpu.obs import aggregate as jax_aggregate
 from tensor2robot_tpu.obs import graftrace as jax_graftrace
 from tensor2robot_tpu.obs import metrics as jax_metrics
+from tensor2robot_tpu.loop import publish as jax_publish
+from tensor2robot_tpu.loop import replay as jax_replay
 from tensor2robot_tpu.obs import trace as jax_trace
+from tensor2robot_tpu_torch import checkpoints
 from tensor2robot_tpu_torch import serving
 from tensor2robot_tpu_torch import specs
 from tensor2robot_tpu_torch.bin import graftscope
+from tensor2robot_tpu_torch.loop import publish
+from tensor2robot_tpu_torch.loop import replay
 from tensor2robot_tpu_torch.obs import aggregate
 from tensor2robot_tpu_torch.obs import graftrace
 from tensor2robot_tpu_torch.obs import metrics
@@ -67,11 +76,13 @@ JOIN_S = 60.0
 PACKAGES = {
     "port": types.SimpleNamespace(
         graftrace=graftrace, aggregate=aggregate, trace=trace,
-        metrics=metrics, graftscope=graftscope, serving=serving),
+        metrics=metrics, graftscope=graftscope, serving=serving,
+        replay=replay, publish=publish, checkpoints=checkpoints),
     "jax": types.SimpleNamespace(
         graftrace=jax_graftrace, aggregate=jax_aggregate, trace=jax_trace,
         metrics=jax_metrics, graftscope=jax_graftscope,
-        serving=jax_serving),
+        serving=jax_serving, replay=jax_replay, publish=jax_publish,
+        checkpoints=jax_checkpoints),
 }
 
 
@@ -698,6 +709,77 @@ class TestServingPropagation:
         merged, ["serve/stage/dispatch", "serve/session/batch"])
 
 
+# -- the loop's causal chain --------------------------------------------------------
+
+
+class TestLoopCausality:
+
+  def test_replay_shard_links_episode_spans(self, pkg, tmp_path):
+    pkg.trace.enable()
+    ep1, ep2 = pkg.graftrace.mint(), pkg.graftrace.mint()
+    with pkg.metrics.isolated():
+      sink = pkg.replay.ReplayRecordSink(str(tmp_path / "r"),
+                                         episodes_per_shard=2)
+      with sink:
+        with pkg.graftrace.activate(ep1):
+          assert sink.append_episode([b"x" * 64])
+        # An explicit carrier beats the thread-local (the cross-thread
+        # hand-off path).
+        assert sink.append_episode([b"y" * 64], trace_ctx=ep2)
+        shards = sink.finished_shards()
+      assert len(shards) == 1
+      spans = sink.shard_spans()
+      assert set(spans) == {shards[0]}
+    shard_events = _events_named(pkg, "loop/replay/shard")
+    assert len(shard_events) == 1
+    args = shard_events[0]["args"]
+    assert args["span_id"] == spans[shards[0]]
+    assert set(args["links"]) == {ep1.span_id, ep2.span_id}
+    # The chain is walkable from either episode to the shard event.
+    episode_evt = _evt("loop/episode", 0.0, os.getpid(), ep1.span_id)
+    assert pkg.aggregate.has_causal_chain(
+        [episode_evt] + shard_events, ["loop/episode",
+                                       "loop/replay/shard"])
+
+  def test_publish_parented_on_learner_round_context(self, pkg, tmp_path):
+
+    class _Fleet:
+      # The publisher records the span under what the fleet serves after
+      # the rollout (fleet.global_step), not the intent.
+      global_step = 10
+
+      def rollout(self, probe_request=None, verify=None,
+                  drain_timeout_s=0.0):
+        return {"swapped": 1, "aborted": None, "parity_ok": True,
+                "canary_index": 0}
+
+    ckpt = str(tmp_path / "ckpt")
+    step_dir = os.path.join(ckpt, "10")
+    os.makedirs(step_dir)
+    with open(os.path.join(step_dir, "state.bin"), "wb") as f:
+      f.write(b"params10")
+    pkg.checkpoints.write_manifest(ckpt, 10)
+
+    pkg.trace.enable()
+    round_ctx = pkg.graftrace.mint()
+    with pkg.metrics.isolated():
+      pub = pkg.publish.CheckpointPublisher(_Fleet(), ckpt)
+      # The learner requests publication inside its round activation, as
+      # the loop's learner does around train_eval_model.
+      with pkg.graftrace.activate(round_ctx):
+        pub.request_publish(10)
+      report = pub.publish(10)
+      assert report["published"]
+    events = _events_named(pkg, "loop/publish")
+    assert len(events) == 1
+    args = events[0]["args"]
+    assert args["trace_id"] == round_ctx.trace_id
+    assert args["parent_id"] == round_ctx.span_id
+    assert args["step"] == 10 and args["ordinal"] == 1
+    assert pub.publish_span_id(10) == args["span_id"]
+    assert pub.publish_span_id(99) is None
+
+
 # -- graftscope timeline ------------------------------------------------------------
 
 
@@ -828,6 +910,8 @@ ledger.summary()
 path = graftrace.flush()
 assert path is not None
 from tensor2robot_tpu_torch.bin import graftscope
+from tensor2robot_tpu_torch.loop import publish
+from tensor2robot_tpu_torch.loop import replay
 assert graftscope.main(["timeline", root]) == 0
 payload = json.load(open(os.path.join(root, "timeline.json")))
 assert aggregate.has_causal_chain(payload["traceEvents"],

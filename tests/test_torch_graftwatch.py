@@ -10,14 +10,17 @@ both read the same snapshots or shards their outputs are equal:
   does not alert, a sustained burn alerts once per episode and re-arms;
   budget exhaustion latches once, fatally), and both engines emit the
   same incident stream from one snapshot stream;
-* a seeded storm of unmeetable deadlines through a `MicroBatcher`
-  exhausts the budget at a precomputed request count, and one seed
-  gives one incident stream, in both packages and across them (the
-  JAX package drives its storm through the serving fleet, which the
-  port has not yet: ROADMAP Queue A item 14);
-* `UsageLedger`: busy + idle reconciles with wall x devices, windowed
-  utilization is hand-computed, closing freezes the window, and the
-  registry mirror counts (its fleet case waits for item 14);
+* a seeded `obs.faultlab` serve.latency storm against a real
+  `ServingFleet` (600 ms dispatches against a 200 ms latency objective)
+  exhausts the budget at a precomputed request count without evicting
+  a replica, and one seed gives one incident stream, in both packages
+  and across them;
+* `UsageLedger`: busy + idle reconciles with wall x devices (on a
+  2-replica fleet's real dispatch windows too), windowed utilization is
+  hand-computed, closing freezes the window, and the registry mirror
+  counts;
+* the fleet's ledger-backed scale-in gate: trough traffic recommends
+  one replica, a busy burst in the window holds two;
 * `graftscope watch --snapshot`: exit 0 healthy / 1 over budget / 2
   unusable, corrupt shards counted, stale workers excluded, the newest
   generation per pid wins, and both CLIs render one directory to the
@@ -282,47 +285,85 @@ class TestBurnMath:
 
 # -- the seeded storm --------------------------------------------------------------
 
-# Every 4th request carries a deadline no dispatch can meet (shed, one
-# `serve/slo_breaches` each): breaches = floor(k/4) after k requests, so
-# with budget 0.25 the consumption (floor(k/4)/k)/0.25 first reaches 1.0
-# at k = 4.
+
+class _FakeEngine:
+  """A replica without a backend (the JAX test's, trimmed to what the
+  ledger and SLO paths touch)."""
+
+  def __init__(self, index):
+    self.index = index
+    self.version = 1
+
+  def predict(self, features):
+    return {"out": np.asarray(features["x"]) * float(self.version)}
+
+  def warmup(self):
+    pass
+
+  @property
+  def model_version(self):
+    return self.version
+
+  @property
+  def global_step(self):
+    return self.version
+
+  def close(self):
+    pass
+
+
+def _make_fleet(p, num_replicas=2, **kwargs):
+  kwargs.setdefault("max_delay_ms", 1.0)
+  return p.serving.ServingFleet(
+      replica_factory=lambda index, devices: _FakeEngine(index),
+      num_replicas=num_replicas, **kwargs)
+
+
+# Storm shape: every 4th routed predict on replica 0 holds the dispatch
+# open 600 ms against a 200 ms latency objective -> breaches =
+# floor(k/4) after k requests. With budget 0.25 the consumption
+# (floor(k/4)/k)/0.25 first reaches 1.0 at k = 4.
 _STORM_EVERY = 4
 _STORM_BUDGET = 0.25
 _STORM_REQUESTS = 8
 _STORM_EXHAUST_AT = next(
     k for k in range(1, _STORM_REQUESTS + 1)
     if (k // _STORM_EVERY) / k >= _STORM_BUDGET)
+_STORM_SLO_MS = 200.0
 
 
 def _run_storm(p, spec_kwargs, seed, budget=_STORM_BUDGET,
-               requests=_STORM_REQUESTS):
-  """A seeded storm through the package's MicroBatcher: an arrival the
-  plan fires on carries a 1e-3 ms deadline. Returns (incident stream,
-  final snapshot, sink capture)."""
+               requests=_STORM_REQUESTS, spike_ms=600.0):
+  """A seeded latency storm against a real 1-replica fleet of the
+  package. Returns (incident stream, final snapshot, sink capture)."""
   captured = []
   with p.metrics.isolated() as reg:
+    fleet = _make_fleet(p, num_replicas=1, latency_slo_ms=_STORM_SLO_MS)
     spec = p.slo.SloSpec(
         "storm_latency", budget=budget, fast_window_s=4.0,
         slow_window_s=16.0, bad_key="counter/serve/slo_breaches",
-        total_key="counter/serve/batcher/requests")
-    engine = p.slo.SloEngine([spec], sinks=[captured.append])
+        total_key="counter/serve/fleet/requests")
+    engine = p.slo.SloEngine(
+        [spec], sinks=[captured.append, fleet.sentinel_sink()])
     plan = p.faultlab.FaultPlan(
         [p.faultlab.FaultSpec(point=p.faultlab.SERVE_LATENCY, key=0,
-                              **spec_kwargs)], seed=seed)
+                              arg=spike_ms, **spec_kwargs)], seed=seed)
     stream = []
-    with p.serving.MicroBatcher(backend=lambda f: {"y": f["x"]},
-                                max_batch_size=4,
-                                max_delay_ms=1.0) as front, \
-        plan.activated():
-      stream.extend(engine.observe(reg.snapshot(), now=0.0, step=0))
-      for i in range(1, requests + 1):
-        spike = p.faultlab.maybe_fire(p.faultlab.SERVE_LATENCY, key=0)
-        try:
-          front.predict(X1, deadline_ms=1e-3 if spike else None)
-        except p.serving.DeadlineError:
-          assert spike is not None
-        stream.extend(engine.observe(reg.snapshot(), now=float(i),
-                                     step=i))
+    try:
+      with plan.activated():
+        # Genesis observation before traffic: the budget's baseline is
+        # the empty fleet, so "total" counts every storm request.
+        stream.extend(engine.observe(reg.snapshot(), now=0.0, step=0))
+        for i in range(1, requests + 1):
+          fleet.predict(X1)
+          stream.extend(engine.observe(reg.snapshot(), now=float(i),
+                                       step=i))
+      # The fatal burn names no replica: the sink passed it through
+      # without evicting, and the fleet still serves.
+      fleet.predict(X1)
+      assert fleet.healthy_replicas() == [0]
+    finally:
+      fleet.close()
     return stream, reg.snapshot(), captured
 
 
@@ -332,6 +373,7 @@ class TestStormDeterminism:
     assert _STORM_EXHAUST_AT == 4  # the hand-derived pin itself
     stream, snap, captured = _run_storm(pkg, dict(every=_STORM_EVERY),
                                         seed=7)
+    assert "counter/serve/fleet/unhealthy" not in snap
     assert snap["counter/serve/slo_breaches"] == float(
         _STORM_REQUESTS // _STORM_EVERY)
     assert len(stream) == 1
@@ -354,14 +396,15 @@ class TestStormDeterminism:
     for which, p in PACKAGES.items():
       for run in range(2):
         stream, snap, _ = _run_storm(p, dict(rate=0.35), seed=13,
-                                     budget=0.1, requests=16)
+                                     budget=0.1, requests=16,
+                                     spike_ms=300.0)
         streams[which, run] = (_timeless(stream),
                                snap["counter/serve/slo_breaches"])
     assert len(set(json.dumps(s, sort_keys=True)
                    for s in streams.values())) == 1
     assert streams["port", 0][0]
     other, _, _ = _run_storm(PACKAGES["port"], dict(rate=0.35), seed=14,
-                             budget=0.1, requests=16)
+                             budget=0.1, requests=16, spike_ms=300.0)
     assert _timeless(other) != streams["port", 0][0]
 
 
@@ -451,6 +494,62 @@ class TestUsageLedger:
                    for w in (1.0, 4.0, 20.0)]
         out[which] = (ledger.summary(now=12.0), windows, reg.snapshot())
     assert out["port"] == out["jax"]
+
+  def test_real_fleet_ledger_reconciles(self, pkg):
+    # The identity over real dispatch windows: traffic through a
+    # 2-replica fleet, then busy + idle equals wall x devices (within
+    # the block's 4-decimal rounding) and the batchers' usage hooks
+    # attributed every request.
+    with pkg.metrics.isolated():
+      fleet = _make_fleet(pkg, num_replicas=2)
+      try:
+        for _ in range(8):
+          fleet.predict(X1)
+      finally:
+        fleet.close()
+      out = fleet.utilization_summary()
+    assert out["requests"] == 8
+    assert out["device_seconds_busy"] > 0.0
+    wall = sum(g["wall_s"] * g["devices"] for g in out["groups"].values())
+    assert (out["device_seconds_busy"] + out["device_seconds_idle"]
+            == pytest.approx(wall, abs=2e-3))
+    assert set(out["groups"]) == {"replica0", "replica1"}
+    assert out["cost_per_request_usd"] > 0.0
+
+
+# -- the ledger-backed scale-in gate -------------------------------------------------
+
+
+class TestScaleInGate:
+
+  def test_trough_traffic_scales_in(self, pkg):
+    # Quick stateless traffic: the outstanding window reads ~0, the
+    # ledger agrees (dispatches are microseconds) -> advisory 1.
+    with pkg.metrics.isolated():
+      fleet = _make_fleet(pkg, num_replicas=2, autoscale_sample_s=0.0)
+      try:
+        for _ in range(6):
+          fleet.predict(X1)
+        assert fleet.recommended_replicas() == 1
+      finally:
+        fleet.close()
+
+  def test_busy_window_blocks_scale_in(self, pkg):
+    # The same trough by the outstanding signal, but the ledger holds a
+    # recent busy burst: the projected utilization on the smaller fleet
+    # exceeds the target and the gate holds at 2.
+    with pkg.metrics.isolated() as reg:
+      fleet = _make_fleet(pkg, num_replicas=2, autoscale_sample_s=0.0)
+      try:
+        for _ in range(6):
+          fleet.predict(X1)
+        fleet._usage.record_busy("replica0", 5.0)
+        assert fleet.recommended_replicas() == 2
+        snap = reg.snapshot()
+      finally:
+        fleet.close()
+    assert snap["gauge/serve/fleet/window_utilization"] == 1.0
+    assert snap["gauge/serve/fleet/recommended_replicas"] == 2.0
 
 
 # -- graftscope watch ----------------------------------------------------------------
