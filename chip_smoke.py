@@ -396,6 +396,46 @@ and prints no result):
    e. A `ProfilerHook` window over steps [3, 8) of the full-width bf16
       flash trainer: its Chrome trace names `flash_fwd_tc_kernel`,
       `flash_bwd_dq_tc_kernel` and `flash_bwd_dkv_tc_kernel`.
+18. The mesh (`parallel.mesh`, one process per rank): each world is a set
+   of subprocesses of this script (`--mesh-worker`), each printing one
+   JSON line; the phase fails if a rank exits non-zero or prints none.
+   a. An NCCL world of one rank on cuda:0 through `initialize_multihost`:
+      `train_longcontext_flash.gin` with mesh (data 1, fsdp 1, sp 1),
+      `fsdp_rules()` and Ulysses over the flash kernels, 10 steps through
+      `train_eval_model` with a checkpoint at 10 (verified): finite
+      losses, each bf16 flash kernel launched exactly 2 x 10 times, and
+      the losses phase 4's first 10 within LOSS_RTOL. Then, in the same
+      process, the cost of donation: rounds of phase 4's step (no mesh),
+      18a's mesh step donating (the default: the optimizer updates the
+      state in place) and the same step keeping its input, each from
+      one seed and batch, with its median step ms and the peak bytes a
+      step allocates above what was resident; the donating and keeping
+      runs must end in the same state, bit for bit.
+   b. Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+      card; gloo takes the card's tensors in its collectives, and
+      `parallel.collectives` stages them through page-locked host
+      memory for the ring's P2P), mesh (1, 1, 2): one f32 step at full
+      width (SGD 1e-2, seed-1 weights, seed-3 batch of 2) with the ring
+      (`ring_block_k` 512) and with Ulysses over the flash kernels, each
+      held against the single-process flash step: loss LOSS_RTOL
+      relative, each gradient and updated leaf GRAD_TOL x max(1, max|g|);
+      under Ulysses each rank's f32 forward, split pass, dQ and dK/dV
+      launch exactly `blocks` times in the step.
+   c. The same two ranks, mesh (2, 1, 1), then (1, 2, 1) with
+      `fsdp_rules()`: one bf16 flash step (momentum 0.9, lr 1e-2) each,
+      against the single-process step on the same global batch (loss
+      2^-8 relative, gradients BWD_BF16_TOL x max(1, max|g|), updated
+      leaves MESH_LR x BWD_BF16_TOL x max(1, max|g|): the gradient's
+      limit through the step); under fsdp each rank's bytes of sharded
+      parameters and moments, and every sharded leaf exactly half on
+      each rank; then the median time of the trainer's per-step flag
+      agreement (`Mesh.agree`, one host all-reduce) on each rank.
+   d. Preemption: a one-rank trainer with 18a's bindings gets SIGTERM
+      once its step-5 row is logged; it must write a verified checkpoint
+      at the step it reached and exit 42, and a second run must resume
+      from that step to 10.
+   e. Two NCCL ranks on one card, once: the error text (NCCL's
+      "Duplicate GPU detected") is recorded.
 
 Output: a `train` JSON line, a `slice` JSON line, a `qtopt` JSON line
 (the critic's checks, its step ms and grasps/s under each policy with
@@ -413,7 +453,10 @@ and numbers with the card and its power limit), an `observe` line
 and its power limit), a
 `fleet` line (phase 17's export and load times, artifact and bundle
 predict p50, the fleet's tick p50, the rollout's wall, the loop's
-rounds and publishes, with the card and its power limit), a
+rounds and publishes, with the card and its power limit), a `mesh` line
+(phase 18's cases: max differences, launches, bytes per rank, step ms per
+rank, 18a's donation reading, the flag agreement's time, the NCCL
+finding, the phase wall, with the card and its power limit), a
 `kernels`
 JSON line
 (one row per kernel, with its `design`: "wgmma+tma" for the bf16
@@ -426,7 +469,8 @@ dQ + dK/dV + split with the library's whole backward; the f32 flash
 rows carry `launches_remat`, phase 10c's counts, and the bf16 ones
 `launches_rewind`, phase 15a's; the decode row `launches_observed`,
 phase 16b's, and `launches_fleet`, phase 17b's; the f32 forward row
-`launches_artifact`, phase 17a's), the card line,
+`launches_artifact`, phase 17a's; the flash rows `launches_ulysses`,
+phase 18a's (bf16) and 18b's rank 0 (f32)), the card line,
 and as the last line `{"ok": true, "device": {...}}`. The same numbers go
 to `chiprun_out/chip_smoke_report.json`.
 """
@@ -6712,6 +6756,588 @@ def _family_line(report: dict) -> dict:
   return line
 
 
+# -- phase 18: the mesh -----------------------------------------------------------
+
+MESH_STEPS = 10              # 18a's train steps (checkpoint at the last)
+PREEMPT_AFTER = 5            # 18d: SIGTERM once this step's row is logged
+MESH_DEVICE = "cuda:0"       # every rank of every phase-18 world
+MESH_BACKEND = "nccl"        # the one-rank worlds (18a, 18d)
+PAIR_BACKEND = "gloo"        # two ranks on one card (18b, 18c)
+DUP_BACKEND = "nccl"         # 18e: two NCCL ranks on one card
+MESH_AXES = ("data", "fsdp", "sp")
+RING_BLOCK_K = 512
+MESH_LR = 1e-2
+# The bf16 data/fsdp steps against the single-process one: each row's
+# forward is the same math, but a bf16 product over 4096 rows may tile
+# otherwise than over 8192 (one bf16 step of the loss at most).
+BF16_LOSS_RTOL = 2.0 ** -8
+MESH_TIMED_STEPS = 3
+# 18a's donation reading: rounds of (phase 4's step, the mesh step
+# donating, the mesh step keeping its input), each DONATION_STEPS timed
+# steps after one warm step; AGREE_CALLS host flag agreements a rank.
+DONATION_ROUNDS = 2
+DONATION_STEPS = 5
+AGREE_CALLS = 50
+MESH_WORKER_TIMEOUT_S = 300
+MESH_RESULT = '{"mesh_worker"'
+
+
+def _free_port() -> int:
+  import socket
+
+  with socket.socket() as sock:
+    sock.bind(("127.0.0.1", 0))
+    return sock.getsockname()[1]
+
+
+def _launch_workers(case: str, world: int, directory: str, backend: str):
+  """Starts `world` ranks of `case` (this script with --mesh-worker), each
+  logging to its own file."""
+  port = _free_port()
+  procs = []
+  for rank in range(world):
+    log = open(os.path.join(directory, f"{case}-{rank}.log"), "w")
+    procs.append((subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-worker", case,
+         str(rank), str(world), str(port), directory, MESH_DEVICE, backend],
+        stdout=log, stderr=subprocess.STDOUT, cwd=REPO_DIR), log))
+  return procs
+
+
+def _collect(procs, what: str, exit_codes=(0,)) -> list:
+  """Each rank's result line; raises when a rank exits otherwise or
+  prints none. Kills every rank on a timeout."""
+  deadline = time.monotonic() + MESH_WORKER_TIMEOUT_S
+  results = []
+  try:
+    for rank, (proc, log) in enumerate(procs):
+      try:
+        proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+      except subprocess.TimeoutExpired:
+        raise RuntimeError(f"phase 18 {what}: rank {rank} timed out")
+      log.close()
+      with open(log.name) as f:
+        text = f.read()
+      lines = [l for l in text.splitlines() if l.startswith(MESH_RESULT)]
+      if proc.returncode not in exit_codes or not lines:
+        raise RuntimeError(f"phase 18 {what}: rank {rank} exited "
+                           f"{proc.returncode}:\n{text[-4000:]}")
+      results.append(json.loads(lines[-1]))
+  finally:
+    for proc, log in procs:
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+      log.close()
+  return results
+
+
+def _flash_counts(attention_ops) -> dict:
+  fwd, bwd = attention_ops.flash_forward, attention_ops.flash_backward
+  return {"flash_fwd": fwd.launches, "flash_bwd_dq": bwd.launches_dq,
+          "flash_bwd_dkv": bwd.launches_dkv,
+          "flash_bwd_split": bwd.launches_split}
+
+
+def _reset_flash_counts(attention_ops) -> None:
+  fwd, bwd = attention_ops.flash_forward, attention_ops.flash_backward
+  fwd.launches = bwd.launches_dq = bwd.launches_dkv = 0
+  bwd.launches_split = 0
+
+
+def _sync(torch, device) -> None:
+  if device.type == "cuda":
+    torch.cuda.synchronize(device)
+
+
+def _worker_train(torch, case, rank, world, port, directory, device,
+                  backend):
+  """18a (`train`), 18d (`preempt`, `resume`): the long-context flash
+  config on a one-rank mesh, Ulysses over the flash kernels."""
+  from tensor2robot_tpu_torch import checkpoints
+  from tensor2robot_tpu_torch import train_eval
+  from tensor2robot_tpu_torch.ops import attention as attention_ops
+  from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+  from tensor2robot_tpu_torch.parallel import train_step
+  from tensor2robot_tpu_torch.utils import config
+
+  mesh_lib.initialize_multihost(f"127.0.0.1:{port}", world, rank,
+                                backend=backend, device=device)
+  model_dir = os.path.join(directory, "train")
+  config.clear_config()
+  config.parse_config_file(os.path.join(REPO_DIR, TRAIN_CONFIG))
+  for binding in (f"train_eval_model.model_dir = '{model_dir}'",
+                  f"train_eval_model.max_train_steps = {MESH_STEPS}",
+                  f"train_eval_model.checkpoint_every_n_steps = {MESH_STEPS}",
+                  "train_eval_model.log_every_n_steps = 1",
+                  f"train_eval_model.device = '{device}'",
+                  "train_eval_model.mesh_shape = (1, 1, 1)",
+                  f"train_eval_model.mesh_axis_names = {MESH_AXES!r}",
+                  "SequenceRegressionModel.attention_backend = 'ulysses'",
+                  "SequenceRegressionModel.ulysses_inner = 'flash'"):
+    config.parse_config(binding)
+  code = 0
+  # The main path: counts to 0 just before, read just after.
+  _reset_flash_counts(attention_ops)
+  start = time.perf_counter()
+  try:
+    train_eval.train_eval_model(partition_rules=train_step.fsdp_rules())
+  except SystemExit as e:
+    code = e.code
+  _sync(torch, device)
+  wall = time.perf_counter() - start
+  launches = _flash_counts(attention_ops)
+  manager = checkpoints.CheckpointManager(
+      os.path.join(model_dir, checkpoints.CHECKPOINT_DIRNAME))
+  steps = manager.all_steps()
+  donation = (_donation_cost(torch, device, mesh_lib, train_step)
+              if case == "train" else None)
+  torch.distributed.destroy_process_group()
+  return {"exit": code, "losses": _logged_losses(model_dir),
+          "launches": launches, "steps": steps,
+          "verified": [manager.verify_step(s) is True for s in steps],
+          "wall_s": wall, "donation": donation}, code
+
+
+def _state_tensors(state) -> list:
+  """The parameters', the optimizer state's and the EMA's tensors."""
+  leaves = []
+
+  def walk(tree):
+    if hasattr(tree, "data_ptr"):
+      leaves.append(tree)
+    elif isinstance(tree, dict):
+      for key in sorted(tree):
+        walk(tree[key])
+    elif isinstance(tree, (tuple, list)):
+      for value in tree:
+        walk(value)
+
+  walk((state.params, state.opt_state, state.ema_params))
+  return leaves
+
+
+def _donation_cost(torch, device, mesh_lib, train_step) -> dict:
+  """18a's step (the one-rank mesh, Ulysses over the flash kernels,
+  `fsdp_rules()`) donating and keeping its input, beside phase 4's step
+  (no mesh, the flash backend), in alternated rounds from one seed and
+  batch: the median step ms and the peak bytes a step allocates above
+  what was resident before it. The donating and keeping runs must end
+  in the same state, bit for bit."""
+  from tensor2robot_tpu_torch.data import input_generators
+  from tensor2robot_tpu_torch.models import sequence_model
+
+  mesh = mesh_lib.create_mesh((1, 1, 1), MESH_AXES, device=device)
+  mesh_model = sequence_model.SequenceRegressionModel(
+      **WIDTHS, use_bfloat16=True, attention_backend="ulysses",
+      ulysses_inner="flash")
+  mesh_model.set_mesh(mesh)
+  plain_model = sequence_model.SequenceRegressionModel(
+      **WIDTHS, use_bfloat16=True, attention_backend="flash")
+  features, labels = _generator_batch(input_generators, plain_model, 2, 5)
+  on_mesh = mesh_lib.place_batch(
+      mesh, {"features": features, "labels": labels},
+      batch_spec=mesh_model.batch_partition_spec)
+  plain_batch = ({k: v.to(device) for k, v in features.items()},
+                 {k: v.to(device) for k, v in labels.items()})
+
+  def run(variant):
+    generator = torch.Generator().manual_seed(0)
+    if variant == "phase4":
+      state = train_step.create_train_state(plain_model, generator, device)
+      step, batch = train_step.make_train_step(plain_model), plain_batch
+    else:
+      state, shardings = train_step.create_train_state(
+          mesh_model, generator, device, mesh=mesh,
+          rules=train_step.fsdp_rules())
+      step = train_step.make_train_step(
+          mesh_model, mesh=mesh, shardings=shardings,
+          batch_spec=mesh_model.batch_partition_spec,
+          donate=variant == "donate")
+      batch = on_mesh
+    state, _ = step(state, *batch)  # warm
+    _sync(torch, device)
+    resident = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    times = []
+    for _ in range(DONATION_STEPS):
+      start = time.perf_counter()
+      state, _ = step(state, *batch)
+      _sync(torch, device)
+      times.append(1e3 * (time.perf_counter() - start))
+    peak = torch.cuda.max_memory_allocated(device) - resident
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in _state_tensors(state))
+    return sorted(times)[len(times) // 2], peak, state_bytes, state
+
+  out = {k: {"step_ms": [], "peak_above_resident_bytes": []}
+         for k in ("phase4", "donate", "keep")}
+  finals = {}
+  for _ in range(DONATION_ROUNDS):
+    for variant in ("phase4", "donate", "keep"):
+      ms, peak, state_bytes, state = run(variant)
+      out[variant]["step_ms"].append(ms)
+      out[variant]["peak_above_resident_bytes"].append(peak)
+      out[variant]["state_bytes"] = state_bytes
+      finals[variant] = state
+      del state
+  same = all(torch.equal(a, b) for a, b in zip(
+      _state_tensors(finals["donate"]), _state_tensors(finals["keep"])))
+  if not same:
+    raise RuntimeError("18a: the donating step's state differs from the "
+                       "kept step's")
+  out["donate_equals_keep"] = same
+  return out
+
+
+def _mesh_case(torch, port, model, mesh, params, batch, rules, directory,
+               name: str, rank: int) -> dict:
+  """One mesh step of `model` from `params` on the global `batch`: the
+  gradients (`make_grad_fn`) and the step's update, gathered and saved by
+  rank 0 for the parent's single-process comparison; the step's flash
+  launches (counts to 0 just before the first step, read just after),
+  the median of MESH_TIMED_STEPS more steps, and the bytes each rank
+  holds of the sharded leaves and their moments."""
+  bridge, mesh_lib, train_step, attention_ops = port
+  device = mesh.device
+  model.set_mesh(mesh)
+  state, shardings = bridge.train_state_on_mesh(
+      train_step.init_train_state(model, params), mesh, rules)
+  spec = model.batch_partition_spec
+  features, labels = mesh_lib.place_batch(mesh, batch, batch_spec=spec)
+  loss, grads = train_step.make_grad_fn(model, mesh, shardings,
+                                        batch_spec=spec)(state, features,
+                                                         labels)
+  grads = {k: mesh_lib.unshard(g, mesh, shardings.params[k].spec)
+           for k, g in grads.items()}
+  step = train_step.make_train_step(model, mesh=mesh, shardings=shardings,
+                                    batch_spec=spec, donate=False)
+  _sync(torch, device)
+  _reset_flash_counts(attention_ops)
+  new, metrics = step(state, features, labels)
+  _sync(torch, device)
+  launches = _flash_counts(attention_ops)
+  times = []
+  for _ in range(MESH_TIMED_STEPS):
+    _sync(torch, device)
+    start = time.perf_counter()
+    step(state, features, labels)
+    _sync(torch, device)
+    times.append(1e3 * (time.perf_counter() - start))
+  full = train_step.gather_state(new, shardings)
+  sharded = sorted(k for k, v in shardings.params.items() if v.spec)
+
+  def nbytes(tree):
+    return sum(v.numel() * v.element_size() for v in tree.values())
+
+  moments = [m for m in new.opt_state if isinstance(m, dict)
+             and "trace" in m]
+  halves = all(2 * new.params[k].numel() == full.params[k].numel()
+               and all(2 * m["trace"][k].numel() == full.params[k].numel()
+                       for m in moments) for k in sharded)
+  out = {"loss": float(loss), "step_loss": float(metrics["loss"]),
+         "launches": launches, "step_ms": sorted(times)[len(times) // 2],
+         "sharded_leaves": len(sharded), "sharded_halves": halves,
+         "bytes": {"params_local": nbytes(new.params),
+                   "params_whole": nbytes(full.params),
+                   "sharded_params_local": sum(
+                       new.params[k].numel() * 4 for k in sharded),
+                   "sharded_params_whole": sum(
+                       full.params[k].numel() * 4 for k in sharded),
+                   "moments_local": sum(nbytes(m["trace"])
+                                        for m in moments)}}
+  if rank == 0:
+    torch.save({"loss": float(loss),
+                "grads": {k: v.cpu() for k, v in grads.items()},
+                "params": {k: v.cpu() for k, v in full.params.items()}},
+               os.path.join(directory, f"{name}.pt"))
+  return out
+
+
+def _worker_pair(torch, case, rank, world, port, directory, device,
+                 backend):
+  """18b and 18c: two ranks on one card."""
+  from tensor2robot_tpu_torch import bridge
+  from tensor2robot_tpu_torch.models import optimizers
+  from tensor2robot_tpu_torch.models import sequence_model
+  from tensor2robot_tpu_torch.ops import attention as attention_ops
+  from tensor2robot_tpu_torch.parallel import collectives
+  from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+  from tensor2robot_tpu_torch.parallel import train_step
+
+  mesh_lib.initialize_multihost(f"127.0.0.1:{port}", world, rank,
+                                backend=backend, device=device)
+  inputs = torch.load(os.path.join(directory, "inputs.pt"))
+  port = (bridge, mesh_lib, train_step, attention_ops)
+  staged_before = collectives.staged_calls["count"]
+  out = {}
+  sp = mesh_lib.create_mesh((1, 1, 2), MESH_AXES, device=device)
+  for name, kwargs in (("ring", {"attention_backend": "ring",
+                                 "ring_block_k": RING_BLOCK_K}),
+                       ("ulysses", {"attention_backend": "ulysses",
+                                    "ulysses_inner": "flash"})):
+    model = sequence_model.SequenceRegressionModel(
+        optimizer_fn=lambda: optimizers.create_sgd_optimizer(MESH_LR),
+        **WIDTHS, **kwargs)
+    out[name] = _mesh_case(torch, port, model, sp, inputs["params"],
+                           inputs["batch"], None, directory, name, rank)
+  for name, shape, rules in (("data", (2, 1, 1), None),
+                             ("fsdp", (1, 2, 1), train_step.fsdp_rules())):
+    mesh = mesh_lib.create_mesh(shape, MESH_AXES, device=device)
+    model = sequence_model.SequenceRegressionModel(
+        attention_backend="flash", use_bfloat16=True,
+        optimizer_fn=lambda: optimizers.create_momentum_optimizer(MESH_LR,
+                                                                  0.9),
+        **WIDTHS)
+    out[name] = _mesh_case(torch, port, model, mesh, inputs["params"],
+                           inputs["batch"], rules, directory, name, rank)
+  out["staged_collectives"] = collectives.staged_calls["count"] - staged_before
+  # The trainer's per-step agreement on its rewind and preemption flags.
+  times = []
+  for _ in range(AGREE_CALLS):
+    start = time.perf_counter()
+    mesh.agree(False, False)
+    times.append(1e6 * (time.perf_counter() - start))
+  out["agree_us"] = sorted(times)[len(times) // 2]
+  torch.distributed.destroy_process_group()
+  return out, 0
+
+
+def _worker_nccl_dup(torch, case, rank, world, port, directory, device,
+                     backend):
+  """18e: two NCCL ranks on one card; the error text, or None."""
+  import torch.distributed as dist
+
+  error = None
+  try:
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    value = torch.ones(4, device=device)
+    dist.all_reduce(value)
+    _sync(torch, device)
+  except Exception as e:  # noqa: BLE001 - the finding is the error
+    error = f"{type(e).__name__}: {e}"
+  try:
+    dist.destroy_process_group()
+  except Exception:  # noqa: BLE001 - a group that failed to form
+    pass
+  return {"error": error}, 0
+
+
+def mesh_worker(argv) -> int:
+  """One rank of a phase-18 world: prints its result line and exits with
+  its code (42 for a preempted trainer)."""
+  case, rank, world, port, directory, device, backend = argv
+  import torch
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  device = torch.device(device)
+  if device.type == "cuda":
+    torch.cuda.set_device(device)
+  worker = {"train": _worker_train, "preempt": _worker_train,
+            "resume": _worker_train, "pair": _worker_pair,
+            "nccl_dup": _worker_nccl_dup}[case]
+  result, code = worker(torch, case, int(rank), int(world), int(port),
+                        directory, device, backend)
+  print(json.dumps({"mesh_worker": case, "rank": int(rank), **result}),
+        flush=True)
+  return code
+
+
+def _mesh_reference(torch, port, model, params, batch, device):
+  """The single-process step of `model` from `params` on the whole
+  batch: (loss, gradients, updated parameters)."""
+  train_step = port
+  params = {k: v.to(device) for k, v in params.items()}
+  features = {k: v.to(device) for k, v in batch["features"].items()}
+  labels = {k: v.to(device) for k, v in batch["labels"].items()}
+  loss, _, grads, _ = train_step.loss_and_grads(model, params, features,
+                                                labels)
+  state = train_step.init_train_state(model, params)
+  new, _ = train_step.make_train_step(model)(state, features, labels)
+  return float(loss), grads, new.params
+
+
+def _mesh_errors(torch, got: dict, want, bf16: bool) -> dict:
+  """Loss relative error; the worst gradient over max(1, max |g|) of its
+  leaf; the worst updated leaf over the same max(1, max |g|) (the
+  gradient's scale, which the step's update carries); and (bf16) the
+  worst gradient's relative 2-norm."""
+  loss, grads, params = want
+
+  def grad_scale(k):
+    return max(1.0, float(grads[k].float().abs().max()))
+
+  errors = {"loss_rel": abs(got["loss"] - loss) / abs(loss),
+            "grad_scaled": max(_scaled_err(got["grads"][k], g.cpu())
+                               for k, g in grads.items()),
+            "param_scaled": max(max_abs(got["params"][k], p.cpu())
+                                / grad_scale(k) for k, p in params.items())}
+  if bf16:
+    errors["grad_rel_norm"] = max(_rel_norm_err(got["grads"][k], g.cpu())
+                                  for k, g in grads.items())
+  return errors
+
+
+def _wait_for_step(path: str, step: int, proc, timeout_s: float) -> None:
+  deadline = time.monotonic() + timeout_s
+  while time.monotonic() < deadline:
+    if proc.poll() is not None:
+      raise RuntimeError(f"phase 18d: the trainer exited {proc.returncode} "
+                         f"before step {step}")
+    if os.path.exists(path):
+      with open(path) as f:
+        if any(r.get("step", 0) >= step and "loss" in r
+               for r in map(json.loads, f.read().splitlines())):
+          return
+    time.sleep(0.05)
+  raise RuntimeError(f"phase 18d: no step-{step} row within {timeout_s} s")
+
+
+def run_mesh(torch, np, port, card: str, directory: str,
+             sequence_dir: str) -> dict:
+  """Phase 18 (module docstring)."""
+  (config, sequence_model, train_step, input_generators, optimizers) = port
+  import signal
+
+  start = time.perf_counter()
+  device = torch.device(MESH_DEVICE)
+  blocks = WIDTHS["num_blocks"]
+  report = {"card": card}
+
+  # 18a: an NCCL world of one rank trains 10 steps.
+  a_dir = tempfile.mkdtemp(dir=directory)
+  [a] = _collect(_launch_workers("train", 1, a_dir, MESH_BACKEND), "18a")
+  want = {k: 2 * MESH_STEPS for k in ("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv")}
+  launches_a = {k: a["launches"][k] for k in want}
+  if launches_a != want or a["launches"]["flash_bwd_split"]:
+    raise RuntimeError(f"18a: each bf16 flash kernel must launch 2 x "
+                       f"{MESH_STEPS} times, got {a['launches']}")
+  _check_losses(a["losses"], 1, MESH_STEPS)
+  if a["steps"] != [MESH_STEPS] or not all(a["verified"]):
+    raise RuntimeError(f"18a: checkpoints {a['steps']} {a['verified']}")
+  phase4 = dict(_logged_losses(sequence_dir))
+  loss_err = max(abs(loss - phase4[step]) / abs(phase4[step])
+                 for step, loss in a["losses"])
+  if loss_err > LOSS_RTOL:
+    raise RuntimeError(f"18a: losses differ from phase 4's by {loss_err}")
+  report["nccl_one_rank"] = {
+      "launches": launches_a, "loss_vs_phase4_rel": loss_err,
+      "loss_step_1": a["losses"][0][1], "loss_step_10": a["losses"][-1][1],
+      "wall_s": a["wall_s"]}
+  report["donation"] = a["donation"]
+  log(f"18a: 10 NCCL-world steps, launches {launches_a}, losses vs phase 4 "
+      f"{loss_err:.3e}; donation {a['donation']}")
+
+  # 18b and 18c: two ranks on one card.
+  pair_dir = tempfile.mkdtemp(dir=directory)
+  model = sequence_model.SequenceRegressionModel(**WIDTHS)
+  params = model.init_params(torch.Generator().manual_seed(1))
+  generator = input_generators.DefaultRandomInputGenerator(batch_size=2,
+                                                           seed=3)
+  generator.set_specification_from_model(model, "train")
+  raw = next(generator.create_dataset("train"))
+  batch = {"features": dict(raw["features"].items()),
+           "labels": dict(raw["labels"].items())}
+  torch.save({"params": params, "batch": batch},
+             os.path.join(pair_dir, "inputs.pt"))
+  ranks = _collect(_launch_workers("pair", 2, pair_dir, PAIR_BACKEND),
+                   "18b/18c")
+  references = {
+      False: _mesh_reference(torch, train_step, sequence_model
+                             .SequenceRegressionModel(
+                                 attention_backend="flash",
+                                 optimizer_fn=lambda: optimizers
+                                 .create_sgd_optimizer(MESH_LR), **WIDTHS),
+                             params, batch, device),
+      True: _mesh_reference(torch, train_step, sequence_model
+                            .SequenceRegressionModel(
+                                attention_backend="flash", use_bfloat16=True,
+                                optimizer_fn=lambda: optimizers
+                                .create_momentum_optimizer(MESH_LR, 0.9),
+                                **WIDTHS), params, batch, device)}
+  cases = {}
+  for name, bf16 in (("ring", False), ("ulysses", False), ("data", True),
+                     ("fsdp", True)):
+    got = torch.load(os.path.join(pair_dir, f"{name}.pt"))
+    errors = _mesh_errors(torch, got, references[bf16], bf16)
+    loss_limit = BF16_LOSS_RTOL if bf16 else LOSS_RTOL
+    grad_limit = BWD_BF16_TOL if bf16 else GRAD_TOL
+    # bf16: the gradient's limit through one step of MESH_LR.
+    param_limit = MESH_LR * BWD_BF16_TOL if bf16 else GRAD_TOL
+    if not (errors["loss_rel"] <= loss_limit
+            and errors["grad_scaled"] <= grad_limit
+            and errors["param_scaled"] <= param_limit):
+      raise RuntimeError(f"18{'c' if bf16 else 'b'} {name}: against the "
+                         f"single-process step {errors}")
+    cases[name] = {"errors": errors,
+                   "step_ms": [r[name]["step_ms"] for r in ranks],
+                   "launches": [r[name]["launches"] for r in ranks],
+                   "bytes": [r[name]["bytes"] for r in ranks]}
+    log(f"18{'c' if bf16 else 'b'} {name}: {errors}, step ms "
+        f"{cases[name]['step_ms']}")
+  for rank in ranks:
+    if rank["ulysses"]["launches"] != {k: blocks for k in (
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_split")}:
+      raise RuntimeError(f"18b: each f32 flash kernel must launch {blocks} "
+                         f"times per rank, got {rank['ulysses']['launches']}")
+    fsdp = rank["fsdp"]
+    if not (fsdp["sharded_leaves"] and fsdp["sharded_halves"]):
+      raise RuntimeError(f"18c: fsdp must hold half of every sharded leaf "
+                         f"on each rank: {fsdp}")
+  report["sequence_parallel"] = {k: cases[k] for k in ("ring", "ulysses")}
+  report["data_fsdp"] = {k: cases[k] for k in ("data", "fsdp")}
+  report["staged_collectives"] = [r["staged_collectives"] for r in ranks]
+  report["agree_us"] = [r["agree_us"] for r in ranks]
+
+  # 18d: SIGTERM after step 5; a verified checkpoint, exit 42, a resume.
+  d_dir = tempfile.mkdtemp(dir=directory)
+  procs = _launch_workers("preempt", 1, d_dir, MESH_BACKEND)
+  try:
+    _wait_for_step(os.path.join(d_dir, "train", "train", "metrics.jsonl"),
+                   PREEMPT_AFTER, procs[0][0], MESH_WORKER_TIMEOUT_S)
+  except BaseException:
+    _collect(procs, "18d", exit_codes=(0, 42, -signal.SIGTERM))
+    raise
+  procs[0][0].send_signal(signal.SIGTERM)
+  [preempted] = _collect(procs, "18d", exit_codes=(42,))
+  saved = preempted["steps"][-1] if preempted["steps"] else None
+  if (preempted["exit"] != 42 or saved is None or saved < PREEMPT_AFTER
+      or not preempted["verified"][-1]):
+    raise RuntimeError(f"18d: the preempted trainer: {preempted}")
+  [resumed] = _collect(_launch_workers("resume", 1, d_dir, MESH_BACKEND),
+                       "18d resume")
+  _check_losses(resumed["losses"][len(preempted["losses"]):], saved + 1,
+                MESH_STEPS)
+  if resumed["steps"][-1] != MESH_STEPS or not resumed["verified"][-1]:
+    raise RuntimeError(f"18d: the resume: {resumed}")
+  report["preemption"] = {"saved_step": saved, "exit": preempted["exit"],
+                          "resumed_to": resumed["steps"][-1]}
+  log(f"18d: SIGTERM after step {PREEMPT_AFTER}: saved {saved}, exit 42, "
+      f"resumed to {MESH_STEPS}")
+
+  # 18e: two NCCL ranks on one card.
+  e_dir = tempfile.mkdtemp(dir=directory)
+  dup = _collect(_launch_workers("nccl_dup", 2, e_dir, DUP_BACKEND), "18e")
+  report["nccl_two_ranks_one_card"] = [r["error"] for r in dup]
+  log(f"18e: two NCCL ranks on one card: {report['nccl_two_ranks_one_card']}")
+  report["phase_wall_s"] = time.perf_counter() - start
+  return report
+
+
+def _mesh_line(report: dict) -> dict:
+  """Phase 18's printed line."""
+  line = {k: report[k] for k in ("card", "nccl_one_rank", "donation",
+                                 "preemption", "staged_collectives",
+                                 "agree_us", "nccl_two_ranks_one_card",
+                                 "phase_wall_s")}
+  for key in ("sequence_parallel", "data_fsdp"):
+    line[key] = report[key]
+  return line
+
+
 def main() -> int:
   import torch
 
@@ -7065,6 +7691,18 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   finally:
     shutil.rmtree(fleet_dir, ignore_errors=True)
   torch.cuda.empty_cache()
+  # Phase 18: the mesh, each world a set of subprocesses; 18a's losses
+  # are held to phase 4's, read from `sequence_dir`.
+  mesh_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  try:
+    mesh_report = run_mesh(torch, np, (
+        config, sequence_model, train_step, input_generators, optimizers),
+        card, mesh_dir, sequence_dir)
+  finally:
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+  torch.cuda.empty_cache()
+  ulysses_bf16 = mesh_report["nccl_one_rank"]["launches"]
+  ulysses_f32 = mesh_report["sequence_parallel"]["ulysses"]["launches"][0]
   fwd_src = "tensor2robot_tpu_torch/csrc/flash_fwd.cu"
   bwd_src = "tensor2robot_tpu_torch/csrc/flash_bwd.cu"
   kernels = [
@@ -7091,6 +7729,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
        "launches_remat": remat_launches["flash_fwd"],
        "launches_artifact": fleet_report["artifacts"]["sequence"][
            "flash_fwd_launches"],
+       "launches_ulysses": ulysses_f32["flash_fwd"],
        "max_abs_err": flash_err["float32"], "max_err": flash_err["float32"],
        "rel_norm_err": flash_rel["float32"],
        "sass_mma": sass["flash_fwd_tc_split_kernel"], **flash_t},
@@ -7101,6 +7740,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
        "launches": train_report["launches"]["flash_fwd"],
        "launches_serving": slice_report["launches"]["flash_fwd_bf16"],
        "launches_rewind": rewind_launches["flash_fwd"],
+       "launches_ulysses": ulysses_bf16["flash_fwd"],
        "max_abs_err": flash_err["bfloat16"],
        "rel_norm_err": flash_rel["bfloat16"],
        "sass_mma": sass["flash_fwd_tc_kernel"], **fwd_bf16_t},
@@ -7121,9 +7761,11 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
           "source": f"{bwd_src} ({tc_kernel})",
           "replaces": f"tensor2robot_tpu/ops/attention.py:{replaces}",
           "launches": launches[f"flash_bwd_{kernel}"],
-          **({"launches_rewind": rewind_launches[f"flash_bwd_{kernel}"]}
+          **({"launches_rewind": rewind_launches[f"flash_bwd_{kernel}"],
+              "launches_ulysses": ulysses_bf16[f"flash_bwd_{kernel}"]}
              if dtype == "bfloat16" else {
-                 "launches_remat": remat_launches[f"flash_bwd_{kernel}"]}),
+                 "launches_remat": remat_launches[f"flash_bwd_{kernel}"],
+                 "launches_ulysses": ulysses_f32[f"flash_bwd_{kernel}"]}),
           "max_abs_err": bwd_err[errs][dtype],
           "max_scaled_err": bwd_scaled[errs][dtype],
           "rel_norm_err": bwd_rel[errs][dtype],
@@ -7137,6 +7779,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
                 "and :223): their tf32 planes",
       "launches": train_report["f32_step_launches"]["flash_bwd_split"],
       "launches_remat": remat_launches["flash_bwd_split"],
+      "launches_ulysses": ulysses_f32["flash_bwd_split"],
       "max_abs_err": bwd_err["split"]["float32"],
       **bwd_f32_t["flash_bwd_split"]})
   report = {"card": card, "build_s": build_s, "kernels": kernels,
@@ -7147,7 +7790,8 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
             "lstm": lstm_report, "pose": pose_report, "meta": meta_report,
             "bcz": bcz_report, "grasp2vec": grasp2vec_report,
             "vrgripper": vr_reports, "telemetry": telemetry_report,
-            "observe": observe_report, "fleet": fleet_report}
+            "observe": observe_report, "fleet": fleet_report,
+            "mesh": mesh_report}
   os.makedirs(os.path.dirname(REPORT), exist_ok=True)
   with open(REPORT, "w") as f:
     json.dump(report, f, indent=1)
@@ -7168,6 +7812,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
                                   if k != "runs"}}))
   print(json.dumps({"observe": _observe_line(observe_report)}))
   print(json.dumps({"fleet": _fleet_line(fleet_report)}))
+  print(json.dumps({"mesh": _mesh_line(mesh_report)}))
   print(json.dumps({"kernels": kernels}))
   print(card_line(), flush=True)
   print(json.dumps({"ok": True, "device": {
@@ -7177,4 +7822,6 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
 
 
 if __name__ == "__main__":
+  if sys.argv[1:2] == ["--mesh-worker"]:
+    sys.exit(mesh_worker(sys.argv[2:]))
   sys.exit(main())

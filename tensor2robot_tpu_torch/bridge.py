@@ -56,6 +56,11 @@ fields (`mini_step` and `gradient_step` as ints, `acc_grads` through
 `state_dict_from_flax`, `inner_opt_state` recursively, an empty
 `skip_state` as `{}`).
 
+`train_state_on_mesh` places a port state (e.g. a bridged one) on a
+mesh: this rank's blocks by `state_shardings`, on the mesh's device;
+`state_to_numpy` gathers a sharded state back to numpy trees for a
+comparison with the JAX package's.
+
 `export_variables_from_jax` carries a JAX export bundle's variables
 (`{"params", "mutable"}` as numpy trees, read on the JAX side) into the
 port's eval parameters and batch-norm buffers, the `variables.pt` layout
@@ -73,7 +78,8 @@ from tensor2robot_tpu_torch.parallel import train_step as ts
 
 __all__ = ["LSTM_GATES", "GRU_GATES", "state_dict_from_flax", "mutable_state_from_flax",
            "bridge_train_state", "optimizer_state_from_optax",
-           "train_state_from_jax", "export_variables_from_jax"]
+           "train_state_from_jax", "export_variables_from_jax",
+           "train_state_on_mesh", "state_to_numpy"]
 
 
 LSTM_GATES = ("i", "f", "g", "o")
@@ -311,3 +317,22 @@ def export_variables_from_jax(variables: Mapping[str, Any]
   return {"params": state_dict_from_flax(_numpy_tree(variables["params"])),
           "mutable": mutable_state_from_flax(
               _numpy_tree(collections.get("batch_stats", {})))}
+
+
+# A bridged state on a mesh: (this rank's blocks on the mesh's device,
+# the shardings).
+train_state_on_mesh = ts.place_state
+
+
+def state_to_numpy(state: ts.TrainState, shardings=None) -> Dict[str, Any]:
+  """The full state as numpy trees ({"step", "params", "ema_params",
+  "opt_state", "mutable_state"}), gathered from every rank's blocks
+  first when `shardings` are given (collective: every rank calls it)."""
+  if shardings is not None:
+    state = ts.gather_state(state, shardings)
+  host = ts.map_tensors(lambda x: x.detach().float().cpu().numpy(),
+                        {"params": state.params,
+                         "ema_params": state.ema_params,
+                         "opt_state": state.opt_state,
+                         "mutable_state": state.mutable_state})
+  return {"step": int(state.step), **host}

@@ -36,6 +36,19 @@ steps (`restore` and `close` wait for the save in flight). A failed
 write is logged by the worker and raised by the next `save`,
 `wait_until_finished` or `close`.
 
+On a mesh (`CheckpointManager(..., mesh=mesh)`), a save gathers the
+full state from every rank's blocks (`save(step, state, shardings)`:
+every rank calls it) and rank 0 alone writes, prunes and quarantines,
+so a checkpoint holds full tensors and restores onto any mesh shape;
+`restore` agrees on the step rank 0's walk lands on (every rank then
+loads it), and the caller cuts the full state into its blocks.
+
+Preemption (`reached_preemption`): orbax's preemption signal has no
+torch twin, so `preemption_signal()` installs a SIGTERM handler (main
+thread only) that sets a flag; on a mesh the trainer agrees on it over
+the ranks by one host all-reduce (max), so every rank saves at the same
+step.
+
 Beside the manager, the functions a deployment needs:
 
 * `latest_step(directory)`, `write_manifest(directory, step)` and
@@ -56,10 +69,12 @@ Beside the manager, the functions a deployment needs:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import shutil
+import signal
 import threading
 import time
 import zlib
@@ -70,6 +85,7 @@ import torch
 
 from tensor2robot_tpu_torch.obs import faultlab as faultlab_lib
 from tensor2robot_tpu_torch.obs import metrics as metrics_lib
+from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.parallel import train_step as ts
 from tensor2robot_tpu_torch.utils import retry as retry_lib
 
@@ -78,7 +94,8 @@ __all__ = ["CheckpointManager", "CheckpointCorruptionError",
            "MANIFEST_SCHEMA", "STATE_FILENAME", "latest_step",
            "checkpoints_iterator", "backup_checkpoint", "warm_start_params",
            "write_manifest", "verify_step_files",
-           "average_checkpoints", "remove_backup", "host_copy"]
+           "average_checkpoints", "remove_backup", "host_copy",
+           "preemption_signal"]
 
 # A trainer's checkpoints live in <model_dir>/checkpoints.
 CHECKPOINT_DIRNAME = "checkpoints"
@@ -88,6 +105,30 @@ MANIFEST_SCHEMA = "graftguard-manifest-v1"
 STATE_FILENAME = "state.pt"
 
 _log = logging.getLogger(__name__)
+
+
+# Set by the SIGTERM handler of `preemption_signal`.
+_PREEMPTED = threading.Event()
+
+
+@contextlib.contextmanager
+def preemption_signal():
+  """Within the block, a SIGTERM sets the preemption flag that
+  `CheckpointManager.reached_preemption` reads, instead of ending the
+  process (main thread only; elsewhere nothing is installed). The flag is
+  cleared on entry, and the previous handler is restored on exit."""
+  _PREEMPTED.clear()
+  try:
+    previous = signal.signal(signal.SIGTERM,
+                             lambda signum, frame: _PREEMPTED.set())
+  except ValueError:  # not the main thread
+    yield
+    return
+  try:
+    yield
+  finally:
+    signal.signal(signal.SIGTERM,
+                  previous if previous is not None else signal.SIG_DFL)
 
 
 class CheckpointCorruptionError(RuntimeError):
@@ -195,8 +236,11 @@ class CheckpointManager:
   """Saves and restores `TrainState`s under one directory."""
 
   def __init__(self, directory: str, max_to_keep: int = 5,
-               async_checkpointing: bool = True):
+               async_checkpointing: bool = True, mesh=None):
     self._directory = os.path.abspath(directory)
+    self._mesh = mesh
+    # Only rank 0 of a mesh writes, prunes and quarantines.
+    self._primary = mesh is None or mesh.is_primary
     os.makedirs(self._directory, exist_ok=True)
     self._max_to_keep = max_to_keep
     self._async = async_checkpointing
@@ -233,13 +277,20 @@ class CheckpointManager:
 
   # -- save ------------------------------------------------------------------
 
-  def save(self, step: int, state: ts.TrainState) -> bool:
+  def save(self, step: int, state: ts.TrainState,
+           shardings: Optional[ts.TrainState] = None) -> bool:
     """Writes `state` as step `step`, then its manifest, then drops the
     oldest steps past `max_to_keep`; asynchronously unless the manager
     was made with `async_checkpointing=False`. Waits for a save in
     flight first. False (nothing written) when the step is already on
-    disk."""
+    disk, and on every rank of a mesh but rank 0. With `shardings`, the
+    full state is gathered from every rank's blocks first (every rank of
+    the mesh calls `save`)."""
     step = int(step)
+    if shardings is not None:
+      state = ts.gather_state(state, shardings)
+    if not self._primary:
+      return False
     self.wait_until_finished()
     if os.path.isdir(self._step_dir(step)):
       return False
@@ -336,6 +387,8 @@ class CheckpointManager:
     return None
 
   def _quarantine(self, step: int, reason: str) -> None:
+    if not self._primary:
+      return
     qdir = os.path.join(self._directory, QUARANTINE_DIRNAME)
     dst = os.path.join(qdir, str(int(step)))
     os.makedirs(qdir, exist_ok=True)
@@ -363,8 +416,43 @@ class CheckpointManager:
                          opt_state=payload["opt_state"],
                          mutable_state=payload.get("mutable_state", {}))
 
+  def reached_preemption(self, step: int) -> bool:
+    """True once a SIGTERM arrived inside `preemption_signal()`, on this
+    rank. On a mesh the trainer agrees it over the ranks together with
+    its rewind flag (`Mesh.agree`, one host all-reduce a step), so every
+    rank saves at the same step."""
+    del step
+    return _PREEMPTED.is_set()
+
   def restore(self, step: Optional[int] = None,
               device=None) -> ts.TrainState:
+    """`_restore_walk` on a single process. On a mesh, rank 0 walks and
+    every other rank loads the step rank 0 landed on (a full state: the
+    caller cuts it into its blocks)."""
+    if self._mesh is None or self._mesh.size == 1:
+      return self._restore_walk(step, device)
+    world = self._mesh.group(self._mesh.axis_names)
+    chosen = torch.tensor([-1], dtype=torch.int64, device=self._mesh.device)
+    state = None
+    try:
+      if self._primary:
+        state = self._restore_walk(step, device)
+        chosen.fill_(self.last_restored_step)
+    finally:
+      # Rank 0 answers even when its walk raised (-1), so no rank waits.
+      chosen = collectives.broadcast(chosen, world)
+    chosen_step = int(chosen.item())
+    if chosen_step < 0:
+      raise CheckpointCorruptionError(
+          f"rank 0 found no intact checkpoint in {self._directory}")
+    if state is None:
+      self.wait_until_finished()
+      state = self._load(chosen_step, device)
+      self.last_restored_step = chosen_step
+    return state
+
+  def _restore_walk(self, step: Optional[int] = None,
+                    device=None) -> ts.TrainState:
     """Restores `step`, or with None the newest step that verifies and
     loads, onto `device` (the CPU by default), after the save in flight
     has finished. A step failing its

@@ -30,11 +30,14 @@ the input's dtype.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tensor2robot_tpu_torch.parallel import collectives
 
 __all__ = ["same_padding", "conv2d", "conv1d_same", "max_pool", "dense",
            "moments",
@@ -148,12 +151,29 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
   return normalize(x, mean, var, weight, bias, epsilon, dim)
 
 
+def _global_moments(x: torch.Tensor, dims: Sequence[int], group
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """`moments` of a batch sharded over `group` (equal blocks): the sums
+  of x and x^2 over every rank's block (one differentiable all-reduce),
+  as flax's statistics over the global batch under a mesh."""
+  x = _widened(x)
+  count = math.prod(x.shape[d] for d in dims) * group.size
+  sums = collectives.all_reduce_sum(
+      torch.stack([x.sum(dims, keepdim=True),
+                   x.square().sum(dims, keepdim=True)]), group)
+  mean = sums[0] / count
+  var = torch.clamp(sums[1] / count - mean.square(), min=0.0)
+  return mean, var
+
+
 class BatchNorm(nn.Module):
   """flax `nn.BatchNorm` over dim 1 of [N, C] or [N, C, H, W].
 
   Parameters `weight` (absent with `use_scale=False`) and `bias`; buffers
   `running_mean` (zeros) and `running_var` (ones), which the model keeps
-  as its mutable state. `forward(x, train)` returns (y, new running
+  as its mutable state. Inside `collectives.batch_group(group)` (the
+  train step on a mesh) the batch statistics cover the whole batch
+  sharded over the group. `forward(x, train)` returns (y, new running
   stats): with `train`, y uses the batch statistics and the new stats
   are `momentum * running + (1 - momentum) * batch`; without, y uses the
   running stats and the dict is empty.
@@ -179,7 +199,10 @@ class BatchNorm(nn.Module):
       return normalize(x, self.running_mean.reshape(shape),
                        self.running_var.reshape(shape), self.weight,
                        self.bias, self.epsilon), {}
-    mean, var = moments(x, (0,) + tuple(range(2, x.ndim)))
+    dims = (0,) + tuple(range(2, x.ndim))
+    group = collectives.current_batch_group()
+    mean, var = (moments(x, dims) if group is None
+                 else _global_moments(x, dims, group))
     decay = self.momentum
     new = {"running_mean": decay * self.running_mean
                            + (1.0 - decay) * mean.detach().reshape(-1),

@@ -153,6 +153,17 @@ class T2RModel(abc.ABC):
         self._module = self.create_module()
       return self._module
 
+  def _set_mesh_guarded(self, mesh, validate=None) -> None:
+    """The shared `set_mesh` plumbing: the module is built for one mesh,
+    so a different mesh after it is built raises; `validate(mesh)` runs
+    the model's own checks; the mesh is kept on `self._mesh`."""
+    if self._module is not None and getattr(self, "_mesh", None) is not mesh:
+      raise ValueError("set_mesh must be called before the module is "
+                       "built (create_train_state / first forward).")
+    if mesh is not None and validate is not None:
+      validate(mesh)
+    self._mesh = mesh
+
   # -- abstract model surface ----------------------------------------------
 
   @abc.abstractmethod

@@ -29,10 +29,18 @@ layout.
 
 The EMA shadow parameters (the reference's MovingAverageOptimizer) are a
 field of `parallel.train_step.TrainState`, not a transformation.
+
+Within `in_place()` (the train step's donation) every moment is written
+into the state's own tensor and `apply_updates` adds into the
+parameters', leaf by leaf, so the update holds one optimizer state and
+one set of parameters. The ops and their order are the functional
+update's, so the values are bitwise the same.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -42,6 +50,7 @@ from tensor2robot_tpu_torch.utils import config
 
 __all__ = [
     "GradientTransformation", "chain", "apply_updates", "global_norm",
+    "sharded_norms", "in_place",
     "add_decayed_weights", "multi_steps", "has_updated",
     "create_constant_learning_rate", "create_exponential_decay_learning_rate",
     "create_piecewise_linear_learning_rate",
@@ -70,13 +79,70 @@ def _zeros_like(params: Params) -> Params:
   return {k: torch.zeros_like(v) for k, v in params.items()}
 
 
+_norm_state = threading.local()
+_update_state = threading.local()
+
+
+@contextlib.contextmanager
+def in_place(enabled: bool = True):
+  """Within the block (when `enabled`), the transformations write their
+  new moments into the state's tensors and `apply_updates` into the
+  parameters' (module docstring): the state and parameters given to the
+  update are the ones it returns."""
+  previous = getattr(_update_state, "in_place", False)
+  _update_state.in_place = bool(enabled)
+  try:
+    yield
+  finally:
+    _update_state.in_place = previous
+
+
+def _writes_in_place() -> bool:
+  return getattr(_update_state, "in_place", False)
+
+
+def _moment(decay: float, old: Params, addend: Callable[..., torch.Tensor],
+            *trees: Params) -> Params:
+  """optax's moment update `addend(leaves) + decay * old`, leaf by leaf;
+  within `in_place()` written into `old`'s tensors (`decay * old` first,
+  then the addend: IEEE addition commutes, so the bits are the same)."""
+  if _writes_in_place():
+    for k, t in old.items():
+      t.mul_(decay).add_(addend(*(tree[k] for tree in trees)))
+    return old
+  return {k: addend(*(tree[k] for tree in trees)) + decay * t
+          for k, t in old.items()}
+
+
+@contextlib.contextmanager
+def sharded_norms(sum_of_squares: Callable[[Params], torch.Tensor]):
+  """Within the block, `global_norm` takes its sum of squares from
+  `sum_of_squares(tree)`: the train step on a mesh, whose leaves are
+  blocks of the parameters, passes one that adds up the blocks over
+  their ranks."""
+  previous = getattr(_norm_state, "sum_of_squares", None)
+  _norm_state.sum_of_squares = sum_of_squares
+  try:
+    yield
+  finally:
+    _norm_state.sum_of_squares = previous
+
+
 def global_norm(tree: Params) -> torch.Tensor:
   """sqrt of the sum of squares over every leaf (optax.global_norm)."""
+  reduce = getattr(_norm_state, "sum_of_squares", None)
+  if reduce is not None:
+    return torch.sqrt(reduce(tree))
   return torch.sqrt(sum(torch.sum(v * v) for v in tree.values()))
 
 
 def apply_updates(params: Params, updates: Params) -> Params:
-  """params + updates, in the params' dtype (optax.apply_updates)."""
+  """params + updates, in the params' dtype (optax.apply_updates); within
+  `in_place()` added into the params' tensors."""
+  if _writes_in_place():
+    for k, p in params.items():
+      p.add_(updates[k])
+    return params
   return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
 
 
@@ -137,8 +203,8 @@ def _scale_by_adam(b1: float, b2: float, eps: float,
     return {"count": 0, "mu": _zeros_like(params), "nu": _zeros_like(params)}
 
   def update(updates, state, params=None):
-    mu = _map(lambda g, m: (1 - b1) * g + b1 * m, updates, state["mu"])
-    nu = _map(lambda g, n: (1 - b2) * (g * g) + b2 * n, updates, state["nu"])
+    mu = _moment(b1, state["mu"], lambda g: (1 - b1) * g, updates)
+    nu = _moment(b2, state["nu"], lambda g: (1 - b2) * (g * g), updates)
     count = state["count"] + 1
     bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
     out = _map(lambda m, n: (m / bc1) / (torch.sqrt(n / bc2 + eps_root) + eps),
@@ -150,7 +216,7 @@ def _scale_by_adam(b1: float, b2: float, eps: float,
 
 def _trace(decay: float, nesterov: bool) -> GradientTransformation:
   def update(updates, state, params=None):
-    new_trace = _map(lambda g, t: g + decay * t, updates, state["trace"])
+    new_trace = _moment(decay, state["trace"], lambda g: g, updates)
     out = (_map(lambda g, t: g + decay * t, updates, new_trace)
            if nesterov else new_trace)
     return out, {"trace": new_trace}
@@ -161,8 +227,8 @@ def _trace(decay: float, nesterov: bool) -> GradientTransformation:
 
 def _scale_by_rms(decay: float, eps: float) -> GradientTransformation:
   def update(updates, state, params=None):
-    nu = _map(lambda g, n: (1 - decay) * (g * g) + decay * n, updates,
-              state["nu"])
+    nu = _moment(decay, state["nu"], lambda g: (1 - decay) * (g * g),
+                 updates)
     return _map(lambda g, n: g * torch.rsqrt(n + eps), updates, nu), {"nu": nu}
 
   return GradientTransformation(lambda params: {"nu": _zeros_like(params)},
@@ -224,16 +290,28 @@ def multi_steps(inner: GradientTransformation,
 
   def update(updates, state, params=None):
     n = state["mini_step"]
-    acc = _map(lambda g, a: a + (g - a) / (n + 1), updates,
-               state["acc_grads"])
+    acc = state["acc_grads"]
+    if _writes_in_place():
+      for k, a in acc.items():
+        a.add_((updates[k] - a) / (n + 1))
+    else:
+      acc = _map(lambda g, a: a + (g - a) / (n + 1), updates, acc)
     if n < every_k - 1:
       return _zeros_like(updates), {**state, "mini_step": n + 1,
                                     "acc_grads": acc}
     out, inner_state = inner.update(acc, state["inner_opt_state"], params)
+    if _writes_in_place():
+      # An inner chain that passes its input through hands back `acc`'s
+      # own tensors, which the restart zeroes.
+      out = {k: u.clone() if u is acc[k] else u for k, u in out.items()}
+      for a in acc.values():
+        a.zero_()
+    else:
+      acc = _zeros_like(acc)
     return out, {"mini_step": 0,
                  "gradient_step": state["gradient_step"] + 1,
                  "inner_opt_state": inner_state,
-                 "acc_grads": _zeros_like(acc), "skip_state": {}}
+                 "acc_grads": acc, "skip_state": {}}
 
   return GradientTransformation(init, update)
 

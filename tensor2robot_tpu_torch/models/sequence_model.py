@@ -35,7 +35,7 @@ parameters: the input products and then one step per tick, on cuBLAS
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -73,7 +73,9 @@ class _AttentionTrunk(nn.Module):
   """embed -> N x (pre-LN causal MHA + pre-LN MLP, residual) -> head."""
 
   def __init__(self, obs_size: int, action_size: int, hidden_size: int,
-               num_blocks: int, num_heads: int, backend: str):
+               num_blocks: int, num_heads: int, backend: str, mesh=None,
+               sp_axis: str = "sp", ulysses_inner: str = "reference",
+               ring_block_k=None):
     super().__init__()
     self.num_blocks = num_blocks
     self.embed = nn.Linear(obs_size, hidden_size)
@@ -83,7 +85,8 @@ class _AttentionTrunk(nn.Module):
                       nn.LayerNorm(hidden_size, eps=LAYERNORM_EPS))
       self.add_module(f"attn_{i}", attention_layers.MultiHeadAttention(
           hidden_size, num_heads=num_heads, head_dim=head_dim, causal=True,
-          backend=backend))
+          backend=backend, mesh=mesh, sp_axis=sp_axis,
+          ulysses_inner=ulysses_inner, ring_block_k=ring_block_k))
       self.add_module(f"ln_mlp_{i}",
                       nn.LayerNorm(hidden_size, eps=LAYERNORM_EPS))
       self.add_module(f"mlp_in_{i}", nn.Linear(hidden_size, 2 * hidden_size))
@@ -107,12 +110,21 @@ class _AttentionTrunk(nn.Module):
 @config.configurable
 class SequenceRegressionModel(abstract_model.T2RModel):
   """[B, T, obs] -> [B, T, action] causal regression; the attention
-  backend is 'reference' (plain attention) or 'flash' (the kernel)."""
+  backend is 'reference' (plain attention), 'flash' (the kernel), or
+  sequence parallel over the mesh's `sp_axis`: 'ring' or 'ulysses'
+  (whose per-rank attention is `ulysses_inner`, 'reference' or
+  'flash'); `ring_block_k` (the port's knob; None as in the JAX package)
+  streams each ring hop's keys in chunks of that many. The
+  sequence-parallel backends need `set_mesh` before the
+  module is built, and train on ('data', sp_axis) blocks of the batch
+  (`batch_partition_spec`)."""
 
   def __init__(self, obs_size: int = 16, action_size: int = 7,
                sequence_length: int = 32, hidden_size: int = 64,
                num_blocks: int = 2, num_heads: int = 4,
-               attention_backend: str = "reference", **kwargs):
+               attention_backend: str = "reference", sp_axis: str = "sp",
+               ulysses_inner: str = "reference",
+               ring_block_k: Optional[int] = None, **kwargs):
     super().__init__(**kwargs)
     if attention_backend not in ("reference", "flash", "ring", "ulysses"):
       raise ValueError(f"Unknown attention_backend {attention_backend!r}")
@@ -126,6 +138,44 @@ class SequenceRegressionModel(abstract_model.T2RModel):
     self._num_blocks = num_blocks
     self._num_heads = num_heads
     self._attention_backend = attention_backend
+    self._sp_axis = sp_axis
+    self._ulysses_inner = ulysses_inner
+    self._ring_block_k = ring_block_k
+    self._mesh = None
+
+  def set_mesh(self, mesh) -> None:
+    """Receives the training mesh; required before the module is built
+    for the 'ring' and 'ulysses' backends."""
+
+    def validate(m):
+      if self._attention_backend not in ("ring", "ulysses"):
+        return
+      sp = m.shape.get(self._sp_axis, 0)
+      if not sp:
+        raise ValueError(
+            f"attention_backend={self._attention_backend!r} needs a "
+            f"{self._sp_axis!r} mesh axis; mesh has {dict(m.shape)}")
+      if self._sequence_length % sp:
+        raise ValueError(
+            f"sequence_length {self._sequence_length} not divisible by "
+            f"the {sp}-way {self._sp_axis!r} axis")
+      if self._attention_backend == "ulysses" and self._num_heads % sp:
+        raise ValueError(
+            f"num_heads {self._num_heads} not divisible by the {sp}-way "
+            f"{self._sp_axis!r} axis (Ulysses shards head groups)")
+
+    self._set_mesh_guarded(mesh, validate)
+
+  @property
+  def batch_partition_spec(self):
+    """('data', sp_axis) under a sequence-parallel backend on a mesh whose
+    `sp_axis` has more than one rank (the train step's `batch_spec`),
+    else None."""
+    if self._attention_backend in ("ring", "ulysses") \
+        and self._mesh is not None \
+        and self._mesh.shape.get(self._sp_axis, 1) > 1:
+      return ("data", self._sp_axis)
+    return None
 
   @property
   def head_dim(self) -> int:
@@ -146,10 +196,16 @@ class SequenceRegressionModel(abstract_model.T2RModel):
     })
 
   def create_module(self) -> nn.Module:
+    backend = self._attention_backend
+    if backend in ("ring", "ulysses") and self._mesh is None:
+      raise ValueError(f"attention_backend={backend!r} requires "
+                       "set_mesh() before the module is built.")
     return _AttentionTrunk(
         obs_size=self._obs_size, action_size=self._action_size,
         hidden_size=self._hidden_size, num_blocks=self._num_blocks,
-        num_heads=self._num_heads, backend=self._attention_backend)
+        num_heads=self._num_heads, backend=backend, mesh=self._mesh,
+        sp_axis=self._sp_axis, ulysses_inner=self._ulysses_inner,
+        ring_block_k=self._ring_block_k)
 
   def model_train_fn(self, features, labels, inference_outputs, mode):
     """Mean squared error over every action entry, reported as 'mse'."""

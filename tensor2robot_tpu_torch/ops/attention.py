@@ -17,21 +17,35 @@ Counterpart of `tensor2robot_tpu.ops.attention`. All functions take
   dK/dV kernels (`csrc/flash_bwd.cu`; in f32 after its split pass) on a
   CUDA tensor, its plain PyTorch version (`_flash_backward_plain`) on a
   CPU tensor.
+* `ring_attention` — sequence parallelism over a mesh axis: each rank
+  keeps its Q block and absorbs one K/V block per hop through the online
+  softmax (`_online_block_update`), the blocks passed around the ring by
+  `collectives.ppermute`. Plain torch ops, as the JAX package's ring is
+  plain XLA.
+* `ulysses_attention` — sequence parallelism by head all_to_all: each
+  rank attends its head group over the whole sequence with the plain
+  `attention` or `flash_attention` (the CUDA kernels on the card).
 
-Ring and Ulysses sequence parallelism are not ported yet.
+Both sequence-parallel functions take THIS RANK's blocks [B_l, H, T_l,
+D] (the batch over `batch_axis`, T over `axis_name`) and return this
+rank's block of the output: in the port's one-process-per-rank model a
+rank holds only its block, where the JAX functions take global arrays
+into `shard_map`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from tensor2robot_tpu_torch.ops import _kernels
+from tensor2robot_tpu_torch.parallel import collectives
 
 __all__ = ["attention", "cached_attention", "flash_attention",
-           "flash_forward", "flash_backward", "FlashAttentionFunction"]
+           "flash_forward", "flash_backward", "FlashAttentionFunction",
+           "ring_attention", "ulysses_attention"]
 
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
 
@@ -446,3 +460,135 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   if t_pad != t:
     out = out[:, :t]
   return out.reshape(b, h, t, d)
+
+
+# -- the online-softmax block update (the ring's) ------------------------------
+
+
+def _online_block_update(q, k_blk, v_blk, m_prev, l_prev, o_prev,
+                         score_mask=None):
+  """Absorbs one K/V block into the running (max, denominator, output).
+
+  q: [..., Tq, D]; k_blk / v_blk: [..., Tk, D]; m_prev / l_prev:
+  [..., Tq] f32; o_prev: [..., Tq, D] f32 (the unnormalized numerator);
+  `score_mask` (broadcast against [..., Tq, Tk]) is True where a score
+  counts. Scores and the products accumulate in f32. Returns the new
+  (m, l, o)."""
+  scale = 1.0 / math.sqrt(q.shape[-1])
+  s = torch.einsum("...qd,...kd->...qk", q.float(), k_blk.float()) * scale
+  if score_mask is not None:
+    s = s.masked_fill(~score_mask, _mask_value(s.dtype))
+  m_new = torch.maximum(m_prev, s.amax(dim=-1))
+  alpha = torch.exp(m_prev - m_new)
+  p = torch.exp(s - m_new[..., None])
+  l_new = l_prev * alpha + p.sum(dim=-1)
+  o_new = (o_prev * alpha[..., None]
+           + torch.einsum("...qk,...kd->...qd", p.to(v_blk.dtype).float(),
+                          v_blk.float()))
+  return m_new, l_new, o_new
+
+
+def _finalize(o: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+  return o / l[..., None].clamp_min(1e-30)
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mesh, axis_name: str = "sp", causal: bool = False,
+                   batch_axis: Optional[str] = "data",
+                   block_k: Optional[int] = None) -> torch.Tensor:
+  """Exact attention with T split over `axis_name` (size S).
+
+  q, k, v are this rank's blocks [B_l, H, T_l, D] (module docstring).
+  The rank keeps its Q block and absorbs one K/V block per hop, S hops,
+  the K/V blocks passed to the next rank of the axis between hops; the
+  causal mask compares global positions (this rank's Q block starts at
+  `axis_index * T_l`, the block held at hop j came from rank index - j).
+  `block_k` streams each hop's block through the online softmax in
+  chunks of that many keys (bounding the scores held at once at [B_l, H,
+  T_l, block_k]); it must divide T_l. Returns this rank's output block
+  in q's dtype. `batch_axis` names the batch's axis, for the JAX
+  signature: the batch needs no communication here."""
+  del batch_axis
+  axis_size = mesh.shape[axis_name]
+  t_local = k.shape[2]
+  if block_k is not None and t_local % block_k:
+    raise ValueError(
+        f"block_k={block_k} must divide the per-device K length "
+        f"{t_local} (T={t_local * axis_size} over {axis_size} "
+        f"'{axis_name}' shards)")
+  group = mesh.group(axis_name)
+  idx = collectives.axis_index(mesh, axis_name)
+  tq = q.shape[2]
+  m = torch.full(q.shape[:-1], float("-inf"), dtype=torch.float32,
+                 device=q.device)
+  l = torch.zeros(q.shape[:-1], dtype=torch.float32, device=q.device)
+  o = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+  q_pos = idx * tq + torch.arange(tq, device=q.device)
+  chunk = block_k or t_local
+  k_blk, v_blk = k, v
+  for step in range(axis_size):
+    src = (idx - step) % axis_size  # whose block this rank holds now
+    for start in range(0, t_local, chunk):
+      mask = None
+      if causal:
+        k_pos = src * t_local + start + torch.arange(chunk, device=q.device)
+        mask = q_pos[:, None] >= k_pos[None, :]
+      m, l, o = _online_block_update(q, k_blk[:, :, start:start + chunk],
+                                     v_blk[:, :, start:start + chunk], m, l,
+                                     o, mask)
+    if step + 1 < axis_size:
+      perm = [(i, (i + 1) % axis_size) for i in range(axis_size)]
+      k_blk = collectives.ppermute(k_blk, group, perm)
+      v_blk = collectives.ppermute(v_blk, group, perm)
+  return _finalize(o, l).to(q.dtype)
+
+
+def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mesh, axis_name: str = "sp", causal: bool = False,
+                      batch_axis: Optional[str] = "data",
+                      inner: str = "reference") -> torch.Tensor:
+  """Exact attention with T split over `axis_name` (size S), by head
+  all_to_all (DeepSpeed-Ulysses).
+
+  q, k, v are this rank's blocks [B_l, H, T_l, D]. An all_to_all turns
+  each into [B_l, H/S, T, D] (this rank's head group over the whole
+  sequence, the sources in sequence order), the inner attention runs
+  unchanged on it, causal mask included, and the inverse all_to_all
+  returns this rank's T block of every head. `inner` is 'reference'
+  (`attention`) or 'flash' (`flash_attention`: on the card the forward
+  and the dQ and dK/dV kernels, at B_l x H/S heads over the full T).
+  Needs H % S == 0."""
+  del batch_axis
+  s = mesh.shape[axis_name]
+  b_l, h, t_l, d = q.shape
+  if h % s:
+    raise ValueError(f"num_heads={h} must be divisible by the "
+                     f"'{axis_name}' axis size {s} for Ulysses "
+                     f"(head-group all_to_all)")
+  if k.shape[2] != t_l:
+    raise ValueError("ulysses_attention assumes self-attention layout "
+                     f"(Tq={t_l} != Tk={k.shape[2]})")
+  if inner not in ("reference", "flash"):
+    raise ValueError(f"Unknown inner kernel {inner!r}")
+  group = mesh.group(axis_name)
+
+  def seq_to_heads(x):
+    # [B_l, H, T_l, D] -> [S, B_l, H/S, T_l, D] -(a2a)-> source-major ->
+    # [B_l, H/S, S * T_l, D]: the source order is the sequence order.
+    x = x.reshape(b_l, s, h // s, t_l, d).movedim(1, 0)
+    x = collectives.all_to_all(x.contiguous(), group)
+    return x.permute(1, 2, 0, 3, 4).reshape(b_l, h // s, s * t_l, d)
+
+  def heads_to_seq(x):
+    # [B_l, H/S, T, D] -> [S, B_l, H/S, T_l, D] -(a2a)-> group-major ->
+    # [B_l, H, T_l, D].
+    x = x.reshape(b_l, h // s, s, t_l, d).permute(2, 0, 1, 3, 4)
+    x = collectives.all_to_all(x.contiguous(), group)
+    return x.movedim(0, 1).reshape(b_l, h, t_l, d)
+
+  q_g, k_g, v_g = seq_to_heads(q), seq_to_heads(k), seq_to_heads(v)
+  if inner == "flash":
+    out = flash_attention(q_g, k_g, v_g, causal=causal)
+  else:
+    out = attention(q_g, k_g, v_g, causal=causal)
+  return heads_to_seq(out)

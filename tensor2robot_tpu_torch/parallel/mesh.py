@@ -1,10 +1,41 @@
-"""Host -> device batch placement (`place_batch`, `DevicePrefetcher`) and
-the serving fleet's device carve-out (`replica_device_groups`).
+"""The mesh, batch placement (`put_host_batch`, `place_batch`,
+`DevicePrefetcher`), multi-host init, and the serving fleet's device
+carve-out (`replica_device_groups`).
 
-The part of `tensor2robot_tpu.parallel.mesh` the port's single-device
-trainer and the serving fleet need. `place_batch` moves one host batch to the device inline;
-`DevicePrefetcher` keeps `depth` batches already on the device, placed
-by background threads while the device runs the step.
+Counterpart of `tensor2robot_tpu.parallel.mesh`. The model of execution
+differs from the JAX package's one controller over many devices: the
+port runs ONE PROCESS PER RANK of a `torch.distributed` world, each on
+its own device (several ranks may share one card).
+
+* `create_mesh` lays the world's ranks out row-major over the named
+  axes (the order of `mesh_shape`, as `jax.experimental.mesh_utils`
+  lays CPU devices out), and creates, with every rank taking part, one
+  process group for each set of axes whose ranks must talk (every
+  subset of the axes larger than one rank). A process with no process
+  group gets a mesh of size 1 and no groups, so every single-device
+  caller keeps working unchanged. `Mesh.shape` is the JAX mesh's
+  `{axis: size}`; `Mesh.devices` the array of ranks.
+* A partition spec is a tuple with one entry per dim: a mesh axis name,
+  a tuple of names (the dim split over their product, the first name
+  major), or None; `()` replicates. `shard(x, mesh, spec)` is this
+  rank's block of a full tensor; `unshard` gathers the blocks back.
+* A batch is sharded by `batch_spec` (default: the leading dim over
+  'data'; a sequence batch ('data', 'sp') also splits T): every rank
+  reads the same GLOBAL host batch and keeps its block
+  (`put_host_batch`), or, with `process_local=True`, is handed its own
+  rows already (a multi-host input pipeline). The train step then runs
+  on local blocks.
+* `initialize_multihost` brings the world up from a coordinator address:
+  NCCL for CUDA ranks, gloo for the CPU, or the `backend` named. Several
+  ranks on one card need gloo (NCCL refuses two ranks on one device);
+  gloo takes the card's tensors in its collectives, and
+  `parallel.collectives` stages them through page-locked host memory
+  for P2P, which gloo refuses on the card.
+
+`place_batch(device, batch)` keeps the single-device placement inline,
+and `DevicePrefetcher(dataset, device_or_mesh)` keeps `depth` batches
+already on the device, placed by background threads while the device
+runs the step.
 
 On a CUDA device the prefetcher copies the way the card copies fastest
 and overlaps: each host batch is first copied (a host memcpy, off the
@@ -26,26 +57,324 @@ buffers and no copy: a choice by device, not a fallback.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import itertools
 import logging
+import math
 import queue
+import socket
 import threading
 import time
 import weakref
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from tensor2robot_tpu_torch import specs as specs_lib
 from tensor2robot_tpu_torch.obs import metrics as obs_metrics
 from tensor2robot_tpu_torch.utils import device as device_lib
 
-__all__ = ["place_batch", "DevicePrefetcher", "replica_device_groups"]
+__all__ = ["DEFAULT_AXES", "Mesh", "AxisGroup", "PartitionSpec",
+           "NamedSharding", "create_mesh", "data_sharding", "replicated",
+           "local_batch_size", "shard", "unshard", "put_host_batch",
+           "place_batch", "DevicePrefetcher", "replica_device_groups",
+           "initialize_multihost"]
 
 _log = logging.getLogger(__name__)
 
+DEFAULT_AXES = ("data", "fsdp", "model")
+
 # Copy timings kept for `copy_ms()` (the newest ones).
 _TIMED_COPIES = 64
+
+
+class PartitionSpec(tuple):
+  """A partition spec: one entry per dim, a mesh axis name, a tuple of
+  names or None; `PartitionSpec()` replicates. A tuple, with
+  `jax.sharding.PartitionSpec`'s constructor."""
+
+  def __new__(cls, *axes):
+    return super().__new__(cls, axes)
+
+  def __repr__(self) -> str:
+    return f"PartitionSpec{tuple(self)!r}"
+
+
+def _spec_axes(entry) -> Tuple[str, ...]:
+  if entry is None:
+    return ()
+  return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+  """The ranks of this rank's group over a set of mesh axes: `ranks` in
+  group order (the axes' coordinates row-major, which is ascending global
+  rank), this rank's `index` in it, and the process group (None when the
+  group is this rank alone)."""
+
+  axes: Tuple[str, ...]
+  ranks: Tuple[int, ...]
+  index: int
+  group: Any = None
+
+  @property
+  def size(self) -> int:
+    return len(self.ranks)
+
+
+class Mesh:
+  """Named axes over the ranks of the process group (module docstring).
+
+  `shape` ({axis: size}, in axis order), `axis_names`, `devices` (the
+  numpy array of global ranks, shaped like the mesh), `size`, `rank`
+  (this process's global rank), `device` (where this rank computes),
+  `axis_index(axis)`, `axis_size(axis)`, `group(axes)` (the
+  `AxisGroup` of this rank over those axes) and `agree(*flags)` (host
+  flags agreed over the ranks). `is_primary` is rank 0, the one that
+  writes files."""
+
+  def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+               device: torch.device, dcn_data_parallelism: int = 1):
+    self.devices = np.asarray(devices)
+    self.axis_names = tuple(axis_names)
+    self.shape = collections.OrderedDict(
+        (name, int(size)) for name, size in zip(self.axis_names,
+                                                self.devices.shape))
+    self.device = torch.device(device)
+    self.dcn_data_parallelism = int(dcn_data_parallelism)
+    self.rank = dist.get_rank() if _world_size() > 1 else 0
+    where = np.argwhere(self.devices == self.rank)
+    self.in_mesh = len(where) == 1
+    self._coords = tuple(int(c) for c in where[0]) if self.in_mesh else None
+    self._groups: Dict[Tuple[str, ...], AxisGroup] = {}
+    # Every rank of the world takes part in creating every group, in the
+    # same order, so each axis subset's groups exist on all ranks before
+    # any rank can talk over them.
+    for count in range(1, len(self.axis_names) + 1):
+      for axes in itertools.combinations(self.axis_names, count):
+        self._create_groups(axes)
+    # Host flags travel over gloo on CPU tensors, whatever the world's
+    # backend: agreeing on them never waits for the device.
+    self._host_group = (dist.new_group(sorted(int(r) for r in
+                                              self.devices.flat),
+                                       backend="gloo")
+                        if self.size > 1 else None)
+
+  @property
+  def size(self) -> int:
+    return int(self.devices.size)
+
+  @property
+  def is_primary(self) -> bool:
+    return self.rank == 0
+
+  def axis_size(self, axis: str) -> int:
+    return self.shape[axis]
+
+  def axis_index(self, axis: str) -> int:
+    """This rank's coordinate on `axis` (`jax.lax.axis_index`)."""
+    if self._coords is None:
+      raise ValueError(f"rank {self.rank} is not in this mesh")
+    return self._coords[self.axis_names.index(axis)]
+
+  def _normalized(self, axes) -> Tuple[str, ...]:
+    axes = _spec_axes(axes)
+    unknown = [a for a in axes if a not in self.shape]
+    if unknown:
+      raise KeyError(f"mesh has no axes {unknown}; it has "
+                     f"{dict(self.shape)}")
+    return tuple(a for a in self.axis_names if a in axes)
+
+  def _members(self, axes: Tuple[str, ...]) -> List[Tuple[int, ...]]:
+    """All groups over `axes`: the ranks varying along `axes` with the
+    other coordinates fixed, each list in row-major order of `axes`."""
+    moved = np.moveaxis(self.devices,
+                        [self.axis_names.index(a) for a in axes],
+                        list(range(-len(axes), 0)))
+    flat = moved.reshape(-1, math.prod(self.shape[a] for a in axes))
+    return [tuple(int(r) for r in row) for row in flat]
+
+  def _create_groups(self, axes: Tuple[str, ...]) -> None:
+    members = self._members(axes)
+    size = len(members[0])
+    mine = next((m for m in members if self.rank in m), None)
+    group = None
+    if size > 1:
+      for ranks in members:
+        created = dist.new_group(list(ranks))
+        if ranks == mine:
+          group = created
+    if mine is not None:
+      self._groups[axes] = AxisGroup(axes=axes, ranks=mine,
+                                     index=mine.index(self.rank),
+                                     group=group)
+
+  def agree(self, *flags: bool) -> Tuple[bool, ...]:
+    """Each flag, True when it is set on any rank of the mesh: one
+    all-reduce (max) of a CPU tensor over a gloo group, so it costs a
+    host round trip and no device sync (collective)."""
+    if self.size == 1:
+      return tuple(bool(f) for f in flags)
+    values = torch.tensor([1 if f else 0 for f in flags], dtype=torch.int32)
+    dist.all_reduce(values, op=dist.ReduceOp.MAX, group=self._host_group)
+    return tuple(bool(v) for v in values.tolist())
+
+  def group(self, axes) -> AxisGroup:
+    """This rank's `AxisGroup` over `axes` (a name or names; () is this
+    rank alone)."""
+    axes = self._normalized(axes)
+    if not axes:
+      return AxisGroup(axes=(), ranks=(self.rank,), index=0)
+    return self._groups[axes]
+
+  def __repr__(self) -> str:
+    return (f"Mesh({dict(self.shape)}, rank={self.rank}, "
+            f"device={self.device})")
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+  """A partition spec on a mesh (`jax.sharding.NamedSharding`)."""
+
+  mesh: Mesh
+  spec: PartitionSpec
+
+
+def _world_size() -> int:
+  return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def create_mesh(mesh_shape: Optional[Sequence[int]] = None,
+                axis_names: Sequence[str] = DEFAULT_AXES,
+                devices: Optional[Sequence[int]] = None,
+                dcn_data_parallelism: int = 1,
+                device=None) -> Mesh:
+  """A `Mesh` over the world's ranks (or over `devices`, a list of
+  global ranks), computing on `device` (CUDA unless named; raises
+  without a card).
+
+  With `mesh_shape=None` every rank goes on the first ('data') axis. A
+  shape that needs more ranks than there are raises; a smaller one takes
+  a prefix of the ranks (the rest are outside the mesh). With
+  `dcn_data_parallelism > 1` the outer axis spans hosts: the ranks are
+  laid out host-major (a launcher numbers them host by host), so the
+  first axis's outermost `dcn_data_parallelism` blocks are the hosts,
+  and it must divide that axis."""
+  devices = list(devices if devices is not None else range(_world_size()))
+  n = len(devices)
+  if mesh_shape is None:
+    mesh_shape = [n] + [1] * (len(axis_names) - 1)
+  mesh_shape = [int(s) for s in mesh_shape]
+  needed = math.prod(mesh_shape)
+  if needed > n:
+    raise ValueError(f"mesh_shape {mesh_shape} does not cover {n} devices.")
+  devices = devices[:needed]
+  if len(mesh_shape) != len(axis_names):
+    raise ValueError(
+        f"mesh_shape rank {len(mesh_shape)} != axis_names "
+        f"{len(axis_names)}.")
+  if dcn_data_parallelism > 1 and mesh_shape[0] % dcn_data_parallelism:
+    raise ValueError(
+        f"dcn_data_parallelism {dcn_data_parallelism} does not divide the "
+        f"{axis_names[0]!r} axis of mesh_shape {mesh_shape}")
+  return Mesh(np.asarray(devices, dtype=np.int64).reshape(mesh_shape),
+              axis_names, device_lib.resolve_device(device),
+              dcn_data_parallelism)
+
+
+def data_sharding(mesh: Mesh, batch_axis: str = "data") -> NamedSharding:
+  """Sharding for batch leaves: leading dim over the data axis."""
+  return NamedSharding(mesh, PartitionSpec(batch_axis))
+
+
+def replicated(mesh: Mesh) -> NamedSharding:
+  return NamedSharding(mesh, PartitionSpec())
+
+
+def local_batch_size(global_batch_size: int, mesh: Mesh) -> int:
+  """Per-process batch size: the global batch over the mesh's processes
+  (one per rank)."""
+  process_count = max(1, mesh.size)
+  if global_batch_size % process_count:
+    raise ValueError(
+        f"Global batch {global_batch_size} not divisible by host count "
+        f"{process_count}.")
+  return global_batch_size // process_count
+
+
+def _block(mesh: Mesh, entry, dim_size: int) -> Tuple[int, int]:
+  """(start, length) of this rank's block of a dim of `dim_size` split
+  over the axes of one spec entry."""
+  axes = _spec_axes(entry)
+  if not axes:
+    return 0, dim_size
+  group = mesh.group(axes)
+  if dim_size % group.size:
+    raise ValueError(f"dim of size {dim_size} does not split over the "
+                     f"{group.size}-way axes {group.axes}")
+  length = dim_size // group.size
+  return group.index * length, length
+
+
+def shard(x, mesh: Mesh, spec) -> Any:
+  """This rank's block of the full tensor (or numpy array) `x` under
+  `spec` (a view where slicing allows; dims past the spec whole)."""
+  for dim, entry in enumerate(spec or ()):
+    start, length = _block(mesh, entry, x.shape[dim])
+    if length != x.shape[dim]:
+      index = [slice(None)] * x.ndim
+      index[dim] = slice(start, start + length)
+      x = x[tuple(index)]
+  return x
+
+
+def unshard(x: torch.Tensor, mesh: Mesh, spec) -> torch.Tensor:
+  """The full tensor from this rank's block `x` under `spec`: each split
+  dim gathered over its axes (collective: every rank of those groups
+  calls it)."""
+  from tensor2robot_tpu_torch.parallel import collectives
+
+  for dim, entry in enumerate(spec or ()):
+    axes = _spec_axes(entry)
+    if axes:
+      x = collectives.all_gather(x, mesh.group(axes), dim=dim)
+  return x
+
+
+def _batch_spec_for(key: str, batch_axis: str, batch_spec,
+                    flat_partition) -> Tuple:
+  spec = tuple(batch_spec) if batch_spec is not None else (batch_axis,)
+  if flat_partition is not None and key in flat_partition:
+    spec = tuple(flat_partition[key])
+  return spec
+
+
+def put_host_batch(mesh: Mesh, batch, batch_axis: str = "data",
+                   spec_structure=None, batch_spec=None,
+                   process_local: bool = False) -> specs_lib.SpecStruct:
+  """This rank's block of a host batch, on the mesh's device.
+
+  Each leaf is split by `batch_spec` (default: its leading dim over
+  `batch_axis`; `PartitionSpec('data', 'sp')` also splits dim 1), or by
+  the spec structure's `partition_specs` where given. With
+  `process_local`, `batch` already holds this rank's rows (a multi-host
+  input pipeline feeds each process its own) and is placed as it is."""
+  flat_partition = None
+  if spec_structure is not None:
+    flat_partition = specs_lib.partition_specs(spec_structure, batch_axis)
+  out = specs_lib.SpecStruct()
+  for key, value in specs_lib.flatten_spec_structure(batch).items():
+    if not process_local:
+      value = shard(value, mesh, _batch_spec_for(key, batch_axis, batch_spec,
+                                                 flat_partition))
+    if isinstance(value, np.ndarray):
+      value = torch.from_numpy(np.ascontiguousarray(value))
+    out[key] = (value.to(mesh.device, non_blocking=True)
+                if isinstance(value, torch.Tensor) else value)
+  return out
 
 
 def replica_device_groups(num_replicas: int, devices=None) -> list:
@@ -86,15 +415,35 @@ def _placed(values, device: torch.device) -> specs_lib.SpecStruct:
   return out
 
 
-def place_batch(device, batch) -> Tuple[specs_lib.SpecStruct,
-                                        specs_lib.SpecStruct]:
-  """One host batch `{features, labels}` -> (features, labels) on
-  `device`, inline. Missing labels become an empty SpecStruct."""
-  device = torch.device(device)
-  features = _placed(batch["features"], device)
-  labels = (_placed(batch["labels"], device) if "labels" in batch
+def place_batch(device, batch, batch_spec=None
+                ) -> Tuple[specs_lib.SpecStruct, specs_lib.SpecStruct]:
+  """One host batch `{features, labels}` -> (features, labels), inline:
+  on `device`, or, given a `Mesh`, this rank's block by `batch_spec`
+  (`put_host_batch`) on the mesh's device. Missing labels become an
+  empty SpecStruct."""
+  if isinstance(device, Mesh):
+    place = lambda part: put_host_batch(device, part, batch_spec=batch_spec)
+  else:
+    device = torch.device(device)
+    place = lambda part: _placed(part, device)
+  features = place(batch["features"])
+  labels = (place(batch["labels"]) if "labels" in batch
             else specs_lib.SpecStruct())
   return features, labels
+
+
+def _host_block(mesh: Mesh, batch, batch_spec):
+  """This rank's block of a host batch, left on the host."""
+  out = {}
+  for part in ("features", "labels"):
+    if part in batch:
+      block = specs_lib.SpecStruct()
+      for key, value in specs_lib.flatten_spec_structure(
+          batch[part]).items():
+        block[key] = shard(value, mesh, _batch_spec_for(key, "data",
+                                                        batch_spec, None))
+      out[part] = block
+  return out
 
 
 class _PinnedCopier:
@@ -158,7 +507,9 @@ class DevicePrefetcher:
   """Background device infeed: keeps up to `depth` batches placed ahead.
 
   Iterating yields (features, labels) already on `device` (CUDA unless
-  the caller names another; raises without a card). Two daemon threads
+  the caller names another; raises without a card); given a `Mesh`,
+  this rank's block of each batch by `batch_spec` (cut on the host,
+  before the copy) on the mesh's device. Two daemon threads
   do the work: a feeder takes host batches from `dataset` into a bounded
   host queue, and a placer copies them to the device (module docstring)
   into a queue of `depth` placed batches, so batch N+1's source wait
@@ -183,14 +534,19 @@ class DevicePrefetcher:
 
   def __init__(self, dataset, device=None, depth: int = 2,
                max_batches: Optional[int] = None,
-               close_source: bool = False, source=None):
+               close_source: bool = False, source=None, batch_spec=None):
     if depth < 1:
       raise ValueError(f"depth must be >= 1, got {depth}")
+    if source is None:
+      source = dataset
+    if isinstance(device, Mesh):
+      mesh = device
+      dataset = (_host_block(mesh, batch, batch_spec) for batch in dataset)
+      device = mesh.device
     self.device = device_lib.resolve_device(device)
     self._copier = (_PinnedCopier(self.device, depth + 1)
                     if self.device.type == "cuda" else None)
-    self._source = (source if source is not None else dataset) \
-        if close_source else None
+    self._source = source if close_source else None
     if max_batches is not None:
       # Take from the source only what the consumer will take.
       dataset = itertools.islice(dataset, max_batches)
@@ -334,3 +690,72 @@ class DevicePrefetcher:
       # A plain generator executing in the feeder thread cannot be
       # closed from here; the feeder ends it at its next batch.
       pass
+
+
+def initialize_multihost(coordinator_address: Optional[str] = None,
+                         num_processes: Optional[int] = None,
+                         process_id: Optional[int] = None,
+                         initialization_timeout_secs: float = 300.0,
+                         heartbeat_timeout_secs: Optional[float] = None,
+                         backend: Optional[str] = None,
+                         device=None) -> None:
+  """Brings up the `torch.distributed` world from a coordinator address
+  ('<host>:<port>' of process 0, which listens there). A no-op when
+  already initialized, or for one process unless a `backend` is named
+  (a world of one, e.g. NCCL on one card).
+
+  The backend is `backend` when given, else NCCL when `device` (default:
+  CUDA when a card is visible) is a CUDA device and gloo on the CPU;
+  there is no fallback from one to the other. Several ranks on one card
+  need `backend='gloo'`: NCCL refuses two ranks on one device.
+
+  A worker (process_id > 0) first probes the coordinator over plain TCP
+  until it answers, within `initialization_timeout_secs`, so a dead or
+  unreachable coordinator is a clear `RuntimeError` naming the address
+  instead of a long hang; the process group gets the residual budget as
+  its timeout. `heartbeat_timeout_secs`, when given, bounds each later
+  collective instead (a peer silent that long fails the job)."""
+  if dist.is_initialized():
+    return
+  if num_processes in (None, 1) and backend is None:
+    return
+  num_processes = int(num_processes or 1)
+  process_id = int(process_id or 0)
+  if backend is None:
+    if device is None:
+      device = "cuda" if torch.cuda.is_available() else "cpu"
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+  host, sep, port_str = (coordinator_address or "").rpartition(":")
+  host = host.strip("[]")  # bracketed IPv6 literals
+  if not sep or not port_str.isdigit():
+    raise ValueError(
+        f"coordinator_address {coordinator_address!r} must be "
+        "'<host>:<port>' (e.g. '10.0.0.1:8476').")
+  port = int(port_str)
+  deadline = time.monotonic() + initialization_timeout_secs
+  if process_id != 0:
+    while True:
+      try:
+        socket.create_connection((host, port), timeout=5.0).close()
+        break
+      except OSError as exc:
+        if time.monotonic() >= deadline:
+          raise RuntimeError(
+              f"multi-host bring-up failed for process {process_id}/"
+              f"{num_processes}: coordinator {coordinator_address!r} "
+              "did not become reachable within "
+              f"{initialization_timeout_secs:.0f}s "
+              f"({type(exc).__name__}: {exc}). Check that process 0 is "
+              "alive and the address/port is reachable from this "
+              "host.") from exc
+        time.sleep(0.5)
+  residual = max(1.0, deadline - time.monotonic())
+  import datetime
+
+  timeout = datetime.timedelta(
+      seconds=heartbeat_timeout_secs if heartbeat_timeout_secs is not None
+      else max(residual, 1800.0))
+  store = dist.TCPStore(host, port, num_processes, process_id == 0,
+                        timeout=datetime.timedelta(seconds=residual))
+  dist.init_process_group(backend, store=store, rank=process_id,
+                          world_size=num_processes, timeout=timeout)

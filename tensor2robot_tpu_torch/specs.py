@@ -2,7 +2,9 @@
 path uses, for PyTorch.
 
 * `TensorSpec` — a frozen dataclass of shape/dtype/name plus the
-  data-pipeline attributes (is_optional, is_sequence, ...).
+  data-pipeline attributes (is_optional, is_sequence, ...) and a
+  `sharding` annotation: one mesh axis name (or None) per dim of the
+  spec's own shape, a partition spec without a jax type.
 * `SpecStruct` — an ordered mapping that is both flat (`'a/b/c'` path
   keys) and hierarchical (indexing an intermediate path returns a live
   view onto the parent store).
@@ -65,6 +67,8 @@ __all__ = [
     "assets_to_pbtxt",
     "assets_from_pbtxt",
     "write_assets_pbtxt",
+    "sharding_axes",
+    "partition_specs",
 ]
 
 _VALID_IMAGE_FORMATS = ("jpeg", "jpg", "png", "bmp", "gif")
@@ -100,6 +104,7 @@ class TensorSpec:
   data_format: Optional[str] = None
   dataset_key: str = ""
   varlen_default_value: Optional[float] = None
+  sharding: Optional[Tuple[Optional[str], ...]] = None
 
   def __post_init__(self):
     object.__setattr__(self, "shape", tuple(self.shape))
@@ -111,19 +116,30 @@ class TensorSpec:
             f"Unsupported data_format {self.data_format!r}; expected one of "
             f"{_VALID_IMAGE_FORMATS}.")
       object.__setattr__(self, "data_format", fmt)
+    if self.sharding is not None:
+      object.__setattr__(self, "sharding", tuple(self.sharding))
 
   def replace(self, **overrides) -> "TensorSpec":
     return dataclasses.replace(self, **overrides)
 
   def with_batch(self, batch_size: Optional[int] = None) -> "TensorSpec":
-    """The spec with a leading batch dimension prepended."""
-    return self.replace(shape=(batch_size,) + self.shape)
+    """The spec with a leading batch dimension prepended; a sharding
+    annotation gains an unannotated batch dim."""
+    sharding = (None,) + self.sharding if self.sharding is not None else None
+    return self.replace(shape=(batch_size,) + self.shape, sharding=sharding)
 
   def without_batch(self) -> "TensorSpec":
-    """The spec with its leading dimension stripped."""
+    """The spec with its leading dimension stripped (and its sharding
+    annotation's)."""
     if not self.shape:
       raise ValueError(f"Spec {self} has no batch dimension to strip.")
-    return self.replace(shape=self.shape[1:])
+    sharding = self.sharding[1:] if self.sharding is not None else None
+    return self.replace(shape=self.shape[1:], sharding=sharding)
+
+  def partition_spec(self) -> Tuple[Optional[str], ...]:
+    """The sharding annotation as a partition spec: a tuple of mesh axis
+    names or None, () when unannotated (replicated)."""
+    return () if self.sharding is None else tuple(self.sharding)
 
   @property
   def is_image(self) -> bool:
@@ -153,24 +169,26 @@ class TensorSpec:
     d = {"shape": [d if d is None else int(d) for d in self.shape],
          "dtype": _dtype_name(self.dtype)}
     for field in ("name", "is_optional", "is_sequence", "is_extracted",
-                  "data_format", "dataset_key", "varlen_default_value"):
+                  "data_format", "dataset_key", "varlen_default_value",
+                  "sharding"):
       value = getattr(self, field)
       if value != TensorSpec.__dataclass_fields__[field].default:
-        d[field] = value
+        d[field] = list(value) if field == "sharding" else value
     return d
 
   @classmethod
   def from_dict(cls, d: Mapping[str, Any]) -> "TensorSpec":
-    """Inverse of `to_dict`. A JAX spec's `sharding` (mesh axes; the port
-    has no meshes) is dropped."""
-    kwargs = {k: v for k, v in d.items() if k != "sharding"}
+    """Inverse of `to_dict` (a JAX spec's `sharding` included)."""
+    kwargs = dict(d)
     kwargs["shape"] = tuple(kwargs["shape"])
+    if kwargs.get("sharding") is not None:
+      kwargs["sharding"] = tuple(kwargs["sharding"])
     return cls(**kwargs)
 
   def __repr__(self) -> str:
     extras = []
     for field in ("name", "is_optional", "is_sequence", "data_format",
-                  "dataset_key", "varlen_default_value"):
+                  "dataset_key", "varlen_default_value", "sharding"):
       value = getattr(self, field)
       if value not in (None, False, ""):
         extras.append(f"{field}={value!r}")
@@ -540,6 +558,31 @@ def make_constant_numpy(spec_structure: SpecStructLike,
                        "data and cast it on the device.")
     shape = _concrete_shape(spec, batch_size, unknown_dim=sequence_length)
     out[key] = np.full(shape, constant_value, dtype=spec.dtype)
+  return out
+
+
+# -- sharding annotations -----------------------------------------------------
+
+
+def sharding_axes(spec_structure: SpecStructLike
+                  ) -> "OrderedDict[str, Tuple[Optional[str], ...]]":
+  """Flat key -> `TensorSpec.sharding` tuple, for annotated leaves only."""
+  out: "OrderedDict[str, Tuple[Optional[str], ...]]" = OrderedDict()
+  for key, spec in flatten_spec_structure(spec_structure).items():
+    if isinstance(spec, TensorSpec) and spec.sharding is not None:
+      out[key] = spec.sharding
+  return out
+
+
+def partition_specs(spec_structure: SpecStructLike,
+                    batch_axis: Optional[str] = "data") -> SpecStruct:
+  """Partition spec (a tuple of mesh axis names or None) of each batched
+  value of an unbatched model spec: the batch dim over `batch_axis`, the
+  remaining dims by the leaf's `sharding` annotation (positional over the
+  spec's own shape)."""
+  out = SpecStruct()
+  for key, spec in flatten_spec_structure(spec_structure).items():
+    out[key] = (batch_axis,) + tuple(spec.sharding or ())
   return out
 
 

@@ -90,12 +90,33 @@ package:
   rewinds and their targets (`extra.graftguard`) beside the active
   `obs.faultlab` plan's injections (`extra.faultlab`).
 
-The JAX package's executable cache, its compile records and its
-preemption exit are not ported (ROADMAP.md, Queue A items 14 and 15).
+On a mesh (`mesh`, or `mesh_shape` / `mesh_axis_names`, or any world
+of more than one rank; `parallel.mesh`: one process per rank), every
+rank runs this function: the model gets `set_mesh(mesh)`, the state is
+cut into each rank's blocks by `partition_rules` (`train_step`'s ZeRO-3
+step), and every rank reads the same global batches and keeps its block
+by the model's `batch_partition_spec` (('data',) by default). Rank 0
+alone writes summaries, run records, checkpoints (gathered full),
+incidents, the flight recorder's bundles and exports (the hooks and
+export generators run there, on the gathered state); every rank runs
+the sentinel's checks, and the ranks agree on a rewind and on a
+preemption by one host all-reduce a step (`Mesh.agree`: CPU tensors over
+gloo, no device sync), so each happens on all of them or on none. 'continuous_eval'
+runs on one process.
+
+Preemption, as in the JAX package: during the train loop a SIGTERM sets
+a flag (`checkpoints.preemption_signal`; the flight recorder dumps its
+bundle first), the ranks agree on it at the step's end, and the run
+saves that step's checkpoint, waits for it and raises `SystemExit(42)`;
+the next run resumes from it.
+
+The JAX package's executable cache and its compile records are not
+ported (ROADMAP.md, Queue A item 15).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
 import math
@@ -105,6 +126,7 @@ import time
 from typing import Iterator, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from tensor2robot_tpu_torch import checkpoints as checkpoints_lib
 from tensor2robot_tpu_torch import modes as modes_lib
@@ -117,6 +139,7 @@ from tensor2robot_tpu_torch.obs import sentinel as sentinel_lib
 from tensor2robot_tpu_torch.obs import stepstats as stepstats_lib
 from tensor2robot_tpu_torch.obs import trace as trace_lib
 from tensor2robot_tpu_torch.obs import xray as xray_lib
+from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 from tensor2robot_tpu_torch.parallel import train_step as ts
 from tensor2robot_tpu_torch.utils import backend
@@ -157,20 +180,35 @@ def _close_dataset(dataset) -> None:
 
 
 def _device_batches(dataset: Iterator, device, depth: int, max_batches: int,
-                    source=None) -> Iterator:
-  """(features, labels) on `device` for up to `max_batches` batches of
+                    source=None, batch_spec=None) -> Iterator:
+  """(features, labels) on `device` (given a mesh: this rank's block by
+  `batch_spec`, on the mesh's device) for up to `max_batches` batches of
   `dataset`: through a `DevicePrefetcher` `depth` ahead, or placed
   inline when `depth` is 0. The caller closes it and `source`."""
   if depth:
     return mesh_lib.DevicePrefetcher(dataset, device, depth=depth,
                                      max_batches=max_batches,
-                                     close_source=True, source=source)
-  return (mesh_lib.place_batch(device, batch)
+                                     close_source=True, source=source,
+                                     batch_spec=batch_spec)
+  return (mesh_lib.place_batch(device, batch, batch_spec=batch_spec)
           for batch in itertools.islice(dataset, max_batches))
 
 
+class _NullWriter:
+  """The summary writer of a rank that writes no files."""
+
+  path = None
+
+  def write_scalars(self, step, scalars) -> None:
+    del step, scalars
+
+  def close(self) -> None:
+    pass
+
+
 def _run_eval(eval_step, state: ts.TrainState, dataset: Iterator,
-              eval_steps: int, device, prefetch_depth: int) -> dict:
+              eval_steps: int, device, prefetch_depth: int,
+              batch_spec=None) -> dict:
   """The mean of each eval metric over `eval_steps` batches (fewer if
   the stream ends first). The sums stay on the device; the only read is
   the final one. Closes `dataset` however the round ends."""
@@ -178,7 +216,8 @@ def _run_eval(eval_step, state: ts.TrainState, dataset: Iterator,
   count = 0
   batches = None
   try:
-    batches = _device_batches(dataset, device, prefetch_depth, eval_steps)
+    batches = _device_batches(dataset, device, prefetch_depth, eval_steps,
+                              batch_spec=batch_spec)
     for features, labels in batches:
       metrics = eval_step(state, features, labels)
       for key, value in metrics.items():
@@ -226,6 +265,10 @@ def train_eval_model(
     max_rewinds: int = 2,
     reset_run_telemetry: bool = True,
     device=None,
+    mesh=None,
+    mesh_shape: Optional[Sequence[int]] = None,
+    mesh_axis_names: Optional[Sequence[str]] = None,
+    partition_rules=None,
 ) -> dict:
   """Trains `model` to `max_train_steps` (with evals in
   'train_and_evaluate'), evaluates the newest checkpoint ('evaluate'),
@@ -249,7 +292,12 @@ def train_eval_model(
   rewind); `enable_sentinel`, `watchdog_timeout_secs` (None: no hang
   watchdog), `rewind_on_divergence` and `max_rewinds` as named;
   `reset_run_telemetry=False` keeps the process-global registry and
-  trace buffer for an owner that outlives this run."""
+  trace buffer for an owner that outlives this run.
+
+  `mesh` (or one built by `parallel.mesh.create_mesh(mesh_shape,
+  mesh_axis_names)`; every rank when the world has several) and
+  `partition_rules` (e.g. `train_step.fsdp_rules()`) train over a mesh
+  (module docstring); the mesh's device is the run's."""
   if mode not in _MODES:
     raise ValueError(f"Unknown train_eval mode {mode!r}")
   needs_train = mode in ("train", "train_and_evaluate")
@@ -259,6 +307,27 @@ def train_eval_model(
   if needs_eval and input_generator_eval is None:
     raise ValueError("input_generator_eval is required for evaluation.")
   device = device_lib.resolve_device(device)
+  if mesh is None and (mesh_shape is not None or mesh_axis_names is not None
+                       or (dist.is_initialized()
+                           and dist.get_world_size() > 1)):
+    kwargs = ({"axis_names": tuple(mesh_axis_names)} if mesh_axis_names
+              else {})
+    mesh = mesh_lib.create_mesh(mesh_shape=mesh_shape, device=device,
+                                **kwargs)
+  batch_spec = None
+  if mesh is not None:
+    device = mesh.device
+    if hasattr(model, "set_mesh"):
+      model.set_mesh(mesh)
+    batch_spec = getattr(model, "batch_partition_spec", None)
+    if mode == "continuous_eval":
+      if mesh.size > 1:
+        raise ValueError("continuous_eval runs on one process, not on a "
+                         f"mesh of {mesh.size} ranks")
+      mesh = batch_spec = None  # one rank: the single-device path
+  # Rank 0 of a mesh writes every file of the run.
+  primary = mesh is None or mesh.is_primary
+  placement = mesh if mesh is not None else device
   for generator in (input_generator_train, input_generator_eval):
     if generator is not None and hasattr(generator, "set_overlap_options"):
       generator.set_overlap_options(
@@ -266,14 +335,14 @@ def train_eval_model(
           overlap_queue_mb=host_overlap_queue_mb)
   os.makedirs(model_dir, exist_ok=True)
   hooks: List[hooks_lib.Hook] = []
-  for builder in hook_builders or []:
+  for builder in (hook_builders or []) if primary else []:
     hooks.extend(builder.create_hooks(model, model_dir))
-  for export_generator in export_generators or []:
+  for export_generator in (export_generators or []) if primary else []:
     hooks.append(hooks_lib.ExportHook(export_generator=export_generator,
                                       num_versions=export_num_versions))
   manager = checkpoints_lib.CheckpointManager(
       os.path.join(model_dir, checkpoints_lib.CHECKPOINT_DIRNAME),
-      max_to_keep=keep_checkpoints)
+      max_to_keep=keep_checkpoints, mesh=mesh)
 
   if step_stats_every_n_steps is None:
     # One barrier per window serializes the launch queue on the card:
@@ -293,14 +362,17 @@ def train_eval_model(
     xray_lib.clear_records()
 
   eval_step = None
+  shardings = None
   if needs_eval:
     input_generator_eval.set_specification_from_model(model, modes_lib.EVAL)
-    eval_step = ts.make_eval_step(model, use_ema=use_ema_for_eval)
+    if mesh is None:
+      eval_step = ts.make_eval_step(model, use_ema=use_ema_for_eval)
 
   def evaluate(state: ts.TrainState) -> dict:
     return _run_eval(eval_step, state,
                      input_generator_eval.create_dataset(modes_lib.EVAL),
-                     eval_steps, device, device_prefetch_depth)
+                     eval_steps, placement, device_prefetch_depth,
+                     batch_spec=batch_spec)
 
   dataset = None
   if needs_train:
@@ -308,8 +380,9 @@ def train_eval_model(
                                                        modes_lib.TRAIN)
     dataset = input_generator_train.create_dataset(modes_lib.TRAIN)
   batches = None
-  writer = summaries_lib.SummaryWriter(
+  writer = (summaries_lib.SummaryWriter(
       os.path.join(model_dir, "train" if needs_train else "eval"))
+            if primary else _NullWriter())
   state = None
   sentinel = flight_recorder = None
   # Divergence-rewind latch: set by a sentinel sink on a fatal
@@ -321,19 +394,30 @@ def train_eval_model(
     if dataset is not None:
       first_batch = next(dataset)
     if mode != "continuous_eval":
-      state = _initial_state(model, manager, seed, device)
+      state, shardings = _initial_state(model, manager, seed, device, mesh,
+                                        partition_rules)
+      if needs_eval and mesh is not None:
+        eval_step = ts.make_eval_step(model, use_ema=use_ema_for_eval,
+                                      mesh=mesh, shardings=shardings,
+                                      batch_spec=batch_spec)
     if step_stats.enabled:
       hooks.append(hooks_lib.StepStatsHook())
       if enable_sentinel:
         sentinel, flight_recorder = _watch(model_dir, step_stats, hooks,
                                            rewind_state, rewind_on_divergence,
-                                           watchdog_timeout_secs)
+                                           watchdog_timeout_secs, primary)
       try:
         run_memory = xray_lib.memory_accounting(state, batch=first_batch)
       except Exception:  # noqa: BLE001 - telemetry never kills a run
         _log.exception("graftscope-xray: memory accounting failed")
+    # The hooks see the gathered full state while a checkpoint's
+    # after_checkpoint calls run (a mesh state holds blocks).
+    hook_state: dict = {"full": None}
     ctx = hooks_lib.TrainContext(
-        model, model_dir, get_state=lambda: state, summary_writer=writer,
+        model, model_dir,
+        get_state=lambda: (hook_state["full"] if hook_state["full"]
+                           is not None else state),
+        summary_writer=writer if primary else None,
         step_stats=step_stats if step_stats.enabled else None,
         sentinel=sentinel, flight_recorder=flight_recorder)
     for hook in hooks:
@@ -365,7 +449,8 @@ def train_eval_model(
         hook.end(ctx)
       return eval_metrics
 
-    train_step = ts.make_train_step(model)
+    train_step = ts.make_train_step(model, mesh=mesh, shardings=shardings,
+                                    batch_spec=batch_spec)
     loop_k = max(1, int(iterations_per_loop))
 
     def group_size(step: int) -> int:
@@ -374,11 +459,18 @@ def train_eval_model(
     def checkpoint(step: int) -> None:
       # A step already on disk is not written again (`save` returns
       # False), so a step a rewind's restore walk quarantined is saved
-      # anew when the replay crosses it.
-      if manager.save(step, state):
+      # anew when the replay crosses it. On a mesh every rank gathers
+      # the full state and rank 0 writes it.
+      full = state if shardings is None else ts.gather_state(state,
+                                                             shardings)
+      if manager.save(step, full):
         _log.info("Saved checkpoint step %d", step)
-        for hook in hooks:
-          hook.after_checkpoint(ctx, step)
+        hook_state["full"] = full
+        try:
+          for hook in hooks:
+            hook.after_checkpoint(ctx, step)
+        finally:
+          hook_state["full"] = None
 
     def rewind(diverged_at: int) -> None:
       """Restores the newest verified checkpoint after a divergence at
@@ -411,15 +503,15 @@ def train_eval_model(
       _close_dataset(dataset)
       # The verified walk: a step that fails its manifest is quarantined
       # and the next newest serves.
-      state = manager.restore(device=device)
+      state = _placed_state(manager.restore(device="cpu"), shardings, device)
       rewind_state["targets"].append(state.step)
       metrics_lib.counter("train/rewinds").inc()
       for hook in hooks:
         hook.after_rewind(ctx, state.step)
       dataset = input_generator_train.create_dataset(modes_lib.TRAIN)
-      batches = _device_batches(dataset, device, device_prefetch_depth,
+      batches = _device_batches(dataset, placement, device_prefetch_depth,
                                 max(max_train_steps - state.step, 0),
-                                source=dataset)
+                                source=dataset, batch_spec=batch_spec)
       metrics_lib.histogram("train/rewind_ms").record(
           (time.perf_counter() - started) * 1e3)
       if sentinel is not None:
@@ -432,11 +524,15 @@ def train_eval_model(
     final_metrics: dict = {}
     step = state.step
     batches = _device_batches(itertools.chain([first_batch], dataset),
-                              device, device_prefetch_depth,
-                              max(max_train_steps - step, 0), source=dataset)
+                              placement, device_prefetch_depth,
+                              max(max_train_steps - step, 0), source=dataset,
+                              batch_spec=batch_spec)
     last_log, last_log_step = time.time(), step
     last_eval_time = 0.0
+    signals = contextlib.ExitStack()
     try:
+      # Before the flight recorder's handler, which chains to it.
+      signals.enter_context(checkpoints_lib.preemption_signal())
       if step_stats.enabled:
         trace_lib.enable()
       if flight_recorder is not None:
@@ -492,6 +588,12 @@ def train_eval_model(
                     (step - last_log_step) / max(now - last_log, 1e-6))
           last_log, last_log_step = now, step
           final_metrics = scalars
+        preempted = manager.reached_preemption(step)
+        if mesh is not None:
+          # Both flags in one host all-reduce: a rewind and a preemption
+          # happen on every rank or on none.
+          rewind_state["pending"], preempted = mesh.agree(
+              rewind_state["pending"], preempted)
         if rewind_state["pending"]:
           # Before the checkpoint cadence: a diverged state is never
           # saved. The incident's postmortem bundle is already on disk
@@ -504,6 +606,15 @@ def train_eval_model(
           continue
         if _crossed(checkpoint_every_n_steps, prev_step, step):
           checkpoint(step)
+        if preempted:
+          _log.warning("Preemption signal at step %d: checkpoint + exit.",
+                       step)
+          checkpoint(step)
+          manager.wait_until_finished()
+          if mesh is not None:
+            # Every rank leaves once rank 0's save is on disk.
+            collectives.barrier(mesh.group(mesh.axis_names))
+          raise SystemExit(42)
         if eval_step is not None and (
             _crossed(eval_every_n_steps, prev_step, step)
             or step == max_train_steps):
@@ -537,6 +648,7 @@ def train_eval_model(
     finally:
       if flight_recorder is not None:
         flight_recorder.close()  # disarm the watchdog, restore SIGTERM
+      signals.close()
       if step_stats.enabled and not tracer_preenabled:
         # Only a tracer this run enabled: an owner that enabled it before
         # keeps tracing after this run returns.
@@ -544,10 +656,11 @@ def train_eval_model(
     checkpoint(step)
     for hook in hooks:
       hook.end(ctx)
-    if step_stats.enabled:
+    if step_stats.enabled and primary:
       _append_run_record(model_dir, run_memory, final_metrics, step, device,
                          sentinel=sentinel, rewinds=rewind_state["count"],
-                         rewind_steps=rewind_state["targets"])
+                         rewind_steps=rewind_state["targets"],
+                         num_devices=1 if mesh is None else mesh.size)
     return final_metrics
   finally:
     if batches is not None:
@@ -557,16 +670,19 @@ def train_eval_model(
 
 
 def _watch(model_dir: str, step_stats, hooks, rewind_state: dict,
-           rewind_on_divergence: bool, watchdog_timeout_secs):
+           rewind_on_divergence: bool, watchdog_timeout_secs,
+           primary: bool = True):
   """(sentinel, flight recorder) of a run, wired as in the JAX package:
   incidents go to `<model_dir>/incidents.jsonl`, then to the flight
   recorder (which dumps a bundle on the first fatal one of each kind),
   then to the rewind latch; the recorder rings each step window before
   the sentinel sees it, so a bundle holds the window that triggered
-  it. Appends a `SentinelHook`."""
-  flight_recorder = flightrec_lib.FlightRecorder(
+  it. Appends a `SentinelHook`. A rank other than a mesh's rank 0
+  (`primary` False) keeps the sentinel and its rewind latch, and writes
+  no incident and has no flight recorder (None)."""
+  flight_recorder = (flightrec_lib.FlightRecorder(
       os.path.join(model_dir, flightrec_lib.FLIGHTREC_DIRNAME),
-      hang_timeout_secs=watchdog_timeout_secs)
+      hang_timeout_secs=watchdog_timeout_secs) if primary else None)
   incidents_path = os.path.join(model_dir, runlog_lib.INCIDENTS_FILENAME)
 
   def rewind_sink(record):
@@ -575,11 +691,12 @@ def _watch(model_dir: str, step_stats, hooks, rewind_state: dict,
                                    sentinel_lib.NONFINITE_PARAMS)):
       rewind_state["pending"] = True
 
-  sentinel = sentinel_lib.Sentinel(sinks=[
-      lambda record: runlog_lib.append_record(incidents_path, record),
-      flight_recorder.record_incident,
-      rewind_sink])
-  step_stats.add_observer(flight_recorder.record_step)
+  sinks = [rewind_sink]
+  if primary:
+    sinks = [lambda record: runlog_lib.append_record(incidents_path, record),
+             flight_recorder.record_incident, rewind_sink]
+    step_stats.add_observer(flight_recorder.record_step)
+  sentinel = sentinel_lib.Sentinel(sinks=sinks)
   step_stats.add_observer(sentinel.observe_step_record)
   hooks.append(hooks_lib.SentinelHook())
   return sentinel, flight_recorder
@@ -588,7 +705,8 @@ def _watch(model_dir: str, step_stats, hooks, rewind_state: dict,
 def _append_run_record(model_dir: str, run_memory: dict,
                        final_metrics: dict, final_step: int, device,
                        sentinel=None, rewinds: int = 0,
-                       rewind_steps: Optional[List[int]] = None) -> None:
+                       rewind_steps: Optional[List[int]] = None,
+                       num_devices: int = 1) -> None:
   """Appends this run's schema-versioned record to
   `<model_dir>/runs.jsonl` (`obs.runlog`): the step-stat summary from
   the registry, the memory accounting with the allocator's counters and
@@ -630,7 +748,7 @@ def _append_run_record(model_dir: str, run_memory: dict,
         platform="gpu" if on_card else device.type,
         device_kind=(torch.cuda.get_device_name(device) if on_card
                      else device.type),
-        num_devices=1,
+        num_devices=int(num_devices),
         step_stats=summary,
         compile_records=xray_lib.records(),
         memory=memory,
@@ -641,25 +759,41 @@ def _append_run_record(model_dir: str, run_memory: dict,
     _log.exception("graftscope: run-record append failed")
 
 
-def _initial_state(model, manager, seed: int, device) -> ts.TrainState:
-  """The newest verified checkpoint's state; on a fresh run, parameters
-  from `seed`, warm-started from `model.init_checkpoint` when it has
-  one."""
+def _placed_state(state: ts.TrainState, shardings, device) -> ts.TrainState:
+  """A full state on the CPU as this rank's blocks (`shardings`; the
+  whole state without) on `device`."""
+  if shardings is not None:
+    state = ts.shard_state(state, shardings)
+  return state.to(device)
+
+
+def _initial_state(model, manager, seed: int, device, mesh=None,
+                   rules=None):
+  """(state, shardings): the newest verified checkpoint's state; on a
+  fresh run, parameters from `seed`, warm-started from
+  `model.init_checkpoint` when it has one. On a mesh the full state is
+  built (or restored) on the CPU and cut into this rank's blocks by
+  `state_shardings(state, mesh, rules)`; without one, shardings are
+  None."""
   if manager.latest_step() is not None:
-    state = manager.restore(device=device)
+    state = manager.restore(device=device if mesh is None else "cpu")
     _log.info("Resumed from checkpoint step %d", manager.last_restored_step)
-    return state
-  state = ts.create_train_state(model, torch.Generator().manual_seed(seed),
-                                device)
-  init_checkpoint = getattr(model, "init_checkpoint", None)
-  if init_checkpoint:
-    params, names = checkpoints_lib.warm_start_params(
-        state.params, init_checkpoint,
-        filter_fn=getattr(model, "init_checkpoint_filter", None))
-    state = state.replace(params=params)
-    _log.info("Warm-started %d parameter tensors from %s", len(names),
-              init_checkpoint)
-  return state
+  else:
+    state = ts.create_train_state(model, torch.Generator().manual_seed(seed),
+                                  device if mesh is None else
+                                  torch.device("cpu"))
+    init_checkpoint = getattr(model, "init_checkpoint", None)
+    if init_checkpoint:
+      params, names = checkpoints_lib.warm_start_params(
+          state.params, init_checkpoint,
+          filter_fn=getattr(model, "init_checkpoint_filter", None))
+      state = state.replace(params=params)
+      _log.info("Warm-started %d parameter tensors from %s", len(names),
+                init_checkpoint)
+  if mesh is None:
+    return state, None
+  shardings = ts.state_shardings(state, mesh, rules)
+  return _placed_state(state, shardings, device), shardings
 
 
 def _evaluate_checkpoint(manager, step: int, device, evaluate):

@@ -745,3 +745,45 @@ def test_observability_modules_load_with_torch_and_jax_blocked():
                           capture_output=True, text=True, timeout=120)
   assert result.returncode == 0, result.stderr[-3000:]
   assert "OBSERVABILITY_FRAMEWORK_FREE_OK" in result.stdout
+
+
+# The mesh slice: every module the scans above (no jax, no
+# tensor2robot_tpu; importable with both blocked) must cover.
+SLICE_18_MODULES = (
+    "tensor2robot_tpu_torch.parallel.collectives",
+    "tensor2robot_tpu_torch.parallel.mesh",
+    "tensor2robot_tpu_torch.parallel.train_step",
+    "tensor2robot_tpu_torch.ops.attention",
+    "tensor2robot_tpu_torch.layers.attention_layers",
+    "tensor2robot_tpu_torch.checkpoints",
+    "tensor2robot_tpu_torch.bin.run_t2r_trainer",
+)
+
+
+def test_the_scans_cover_the_mesh_modules():
+  assert set(SLICE_18_MODULES) <= set(_port_modules())
+  port_files = {str(p.relative_to(REPO_ROOT)) for p in _port_files()}
+  assert "tensor2robot_tpu_torch/parallel/collectives.py" in port_files
+
+
+def test_mesh_entry_points_run_on_cuda_unless_told_cpu(no_cuda):
+  from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    mesh_lib.create_mesh()
+  assert mesh_lib.create_mesh(device="cpu").size == 1
+
+
+def test_sp_ring_config_binds_the_jax_widths_and_mesh():
+  try:
+    config.clear_config()
+    config.parse_config_file(str(PORT / "configs" / "train_sp_ring.gin"))
+    assert config.query_parameter("train_eval_model.mesh_shape") == (2, 2, 1)
+    assert config.query_parameter("train_eval_model.mesh_axis_names") == (
+        "data", "sp", "model")
+    assert config.query_parameter(
+        "SequenceRegressionModel.attention_backend") == "ring"
+    model = config.query_parameter("train_eval_model.model")
+    assert type(model).__module__.startswith("tensor2robot_tpu_torch.")
+  finally:
+    config.clear_config()

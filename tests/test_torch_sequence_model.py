@@ -177,9 +177,11 @@ def test_random_init_is_seeded():
 
 @pytest.mark.parametrize("backend", ["ring", "ulysses"])
 def test_sequence_parallel_backends_are_not_ported_yet(backend):
+  # Ported (tests/test_torch_sequence_parallel.py): without a mesh the
+  # module cannot be built, as in the JAX package.
   model = sequence_model.SequenceRegressionModel(attention_backend=backend,
                                                  **WIDTHS)
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
+  with pytest.raises(ValueError, match="set_mesh"):
     model.create_module()
 
 
