@@ -436,6 +436,37 @@ and prints no result):
       from that step to 10.
    e. Two NCCL ranks on one card, once: the error text (NCCL's
       "Duplicate GPU detected") is recorded.
+19. Pipeline parallelism and mixture of experts (no custom kernel on
+   their path: the stage functions and expert einsums are cuDNN and
+   cuBLAS), every world's ranks sharing cuda:0 over gloo:
+   a. One 8-rank world at mesh (2, 4, 1) over ('data', 'pp', 'model'):
+      `train_pipelined_pp.gin` (f32), `train_pipelined_1f1b.gin` (f32,
+      8 stages, v = 2), `train_bcz_pp.gin` (64 x 64, filters (64, 32, 32,
+      32), bf16, batch 16) and `train_grasp2vec_pp.gin` (48 x 48, filters
+      (32, 64, 64, 64), bf16, batch 16) at their widths. Each: one step
+      (momentum 0.9, lr 1e-2, seed-1 weights, a seed-3 batch of the
+      config's generator) against the single-process sequential step on
+      the same weights and the whole global batch (Grasp2Vec's npairs
+      loss gathers its embeddings over the 'data' axis, so it compares
+      every row with every other, as the whole batch's does): f32 loss
+      LOSS_RTOL relative, gradients and updates GRAD_TOL x max(1,
+      max|g|); bf16 phase 18c's limits. Each rank's staged ppermutes in
+      the step must be 2 x the tick plan's ticks x the pipelines a step
+      runs, each `pp`-sharded leaf and its moment exactly a quarter of
+      the stack, and the step is timed on every rank. Then
+      PIPELINE_STEPS steps of each config through `train_eval_model`
+      (finite losses); BC-Z's run checkpoints.
+   b. One 4-rank world at (2, 1, 2): `train_moe_ep.gin` (sparse, experts
+      on 'model') and its all-to-all variant (`dispatch='alltoall'`,
+      `expert_parallel_rules.axis = 'data'`): one f32 step each at ample
+      capacity against the single-process dense and sparse steps (phase
+      4's limits), then PIPELINE_STEPS steps through `train_eval_model`,
+      checkpointed.
+   c. In this process: the MoE (sparse) and the pipelined BC-Z
+      checkpoints served by `CheckpointPredictor(model_dir=...)`, the
+      pipelined model on its sequential schedule: each predict
+      bit-identical to the eval-mode forward, two restores identical to
+      each other and unlike a fresh init.
 
 Output: a `train` JSON line, a `slice` JSON line, a `qtopt` JSON line
 (the critic's checks, its step ms and grasps/s under each policy with
@@ -457,6 +488,9 @@ rounds and publishes, with the card and its power limit), a `mesh` line
 (phase 18's cases: max differences, launches, bytes per rank, step ms per
 rank, 18a's donation reading, the flag agreement's time, the NCCL
 finding, the phase wall, with the card and its power limit), a
+`pipeline` line (phase 19's maxima, staged hops, bytes and step ms per
+rank, losses, serving checks, the phase wall, with the card and its
+power limit), a
 `kernels`
 JSON line
 (one row per kernel, with its `design`: "wgmma+tma" for the bf16
@@ -6814,13 +6848,13 @@ def _collect(procs, what: str, exit_codes=(0,)) -> list:
       try:
         proc.wait(timeout=max(1.0, deadline - time.monotonic()))
       except subprocess.TimeoutExpired:
-        raise RuntimeError(f"phase 18 {what}: rank {rank} timed out")
+        raise RuntimeError(f"phase {what}: rank {rank} timed out")
       log.close()
       with open(log.name) as f:
         text = f.read()
       lines = [l for l in text.splitlines() if l.startswith(MESH_RESULT)]
       if proc.returncode not in exit_codes or not lines:
-        raise RuntimeError(f"phase 18 {what}: rank {rank} exited "
+        raise RuntimeError(f"phase {what}: rank {rank} exited "
                            f"{proc.returncode}:\n{text[-4000:]}")
       results.append(json.loads(lines[-1]))
   finally:
@@ -7125,8 +7159,8 @@ def _worker_nccl_dup(torch, case, rank, world, port, directory, device,
 
 
 def mesh_worker(argv) -> int:
-  """One rank of a phase-18 world: prints its result line and exits with
-  its code (42 for a preempted trainer)."""
+  """One rank of a phase-18 or phase-19 world: prints its result line and
+  exits with its code (42 for a preempted trainer)."""
   case, rank, world, port, directory, device, backend = argv
   import torch
 
@@ -7137,7 +7171,8 @@ def mesh_worker(argv) -> int:
     torch.cuda.set_device(device)
   worker = {"train": _worker_train, "preempt": _worker_train,
             "resume": _worker_train, "pair": _worker_pair,
-            "nccl_dup": _worker_nccl_dup}[case]
+            "nccl_dup": _worker_nccl_dup, "pipeline": _worker_pipeline,
+            "moe": _worker_pipeline}[case]
   result, code = worker(torch, case, int(rank), int(world), int(port),
                         directory, device, backend)
   print(json.dumps({"mesh_worker": case, "rank": int(rank), **result}),
@@ -7338,6 +7373,376 @@ def _mesh_line(report: dict) -> dict:
   return line
 
 
+# -- phase 19: pipeline parallelism and mixture of experts ----------------------
+
+# (name, config, configurable, (microbatches, virtual stages), the
+# pipelined applies of one forward): the configs' own schedules.
+PIPELINE_CONFIGS = (
+    ("pp", "tensor2robot_tpu_torch/configs/train_pipelined_pp.gin",
+     "PipelinedRegressionModel", (4, 1), 1),
+    ("1f1b", "tensor2robot_tpu_torch/configs/train_pipelined_1f1b.gin",
+     "PipelinedRegressionModel", (8, 2), 1),
+    ("bcz", "tensor2robot_tpu_torch/configs/train_bcz_pp.gin", "BCZModel",
+     (4, 1), 1),
+    # The scene tower runs twice (pregrasp, postgrasp), the goal's once.
+    ("grasp2vec", "tensor2robot_tpu_torch/configs/train_grasp2vec_pp.gin",
+     "Grasp2VecModel", (4, 1), 3),
+)
+PP_RANKS = 4
+MOE_CONFIG = "tensor2robot_tpu_torch/configs/train_moe_ep.gin"
+MOE_VARIANTS = (("sparse", ()),
+                ("alltoall", ("MoERegressionModel.dispatch = 'alltoall'",
+                              "expert_parallel_rules.axis = 'data'")))
+MOE_AMPLE_CAPACITY = 8.0     # 19b's parity steps: no token dropped
+PIPELINE_BACKEND = "gloo"    # several ranks on one card
+PIPELINE_STEPS = 4           # train_eval_model steps of each config
+PIPELINE_EVAL_STEPS = 2      # BC-Z's in-loop eval batches
+PIPELINE_TIMED_STEPS = 3
+PIPELINE_LR = 1e-2
+DATA_BLOCKS = 2              # the 'data' axis of both worlds
+SERVE_ROWS = 3
+
+
+def _pipeline_runs(case: str):
+  """(name, config, configurable, bindings) of a world's runs."""
+  if case == "pipeline":
+    return [(name, path, cls, ()) for name, path, cls, _, _ in
+            PIPELINE_CONFIGS]
+  return [(name, MOE_CONFIG, "MoERegressionModel", bindings)
+          for name, bindings in MOE_VARIANTS]
+
+
+def _pipeline_model(config, path: str, cls: str = "", bindings=(),
+                    optimizer=None):
+  """A fresh instance of the config's model (its bindings, then
+  `bindings`; `optimizer` as `cls.optimizer_fn` when given) and the
+  config's partition rules. The config stays parsed."""
+  config.clear_config()
+  config.parse_config_file(os.path.join(REPO_DIR, path))
+  for binding in bindings:
+    config.parse_config(binding)
+  if optimizer is not None:
+    config.bind(cls, "optimizer_fn", optimizer)
+  return (config.query_parameter("train_eval_model.model"),
+          config.query_parameter("train_eval_model.partition_rules"))
+
+
+def _pipeline_step(torch, port, model, mesh, params, batch, rules,
+                   directory: str, name: str, rank: int) -> dict:
+  """One mesh step of `model` from `params` on the global `batch`: the
+  gradients (`make_grad_fn`) and the step's update, gathered and saved by
+  rank 0; this rank's staged ppermutes (ring hops) in the step, the
+  median of PIPELINE_TIMED_STEPS more steps, and each sharded leaf's and
+  its moment's share of the whole, and their bytes."""
+  bridge, mesh_lib, train_step, collectives = port
+  device = mesh.device
+  model.set_mesh(mesh)
+  state, shardings = bridge.train_state_on_mesh(
+      train_step.init_train_state(model, params), mesh, rules)
+  features, labels = mesh_lib.place_batch(mesh, batch)
+  loss, grads = train_step.make_grad_fn(model, mesh, shardings)(
+      state, features, labels)
+  grads = {k: mesh_lib.unshard(g, mesh, shardings.params[k].spec)
+           for k, g in grads.items()}
+  step = train_step.make_train_step(model, mesh=mesh, shardings=shardings,
+                                    donate=False)
+  _sync(torch, device)
+  staged = collectives.staged_calls["count"]
+  new, metrics = step(state, features, labels)
+  _sync(torch, device)
+  staged = collectives.staged_calls["count"] - staged
+  times = []
+  for _ in range(PIPELINE_TIMED_STEPS):
+    _sync(torch, device)
+    start = time.perf_counter()
+    step(state, features, labels)
+    _sync(torch, device)
+    times.append(1e3 * (time.perf_counter() - start))
+  full = train_step.gather_state(new, shardings)
+  moments = [m["trace"] for m in new.opt_state
+             if isinstance(m, dict) and "trace" in m]
+  shares = {}
+  for key, sharding in shardings.params.items():
+    if sharding.spec:
+      whole = full.params[key].numel()
+      parts = {whole // t[key].numel() for t in [new.params] + moments}
+      if len(parts) != 1 or whole % new.params[key].numel():
+        raise RuntimeError(f"19 {name}: {key} and its moment hold "
+                           f"different shares: {parts}")
+      shares[key] = parts.pop()
+  nbytes = lambda tree, keys: sum(tree[k].numel() * tree[k].element_size()
+                                  for k in keys)
+  out = {"loss": float(loss), "step_loss": float(metrics["loss"]),
+         "staged_ppermutes": staged,
+         "step_ms": sorted(times)[len(times) // 2], "shares": shares,
+         "bytes": {"params_local": nbytes(new.params, new.params),
+                   "params_whole": nbytes(full.params, full.params),
+                   "sharded_local": nbytes(new.params, shares),
+                   "sharded_whole": nbytes(full.params, shares),
+                   "moments_local": sum(nbytes(m, m) for m in moments)}}
+  if rank == 0:
+    torch.save({"loss": float(loss),
+                "grads": {k: v.cpu() for k, v in grads.items()},
+                "params": {k: v.cpu() for k, v in full.params.items()}},
+               os.path.join(directory, f"{name}.pt"))
+  return out
+
+
+def _pipeline_train(config, train_eval, checkpoints, path: str,
+                    model_dir: str, bindings, device) -> dict:
+  """PIPELINE_STEPS steps of the config through `train_eval_model` on
+  this world, a checkpoint at the last."""
+  config.clear_config()
+  config.parse_config_file(os.path.join(REPO_DIR, path))
+  for binding in tuple(bindings) + (
+      f"train_eval_model.model_dir = '{model_dir}'",
+      f"train_eval_model.max_train_steps = {PIPELINE_STEPS}",
+      f"train_eval_model.checkpoint_every_n_steps = {PIPELINE_STEPS}",
+      f"train_eval_model.eval_every_n_steps = {PIPELINE_STEPS}",
+      f"train_eval_model.eval_steps = {PIPELINE_EVAL_STEPS}",
+      "train_eval_model.log_every_n_steps = 1",
+      f"train_eval_model.device = '{device}'"):
+    config.parse_config(binding)
+  start = time.perf_counter()
+  metrics = train_eval.train_eval_model()
+  wall = time.perf_counter() - start
+  manager = checkpoints.CheckpointManager(
+      os.path.join(model_dir, checkpoints.CHECKPOINT_DIRNAME))
+  config.clear_config()
+  with open(os.path.join(model_dir, "train", "metrics.jsonl")) as f:
+    rows = [r for r in map(json.loads, f) if not _telemetry_row(r)
+            and not any(k.startswith("eval/") for k in r)]
+  return {"losses": [r.get("loss") for r in rows],
+          "eval_loss": metrics.get("eval/loss"), "wall_s": wall,
+          "steps": manager.all_steps(),
+          "verified": [manager.verify_step(s) is True
+                       for s in manager.all_steps()]}
+
+
+def _worker_pipeline(torch, case, rank, world, port, directory, device,
+                     backend):
+  """19a (`pipeline`, 8 ranks) and 19b (`moe`, 4 ranks)."""
+  from tensor2robot_tpu_torch import bridge
+  from tensor2robot_tpu_torch import checkpoints
+  from tensor2robot_tpu_torch import train_eval
+  from tensor2robot_tpu_torch.models import optimizers
+  from tensor2robot_tpu_torch.parallel import collectives
+  from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+  from tensor2robot_tpu_torch.parallel import train_step
+  from tensor2robot_tpu_torch.utils import config
+
+  mesh_lib.initialize_multihost(f"127.0.0.1:{port}", world, rank,
+                                backend=backend, device=device)
+  inputs = torch.load(os.path.join(directory, "inputs.pt"))
+  port = (bridge, mesh_lib, train_step, collectives)
+  if case == "pipeline":
+    mesh = mesh_lib.create_mesh((DATA_BLOCKS, PP_RANKS, 1),
+                                ("data", "pp", "model"), device=device)
+  else:
+    mesh = mesh_lib.create_mesh((DATA_BLOCKS, 1, 2), mesh_lib.DEFAULT_AXES,
+                                device=device)
+  out = {"steps": {}, "train": {}}
+  for name, path, cls, bindings in _pipeline_runs(case):
+    ample = (() if case == "pipeline" else (
+        f"MoERegressionModel.capacity_factor = {MOE_AMPLE_CAPACITY}",))
+    model, rules = _pipeline_model(
+        config, path, cls, tuple(bindings) + ample,
+        lambda: optimizers.create_momentum_optimizer(PIPELINE_LR, 0.9))
+    out["steps"][name] = _pipeline_step(
+        torch, port, model, mesh, inputs[name]["params"],
+        inputs[name]["batch"], rules, directory, name, rank)
+    config.clear_config()
+  # The main path: the configs through train_eval_model, counts to 0
+  # just before and read just after.
+  staged = collectives.staged_calls["count"]
+  for name, path, _, bindings in _pipeline_runs(case):
+    out["train"][name] = _pipeline_train(
+        config, train_eval, checkpoints, path,
+        os.path.join(directory, f"train_{name}"), bindings, str(device))
+    torch.distributed.barrier()
+  out["train_staged_ppermutes"] = collectives.staged_calls["count"] - staged
+  torch.distributed.destroy_process_group()
+  return out, 0
+
+
+def _pipeline_inputs(torch, config, input_generators, case: str) -> dict:
+  """Each run's seed-1 weights and seed-3 batch (the config's generator
+  and batch size, through the model's preprocessor), on the CPU."""
+  out = {}
+  for name, path, _, bindings in _pipeline_runs(case):
+    # The all-to-all variant's module needs a mesh; its parameters and
+    # batch are the sparse one's.
+    model, _ = _pipeline_model(config, path, bindings=tuple(bindings) + (
+        ("MoERegressionModel.dispatch = 'sparse'",) if case == "moe"
+        else ()))
+    batch_size = config.query_parameter(
+        "DefaultRandomInputGenerator.batch_size")
+    features, labels = _generator_batch(input_generators, model, batch_size,
+                                        3)
+    out[name] = {"params": model.init_params(torch.Generator().manual_seed(1)),
+                 "batch": {"features": features, "labels": labels}}
+    config.clear_config()
+  return out
+
+
+def _pipeline_reference(torch, train_step, model, params, batch, device):
+  """The single-process step (the sequential schedule) of `model` from
+  `params` on the whole batch: (loss, gradients, the first momentum
+  step's parameters p - lr g)."""
+  params = {k: v.to(device) for k, v in params.items()}
+  place = lambda tree: {k: v.to(device) for k, v in tree.items()}
+  loss, _, grads, _ = train_step.loss_and_grads(
+      model, params, model.cast_features_for_compute(place(
+          batch["features"])), place(batch["labels"]))
+  return (float(loss), grads,
+          {k: params[k] - PIPELINE_LR * grads[k] for k in params})
+
+
+def _pipeline_errors(torch, got: dict, want, bf16: bool, what: str) -> dict:
+  """Phase 18b's (f32) or 18c's (bf16) limits against a reference."""
+  errors = _mesh_errors(torch, got, want, bf16)
+  loss_limit = BF16_LOSS_RTOL if bf16 else LOSS_RTOL
+  grad_limit = BWD_BF16_TOL if bf16 else GRAD_TOL
+  param_limit = PIPELINE_LR * BWD_BF16_TOL if bf16 else GRAD_TOL
+  if not (errors["loss_rel"] <= loss_limit
+          and errors["grad_scaled"] <= grad_limit
+          and errors["param_scaled"] <= param_limit):
+    raise RuntimeError(f"{what}: against the single-process step {errors}")
+  return errors
+
+
+def _serve_restored(torch, np, predictors, model, model_dir: str, device,
+                    request: dict, what: str) -> dict:
+  """JAX tests/test_serving.py's contract on a checkpoint: the restored
+  predict is the eval-mode forward bit for bit, a second restore serves
+  the same outputs, and a fresh init serves others."""
+  def restored():
+    predictor = predictors.CheckpointPredictor(model=model,
+                                               model_dir=model_dir,
+                                               device=device)
+    if not predictor.restore():
+      raise RuntimeError(f"19c {what}: no checkpoint under {model_dir}")
+    return predictor
+
+  predictor = restored()
+  served = _served_equals_forward(torch, np, predictor, request, device)
+  again = restored().predict(request)
+  if any(not np.array_equal(served[k], again[k]) for k in served):
+    raise RuntimeError(f"19c {what}: two restores serve other outputs")
+  fresh = predictors.CheckpointPredictor(model=model, device=device)
+  fresh.init_randomly()
+  other = fresh.predict(request)
+  if all(np.array_equal(served[k], other[k]) for k in served):
+    raise RuntimeError(f"19c {what}: the restored outputs are a fresh "
+                       "init's")
+  return {"step": predictor.global_step,
+          "finite": all(bool(np.isfinite(v).all()) for v in served.values())}
+
+
+def run_pipeline(torch, np, port, card: str, directory: str) -> dict:
+  """Phase 19 (module docstring)."""
+  config, train_step, input_generators, predictors, pp = port
+  start = time.perf_counter()
+  device = torch.device(MESH_DEVICE)
+  report = {"card": card}
+  dirs = {}
+  for case, world in (("pipeline", DATA_BLOCKS * PP_RANKS),
+                      ("moe", DATA_BLOCKS * 2)):
+    case_dir = dirs[case] = tempfile.mkdtemp(dir=directory)
+    inputs = _pipeline_inputs(torch, config, input_generators, case)
+    torch.save(inputs, os.path.join(case_dir, "inputs.pt"))
+    procs = _launch_workers(case, world, case_dir, PIPELINE_BACKEND)
+    # The references run on the card while the ranks start.
+    references = {}
+    for name, path, _, bindings in _pipeline_runs(case):
+      if case == "pipeline":
+        model, _ = _pipeline_model(config, path, bindings=bindings)
+        refs = {"sequential": _pipeline_reference(
+            torch, train_step, model, inputs[name]["params"],
+            inputs[name]["batch"], device)}
+      else:
+        refs = {}
+        for dispatch in ("dense", "sparse"):
+          model, _ = _pipeline_model(config, path, bindings=(
+              f"MoERegressionModel.dispatch = '{dispatch}'",
+              f"MoERegressionModel.capacity_factor = {MOE_AMPLE_CAPACITY}"))
+          refs[dispatch] = _pipeline_reference(
+              torch, train_step, model, inputs[name]["params"],
+              inputs[name]["batch"], device)
+      references[name] = (refs, model.use_bfloat16)
+      config.clear_config()
+    ranks = _collect(procs, f"19 {case}")
+    cases = {}
+    for name, (refs, bf16) in references.items():
+      got = torch.load(os.path.join(case_dir, f"{name}.pt"))
+      errors = {ref: _pipeline_errors(torch, got, want, bf16,
+                                      f"19 {case} {name} vs {ref}")
+                for ref, want in refs.items()}
+      steps = [r["steps"][name] for r in ranks]
+      trained = ranks[0]["train"][name]
+      if not (len(trained["losses"]) == PIPELINE_STEPS
+              and np.isfinite(np.array(trained["losses"], float)).all()
+              and trained["steps"][-1:] == [PIPELINE_STEPS]
+              and all(trained["verified"])):
+        raise RuntimeError(f"19 {case} {name}: the trained run: {trained}")
+      cases[name] = {
+          "errors": errors, "bf16": bf16, "shares": steps[0]["shares"],
+          "step_ms": [s["step_ms"] for s in steps],
+          "staged_ppermutes": [s["staged_ppermutes"] for s in steps],
+          "bytes": steps[0]["bytes"], "train": trained}
+      if case == "pipeline":
+        _, _, _, (micro, v), applies = next(
+            c for c in PIPELINE_CONFIGS if c[0] == name)
+        ticks = pp.schedule_accounting(PP_RANKS, micro, v)["total_ticks"]
+        want_hops = 2 * ticks * applies
+        if any(s["staged_ppermutes"] != want_hops for s in steps):
+          raise RuntimeError(
+              f"19a {name}: each rank must stage 2 x {ticks} ticks x "
+              f"{applies} ppermutes in a step, got "
+              f"{[s['staged_ppermutes'] for s in steps]}")
+        if set(steps[0]["shares"].values()) != {PP_RANKS}:
+          raise RuntimeError(f"19a {name}: each pp-sharded leaf must hold "
+                             f"1/{PP_RANKS} a rank: {steps[0]['shares']}")
+        cases[name]["ticks"] = ticks
+      log(f"19 {case} {name}: {errors}, step ms "
+          f"{[round(s['step_ms'], 1) for s in steps]}")
+    report[case] = cases
+    # The main path's hops: every train step's, and BC-Z's one eval.
+    want_train = 0
+    if case == "pipeline":
+      for name, _, _, _, applies in PIPELINE_CONFIGS:
+        ticks = cases[name]["ticks"]
+        want_train += PIPELINE_STEPS * 2 * ticks * applies + (
+            PIPELINE_EVAL_STEPS * ticks if name == "bcz" else 0)
+    staged = [r["train_staged_ppermutes"] for r in ranks]
+    if staged != [want_train] * world:
+      raise RuntimeError(f"19 {case}: the trained runs' staged ppermutes "
+                         f"a rank {staged}, want {want_train}")
+    report[f"{case}_train_staged_ppermutes"] = staged
+  # 19c: the checkpoints served in this process, with the preprocessor
+  # bindings they were trained with.
+  rng = np.random.RandomState(19)
+  model, _ = _pipeline_model(config, PIPELINE_CONFIGS[2][1])
+  size = config.query_parameter("BCZPreprocessor.input_size")
+  request = {"image": rng.randint(0, 256, (SERVE_ROWS, *size, 3)).astype(
+                 np.uint8),
+             "condition_embedding": rng.randn(SERVE_ROWS, 32).astype(
+                 np.float32)}
+  serving = {"bcz": _serve_restored(
+      torch, np, predictors, model,
+      os.path.join(dirs["pipeline"], "train_bcz"), device, request, "BC-Z")}
+  model, _ = _pipeline_model(config, MOE_CONFIG)
+  serving["moe"] = _serve_restored(
+      torch, np, predictors, model, os.path.join(dirs["moe"], "train_sparse"),
+      device, {"observation": rng.randn(SERVE_ROWS, 16).astype(np.float32)},
+      "MoE")
+  config.clear_config()
+  report["serving"] = serving
+  log(f"19c: served {serving}")
+  report["phase_wall_s"] = time.perf_counter() - start
+  return report
+
+
 def main() -> int:
   import torch
 
@@ -7399,6 +7804,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   from tensor2robot_tpu_torch.ops import cem
   from tensor2robot_tpu_torch.ops import decode_kernels
   from tensor2robot_tpu_torch.ops import pcgrad
+  from tensor2robot_tpu_torch.parallel import pipeline_parallel
   from tensor2robot_tpu_torch.parallel import train_step
   from tensor2robot_tpu_torch.policies import device_cem
   from tensor2robot_tpu_torch.policies import policies
@@ -7701,6 +8107,23 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   finally:
     shutil.rmtree(mesh_dir, ignore_errors=True)
   torch.cuda.empty_cache()
+  # Phase 19: pipeline parallelism and mixture of experts, each world a
+  # set of subprocesses sharing the card over gloo.
+  pipeline_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  try:
+    launches_before = custom_launches()
+    pipeline_report = run_pipeline(torch, np, (
+        config, train_step, input_generators, predictors, pipeline_parallel),
+        card, pipeline_dir)
+    pipeline_report["custom_kernel_launches"] = [
+        now - before for now, before in zip(custom_launches(),
+                                            launches_before)]
+  finally:
+    shutil.rmtree(pipeline_dir, ignore_errors=True)
+  torch.cuda.empty_cache()
+  if any(pipeline_report["custom_kernel_launches"]):
+    raise RuntimeError(f"phase 19 launched a custom kernel: "
+                       f"{pipeline_report['custom_kernel_launches']}")
   ulysses_bf16 = mesh_report["nccl_one_rank"]["launches"]
   ulysses_f32 = mesh_report["sequence_parallel"]["ulysses"]["launches"][0]
   fwd_src = "tensor2robot_tpu_torch/csrc/flash_fwd.cu"
@@ -7791,7 +8214,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
             "bcz": bcz_report, "grasp2vec": grasp2vec_report,
             "vrgripper": vr_reports, "telemetry": telemetry_report,
             "observe": observe_report, "fleet": fleet_report,
-            "mesh": mesh_report}
+            "mesh": mesh_report, "pipeline": pipeline_report}
   os.makedirs(os.path.dirname(REPORT), exist_ok=True)
   with open(REPORT, "w") as f:
     json.dump(report, f, indent=1)
@@ -7813,6 +8236,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   print(json.dumps({"observe": _observe_line(observe_report)}))
   print(json.dumps({"fleet": _fleet_line(fleet_report)}))
   print(json.dumps({"mesh": _mesh_line(mesh_report)}))
+  print(json.dumps({"pipeline": pipeline_report}))
   print(json.dumps({"kernels": kernels}))
   print(card_line(), flush=True)
   print(json.dumps({"ok": True, "device": {

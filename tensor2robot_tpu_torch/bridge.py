@@ -31,6 +31,14 @@
   `log_temperature` (`SpatialSoftmax`) and MADE's `w1`, `b1`, `w_shift`,
   `w_scale`, `b_shift`, `b_scale` (`research/vrgripper/maf.py`, used as
   `x @ (w * mask)`) keep their names and shapes, untransposed;
+* so do the stacked pipeline and expert leaves: the pipelined trunk's
+  `stages_w1`, `stages_b1`, `stages_w2`, `stages_b2` ([S, h, h] and [S,
+  h], flax's [in, out] matrices, in whichever layout the stack holds:
+  depth order, or the interleaved order of v > 1), the heterogeneous
+  towers' raveled `pp_stages` ([S * v, P_max], each stage's flax tree
+  raveled with HWIO kernels; the stage functions permute inside), and
+  the mixture of experts' `experts_w1`, `experts_b1`, `experts_w2`,
+  `experts_b2` ([E, in, h], [E, 1, h], [E, h, out], [E, 1, out]);
 * MAML with learned inner learning rates (`{"base": params, "inner_lr":
   tree}`): the base tree maps as above under `base.`, and each scalar
   rate of the mirror tree maps to the name its parameter has, under
@@ -87,7 +95,9 @@ GRU_GATES = ("r", "z", "n")
 # Array parameters a module owns directly, carried as they are (MADE's
 # masked matrices keep their [in, out] layout).
 RAW_LEAVES = ("bias_transform", "log_temperature", "w1", "b1", "w_shift",
-              "w_scale", "b_shift", "b_scale")
+              "w_scale", "b_shift", "b_scale", "stages_w1", "stages_b1",
+              "stages_w2", "stages_b2", "pp_stages", "experts_w1",
+              "experts_b1", "experts_w2", "experts_b2")
 # flax leaf name -> the port's, for a MAML inner-rate mirror tree.
 _MIRROR_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                  **{leaf: leaf for leaf in RAW_LEAVES}}

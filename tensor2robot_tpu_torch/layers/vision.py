@@ -26,25 +26,32 @@ arg scopes; each layer here draws them in `initial_params(generator)`
   channels of each pixel (dim 1 of NCHW); BatchNorm momentum 0.99, eps
   1e-4, no scale.
 
-`PipelinedBerkeleyTower` is not ported here: it is pipeline-parallel
-work (ROADMAP.md, Queue A item 14), and `BerkeleyNet(pipelined=True)`
-raises and names that item.
+`PipelinedBerkeleyTower` is the tower's conv stack as heterogeneous
+pipeline stages (`parallel.pipeline_parallel`): conv -> LayerNorm ->
+(FiLM) -> relu per stage, every stage's parameters raveled in flax's key
+order and shapes (HWIO kernels) into one [S, P_max] leaf, `pp_stages`,
+which `bridge.py` copies as it is; each stage permutes its kernel to
+torch's layout when it runs. It returns the NHWC feature map.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tensor2robot_tpu_torch.layers import flax_layers
 from tensor2robot_tpu_torch.layers.spatial_softmax import SpatialSoftmax
+from tensor2robot_tpu_torch.models import abstract as abstract_model
 from tensor2robot_tpu_torch.ops.image_norm import normalize_image
+from tensor2robot_tpu_torch.parallel import pipeline_parallel as pp_lib
 
 __all__ = ["FilmParams", "film", "BerkeleyNet", "HighResBerkeleyNet",
-           "PoseHead", "xavier_uniform_", "truncated_normal_",
+           "PipelinedBerkeleyTower", "PoseHead", "xavier_uniform_", "truncated_normal_",
            "BATCH_NORM_DECAY", "BATCH_NORM_EPSILON", "LAYER_NORM_EPSILON"]
 
 BATCH_NORM_DECAY = 0.99
@@ -150,13 +157,8 @@ class BerkeleyNet(nn.Module):
                condition_size: int = 0,
                dtype: Optional[torch.dtype] = None,
                conv_kernel_init: Init = xavier_uniform_,
-               conv_bias: float = CONV_BIAS,
-               pipelined: bool = False):
+               conv_bias: float = CONV_BIAS):
     super().__init__()
-    if pipelined:
-      raise NotImplementedError(
-          "PipelinedBerkeleyTower (the tower as pipeline-parallel stages) "
-          "is not ported yet: ROADMAP.md, Queue A item 14.")
     if normalizer not in ("layer_norm", "batch_norm", "none"):
       raise ValueError(f"normalizer must be 'layer_norm', 'batch_norm' or "
                        f"'none', got {normalizer!r}")
@@ -207,6 +209,163 @@ class BerkeleyNet(nn.Module):
       return self.spatial_softmax(x, train=train), new_state
     x = _nhwc(x)
     return (x.reshape(x.shape[0], -1) if self.flatten else x), new_state
+
+
+class PipelinedBerkeleyTower(nn.Module):
+  """BerkeleyNet's conv stack as heterogeneous pipeline stages, the
+  semantics of `BerkeleyNet(normalizer='layer_norm')` without spatial
+  softmax: per stage a bias-free SAME conv, a LayerNorm over the channels
+  (statistics in float32, eps 1e-12), FiLM from the conditioning vector
+  when `condition_size`, relu. Stage parameters live in one [S, P_max]
+  leaf `pp_stages`, stage s's flax tree ({`film_bias`, `film_kernel`,
+  `kernel` (HWIO), `ln_bias`, `ln_scale`}) raveled in key order and
+  zero-padded. Activations travel as flat NHWC rows padded to the widest
+  stage's width, the conditioning vector riding at the end.
+
+  torch layers are not lazy: the input's (height, width, channels) are
+  constructor arguments. `forward(images, conditioning=None,
+  train=False)` returns (the NHWC map [B, H', W', C'], {}). With a `mesh`
+  whose `axis_name` has more than one rank the stages run the GPipe
+  schedule over `num_microbatches` microbatches, and `pp_stages` is this
+  rank's [1, P_max] block (the mesh train step's stage-local leaf).
+  Without one, the sequential schedule: the same function."""
+
+  def __init__(self, image_shape: Tuple[int, int, int],
+               filters: Sequence[int] = (64, 32, 32),
+               kernel_sizes: Sequence[int] = (7, 3, 3),
+               strides: Sequence[int] = (2, 1, 1),
+               condition_size: int = 0,
+               mesh=None, axis_name: str = "pp", batch_axis: str = "data",
+               num_microbatches: int = 4,
+               dtype: Optional[torch.dtype] = None):
+    super().__init__()
+    self.filters = tuple(filters)
+    self.kernel_sizes = tuple(kernel_sizes)
+    self.strides = tuple(strides)
+    self.condition_size = condition_size
+    self.mesh = mesh
+    self.axis_name = axis_name
+    self.batch_axis = batch_axis
+    self.num_microbatches = num_microbatches
+    self.dtype = dtype
+    height, width, channels = image_shape
+    self.geometry = []
+    for f, stride in zip(self.filters, self.strides):
+      out_h, out_w = -(-height // stride), -(-width // stride)
+      self.geometry.append(((height, width, channels), (out_h, out_w, f)))
+      height, width, channels = out_h, out_w, f
+    _, self.unravels, self.sizes = pp_lib.ravel_stage_stack(
+        [{name: torch.zeros(shape) for name, shape in stage.items()}
+         for stage in self._stage_shapes()])
+    self.a_max = max(int(np.prod(shape)) for in_out in self.geometry
+                     for shape in in_out) + condition_size
+    self.pp_stages = nn.Parameter(torch.zeros(len(self.geometry),
+                                              max(self.sizes)))
+
+  def _stage_shapes(self):
+    """Each stage's flax parameter shapes."""
+    stages = []
+    for i, ((_, _, cin), (_, _, cout)) in enumerate(self.geometry):
+      k = self.kernel_sizes[i]
+      shapes = {"kernel": (k, k, cin, cout), "ln_scale": (cout,),
+                "ln_bias": (cout,)}
+      if self.condition_size:
+        shapes["film_kernel"] = (self.condition_size, 2 * cout)
+        shapes["film_bias"] = (2 * cout,)
+      stages.append(shapes)
+    return stages
+
+  def initial_params(self, generator: torch.Generator
+                     ) -> Dict[str, torch.Tensor]:
+    """flax's: kernels xavier uniform over HWIO fans, LayerNorm scale 1
+    and bias 0, FiLM kernels lecun normal, FiLM biases 0."""
+
+    stages = []
+    for shapes in self._stage_shapes():
+      params = {}
+      for name in sorted(shapes):
+        shape = shapes[name]
+        if name == "kernel":
+          k, _, cin, cout = shape
+          bound = math.sqrt(6.0 / (k * k * cin + k * k * cout))
+          params[name] = (torch.rand(shape, generator=generator) * 2.0
+                          - 1.0) * bound
+        elif name == "film_kernel":
+          weight = torch.empty(shape[::-1])  # torch's [out, in]
+          abstract_model.lecun_normal_(weight, generator)
+          params[name] = weight.T.contiguous()
+        elif name == "ln_scale":
+          params[name] = torch.ones(shape)
+        else:
+          params[name] = torch.zeros(shape)
+      stages.append(params)
+    stacked, _, _ = pp_lib.ravel_stage_stack(stages)
+    return {"pp_stages": stacked}
+
+  def _stage_fn(self, i: int):
+    (in_h, in_w, cin), _ = self.geometry[i]
+    stride = self.strides[i]
+    in_size = in_h * in_w * cin
+    cond = self.condition_size
+
+    def stage_fn(p, flat):
+      mb = flat.shape[0]
+      compute = self.dtype or flat.dtype
+      act = flat[:, :in_size].reshape(mb, in_h, in_w, cin).to(compute)
+      y = flax_layers.conv2d(act.permute(0, 3, 1, 2),
+                             p["kernel"].permute(3, 2, 0, 1).to(compute),
+                             stride=stride)
+      # LayerNorm over the channels, statistics in float32 (jnp.var).
+      wide = y.float()
+      mean = wide.mean(dim=1, keepdim=True)
+      var = wide.var(dim=1, keepdim=True, unbiased=False)
+      y = ((wide - mean) * torch.rsqrt(var + LAYER_NORM_EPSILON)).to(compute)
+      y = (y * p["ln_scale"].to(compute)[:, None, None]
+           + p["ln_bias"].to(compute)[:, None, None])
+      if cond:
+        cvec = flat[:, in_size:in_size + cond].to(compute)
+        out_film = cvec @ p["film_kernel"].to(compute) \
+            + p["film_bias"].to(compute)
+        gamma, beta = out_film.chunk(2, dim=-1)
+        y = film(y, gamma, beta)
+      y = F.relu(y).permute(0, 2, 3, 1).reshape(mb, -1)
+      if cond:
+        y = torch.cat([y, flat[:, in_size:in_size + cond].to(y.dtype)], -1)
+      return y
+
+    return stage_fn
+
+  def forward(self, images: torch.Tensor,
+              conditioning: Optional[torch.Tensor] = None,
+              train: bool = False
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+
+    del train  # no train-mode behaviour
+    if bool(self.condition_size) != (conditioning is not None):
+      raise ValueError("condition_size and conditioning must agree")
+    x = normalize_image(images, self.dtype)
+    batch = x.shape[0]
+    flat_in = x.reshape(batch, -1)
+    if self.condition_size:
+      flat_in = torch.cat([flat_in, conditioning.to(flat_in.dtype)], -1)
+    flat_in = F.pad(flat_in, (0, self.a_max - flat_in.shape[-1]))
+    stage_fns = [self._stage_fn(i) for i in range(len(self.geometry))]
+    if self.mesh is not None:
+      m = self.num_microbatches
+      if batch % m:
+        raise ValueError(
+            f"batch size {batch} not divisible into {m} microbatches")
+      out = pp_lib.pipelined_apply_heterogeneous(
+          stage_fns, self.unravels, self.sizes, self.pp_stages,
+          flat_in.reshape(m, batch // m, self.a_max), self.mesh,
+          axis_name=self.axis_name, batch_axis=self.batch_axis, local=True)
+    else:
+      out = pp_lib.sequential_apply_heterogeneous(
+          stage_fns, self.unravels, self.sizes, self.pp_stages, flat_in[None])
+    out_h, out_w, out_c = self.geometry[-1][1]
+    features = out.reshape(batch, self.a_max)[:, :out_h * out_w * out_c]
+    compute = self.dtype or features.dtype
+    return features.reshape(batch, out_h, out_w, out_c).to(compute), {}
 
 
 class HighResBerkeleyNet(nn.Module):

@@ -164,6 +164,30 @@ class T2RModel(abc.ABC):
       validate(mesh)
     self._mesh = mesh
 
+  @staticmethod
+  def _validate_pp_stage_count(mesh, pp_axis: str, num_stages: int,
+                               what: str = "trunk",
+                               num_virtual_stages: int = 1) -> None:
+    """A >1 `pp_axis` must match the pipelined trunk's stage count: the
+    schedules place `num_virtual_stages` chunks on each pp rank (one for
+    GPipe, v for interleaved 1F1B)."""
+    if pp_axis in mesh.shape and mesh.shape[pp_axis] > 1 \
+        and mesh.shape[pp_axis] * num_virtual_stages != num_stages:
+      raise ValueError(
+          f"mesh axis {pp_axis!r} has size {mesh.shape[pp_axis]} and "
+          f"num_virtual_stages={num_virtual_stages} but the {what} has "
+          f"{num_stages} stages; stages must match ranks x virtual "
+          "chunks.")
+
+  def stage_local_axes(self, name: str) -> Tuple[str, ...]:
+    """The mesh axes over which the module takes parameter `name` as
+    this rank's block, as a mesh state holds it: the train step never
+    gathers such a leaf (`parallel.train_step`). () for a parameter the
+    module takes whole: every parameter, unless a model says otherwise
+    (a pipelined trunk's stage stack, an all-to-all expert stack)."""
+    del name
+    return ()
+
   # -- abstract model surface ----------------------------------------------
 
   @abc.abstractmethod

@@ -15,6 +15,10 @@ single-device math. Differentiable ones:
   inverse permutation (`PPermute`).
 * `all_reduce_sum` — its backward is the same sum of the cotangents
   (`AllReduceSum`); batch norm's statistics over a sharded batch use it.
+* `all_gather_batch` — the whole batch from each rank's rows; its
+  backward hands each rank the sum of every rank's cotangent of its
+  block, a reduce-scatter (`AllGather`); a loss that compares rows
+  across the batch (Grasp2Vec's npairs) uses it.
 
 Not differentiable: `all_reduce` (sum or max), `all_gather` and
 `reduce_scatter` along a dim, `broadcast`, `barrier`.
@@ -46,7 +50,8 @@ import torch.distributed as dist
 __all__ = ["all_to_all", "ppermute", "all_reduce_sum", "all_reduce",
            "all_gather", "reduce_scatter", "broadcast", "barrier",
            "axis_index", "host_staging", "batch_group", "current_batch_group",
-           "AllToAll", "PPermute", "AllReduceSum", "staged_calls"]
+           "all_gather_batch", "AllToAll", "PPermute", "AllReduceSum",
+           "AllGather", "staged_calls"]
 
 _state = threading.local()
 staged_calls = {"count": 0}
@@ -271,6 +276,20 @@ class AllReduceSum(torch.autograd.Function):
     return all_reduce(grad, ctx.group), None
 
 
+class AllGather(torch.autograd.Function):
+  """`all_gather` over dim 0; every rank's copy of the gathered batch
+  sends its cotangent back, so a rank's block receives their sum."""
+
+  @staticmethod
+  def forward(ctx, tensor, group):
+    ctx.group = group
+    return all_gather(tensor, group)
+
+  @staticmethod
+  def backward(ctx, grad):
+    return reduce_scatter(grad.contiguous(), ctx.group), None
+
+
 def all_to_all(tensor: torch.Tensor, group) -> torch.Tensor:
   """Differentiable all_to_all over dim 0 of [group.size, ...]."""
   if group.size == 1:
@@ -291,3 +310,12 @@ def all_reduce_sum(tensor: torch.Tensor, group) -> torch.Tensor:
   if group is None or group.size == 1:
     return tensor
   return AllReduceSum.apply(tensor, group)
+
+
+def all_gather_batch(tensor: torch.Tensor, group) -> torch.Tensor:
+  """Differentiable: the whole batch from this rank's rows, the group's
+  equal blocks concatenated on dim 0 in group order (None or a group of
+  one: `tensor`)."""
+  if group is None or group.size == 1:
+    return tensor
+  return AllGather.apply(tensor, group)

@@ -44,7 +44,18 @@ their parameter; everything else is replicated. Each step
    the sp ranks' partial gradients (each a mean over its T block, the
    cotangents of the other blocks' K/V sent back by the collectives'
    backward) add up, and the fsdp peers, which see the same batch,
-   average to one copy;
+   average to one copy. A loss that compares rows across the batch
+   gathers them (`collectives.all_gather_batch` over
+   `collectives.current_batch_group()`), so every data rank's loss is the
+   global one and their mean is too;
+   A STAGE-LOCAL leaf (`T2RModel.stage_local_axes`: a pipeline's
+   `pp`-sharded stage stack, the all-to-all expert stack sharded over the
+   token axis, which the partition rules must shard over exactly those
+   axes) is handed to the model as this rank's block: it is never
+   gathered and never reduce-scattered, and its gradient, which the
+   block's own collectives' backward already carries from every rank of
+   its axes, is summed over the ranks that hold the same block and
+   divided by the mesh size like every other;
 4. updates this rank's blocks: the optimizer is elementwise, and its
    global-norm clip reads the norm over all blocks
    (`optimizers.sharded_norms`);
@@ -383,9 +394,18 @@ class _MeshOps:
   """The collectives of the step on a mesh, for one state layout."""
 
   def __init__(self, mesh, shardings: TrainState, batch_axis: str,
-               batch_spec):
+               batch_spec, model=None):
     self.mesh = mesh
     self.specs = {k: v.spec for k, v in shardings.params.items()}
+    # The leaves the model takes as this rank's block (module docstring).
+    local_axes = getattr(model, "stage_local_axes", lambda name: ())
+    self.local = {k for k in self.specs if local_axes(k)}
+    for k in self.local:
+      if set(self._axes(k)) != set(local_axes(k)):
+        raise ValueError(
+            f"the model takes {k!r} as this rank's block over "
+            f"{tuple(local_axes(k))}: the partition rules must shard it "
+            f"over exactly those axes, not {self.specs[k]}")
     spec = tuple(batch_spec) if batch_spec is not None else (batch_axis,)
     # Batch norm's statistics cover the axes the batch is split over.
     self.batch_group = mesh.group(
@@ -397,8 +417,10 @@ class _MeshOps:
                  for a in mesh_lib._spec_axes(entry))
 
   def gather(self, params: Params) -> Params:
-    """The full parameters from this rank's blocks."""
-    return {k: mesh_lib.unshard(v, self.mesh, self.specs[k])
+    """The parameters the model runs on: the full ones from this rank's
+    blocks, a stage-local leaf's block as it is."""
+    return {k: v if k in self.local else mesh_lib.unshard(v, self.mesh,
+                                                          self.specs[k])
             for k, v in params.items()}
 
   def reduce(self, grads: Params) -> Params:
@@ -420,7 +442,8 @@ class _MeshOps:
         summed[k] = piece.view_as(grads[k])
     out = {}
     for name, g in summed.items():
-      for dim, entry in enumerate(self.specs[name]):
+      for dim, entry in enumerate(() if name in self.local
+                                  else self.specs[name]):
         axes = mesh_lib._spec_axes(entry)
         if axes:
           g = collectives.reduce_scatter(g, self.mesh.group(axes), dim=dim)
@@ -496,7 +519,7 @@ def make_grad_fn(model, mesh, shardings: TrainState,
   a mesh, without the update: the loss the mean over the ranks, the
   gradients this rank's blocks of the global batch's (gather them with
   `gather_state`'s layout: `mesh.unshard` by `shardings.params`)."""
-  ops = _MeshOps(mesh, shardings, batch_axis, batch_spec)
+  ops = _MeshOps(mesh, shardings, batch_axis, batch_spec, model)
   gradients = _gradients_fn(model, ops)
 
   def grad_fn(state: TrainState, features, labels):
@@ -533,7 +556,7 @@ def make_train_step(model, mesh=None, shardings: Optional[TrainState] = None,
   ema_decay = model.ema_decay
   if mesh is not None and shardings is None:
     raise ValueError("a train step on a mesh needs the state's shardings")
-  ops = (_MeshOps(mesh, shardings, batch_axis, batch_spec)
+  ops = (_MeshOps(mesh, shardings, batch_axis, batch_spec, model)
          if mesh is not None else None)
   if donate is None:
     donate = mesh is not None
@@ -641,7 +664,7 @@ def make_eval_step(model, use_ema: bool = True, mesh=None,
   """(state, features, labels) -> the model's eval metric scalars, as
   0-dim tensors on the device. On a mesh (as `make_train_step`), each
   metric is the mean over the ranks of their blocks' metrics."""
-  ops = (_MeshOps(mesh, shardings, batch_axis, batch_spec)
+  ops = (_MeshOps(mesh, shardings, batch_axis, batch_spec, model)
          if mesh is not None else None)
 
   @torch.no_grad()
@@ -687,7 +710,7 @@ def make_predict_fn(model, use_ema: bool = True, mesh=None,
   bfloat16 outputs cast to float32. On a mesh the parameters are
   gathered first and `features` are a whole batch: every rank predicts
   it (a sequence-parallel model predicts its T block of it)."""
-  ops = (_MeshOps(mesh, shardings, "data", None)
+  ops = (_MeshOps(mesh, shardings, "data", None, model)
          if mesh is not None else None)
 
   @torch.no_grad()

@@ -11,9 +11,12 @@ Counterpart of `tensor2robot_tpu.research.bcz.models`:
   from a `torch.Generator` seeded `seed + n` (the call counter is kept);
   mixup's weight is numpy's `default_rng(seed + n).beta`, the JAX
   package's own draw. Tensors stay on the device they came on;
-* `BCZModel`: a FiLM-ResNet (`resnet_film`) or spatial-softmax
-  `BerkeleyNet` trunk conditioned on a language embedding, a one-hot
-  subtask id and/or a user embedding, optionally a GRU over past frames,
+* `BCZModel`: a FiLM-ResNet (`resnet_film`), the pipelined Berkeley
+  conv stack (`pipelined_berkeley`: `vision.PipelinedBerkeleyTower` with
+  the `pipeline_*` knobs, then the spatial softmax `tower_ssm`) or else
+  a spatial-softmax `BerkeleyNet` trunk conditioned on a language
+  embedding, a one-hot subtask id and/or a user embedding, optionally a
+  GRU over past frames,
   the stop-gradient `MultiHeadMLP` waypoint decoder, a stop head on
   detached features and a 3-class stop-state head; per-component huber
   losses masked after the stop, the stop and stop-state losses, gripper
@@ -30,8 +33,18 @@ init; here `use_present_pose` says so up front (a batch that carries it
 without the flag raises). The task-embedding noise, `make_rng('dropout')`
 in JAX, is drawn from a `torch.Generator` seeded `NOISE_SEED` on the
 noise's device, or from `network.noise_fn` where a caller injects it.
-`network='pipelined_berkeley'` (the trunk as pipeline-parallel stages)
-is not ported: it raises and names ROADMAP.md, Queue A item 14.
+
+With `network='pipelined_berkeley'` and a mesh whose `pp_axis` has more
+than one rank (`set_mesh`, before the module is built) the conv stages
+run the heterogeneous GPipe schedule over `pipeline_microbatches`
+microbatches of this rank's rows; the spatial softmax and the heads run
+data-parallel after it. The tower's `pp_stages` is then stage-local
+(`stage_local_axes`). Without such a mesh, the sequential schedule.
+On any mesh whose batch is split over data ranks, the losses and eval
+metrics read the whole batch (each rank gathers every rank's rows over
+the batch's axes, `collectives.all_gather_batch`): the masked means
+normalise by the whole batch's active elements, as the JAX package's
+jitted step does.
 """
 
 from __future__ import annotations
@@ -48,8 +61,10 @@ from tensor2robot_tpu_torch import modes as modes_lib
 from tensor2robot_tpu_torch import specs as specs_lib
 from tensor2robot_tpu_torch.layers import bcz_networks, film_resnet, vision
 from tensor2robot_tpu_torch.layers import flax_layers
+from tensor2robot_tpu_torch.layers.spatial_softmax import SpatialSoftmax
 from tensor2robot_tpu_torch.models import abstract as abstract_model
 from tensor2robot_tpu_torch.ops.image_norm import normalize_image
+from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.preprocessors import base as preprocessors_lib
 from tensor2robot_tpu_torch.preprocessors import image_ops
 from tensor2robot_tpu_torch.specs import SpecStruct, TensorSpec
@@ -253,13 +268,15 @@ class _BCZNetwork(nn.Module):
                use_present_pose: bool = False,
                predict_stop: bool = True,
                predict_stop_state: bool = False,
-               dtype: Optional[torch.dtype] = None):
+               dtype: Optional[torch.dtype] = None,
+               image_size: int = 64,
+               pp_mesh=None,
+               pp_axis: str = "pp",
+               pp_num_microbatches: int = 4,
+               pp_filters: Tuple[int, ...] = (64, 32, 32, 32),
+               pp_kernel_sizes: Tuple[int, ...] = (7, 3, 3, 3),
+               pp_strides: Tuple[int, ...] = (2, 1, 1, 1)):
     super().__init__()
-    if network == "pipelined_berkeley":
-      raise NotImplementedError(
-          "BCZModel(network='pipelined_berkeley') (the trunk as "
-          "pipeline-parallel stages) is not ported yet: ROADMAP.md, Queue A "
-          "item 14.")
     self.components = components
     self.num_waypoints = num_waypoints
     self.network = network
@@ -289,6 +306,14 @@ class _BCZNetwork(nn.Module):
                                        version=resnet_version,
                                        condition_size=cond_width, dtype=dtype)
       width = 2048 if resnet_size >= film_resnet.BOTTLENECK_FROM else 512
+    elif network == "pipelined_berkeley":
+      self.tower = vision.PipelinedBerkeleyTower(
+          (image_size, image_size, 3), filters=pp_filters,
+          kernel_sizes=pp_kernel_sizes, strides=pp_strides,
+          condition_size=cond_width, mesh=pp_mesh, axis_name=pp_axis,
+          num_microbatches=pp_num_microbatches, dtype=dtype)
+      self.tower_ssm = SpatialSoftmax()
+      width = 2 * pp_filters[-1]
     else:
       self.tower = vision.BerkeleyNet(3, condition_size=cond_width,
                                       dtype=dtype)
@@ -368,6 +393,9 @@ class _BCZNetwork(nn.Module):
     if self.network == "resnet_film":
       feats, _, trunk_state = self.resnet(image, conditioning, train=train)
       state = {f"resnet.{k}": v for k, v in trunk_state.items()}
+    elif self.network == "pipelined_berkeley":
+      fmap, state = self.tower(image, conditioning, train=train)
+      feats = self.tower_ssm(fmap.permute(0, 3, 1, 2), train=train)
     else:
       feats, trunk_state = self.tower(image, conditioning, train=train)
       state = {f"tower.{k}": v for k, v in trunk_state.items()}
@@ -439,14 +467,14 @@ class BCZModel(abstract_model.T2RModel):
                loss_clip_slope: float = 0.001,
                stop_loss_weight: float = 0.1,
                gripper_metrics_component: Optional[str] = None,
+               pipeline_microbatches: int = 4,
+               pipeline_filters: Sequence[int] = (64, 32, 32, 32),
+               pipeline_kernel_sizes: Sequence[int] = (7, 3, 3, 3),
+               pipeline_strides: Sequence[int] = (2, 1, 1, 1),
+               pp_axis: str = "pp",
                **kwargs):
     kwargs.setdefault("preprocessor_cls", BCZPreprocessor)
     super().__init__(**kwargs)
-    if network == "pipelined_berkeley":
-      raise NotImplementedError(
-          "BCZModel(network='pipelined_berkeley') (the trunk as "
-          "pipeline-parallel stages) is not ported yet: ROADMAP.md, Queue A "
-          "item 14.")
     if condition_mode is None and condition_size:
       condition_mode = "language"  # condition_size alone implies it
     if condition_mode not in (None, "language", "onehot_taskid"):
@@ -479,6 +507,37 @@ class BCZModel(abstract_model.T2RModel):
     self._loss_clip_slope = loss_clip_slope
     self._stop_loss_weight = stop_loss_weight
     self._gripper_metrics_component = gripper_metrics_component
+    self._pipeline_microbatches = pipeline_microbatches
+    self._pipeline_filters = tuple(pipeline_filters)
+    self._pipeline_kernel_sizes = tuple(pipeline_kernel_sizes)
+    self._pipeline_strides = tuple(pipeline_strides)
+    self._pp_axis = pp_axis
+    self._mesh = None
+
+  def set_mesh(self, mesh) -> None:
+    """Receives the training mesh. With network='pipelined_berkeley' and
+    a >1 `pp_axis`, the conv trunk runs the heterogeneous GPipe schedule;
+    otherwise it runs sequentially (the same function)."""
+
+    def validate(m):
+      if self._network == "pipelined_berkeley":
+        self._validate_pp_stage_count(m, self._pp_axis,
+                                      len(self._pipeline_filters),
+                                      what="pipelined trunk")
+
+    self._set_mesh_guarded(mesh, validate)
+
+  def _pipelined_mesh(self):
+    mesh = self._mesh
+    if (mesh is not None and self._network == "pipelined_berkeley"
+        and mesh.shape.get(self._pp_axis, 1) > 1):
+      return mesh
+    return None
+
+  def stage_local_axes(self, name: str) -> Tuple[str, ...]:
+    if self._pipelined_mesh() is not None and name == "tower.pp_stages":
+      return (self._pp_axis,)
+    return ()
 
   def get_feature_specification(self, mode):
     out = SpecStruct({
@@ -543,9 +602,31 @@ class BCZModel(abstract_model.T2RModel):
         use_present_pose=self._use_present_pose,
         predict_stop=self._predict_stop,
         predict_stop_state=self._predict_stop_state,
-        dtype=self.compute_dtype if self.use_bfloat16 else None)
+        dtype=self.compute_dtype if self.use_bfloat16 else None,
+        image_size=self._image_size, pp_mesh=self._pipelined_mesh(),
+        pp_axis=self._pp_axis,
+        pp_num_microbatches=self._pipeline_microbatches,
+        pp_filters=self._pipeline_filters,
+        pp_kernel_sizes=self._pipeline_kernel_sizes,
+        pp_strides=self._pipeline_strides)
+
+  def _whole_batch(self, labels, inference_outputs):
+    """The labels and the outputs the losses read, over the whole batch:
+    on a data split, every rank's rows gathered (differentiably). The
+    masked means normalise by the whole batch's active elements and the
+    clip reads the whole batch's mean, as the global batch's loss does."""
+    group = collectives.current_batch_group()
+    keys = [name for name, _, _, _ in self._components] + [
+        STOP_KEY, STOP_STATE_KEY]
+    whole = lambda x: collectives.all_gather_batch(x, group)
+    return ({k: whole(v) for k, v in labels.items()},
+            {k: whole(inference_outputs[k]) for k in keys
+             if k in inference_outputs})
 
   def model_train_fn(self, features, labels, inference_outputs, mode):
+    return self._loss(*self._whole_batch(labels, inference_outputs))
+
+  def _loss(self, labels, inference_outputs):
     scalars: Dict[str, torch.Tensor] = {}
     total = 0.0
     # No action loss after the episode stops.
@@ -608,8 +689,8 @@ class BCZModel(abstract_model.T2RModel):
     return metrics
 
   def model_eval_fn(self, features, labels, inference_outputs):
-    loss, scalars = self.model_train_fn(features, labels, inference_outputs,
-                                        modes_lib.EVAL)
+    labels, inference_outputs = self._whole_batch(labels, inference_outputs)
+    loss, scalars = self._loss(labels, inference_outputs)
     metrics = {"loss": loss, **scalars}
     for name, _, _, _ in self._components:
       metrics[f"mae/{name}"] = torch.abs(inference_outputs[name]
@@ -620,6 +701,8 @@ class BCZModel(abstract_model.T2RModel):
           pred == labels[STOP_STATE_KEY].to(pred.dtype)).to(
               torch.float32).mean()
     if self._gripper_metrics_component and "present_gripper" in features:
-      metrics.update(self._gripper_metrics(features, labels,
-                                           inference_outputs))
+      present = collectives.all_gather_batch(
+          features["present_gripper"], collectives.current_batch_group())
+      metrics.update(self._gripper_metrics({"present_gripper": present},
+                                           labels, inference_outputs))
     return metrics

@@ -10,16 +10,27 @@ metrics when the labels carry them).
 
 Towers: 'conv' is a stack of 3x3/2 convs (with biases), each followed by
 a LayerNorm over the channels (flax's eps 1e-6) and relu; 'resnet' is the
-FiLM-ResNet's `block_layer4` endpoint without conditioning.
-'pipelined_conv' (the conv stack as pipeline-parallel stages) is not
-ported: it raises and names ROADMAP.md, Queue A item 14. Module names are
-flax's (`scene.conv_0`, `scene.norm_0`, `scene.resnet...`, `scene.proj`,
-`goal.proj`), so `bridge.py` carries a JAX tree across.
+FiLM-ResNet's `block_layer4` endpoint without conditioning;
+'pipelined_conv' is the stride-2 3x3 conv/LayerNorm/relu stack as
+heterogeneous pipeline stages (`vision.PipelinedBerkeleyTower`, no conv
+bias, LayerNorm eps 1e-12, one `tower.pp_stages` leaf per embedding). With
+a mesh whose `pp_axis` has more than one rank (`set_mesh`) both towers
+run the GPipe schedule over `pipeline_microbatches` microbatches, and
+their `pp_stages` are stage-local (`stage_local_axes`); otherwise the
+sequential schedule, the same function. Module names are flax's
+(`scene.conv_0`, `scene.norm_0`, `scene.resnet...`, `scene.tower`,
+`scene.proj`, `goal.proj`), so `bridge.py` carries a JAX tree across.
 
 The scene tower runs twice per batch (pregrasp and postgrasp). With the
 resnet tower in train mode flax updates its batch statistics twice, the
 second update starting from the first's result; the network composes the
 two updates the same way.
+
+On a mesh whose batch is split over data ranks, the embedding objectives
+and the retrieval accuracy read the whole batch: each rank gathers every
+rank's embeddings over the batch's axes (`collectives.all_gather_batch`),
+so the loss is the global batch's, as the JAX package's jitted step
+computes it.
 """
 
 from __future__ import annotations
@@ -33,9 +44,10 @@ from torch import nn
 
 from tensor2robot_tpu_torch import modes as modes_lib
 from tensor2robot_tpu_torch.layers import film_resnet
-from tensor2robot_tpu_torch.layers import flax_layers
+from tensor2robot_tpu_torch.layers import flax_layers, vision
 from tensor2robot_tpu_torch.models import abstract as abstract_model
 from tensor2robot_tpu_torch.ops.image_norm import normalize_image
+from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.research.grasp2vec import losses as g2v_losses
 from tensor2robot_tpu_torch.specs import SpecStruct, TensorSpec
 from tensor2robot_tpu_torch.utils import config
@@ -50,25 +62,30 @@ State = Dict[str, torch.Tensor]
 
 
 def _check_tower(tower: str) -> None:
-  if tower == "pipelined_conv":
-    raise NotImplementedError(
-        "Grasp2Vec(tower='pipelined_conv') (the conv tower as "
-        "pipeline-parallel stages) is not ported yet: ROADMAP.md, Queue A "
-        "item 14.")
   if tower not in TOWERS:
     raise ValueError(f"tower must be one of {TOWERS}, got {tower!r}")
 
 
 class _Embedding(nn.Module):
-  """A tower ('conv' or 'resnet') built onto this module, as flax builds
-  it inside the embedding's scope."""
+  """A tower ('conv', 'resnet' or 'pipelined_conv') built onto this
+  module, as flax builds it inside the embedding's scope."""
 
   def __init__(self, tower: str, filters: Sequence[int], resnet_size: int,
-               dtype: Optional[torch.dtype]):
+               dtype: Optional[torch.dtype], image_size: int = 48,
+               pp_mesh=None, pp_axis: str = "pp",
+               pp_num_microbatches: int = 4):
     super().__init__()
     _check_tower(tower)
-    self.tower = tower
+    self.tower_type = tower
     self.dtype = dtype
+    if tower == "pipelined_conv":
+      self.tower = vision.PipelinedBerkeleyTower(
+          (image_size, image_size, 3), filters=filters,
+          kernel_sizes=(3,) * len(filters), strides=(2,) * len(filters),
+          mesh=pp_mesh, axis_name=pp_axis,
+          num_microbatches=pp_num_microbatches, dtype=dtype)
+      self.tower_channels = filters[-1]
+      return
     if tower == "resnet":
       self.resnet = film_resnet.ResNet(3, resnet_size=resnet_size,
                                        dtype=dtype)
@@ -86,7 +103,9 @@ class _Embedding(nn.Module):
   def spatial(self, image: torch.Tensor, train: bool
               ) -> Tuple[torch.Tensor, State]:
     """NHWC image -> (NHWC features, new batch statistics)."""
-    if self.tower == "resnet":
+    if self.tower_type == "pipelined_conv":
+      return self.tower(image, train=train)
+    if self.tower_type == "resnet":
       _, endpoints, state = self.resnet(image, train=train)
       return endpoints["block_layer4"], {f"resnet.{k}": v
                                          for k, v in state.items()}
@@ -109,8 +128,9 @@ class SceneEmbedding(_Embedding):
 
   def __init__(self, embedding_size: int = 64,
                filters: Sequence[int] = (32, 64, 64), tower: str = "conv",
-               resnet_size: int = 18, dtype: Optional[torch.dtype] = None):
-    super().__init__(tower, filters, resnet_size, dtype)
+               resnet_size: int = 18, dtype: Optional[torch.dtype] = None,
+               **tower_kwargs):
+    super().__init__(tower, filters, resnet_size, dtype, **tower_kwargs)
     self.proj = nn.Conv2d(self.tower_channels, embedding_size, 1)
 
   def forward(self, image: torch.Tensor, train: bool = False):
@@ -125,8 +145,9 @@ class GoalEmbedding(_Embedding):
 
   def __init__(self, embedding_size: int = 64,
                filters: Sequence[int] = (32, 64, 64), tower: str = "conv",
-               resnet_size: int = 18, dtype: Optional[torch.dtype] = None):
-    super().__init__(tower, filters, resnet_size, dtype)
+               resnet_size: int = 18, dtype: Optional[torch.dtype] = None,
+               **tower_kwargs):
+    super().__init__(tower, filters, resnet_size, dtype, **tower_kwargs)
     self.proj = nn.Linear(self.tower_channels, embedding_size)
 
   def forward(self, image: torch.Tensor, train: bool = False):
@@ -153,13 +174,13 @@ class _Grasp2VecNetwork(nn.Module):
 
   def __init__(self, embedding_size: int = 64, tower: str = "conv",
                filters: Sequence[int] = (32, 64, 64), resnet_size: int = 18,
-               dtype: Optional[torch.dtype] = None):
+               dtype: Optional[torch.dtype] = None, **tower_kwargs):
     super().__init__()
     self.dtype = dtype
     self.scene = SceneEmbedding(embedding_size, filters, tower, resnet_size,
-                                dtype)
+                                dtype, **tower_kwargs)
     self.goal = GoalEmbedding(embedding_size, filters, tower, resnet_size,
-                              dtype)
+                              dtype, **tower_kwargs)
 
   def forward(self, features, mode: str = modes_lib.TRAIN,
               train: bool = False):
@@ -204,6 +225,8 @@ class Grasp2VecModel(abstract_model.T2RModel):
                non_negativity_constraint: bool = False,
                triplet_margin: float = 3.0,
                ty_loss_weight: float = 0.0,
+               pipeline_microbatches: int = 4,
+               pp_axis: str = "pp",
                **kwargs):
     super().__init__(**kwargs)
     if loss_type not in self.LOSS_TYPES:
@@ -219,6 +242,34 @@ class Grasp2VecModel(abstract_model.T2RModel):
     self._non_negativity_constraint = non_negativity_constraint
     self._triplet_margin = triplet_margin
     self._ty_loss_weight = ty_loss_weight
+    self._pipeline_microbatches = pipeline_microbatches
+    self._pp_axis = pp_axis
+    self._mesh = None
+
+  def set_mesh(self, mesh) -> None:
+    """Receives the training mesh. With tower='pipelined_conv' and a >1
+    `pp_axis`, both embedding towers run their conv stacks as
+    heterogeneous GPipe stages; otherwise the sequential schedule."""
+
+    def validate(m):
+      if self._tower == "pipelined_conv":
+        self._validate_pp_stage_count(m, self._pp_axis, len(self._filters),
+                                      what="pipelined tower")
+
+    self._set_mesh_guarded(mesh, validate)
+
+  def _pipelined_mesh(self):
+    mesh = self._mesh
+    if (mesh is not None and self._tower == "pipelined_conv"
+        and mesh.shape.get(self._pp_axis, 1) > 1):
+      return mesh
+    return None
+
+  def stage_local_axes(self, name: str) -> Tuple[str, ...]:
+    if self._pipelined_mesh() is not None and name in (
+        "scene.tower.pp_stages", "goal.tower.pp_stages"):
+      return (self._pp_axis,)
+    return ()
 
   def get_feature_specification(self, mode):
     image = lambda name: TensorSpec(
@@ -246,7 +297,10 @@ class Grasp2VecModel(abstract_model.T2RModel):
     return _Grasp2VecNetwork(
         embedding_size=self._embedding_size, tower=self._tower,
         filters=self._filters, resnet_size=self._resnet_size,
-        dtype=self.compute_dtype if self.use_bfloat16 else None)
+        dtype=self.compute_dtype if self.use_bfloat16 else None,
+        image_size=self._image_size, pp_mesh=self._pipelined_mesh(),
+        pp_axis=self._pp_axis,
+        pp_num_microbatches=self._pipeline_microbatches)
 
   @staticmethod
   def _label(labels, key: str) -> Optional[torch.Tensor]:
@@ -254,11 +308,21 @@ class Grasp2VecModel(abstract_model.T2RModel):
       return labels[key]
     return None
 
+  @staticmethod
+  def _whole_batch(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """`x` over the whole batch: on a data split, every rank's rows
+    gathered (differentiably), as the global batch's loss reads them."""
+    if x is None:
+      return None
+    return collectives.all_gather_batch(x,
+                                        collectives.current_batch_group())
+
   def model_train_fn(self, features, labels, inference_outputs, mode):
-    pre = inference_outputs["pregrasp_embedding"]
-    post = inference_outputs["postgrasp_embedding"]
-    goal = inference_outputs["goal_embedding"]
-    success = self._label(labels, "grasp_success")
+    # The embedding losses compare every row with every other (npairs'
+    # negatives are the batch's other rows), so they read the whole batch.
+    pre, post, goal = (self._whole_batch(inference_outputs[k]) for k in (
+        "pregrasp_embedding", "postgrasp_embedding", "goal_embedding"))
+    success = self._whole_batch(self._label(labels, "grasp_success"))
     if self._loss_type == "npairs":
       loss = g2v_losses.npairs_loss_bidirectional(
           pre, goal, post,
@@ -276,8 +340,10 @@ class Grasp2VecModel(abstract_model.T2RModel):
       loss = g2v_losses.cosine_arithmetic_loss(pre, goal, post, mask=success)
     scalars = {"embed_loss": loss}
     if self._ty_loss_weight:
+      # A mean over rows: this rank's rows' mean averages to the batch's.
       ty = g2v_losses.ty_loss(inference_outputs["pregrasp_spatial"],
-                              inference_outputs["postgrasp_spatial"], goal)
+                              inference_outputs["postgrasp_spatial"],
+                              inference_outputs["goal_embedding"])
       scalars["ty_loss"] = ty
       loss = loss + self._ty_loss_weight * ty
     return loss, scalars
@@ -285,8 +351,8 @@ class Grasp2VecModel(abstract_model.T2RModel):
   def model_eval_fn(self, features, labels, inference_outputs):
     loss, scalars = self.model_train_fn(features, labels, inference_outputs,
                                         modes_lib.EVAL)
-    arithmetic = inference_outputs["arithmetic_embedding"]
-    goal = inference_outputs["goal_embedding"]
+    arithmetic = self._whole_batch(inference_outputs["arithmetic_embedding"])
+    goal = self._whole_batch(inference_outputs["goal_embedding"])
     # Does each arithmetic embedding rank its own goal first? argmax
     # takes the first of tied maxima, as jnp's does.
     sims = arithmetic @ goal.T

@@ -494,8 +494,18 @@ def test_present_pose_needs_the_flag():
 
 
 def test_pipelined_trunk_waits_for_item_14():
-  with pytest.raises(NotImplementedError, match="Queue A item 14"):
-    models.BCZModel(network="pipelined_berkeley")
+  """The ported pipelined trunk (the raise this test once pinned is
+  gone): `network='pipelined_berkeley'` with user conditioning and the
+  `pipeline_*` knobs, one train-mode loss and gradient against JAX's
+  sequential schedule."""
+  kw = dict(image_size=20, network="pipelined_berkeley", condition_size=5,
+            num_users=3, pipeline_filters=(6, 4), pipeline_kernel_sizes=(5, 3),
+            pipeline_strides=(2, 1), pipeline_microbatches=2)
+  jax_model, model = _models(**kw)
+  features = _features(6, 20, np.float32, condition_size=5, users=3)
+  labels = _labels(7, models.POSE_COMPONENTS, np.float32)
+  _, got = _train_parity(jax_model, model, features, labels, np.float32)
+  assert "tower.pp_stages" in got[3]
 
 
 def test_helpers_match():

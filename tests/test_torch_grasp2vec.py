@@ -352,8 +352,25 @@ def test_fresh_parameters_have_flax_s_names_and_shapes(tower):
 
 
 def test_pipelined_tower_waits_for_item_14():
-  with pytest.raises(NotImplementedError, match="Queue A item 14"):
-    models.Grasp2VecModel(tower="pipelined_conv")
+  """The ported pipelined towers (the raise this test once pinned is
+  gone): `tower='pipelined_conv'`'s fresh parameters have flax's names
+  and shapes, and its eval outputs match JAX's sequential schedule; an
+  unknown tower still raises."""
+  jax_model, model = _models(tower="pipelined_conv")
+  features = _images(22, np.float32)
+  variables = _variables(jax_model, features)
+  params, buffers = _port_variables(model, variables)
+  assert {k for k in params if k.endswith("pp_stages")} == {
+      "scene.tower.pp_stages", "goal.tower.pp_stages"}
+  fresh = model.init_params(torch.Generator().manual_seed(0))
+  assert {k: tuple(v.shape) for k, v in fresh.items()} == {
+      k: tuple(v.shape) for k, v in params.items()}
+  want, _ = jax_model.inference_network_fn(
+      variables, JaxSpecStruct(features), jax_modes.EVAL)
+  got, _ = model.inference_network_fn(
+      params, buffers, parity.port_inputs(features, torch.float32), "eval")
+  for key in ("pregrasp_embedding", "goal_embedding", "heatmap"):
+    assert parity.scaled_err(got[key], want[key]) <= F32_TOL, key
   with pytest.raises(ValueError, match="tower"):
     models.Grasp2VecModel(tower="mlp")
 

@@ -23,6 +23,7 @@ import ast
 import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -591,13 +592,16 @@ def test_bcz_and_grasp2vec_configs_bind_only_port_configurables(name, widths):
 
 
 def test_bcz_and_grasp2vec_pipelined_variants_name_item_14():
+  """Item 14 is ported: the pipelined variants build, and no port
+  module raises naming it (the raises this test once pinned)."""
   from tensor2robot_tpu_torch.research.bcz import models as bcz_models
   from tensor2robot_tpu_torch.research.grasp2vec import models as g2v_models
 
-  with pytest.raises(NotImplementedError, match="Queue A item 14"):
-    g2v_models.Grasp2VecModel(tower="pipelined_conv")
-  with pytest.raises(NotImplementedError, match="Queue A item 14"):
-    bcz_models.BCZModel(network="pipelined_berkeley")
+  g2v_models.Grasp2VecModel(tower="pipelined_conv").create_module()
+  bcz_models.BCZModel(network="pipelined_berkeley").create_module()
+  for path in _port_files():
+    assert not re.search(r"NotImplementedError\([^)]*item 14",
+                         path.read_text(), re.S), path
 
 
 # VRGripper and the last helpers: every module the scans above must cover.
@@ -785,5 +789,61 @@ def test_sp_ring_config_binds_the_jax_widths_and_mesh():
         "SequenceRegressionModel.attention_backend") == "ring"
     model = config.query_parameter("train_eval_model.model")
     assert type(model).__module__.startswith("tensor2robot_tpu_torch.")
+  finally:
+    config.clear_config()
+
+
+# Pipeline parallelism and mixture of experts: every module the scans
+# above must cover, and the five configs of the slice.
+SLICE_19_MODULES = (
+    "tensor2robot_tpu_torch.parallel.pipeline_parallel",
+    "tensor2robot_tpu_torch.models.pipelined_model",
+    "tensor2robot_tpu_torch.models.moe_model",
+    "tensor2robot_tpu_torch.layers.moe",
+    "tensor2robot_tpu_torch.layers.vision",
+    "tensor2robot_tpu_torch.research.bcz.models",
+    "tensor2robot_tpu_torch.research.grasp2vec.models",
+)
+SLICE_19_CONFIGS = {
+    "train_pipelined_pp.gin": "tensor2robot_tpu/configs/train_pipelined_pp.gin",
+    "train_pipelined_1f1b.gin":
+        "tensor2robot_tpu/configs/train_pipelined_1f1b.gin",
+    "train_moe_ep.gin": "tensor2robot_tpu/configs/train_moe_ep.gin",
+    "train_bcz_pp.gin":
+        "tensor2robot_tpu/research/bcz/configs/train_bcz_pp.gin",
+    "train_grasp2vec_pp.gin":
+        "tensor2robot_tpu/research/grasp2vec/configs/train_grasp2vec_pp.gin",
+}
+
+
+def test_the_scans_cover_the_pipeline_and_moe_modules():
+  assert set(SLICE_19_MODULES) <= set(_port_modules())
+
+
+def _bindings(path):
+  """A gin file's binding statements, without its imports, comments and
+  `device_type` bindings."""
+  out = set()
+  for line in pathlib.Path(path).read_text().splitlines():
+    line = line.split("#")[0].strip()
+    if line and not line.startswith("import ") and ".device_type" not in line:
+      out.add(" ".join(line.split()))
+  return out
+
+
+@pytest.mark.parametrize("name", sorted(SLICE_19_CONFIGS))
+def test_pipeline_and_moe_configs_bind_the_jax_configs(name):
+  """The port's copy binds what the JAX config binds, but `device_type`,
+  and every configurable it binds is the port's."""
+  port_path = PORT / "configs" / name
+  assert _bindings(port_path) == _bindings(REPO_ROOT /
+                                           SLICE_19_CONFIGS[name])
+  try:
+    config.clear_config()
+    config.parse_config_file(str(port_path))
+    model = config.query_parameter("train_eval_model.model")
+    assert type(model).__module__.startswith("tensor2robot_tpu_torch.")
+    rules = config.query_parameter("train_eval_model.partition_rules")
+    assert all(isinstance(rule, tuple) for rule in rules)
   finally:
     config.clear_config()

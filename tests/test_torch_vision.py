@@ -194,8 +194,23 @@ class TestBerkeleyNet:
                                atol=2e-5)
 
   def test_pipelined_tower_waits_for_item_14(self):
-    with pytest.raises(NotImplementedError, match="item 14"):
-      vision.BerkeleyNet(3, pipelined=True)
+    """The ported `PipelinedBerkeleyTower` (the raise this test once
+    pinned is gone): its sequential schedule against the JAX tower's on
+    the same raveled `pp_stages`, without and with FiLM conditioning
+    riding the flat buffer, H != W and strides 2 and 1."""
+    rng = np.random.RandomState(7)
+    images = _images(rng, h=12, w=16)
+    for condition_size in (0, 4):
+      cond = (rng.randn(3, condition_size).astype(np.float32)
+              if condition_size else None)
+      kw = dict(filters=(4, 5, 3), kernel_sizes=(5, 3, 3),
+                strides=(2, 1, 2), condition_size=condition_size)
+      variables, want, _ = _jax_apply(
+          jax_vision.PipelinedBerkeleyTower(**kw), images, cond)
+      port = vision.PipelinedBerkeleyTower((12, 16, 3), **kw)
+      got, _ = _port_apply(port, variables, images, cond)
+      assert tuple(got.shape) == want.shape == (3, 3, 4, 3)
+      assert _err(got, want) <= F32_TOL, condition_size
 
   def test_high_res_variant(self):
     rng = np.random.RandomState(6)
