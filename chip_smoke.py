@@ -174,7 +174,7 @@ and prints no result):
    f. the s2d stem: the step-30 critic with its stem mapped by
       `stem_kernel_to_s2d`, eval-mode logits against the plain stem's,
       f32 1e-5 relative, bf16 within phase 6a's bf16 limit;
-   g. the median train step (20 after 3) of
+   g. the median train step (10 after 3) of
       `configs/train_qtopt_tuned.gin` (batch 256, bf16), the same with
       remat, with the s2d stem, and at batch 64 x 4 accumulated
       micro-steps: step ms, grasps/s and peak device memory, under
@@ -434,7 +434,8 @@ and prints no result):
       once its step-5 row is logged; it must write a verified checkpoint
       at the step it reached and exit 42, and a second run must resume
       from that step to 10.
-   e. Two NCCL ranks on one card, once: the error text (NCCL's
+   e. Beside d (neither is timed), two NCCL ranks on one card, once:
+      the error text (NCCL's
       "Duplicate GPU detected") is recorded.
 19. Pipeline parallelism and mixture of experts (no custom kernel on
    their path: the stage functions and expert einsums are cuDNN and
@@ -467,6 +468,49 @@ and prints no result):
       pipelined model on its sequential schedule: each predict
       bit-identical to the eval-mode forward, two restores identical to
       each other and unlike a fresh init.
+20. Compile once, serve many (the kernels of the path: the three bf16
+    flash kernels and the decode tick, launched from inside compiled
+    graphs through the registered operators `t2r::flash_fwd`,
+    `t2r::flash_bwd` and `t2r::decode_tick`):
+   a, then c beside d and b: nothing runs beside a, so its walls and
+   times are its own; d's two CLI processes and b (which times nothing)
+   start once a has served its session and run beside c's compile, so
+   b's and c's walls carry each other (b's compile wall is an upper
+   bound of a warm start's).
+   a. Cold: a fresh process (`--compile-worker cold`) with an empty
+      executable cache and an empty Inductor cache directory of its own
+      trains COMPILE_STEPS bf16 steps of `train_longcontext_flash.gin`
+      under `train_eval_model(executable_cache_dir=...)` and serves the
+      last checkpoint through `SessionEngine(cache=...)` at one bucket of
+      COMPILE_BUCKET lanes for COMPILE_TICKS dispatches. Held: losses
+      against phase 4's first COMPILE_STEPS within BF16_LOSS_RTOL; each
+      bf16 flash kernel exactly blocks x COMPILE_STEPS launches; decode
+      launches = blocks x dispatches; graph breaks, analysis failures,
+      compiled-call fallbacks and recompiles all 0; the run record's
+      `compile` block with flops equal to the step's count (the flash
+      operators' formulas plus every dense product: forward, weight and
+      input gradients, none for the embedding's input); the compiled
+      forward and loss's loss and every gradient against the eager ones
+      on the same state and batch (phase 18c's limits: BF16_LOSS_RTOL,
+      BWD_BF16_TOL of max(1, max |g|)); the compiled ticks within F32_TOL
+      of the stateless predict. The worker also times the compiled and
+      the eager train step and tick on the same inputs (host wall;
+      device busy time under the profiler; the tick's peak memory).
+   c. Then, in the same process: phase 6's step-30 critic behind
+      `BucketedEngine(cache=..., buckets=COMPILE_RUNGS)` of
+      `serve_qtopt.gin`, each served row against the eager predict
+      (phase 7a's limit), no graph break, no recompile.
+   d. Once a has served its session, beside c: `graftscope forge
+      --plan` of `serve_session.gin` exits 0, and
+      `graftscope forge --verify` against a's cache at bucket
+      COMPILE_BUCKET exits 0 naming both keys (decode and slot reset).
+   b. Warm, beside c: a second fresh process (`--compile-worker warm`)
+      on the same executable cache (a new model_dir and a new, empty
+      Inductor directory, so every hit comes from the cache's blobs)
+      trains and serves the compiled session as a (no eager arm, no
+      timing): held as a, and `cache/hits` >= 2, the train step's
+      compile wall below the cold one's, losses and ticks equal to the
+      cold run's within the limits above.
 
 Output: a `train` JSON line, a `slice` JSON line, a `qtopt` JSON line
 (the critic's checks, its step ms and grasps/s under each policy with
@@ -490,6 +534,8 @@ rank, 18a's donation reading, the flag agreement's time, the NCCL
 finding, the phase wall, with the card and its power limit), a
 `pipeline` line (phase 19's maxima, staged hops, bytes and step ms per
 rank, losses, serving checks, the phase wall, with the card and its
+power limit), a `compile` line (phase 20's compile walls, entry bytes,
+step and tick times, critic rungs and forge hits, with the card and its
 power limit), a
 `kernels`
 JSON line
@@ -504,7 +550,8 @@ rows carry `launches_remat`, phase 10c's counts, and the bf16 ones
 `launches_rewind`, phase 15a's; the decode row `launches_observed`,
 phase 16b's, and `launches_fleet`, phase 17b's; the f32 forward row
 `launches_artifact`, phase 17a's; the flash rows `launches_ulysses`,
-phase 18a's (bf16) and 18b's rank 0 (f32)), the card line,
+phase 18a's (bf16) and 18b's rank 0 (f32); the bf16 flash rows and
+the decode row `launches_compiled`, phase 20a's), the card line,
 and as the last line `{"ok": true, "device": {...}}`. The same numbers go
 to `chiprun_out/chip_smoke_report.json`.
 """
@@ -584,8 +631,14 @@ WIDTHS = dict(obs_size=16, action_size=7, sequence_length=4096,
               hidden_size=512, num_blocks=2, num_heads=8)
 
 
+_STARTED = time.perf_counter()
+
+
 def log(msg: str) -> None:
-  print(f"[chip_smoke] {msg}", flush=True)
+  """One line of progress, stamped with the seconds since the script
+  started (the phases' timeline)."""
+  print(f"[chip_smoke {time.perf_counter() - _STARTED:7.1f} s] {msg}",
+        flush=True)
 
 
 def card_line() -> str:
@@ -3150,7 +3203,7 @@ ACCUM_UPDATE_RTOL = 1e-4
 # 10f: the s2d stem sums the same 108 products per output in another
 # order: eval logits f32 (TF32 off) 1e-5 relative; bf16 phase 6a's limit.
 S2D_F32_RTOL = 1e-5
-SURFACE_STEPS = 20
+SURFACE_STEPS = 10
 SURFACE_WARMUP = 3
 SURFACE_BATCH = 256        # the tuned config's
 SURFACE_ACCUM_BATCH = 64   # x 4 micro-steps: 256 grasps an update
@@ -7327,23 +7380,34 @@ def run_mesh(torch, np, port, card: str, directory: str,
   report["staged_collectives"] = [r["staged_collectives"] for r in ranks]
   report["agree_us"] = [r["agree_us"] for r in ranks]
 
+  # 18e: two NCCL ranks on one card, started beside 18d (neither is
+  # timed; 18e's ranks only fail to set up their communicator).
+  e_dir = tempfile.mkdtemp(dir=directory)
+  dup_procs = _launch_workers("nccl_dup", 2, e_dir, DUP_BACKEND)
   # 18d: SIGTERM after step 5; a verified checkpoint, exit 42, a resume.
-  d_dir = tempfile.mkdtemp(dir=directory)
-  procs = _launch_workers("preempt", 1, d_dir, MESH_BACKEND)
   try:
-    _wait_for_step(os.path.join(d_dir, "train", "train", "metrics.jsonl"),
-                   PREEMPT_AFTER, procs[0][0], MESH_WORKER_TIMEOUT_S)
+    d_dir = tempfile.mkdtemp(dir=directory)
+    procs = _launch_workers("preempt", 1, d_dir, MESH_BACKEND)
+    try:
+      _wait_for_step(os.path.join(d_dir, "train", "train", "metrics.jsonl"),
+                     PREEMPT_AFTER, procs[0][0], MESH_WORKER_TIMEOUT_S)
+    except BaseException:
+      _collect(procs, "18d", exit_codes=(0, 42, -signal.SIGTERM))
+      raise
+    procs[0][0].send_signal(signal.SIGTERM)
+    [preempted] = _collect(procs, "18d", exit_codes=(42,))
+    saved = preempted["steps"][-1] if preempted["steps"] else None
+    if (preempted["exit"] != 42 or saved is None or saved < PREEMPT_AFTER
+        or not preempted["verified"][-1]):
+      raise RuntimeError(f"18d: the preempted trainer: {preempted}")
+    [resumed] = _collect(_launch_workers("resume", 1, d_dir, MESH_BACKEND),
+                         "18d resume")
   except BaseException:
-    _collect(procs, "18d", exit_codes=(0, 42, -signal.SIGTERM))
+    for proc, _ in dup_procs:
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
     raise
-  procs[0][0].send_signal(signal.SIGTERM)
-  [preempted] = _collect(procs, "18d", exit_codes=(42,))
-  saved = preempted["steps"][-1] if preempted["steps"] else None
-  if (preempted["exit"] != 42 or saved is None or saved < PREEMPT_AFTER
-      or not preempted["verified"][-1]):
-    raise RuntimeError(f"18d: the preempted trainer: {preempted}")
-  [resumed] = _collect(_launch_workers("resume", 1, d_dir, MESH_BACKEND),
-                       "18d resume")
   _check_losses(resumed["losses"][len(preempted["losses"]):], saved + 1,
                 MESH_STEPS)
   if resumed["steps"][-1] != MESH_STEPS or not resumed["verified"][-1]:
@@ -7352,10 +7416,7 @@ def run_mesh(torch, np, port, card: str, directory: str,
                           "resumed_to": resumed["steps"][-1]}
   log(f"18d: SIGTERM after step {PREEMPT_AFTER}: saved {saved}, exit 42, "
       f"resumed to {MESH_STEPS}")
-
-  # 18e: two NCCL ranks on one card.
-  e_dir = tempfile.mkdtemp(dir=directory)
-  dup = _collect(_launch_workers("nccl_dup", 2, e_dir, DUP_BACKEND), "18e")
+  dup = _collect(dup_procs, "18e")
   report["nccl_two_ranks_one_card"] = [r["error"] for r in dup]
   log(f"18e: two NCCL ranks on one card: {report['nccl_two_ranks_one_card']}")
   report["phase_wall_s"] = time.perf_counter() - start
@@ -7743,6 +7804,579 @@ def run_pipeline(torch, np, port, card: str, directory: str) -> dict:
   return report
 
 
+
+# -- phase 20: compile once, serve many -------------------------------------
+
+COMPILE_STEPS = 5            # 20a/20b: train steps of TRAIN_CONFIG, compiled
+COMPILE_TICKS = 48           # session dispatches of COMPILE_BUCKET lanes
+COMPILE_BUCKET = 8
+COMPILE_RUNGS = [1, 8]       # 20c: the critic's compiled rungs
+COMPILE_TIMED_STEPS = 10     # compiled and eager train steps timed per worker
+COMPILE_PROFILED = 8         # steps and ticks of each kind under the profiler
+COMPILE_DEVICE = "cuda"
+COMPILE_WORKER_TIMEOUT_S = 600
+COMPILE_RESULT = '{"compile_worker"'
+
+
+def _median_ms(torch, fn, count: int) -> float:
+  """Median host wall of `count` calls of `fn`, each ending in a
+  synchronize."""
+  import statistics
+
+  times = []
+  for _ in range(count):
+    start = time.perf_counter()
+    fn()
+    if COMPILE_DEVICE != "cpu":
+      torch.cuda.synchronize()
+    times.append((time.perf_counter() - start) * 1e3)
+  return statistics.median(times)
+
+
+def compile_worker(argv) -> int:
+  """`chip_smoke.py --compile-worker <cold|warm> <model_dir> <cache_dir>
+  <out.json> <critic_dir> <bf16_limit>`: one fresh process of phase 20.
+  Trains COMPILE_STEPS steps of TRAIN_CONFIG through
+  `train_eval_model(executable_cache_dir=...)` and serves the last
+  checkpoint through a `SessionEngine(cache=...)` at one bucket of
+  COMPILE_BUCKET lanes for COMPILE_TICKS dispatches. The cold process
+  also holds the compiled forward and loss's gradients against the eager
+  ones, times the compiled and the eager train step and tick (the same
+  ticks through an eager engine), and then compiles the critic's rungs
+  (20c). Writes what it read to `out.json`. Inductor's cache directory is
+  the caller's (`TORCHINDUCTOR_CACHE_DIR`)."""
+  role, model_dir, cache_dir, out_path, critic_dir, bf16_limit = argv
+  cold = role == "cold"
+  import numpy as np
+  import torch
+
+  from tensor2robot_tpu_torch import serving
+  from tensor2robot_tpu_torch import specs
+  from tensor2robot_tpu_torch import train_eval
+  from tensor2robot_tpu_torch.data import input_generators
+  from tensor2robot_tpu_torch.models import sequence_model
+  from tensor2robot_tpu_torch.obs import excache
+  from tensor2robot_tpu_torch.obs import metrics as obs_metrics
+  from tensor2robot_tpu_torch.obs import xray
+  from tensor2robot_tpu_torch.ops import _kernels
+  from tensor2robot_tpu_torch.ops import attention as attention_ops
+  from tensor2robot_tpu_torch.ops import decode_kernels
+  from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+  from tensor2robot_tpu_torch.parallel import train_step
+  from tensor2robot_tpu_torch.predictors import predictors
+  from tensor2robot_tpu_torch.research.qtopt import flagship
+  from tensor2robot_tpu_torch.serving import session
+  from tensor2robot_tpu_torch.utils import config
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  if COMPILE_DEVICE != "cpu":
+    _kernels.build()
+  fwd, bwd = attention_ops.flash_forward, attention_ops.flash_backward
+  decode = decode_kernels.fused_decode_attention
+  out = {}
+  config.parse_config_file(os.path.join(REPO_DIR, TRAIN_CONFIG))
+  for binding in (f"train_eval_model.model_dir = '{model_dir}'",
+                  f"train_eval_model.max_train_steps = {COMPILE_STEPS}",
+                  f"train_eval_model.checkpoint_every_n_steps = "
+                  f"{COMPILE_STEPS}",
+                  "train_eval_model.log_every_n_steps = 1",
+                  f"train_eval_model.executable_cache_dir = '{cache_dir}'"):
+    config.parse_config(binding)
+  if COMPILE_DEVICE == "cpu":
+    config.parse_config("train_eval_model.device = 'cpu'")
+  out["blocks"] = config.query_parameter("SequenceRegressionModel.num_blocks")
+  # The main path (20a/20b): counts to 0 just before, read just after.
+  fwd.launches = bwd.launches_dq = bwd.launches_dkv = 0
+  start = time.perf_counter()
+  train_eval.train_eval_model()
+  if COMPILE_DEVICE != "cpu":
+    torch.cuda.synchronize()
+  out["train_wall_s"] = time.perf_counter() - start
+  out["train_launches"] = {"flash_fwd": fwd.launches,
+                           "flash_bwd_dq": bwd.launches_dq,
+                           "flash_bwd_dkv": bwd.launches_dkv}
+  out["losses"] = [loss for _, loss in _logged_losses(model_dir)]
+  with open(os.path.join(model_dir, "runs.jsonl")) as f:
+    run_record = [json.loads(line) for line in f][-1]
+  out["run_compile"] = run_record.get("compile") or []
+  out["run_cache"] = (run_record.get("extra") or {}).get("cache")
+  out["run_memory"] = run_record.get("memory")
+  log(f"trained {COMPILE_STEPS} compiled steps in {out['train_wall_s']:.1f} s")
+
+  if cold:
+    # The compiled step (its entry is in the cache now) against the eager
+    # one on the same state and batch: the compiled forward and loss (and
+    # AOTAutograd's backward) give the loss and the gradients, then both
+    # steps are timed.
+    model = sequence_model.SequenceRegressionModel()
+    device = torch.device(COMPILE_DEVICE)
+    generator = input_generators.DefaultRandomInputGenerator(batch_size=2)
+    generator.set_specification_from_model(model, "train")
+    features, labels = mesh_lib.place_batch(
+        device, next(generator.create_dataset("train")))
+    state = train_step.create_train_state(
+        model, torch.Generator().manual_seed(0), device)
+    step = train_step.make_train_step(model)
+    compiled = xray.XrayedFunction("train_step", step, cache=cache_dir,
+                                   model=model)
+    compiled(state, features, labels)
+    want = train_step.loss_and_grads(model, state.params, features, labels,
+                                     state.mutable_state)
+    got = train_step.loss_and_grads(
+        model, state.params, features, labels, state.mutable_state,
+        forward_loss_fn=compiled._compiled.forward_loss)
+    out["grads_vs_eager"] = {
+        "loss_rel": abs(float(got[0]) - float(want[0])) / abs(float(want[0])),
+        "grad_scaled": max(_scaled_err(got[2][k], g)
+                           for k, g in want[2].items()),
+        "grad_rel_norm": max(_rel_norm_err(got[2][k], g)
+                             for k, g in want[2].items())}
+    del want, got
+    out["step_ms"] = {
+        "compiled": _median_ms(torch, lambda: compiled(state, features,
+                                                       labels),
+                               COMPILE_TIMED_STEPS),
+        "eager": _median_ms(torch, lambda: step(state, features, labels),
+                            COMPILE_TIMED_STEPS)}
+    if COMPILE_DEVICE != "cpu":
+      from tensor2robot_tpu_torch.obs import device_profile
+
+      out["step_device_ms"] = {
+          kind: device_profile.profile_window(
+              lambda fn=fn: fn(state, features, labels),
+              COMPILE_PROFILED)["device_busy_ms_per_call"]
+          for kind, fn in (("compiled", compiled), ("eager", step))}
+    out["step_recompiles"] = compiled.recompiles
+    del state, features, labels, compiled
+    log(f"compiled against eager step: {out['grads_vs_eager']}, "
+        f"{out['step_ms']} ms")
+
+  # 20a/20b's session: the last checkpoint at the serving config's widths.
+  config.clear_config()
+  config.parse_config_file(os.path.join(REPO_DIR, SESSION_CONFIG))
+  predictor = predictors.CheckpointPredictor(
+      model=sequence_model.SequenceRegressionModel(), model_dir=model_dir,
+      device=COMPILE_DEVICE)
+  if not predictor.restore() or predictor.global_step != COMPILE_STEPS:
+    raise RuntimeError(f"the predictor did not restore step {COMPILE_STEPS}")
+  seq = np.zeros((COMPILE_BUCKET, WIDTHS["sequence_length"],
+                  WIDTHS["obs_size"]), np.float32)
+  seq[:, :COMPILE_TICKS] = np.random.RandomState(20).randn(
+      COMPILE_BUCKET, COMPILE_TICKS, WIDTHS["obs_size"]).astype(np.float32)
+  full = predictor.predict({"observation": seq})["action"][:, :COMPILE_TICKS]
+  ticks, tick_ms, peaks = {}, {}, {}
+  for kind in ("compiled", "eager") if cold else ("compiled",):
+    if COMPILE_DEVICE != "cpu":
+      torch.cuda.empty_cache()
+      torch.cuda.reset_peak_memory_stats()
+    engine = session.SessionEngine(
+        predictor=predictor, buckets=[COMPILE_BUCKET], device=COMPILE_DEVICE,
+        cache=cache_dir if kind == "compiled" else None)
+    start = time.perf_counter()
+    engine.warmup()
+    if kind == "compiled":
+      out["session_warmup_s"] = time.perf_counter() - start
+      out["session_provenance"] = engine.warmup_provenance
+      out["session_compile"] = engine.compile_records
+    sids = [engine.open() for _ in range(COMPILE_BUCKET)]
+    rows, times = [], []
+    # The main path: counts to 0 just before the dispatches, read after.
+    decode.launches = 0
+    for i in range(COMPILE_TICKS):
+      start = time.perf_counter()
+      result = engine.step_many([(sid, {"observation": seq[j, i]})
+                                 for j, sid in enumerate(sids)])
+      times.append((time.perf_counter() - start) * 1e3)
+      rows.append(np.stack([r["action"] for r in result]))
+    out.setdefault("decode_launches", {})[kind] = decode.launches
+    ticks[kind] = np.stack(rows, axis=1)  # [lanes, ticks, action]
+    if cold:
+      tick_ms[kind] = float(np.median(times))
+    if cold and COMPILE_DEVICE != "cpu":
+      peaks[kind] = torch.cuda.max_memory_allocated()
+      # The tick's device time, on further ticks (outside the checked
+      # ones and the launch count).
+      from tensor2robot_tpu_torch.obs import device_profile
+
+      request = [(sid, {"observation": seq[j, 0]})
+                 for j, sid in enumerate(sids)]
+      out.setdefault("tick_device_ms", {})[kind] = (
+          device_profile.profile_window(
+              lambda: engine.step_many(request),
+              COMPILE_PROFILED)["device_busy_ms_per_call"])
+    if kind == "compiled":
+      out["session_recompiles"] = {str(rung): xf.recompiles
+                                   for rung, xf in engine._compiled.items()}
+    del engine
+  out["ticks_vs_predict"] = float(np.abs(ticks["compiled"] - full).max())
+  out["ticks"] = ticks["compiled"].tolist()
+  if cold:
+    out["tick_ms"] = tick_ms
+    out["tick_peak_bytes"] = peaks
+    out["compiled_vs_eager_ticks"] = float(
+        np.abs(ticks["compiled"] - ticks["eager"]).max())
+  del predictor
+  config.clear_config()
+  if COMPILE_DEVICE != "cpu":
+    torch.cuda.empty_cache()
+  log(f"served {COMPILE_TICKS} ticks, warmup {out['session_warmup_s']:.1f} s")
+  # The checkpoint and the session's entries are on disk: the caller may
+  # start what reads them.
+  open(out_path + ".served", "w").close()
+  if cold:
+    out.update(_critic_rungs(torch, np, (config, predictors, flagship,
+                                         serving, specs), cache_dir,
+                             critic_dir, float(bf16_limit)))
+  snapshot = obs_metrics.snapshot()
+  out["counters"] = {k: v for k, v in snapshot.items()
+                     if k.startswith(("counter/xray/", "counter/cache/"))}
+  out["entries"] = [{"name": e.get("name"), "bytes": e.get("blob_bytes")}
+                    for e in excache.ExecutableCache(cache_dir).entries()]
+  with open(out_path, "w") as f:
+    json.dump(out, f)
+  if COMPILE_DEVICE != "cpu":
+    # Inductor's compile workers, stopped here so the exit waits on none.
+    from torch._inductor import async_compile
+
+    start = time.perf_counter()
+    async_compile.shutdown_compile_workers()
+    log(f"compile workers stopped in {time.perf_counter() - start:.1f} s")
+  print(json.dumps({"compile_worker": os.path.basename(out_path)}),
+        flush=True)
+  return 0
+
+
+def _run_compile_process(directory: str, name: str, cache_dir: str,
+                         critic_dir: str, bf16_limit: float,
+                         once_served=None) -> dict:
+  """Runs one `--compile-worker` in a fresh process with a fresh
+  model_dir and an empty Inductor cache directory of its own, and waits
+  for it; returns what it wrote, with its wall as `process_s`.
+  `once_served()`, if given, runs here once the worker has served its
+  session (its checkpoint and the session's entries are on disk), while
+  the worker goes on; what it returns is the result's `once_served`."""
+  model_dir = os.path.join(directory, f"{name}_model")
+  inductor_dir = os.path.join(directory, f"{name}_inductor")
+  out_path = os.path.join(directory, f"{name}.json")
+  os.makedirs(inductor_dir)
+  env = dict(os.environ, TORCHINDUCTOR_CACHE_DIR=inductor_dir,
+             TRITON_CACHE_DIR=os.path.join(inductor_dir, "triton"))
+  deadline = time.monotonic() + COMPILE_WORKER_TIMEOUT_S
+  start = time.perf_counter()
+  with open(os.path.join(directory, f"{name}.stdout"), "w+") as stdout, \
+      open(os.path.join(directory, f"{name}.stderr"), "w+") as stderr:
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--compile-worker",
+         name, model_dir, cache_dir, out_path, critic_dir,
+         repr(bf16_limit)], env=env, stdout=stdout, stderr=stderr,
+        text=True)
+    beside, thread = {}, None
+
+    def run_beside():
+      try:
+        beside["result"] = once_served()
+      except BaseException as e:  # noqa: BLE001 - raised below
+        beside["error"] = e
+
+    try:
+      while proc.poll() is None and time.monotonic() < deadline:
+        if (once_served is not None and thread is None
+            and os.path.exists(out_path + ".served")):
+          thread = threading.Thread(target=run_beside, name=f"{name}-beside")
+          thread.start()
+        time.sleep(0.2)
+      wall = time.perf_counter() - start
+      if proc.poll() is None:
+        raise RuntimeError(f"phase 20 {name} worker timed out")
+    finally:
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+      if thread is not None:
+        thread.join()
+    if "error" in beside:
+      raise beside["error"]
+    if (once_served is not None and thread is None and proc.returncode == 0
+        and os.path.exists(out_path + ".served")):
+      run_beside()
+      if "error" in beside:
+        raise beside["error"]
+    stdout.seek(0)
+    stderr.seek(0)
+    out_text, err_text = stdout.read(), stderr.read()
+  if proc.returncode != 0 or not os.path.isfile(out_path):
+    raise RuntimeError(f"phase 20 {name} worker exited {proc.returncode}:\n"
+                       f"{out_text[-4000:]}\n{err_text[-8000:]}")
+  with open(out_path) as f:
+    result = json.load(f)
+  result["process_s"] = wall
+  result["once_served"] = beside.get("result")
+  for line in out_text.splitlines():
+    if line.startswith("[chip_smoke"):
+      log(f"20 {name} worker {line}")
+  log(f"20 {name} worker exited after {wall:.1f} s")
+  return result
+
+
+def _check_compiled_run(name: str, run: dict, phase4: list) -> dict:
+  """20a/20b's checks on one worker's reading (module docstring of
+  phase 20)."""
+  blocks = run["blocks"]
+  want = {k: blocks * COMPILE_STEPS for k in run["train_launches"]}
+  if run["train_launches"] != want:
+    raise RuntimeError(f"20 {name}: each bf16 flash kernel must launch "
+                       f"{blocks} x {COMPILE_STEPS} times from the "
+                       f"compiled steps, got {run['train_launches']}")
+  losses = run["losses"]
+  if len(losses) != COMPILE_STEPS or not all(
+      abs(a - b) <= BF16_LOSS_RTOL * abs(b) for a, b in zip(losses, phase4)):
+    raise RuntimeError(f"20 {name}: compiled losses {losses} against phase "
+                       f"4's {phase4} (limit {BF16_LOSS_RTOL} relative)")
+  for kind, launches in run["decode_launches"].items():
+    if launches != blocks * COMPILE_TICKS:
+      raise RuntimeError(f"20 {name}: {kind} decode ticks launched "
+                         f"{launches}, want {blocks} x {COMPILE_TICKS}")
+  if not run["ticks_vs_predict"] <= F32_TOL:
+    raise RuntimeError(f"20 {name}: compiled ticks {run['ticks_vs_predict']}"
+                       f" from the stateless predict (limit {F32_TOL})")
+  grads = run.get("grads_vs_eager")
+  if grads is not None and not (grads["loss_rel"] <= BF16_LOSS_RTOL
+                                and grads["grad_scaled"] <= BWD_BF16_TOL):
+    raise RuntimeError(f"20 {name}: the compiled forward and loss against "
+                       f"the eager ones {grads} (limits {BF16_LOSS_RTOL}, "
+                       f"{BWD_BF16_TOL})")
+  records = run["run_compile"] + run["session_compile"]
+  train = [r for r in run["run_compile"] if r.get("name") == "train_step"]
+  if len(train) != 1 or len(run["session_compile"]) != 2:
+    raise RuntimeError(f"20 {name}: compile records {records}")
+  counters = run["counters"]
+  bad = {k: counters.get(f"counter/xray/{k}", 0.0)
+         for k in ("analyze_failures", "compiled_call_fallbacks",
+                   "recompiles")}
+  breaks = [r.get("graph_breaks") for r in records]
+  if any(bad.values()) or any(breaks) or any(
+      run["session_recompiles"].values()) or run.get("step_recompiles"):
+    raise RuntimeError(f"20 {name}: fallbacks {bad}, graph breaks {breaks},"
+                       f" recompiles {run['session_recompiles']} / "
+                       f"{run.get('step_recompiles')}")
+  flops = train[0].get("flops")
+  if flops != blocks * _flash_train_flops() + _dense_train_flops():
+    raise RuntimeError(f"20 {name}: train step flops {flops}, want "
+                       f"{blocks * _flash_train_flops()} (flash) + "
+                       f"{_dense_train_flops()} (dense)")
+  checked = {"train_compile_s": train[0]["compile_s"],
+             "train_cache": train[0].get("cache"),
+             "session_compile_s": {r["name"]: r["compile_s"]
+                                   for r in run["session_compile"]},
+             "session_provenance": run["session_provenance"],
+             "flops": flops, "temp_bytes": train[0].get("temp_bytes"),
+             "roofline_ms": train[0].get("roofline_ms"),
+             "graph_breaks": breaks, "losses": losses,
+             "launches": run["train_launches"],
+             "decode_launches": run["decode_launches"],
+             "ticks_vs_predict": run["ticks_vs_predict"],
+             "hbm_watermark_bytes": (run["run_memory"] or {}).get(
+                 "hbm_watermark_bytes"),
+             "train_wall_s": run["train_wall_s"],
+             "session_warmup_s": run["session_warmup_s"],
+             "process_s": run["process_s"], "counters": counters,
+             "entries": run["entries"]}
+  for key in ("grads_vs_eager", "compiled_vs_eager_ticks", "step_ms",
+              "tick_ms", "step_device_ms", "tick_device_ms",
+              "tick_peak_bytes"):
+    if key in run:
+      checked[key] = run[key]
+  return checked
+
+
+def _flash_train_flops() -> int:
+  """The flash operators' FLOPs in one block of one train step, batch 2,
+  from the formulas `PERF.md`'s bound column uses (causal: half): 2
+  products forward, 7 backward, per head."""
+  b, h, t = 2, WIDTHS["num_heads"], WIDTHS["sequence_length"]
+  d = WIDTHS["hidden_size"] // h
+  return 9 * (2 * b * h * t * t * d // 2)
+
+
+def _dense_train_flops() -> int:
+  """The dense products' FLOPs in one train step, batch 2: 2·rows·in·out
+  for each linear layer forward, again for its weight's gradient, and
+  again for its input's gradient except the embedding's (the
+  observations need none). The layers: the embedding, per block the q,
+  k, v and output projections and the two MLP layers, the head."""
+  rows = 2 * WIDTHS["sequence_length"]
+  h = WIDTHS["hidden_size"]
+  embed = WIDTHS["obs_size"] * h
+  layers = (embed + WIDTHS["num_blocks"] * (4 * h * h + 2 * (2 * h * h))
+            + h * WIDTHS["action_size"])
+  return 2 * rows * (3 * layers - embed)
+
+
+def run_compile(torch, np, port, card: str, directory: str,
+                sequence_dir: str, critic_dir: str, bf16_limit: float) -> dict:
+  """Phase 20 (module docstring): cold and warm compiled trainer and
+  session, each in a fresh process on one executable cache; the critic's
+  compiled rungs in the cold process, beside the forge's plan and verify
+  and the warm process; nothing beside the cold process's timings."""
+  cache_dir = os.path.join(directory, "excache")
+  phase4 = [loss for _, loss in _logged_losses(sequence_dir)][:COMPILE_STEPS]
+  out = {"card": card}
+
+  def beside_critic():
+    # The forge and the warm process read the cold process's checkpoint
+    # and entries; they run while it compiles the critic's rungs (after
+    # its timings), so their walls and the critic's carry each other.
+    forge = {}
+    thread = threading.Thread(
+        target=lambda: forge.update(result=_forge_checks(directory,
+                                                         cache_dir)),
+        name="forge")
+    thread.start()
+    try:
+      warm = _run_compile_process(directory, "warm", cache_dir, critic_dir,
+                                  bf16_limit)
+    finally:
+      thread.join()
+    if "result" not in forge:
+      raise RuntimeError("20d: the forge's checks did not finish")
+    return {"warm": warm, "forge": forge["result"]}
+
+  runs = {"cold": _run_compile_process(
+      directory, "cold", cache_dir, critic_dir, bf16_limit,
+      once_served=beside_critic)}
+  out["cold"] = _check_compiled_run("cold", runs["cold"], phase4)
+  out.update({k: runs["cold"][k] for k in ("critic_warmup_s",
+                                           "critic_provenance",
+                                           "critic_rows",
+                                           "critic_compile_s")})
+  beside = runs["cold"]["once_served"]
+  if beside is None:
+    raise RuntimeError("20: the cold process never served its session")
+  out["forge"], runs["warm"] = beside["forge"], beside["warm"]
+  out["warm"] = _check_compiled_run("warm", runs["warm"], phase4)
+  cold, warm = out["cold"], out["warm"]
+  log(f"20 cold: train compile {cold['train_compile_s']:.2f} s, session "
+      f"{cold['session_compile_s']}, process {cold['process_s']:.1f} s, "
+      f"step ms {cold['step_ms']}, tick ms {cold['tick_ms']}, compiled vs "
+      f"eager {cold['grads_vs_eager']}")
+  log(f"20 warm: train compile {warm['train_compile_s']:.2f} s, session "
+      f"{warm['session_compile_s']}, process {warm['process_s']:.1f} s")
+  hits = runs["warm"]["counters"].get("counter/cache/hits", 0.0)
+  if hits < 2 or not warm["train_compile_s"] < cold["train_compile_s"]:
+    raise RuntimeError(f"20b: the warm process hit {hits} entries, train "
+                       f"compile {warm['train_compile_s']} s against cold "
+                       f"{cold['train_compile_s']} s")
+  ticks_cold = np.asarray(runs["cold"]["ticks"])
+  ticks_warm = np.asarray(runs["warm"]["ticks"])
+  out["warm_vs_cold"] = {
+      "losses": max(abs(a - b) / abs(b) for a, b in zip(warm["losses"],
+                                                         cold["losses"])),
+      "ticks": float(np.abs(ticks_warm - ticks_cold).max())}
+  if not (out["warm_vs_cold"]["losses"] <= BF16_LOSS_RTOL
+          and out["warm_vs_cold"]["ticks"] <= F32_TOL):
+    raise RuntimeError(f"20b: warm against cold {out['warm_vs_cold']}")
+  return out
+
+
+def _critic_rungs(torch, np, port, cache_dir: str, critic_dir: str,
+                  bf16_limit: float) -> dict:
+  """20c: the step-30 critic's compiled rungs against its eager
+  predict."""
+  (config, predictors, flagship, serving, specs) = port
+  out = {}
+  config.clear_config()
+  config.parse_config_file(os.path.join(REPO_DIR, SERVE_CONFIG))
+  predictor = predictors.CheckpointPredictor(
+      model=flagship.make_flagship_model(), model_dir=critic_dir)
+  engine = serving.BucketedEngine(predictor=predictor, buckets=COMPILE_RUNGS,
+                                  cache=cache_dir,
+                                  cache_namespace="serve/critic")
+  if not engine.restore() or engine.global_step != 30:
+    raise RuntimeError("20c: the critic did not restore step 30")
+  start = time.perf_counter()
+  engine.warmup()
+  out["critic_warmup_s"] = time.perf_counter() - start
+  out["critic_provenance"] = engine.warmup_provenance
+  pool = specs.make_random_numpy(predictor.get_feature_specification(),
+                                 batch_size=16, seed=7)["state/image"]
+  pairs = []
+  for i, rows in enumerate((1, 8, 5, 3)):
+    request = _serve_request(np, pool, rows, 2000 + i)
+    pairs.append((request, engine.predict(request)))
+  out["critic_rows"] = _check_rows(np, pairs, predictor, bf16_limit)
+  records = engine.compile_records
+  if engine.compile_count != len(COMPILE_RUNGS) or any(
+      r.get("graph_breaks") for r in records) or any(
+          engine._compiled[b].recompiles for b in COMPILE_RUNGS):
+    raise RuntimeError(f"20c: critic rungs {engine.warmup_provenance}")
+  out["critic_compile_s"] = {r["name"]: r["compile_s"] for r in records}
+  config.clear_config()
+  del engine, predictor
+  torch.cuda.empty_cache()
+  log(f"20c critic rungs {COMPILE_RUNGS}: {out['critic_rows']}, compile "
+      f"{out['critic_compile_s']}")
+  return out
+
+
+def _forge_checks(directory: str, cache_dir: str) -> dict:
+  """20d: `graftscope forge --plan` of the session config, and `--verify`
+  against this phase's cache at the one bucket the cold worker served."""
+  scope = [sys.executable, "-m", "tensor2robot_tpu_torch.bin.graftscope",
+           "forge", os.path.join(REPO_DIR, SESSION_CONFIG)]
+  # Both at once: the plan is host work, the verify computes keys only.
+  procs = [subprocess.Popen(
+      scope + args, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+      text=True, cwd=REPO_DIR) for args in (
+          ["--plan"],
+          ["--verify", "--model", "SequenceRegressionModel",
+           "--model-dir", os.path.join(directory, "cold_model"),
+           "--cache-dir", cache_dir, "--device", COMPILE_DEVICE,
+           "--binding", f"SessionEngine.buckets = [{COMPILE_BUCKET}]"])]
+  done, walls = [], []
+  start = time.perf_counter()
+  for proc in procs:
+    try:
+      stdout, stderr = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+      proc.kill()
+      stdout, stderr = proc.communicate()
+    walls.append(time.perf_counter() - start)
+    done.append(subprocess.CompletedProcess(proc.args, proc.returncode,
+                                            stdout, stderr))
+  plan, verify = done
+  out = {"plan_rc": plan.returncode, "verify_rc": verify.returncode,
+         "hits": [line.split()[1] for line in verify.stdout.splitlines()
+                  if line.strip().startswith("HIT")]}
+  if plan.returncode or verify.returncode or len(out["hits"]) != 2:
+    raise RuntimeError(f"20d: forge plan/verify {out}:\n{plan.stdout}"
+                       f"{plan.stderr}\n{verify.stdout}"
+                       f"{verify.stderr[-4000:]}")
+  out["plan_s"], out["verify_s"] = walls
+  log(f"20d forge: plan rc 0 ({walls[0]:.1f} s), verify hits {out['hits']} "
+      f"({walls[1]:.1f} s)")
+  return out
+
+
+def _compile_line(report: dict) -> dict:
+  """The `compile` line: each process's compile walls and entry bytes,
+  the cold process's step and tick times, and the critic's rungs and the
+  forge."""
+  keep = ("train_compile_s", "session_compile_s", "process_s", "flops",
+          "temp_bytes", "roofline_ms", "hbm_watermark_bytes",
+          "graph_breaks", "entries", "train_cache", "ticks_vs_predict",
+          "launches", "decode_launches")
+  timed = ("grads_vs_eager", "step_ms", "tick_ms", "step_device_ms",
+           "tick_device_ms", "tick_peak_bytes", "compiled_vs_eager_ticks")
+  return {"card": report["card"], "phase_s": report.get("phase_s"),
+          **{name: {k: report[name][k] for k in keep + timed
+                    if k in report[name]} for name in ("cold", "warm")},
+          "warm_vs_cold": report["warm_vs_cold"],
+          "critic_compile_s": report["critic_compile_s"],
+          "critic_warmup_s": report["critic_warmup_s"],
+          "critic_rows": report["critic_rows"], "forge": report["forge"]}
+
+
 def main() -> int:
   import torch
 
@@ -7829,7 +8463,12 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
       f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-  # Phase 1: build.
+  log("phase 1")
+  # Phase 1: build. The data plane's native library (phase 8's) builds
+  # beside the kernels, on a thread of its own.
+  from tensor2robot_tpu_torch import native
+  native_build = threading.Thread(target=native.load, name="native-build")
+  native_build.start()
   build_s = _kernels.build()
   log(f"built {list(_kernels.SOURCES)} in {build_s:.1f} s")
   for name in _kernels.SOURCES:
@@ -7842,6 +8481,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   sass = check_sass(_kernels)
   decode_build = check_decode_build(_kernels)
 
+  log("phase 2")
   # Phase 2: kernels against their plain versions.
   gen = torch.Generator(device=device).manual_seed(0)
   decode_err = check_decode(torch, decode_kernels, device, gen)
@@ -7850,18 +8490,21 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
                                                  gen)
   torch.cuda.empty_cache()
 
+  log("phase 3")
   # Phase 3: the slice.
   slice_report = run_slice(torch, np, (config, sequence_model, predictors,
                                        session, policies, attention_ops,
                                        decode_kernels))
   torch.cuda.empty_cache()
 
+  log("phase 4")
   # Phase 4: the training slice, into a model_dir phase 9 exports from.
   train_report = run_train(torch, np, (
       config, sequence_model, predictors, session, attention_ops, train_eval,
       checkpoints, train_step, input_generators), device, sequence_dir)
   torch.cuda.empty_cache()
 
+  log("phase 5")
   # Phase 5: timings.
   timer = Timer(torch, device)
   decode_t, decode_b1_t = time_decode(torch, decode_kernels, device, gen,
@@ -7888,6 +8531,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
       use_bfloat16=False)
   log(f"f32 train step: {train_report['step_f32']}")
 
+  log("phases 6 and 7")
   # Phases 6 and 7: the QT-Opt critic trained, then served from the
   # checkpoints phase 6 wrote. Their paths launch no custom kernel.
   fwd, bwd = attention_ops.flash_forward, attention_ops.flash_backward
@@ -7905,6 +8549,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
                                           launches_before)]
   torch.cuda.empty_cache()
 
+  log("phase 7")
   # Phase 7: the critic served, held to the bf16 limit of phase 6a.
   launches_before = custom_launches()
   strict_bf16 = qtopt_report["strict"]["bf16_eval_logits"]
@@ -7920,7 +8565,9 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   serve_report["card"] = card
   torch.cuda.empty_cache()
 
+  log("phase 8")
   # Phase 8: the critic fed from records (no custom kernel on its path).
+  native_build.join()
   records_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
   try:
     launches_before = custom_launches()
@@ -7932,6 +8579,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
     shutil.rmtree(records_dir, ignore_errors=True)
   torch.cuda.empty_cache()
 
+  log("phase 9")
   # Phase 9: the deployment path; its sequence-policy part (9b) runs the
   # flash forward and the decode tick from an exported bundle.
   deploy_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
@@ -7947,6 +8595,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
     shutil.rmtree(deploy_dir, ignore_errors=True)
   torch.cuda.empty_cache()
 
+  log("phase 10")
   # Phase 10: the rest of the training surface (remat, accumulation,
   # PCGrad, the s2d stem, the batch-256 config), from phase 6b's
   # checkpoints; only its 10c launches the flash kernels.
@@ -7962,6 +8611,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   torch.cuda.empty_cache()
   remat_launches = surface_report["remat_sequence"]["launches"]
 
+  log("phase 11")
   # Phase 11: the LSTM family trained and served on the carry path (no
   # custom kernel on its path).
   lstm_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
@@ -7977,6 +8627,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
     shutil.rmtree(lstm_dir, ignore_errors=True)
   torch.cuda.empty_cache()
 
+  log("phase 12")
   # Phase 12: the pose environment's robot loop and MAML (no custom kernel
   # on their path).
   pose_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
@@ -7998,6 +8649,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
     shutil.rmtree(pose_dir, ignore_errors=True)
   torch.cuda.empty_cache()
 
+  log("phase 13")
   # Phase 13: Grasp2Vec and BC-Z trained and served (no custom kernel on
   # their path).
   family_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
@@ -8027,6 +8679,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
       raise RuntimeError(f"phase 13 ({name}) launched a custom kernel: "
                          f"{report['custom_kernel_launches']}")
 
+  log("phase 14")
   # Phase 14: VRGripper (episode BC with the MDN head, the domain-adaptive
   # model under MAML, Watch-Try-Learn) trained and served (no custom
   # kernel on its path).
@@ -8058,6 +8711,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   vrgripper_line = _vrgripper_line(vr_reports["mdn"], vr_reports["da_maml"],
                                    vr_reports["wtl"], card)
 
+  log("phase 15")
   # Phase 15: trainer telemetry and divergence rewind on the full-width
   # flash trainer (its main path: the three bf16 flash kernels).
   telemetry_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
@@ -8070,6 +8724,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   torch.cuda.empty_cache()
   rewind_launches = telemetry_report["rewind"]["launches"]
 
+  log("phase 16")
   # Phase 16: the serving observability seams over the step-30 sequence
   # policy's session ticks (the decode tick) and the step-30 critic.
   observe_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
@@ -8083,6 +8738,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
     shutil.rmtree(observe_dir, ignore_errors=True)
   torch.cuda.empty_cache()
 
+  log("phase 17")
   # Phase 17: the exported artifacts (the f32 flash forward from a
   # torch.export program), the session fleet (the decode tick through two
   # replicas), the critic fleet's rollout, the CLIs and the profiler hook.
@@ -8097,6 +8753,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   finally:
     shutil.rmtree(fleet_dir, ignore_errors=True)
   torch.cuda.empty_cache()
+  log("phase 18")
   # Phase 18: the mesh, each world a set of subprocesses; 18a's losses
   # are held to phase 4's, read from `sequence_dir`.
   mesh_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
@@ -8107,6 +8764,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   finally:
     shutil.rmtree(mesh_dir, ignore_errors=True)
   torch.cuda.empty_cache()
+  log("phase 19")
   # Phase 19: pipeline parallelism and mixture of experts, each world a
   # set of subprocesses sharing the card over gloo.
   pipeline_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
@@ -8124,6 +8782,20 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   if any(pipeline_report["custom_kernel_launches"]):
     raise RuntimeError(f"phase 19 launched a custom kernel: "
                        f"{pipeline_report['custom_kernel_launches']}")
+  log("phase 20")
+  # Phase 20: compile once, serve many (the compiled trainer and session
+  # in a cold and a warm process, the critic's compiled rungs, the forge).
+  compile_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  try:
+    started = time.perf_counter()
+    compile_report = run_compile(torch, np, (
+        config, predictors, flagship, serving, specs), card, compile_dir,
+        sequence_dir, critic_dir, bf16_limit)
+    compile_report["phase_s"] = time.perf_counter() - started
+  finally:
+    shutil.rmtree(compile_dir, ignore_errors=True)
+  torch.cuda.empty_cache()
+  compiled_launches = compile_report["cold"]["launches"]
   ulysses_bf16 = mesh_report["nccl_one_rank"]["launches"]
   ulysses_f32 = mesh_report["sequence_parallel"]["ulysses"]["launches"][0]
   fwd_src = "tensor2robot_tpu_torch/csrc/flash_fwd.cu"
@@ -8141,6 +8813,8 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
            "decode_tick_launches"],
        "launches_fleet": fleet_report["session_fleet"][
            "decode_tick_launches"],
+       "launches_compiled": compile_report["cold"]["decode_launches"][
+           "compiled"],
        **decode_t, "single_lane": decode_b1_t},
       # The stateless f32 predict of the serving slice.
       {"name": "flash_fwd", "route": "cuda", "design": "wgmma+tma, 3xtf32",
@@ -8164,6 +8838,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
        "launches_serving": slice_report["launches"]["flash_fwd_bf16"],
        "launches_rewind": rewind_launches["flash_fwd"],
        "launches_ulysses": ulysses_bf16["flash_fwd"],
+       "launches_compiled": compiled_launches["flash_fwd"],
        "max_abs_err": flash_err["bfloat16"],
        "rel_norm_err": flash_rel["bfloat16"],
        "sass_mma": sass["flash_fwd_tc_kernel"], **fwd_bf16_t},
@@ -8185,7 +8860,8 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
           "replaces": f"tensor2robot_tpu/ops/attention.py:{replaces}",
           "launches": launches[f"flash_bwd_{kernel}"],
           **({"launches_rewind": rewind_launches[f"flash_bwd_{kernel}"],
-              "launches_ulysses": ulysses_bf16[f"flash_bwd_{kernel}"]}
+              "launches_ulysses": ulysses_bf16[f"flash_bwd_{kernel}"],
+              "launches_compiled": compiled_launches[f"flash_bwd_{kernel}"]}
              if dtype == "bfloat16" else {
                  "launches_remat": remat_launches[f"flash_bwd_{kernel}"],
                  "launches_ulysses": ulysses_f32[f"flash_bwd_{kernel}"]}),
@@ -8214,7 +8890,8 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
             "bcz": bcz_report, "grasp2vec": grasp2vec_report,
             "vrgripper": vr_reports, "telemetry": telemetry_report,
             "observe": observe_report, "fleet": fleet_report,
-            "mesh": mesh_report, "pipeline": pipeline_report}
+            "mesh": mesh_report, "pipeline": pipeline_report,
+            "compile": compile_report}
   os.makedirs(os.path.dirname(REPORT), exist_ok=True)
   with open(REPORT, "w") as f:
     json.dump(report, f, indent=1)
@@ -8237,6 +8914,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   print(json.dumps({"fleet": _fleet_line(fleet_report)}))
   print(json.dumps({"mesh": _mesh_line(mesh_report)}))
   print(json.dumps({"pipeline": pipeline_report}))
+  print(json.dumps({"compile": _compile_line(compile_report)}))
   print(json.dumps({"kernels": kernels}))
   print(card_line(), flush=True)
   print(json.dumps({"ok": True, "device": {
@@ -8248,4 +8926,6 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
 if __name__ == "__main__":
   if sys.argv[1:2] == ["--mesh-worker"]:
     sys.exit(mesh_worker(sys.argv[2:]))
+  if sys.argv[1:2] == ["--compile-worker"]:
+    sys.exit(compile_worker(sys.argv[2:]))
   sys.exit(main())

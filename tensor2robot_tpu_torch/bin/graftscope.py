@@ -46,10 +46,18 @@ heartbeat keeps the JAX package's name, `tunnel heartbeat`:
       (`obs.slo.default_serving_slos`); `--json` emits the frame; exit 0
       within budget, 1 over budget, 2 unreadable.
 
-The JAX package's `cache`, `forge` and `audit` subcommands read modules
-the port has not yet (its executable cache, compile farm and lint
-audit: ROADMAP.md, Queue A item 15.3); here each exits 2 with a message
-naming that item.
+  python -m tensor2robot_tpu_torch.bin.graftscope cache <cache_dir>
+      list, `--verify` (exit 1 on a bad entry) or `--evict` graftcache
+      entries (`obs.excache`; sidecars only);
+  python -m tensor2robot_tpu_torch.bin.graftscope forge <config.gin>
+      the compile farm (`obs.forge`): `--plan` prints the enumeration,
+      the default compiles every forgeable target into `--cache-dir`,
+      `--verify` checks a cache against the plan without compiling;
+      exit 0 ok, 1 missing or bad entries or farm errors, 2 usage.
+
+The JAX package's `audit` subcommand runs its static analysis, which the
+port has not yet (ROADMAP.md, Queue A item 15.4): it exits 2 naming
+that item.
 
 Robustness contract: a torn tail line of a live run, a truncated trace
 JSON, or binary garbage in any telemetry file is skipped with a warning
@@ -681,13 +689,207 @@ def _main_postmortem(argv: List[str]) -> int:
   return 0
 
 
-def _not_ported(name: str):
-  def _main(argv: List[str]) -> int:
-    print(f"graftscope {name}: not ported yet; it reads the JAX package's "
-          "executable cache, compile farm and lint audit, which the port "
-          "has not yet (ROADMAP.md, Queue A item 15.3)", file=sys.stderr)
+def _main_audit(argv: List[str]) -> int:
+  del argv
+  print("graftscope audit: not ported yet; it runs the JAX package's "
+        "static analysis (its lint rules and jaxpr audit), which the port "
+        "has not yet (ROADMAP.md, Queue A item 15.4)", file=sys.stderr)
+  return 2
+
+
+def _main_cache(argv: List[str]) -> int:
+  parser = argparse.ArgumentParser(
+      prog=f"{_PROG} cache",
+      description="List, verify, or evict graftcache entries "
+                  "(obs.excache). Sidecars only: torch-free, safe beside "
+                  "a job that owns the card.")
+  parser.add_argument("cache_dir",
+                      help="cache directory (e.g. .graftcache or "
+                           "<model_dir>/excache)")
+  parser.add_argument("--verify", action="store_true",
+                      help="checksum every entry's blob against its "
+                           "sidecar; exit 1 if any entry is bad")
+  parser.add_argument("--evict", action="store_true",
+                      help="remove entries (ALL, including the "
+                           "inductor/ tier, without --key/--older-than/"
+                           "--name-prefix)")
+  parser.add_argument("--key", help="restrict --evict to one entry key")
+  parser.add_argument("--older-than", type=float, metavar="SECS",
+                      help="restrict --evict to entries created more "
+                           "than SECS seconds ago")
+  parser.add_argument("--name-prefix", metavar="PREFIX",
+                      help="restrict --evict to entries whose recorded "
+                           "name starts with PREFIX (e.g. serve/): "
+                           "clears one namespace of a shared cache dir")
+  args = parser.parse_args(argv)
+  if not os.path.isdir(args.cache_dir):
+    print(f"graftscope: no cache directory at {args.cache_dir}",
+          file=sys.stderr)
     return 2
-  return _main
+  from tensor2robot_tpu_torch.obs import excache as excache_lib
+
+  cache = excache_lib.ExecutableCache(args.cache_dir)
+  if args.evict:
+    removed = cache.evict(key=args.key, older_than_secs=args.older_than,
+                          name_prefix=args.name_prefix)
+    print(f"graftcache: evicted {removed} entr"
+          f"{'y' if removed == 1 else 'ies'} from {args.cache_dir}")
+    return 0
+  entries = cache.entries()
+  bad: List[str] = []
+  if args.verify:
+    _, bad = cache.verify()
+  print(f"graftcache: {args.cache_dir} ({len(entries)} entr"
+        f"{'y' if len(entries) == 1 else 'ies'})")
+  header = (f"  {'name':<28}{'bytes':>12}{'age':>10}"
+            f"{'  key':<40}{'  status' if args.verify else ''}")
+  print(header)
+  now = time.time()
+  total_bytes = 0
+  for entry in entries:
+    size = int(entry.get("blob_bytes") or 0)
+    total_bytes += size
+    age = now - float(entry.get("created_unix") or now)
+    status = ""
+    if args.verify:
+      status = "  CORRUPT" if entry["key"] in bad else "  ok"
+    if entry.get("orphan"):
+      status = "  ORPHAN-BLOB" if args.verify else ""
+    name = str(entry.get("name") or "?")[:27]
+    print(f"  {name:<28}{size:>12}{age:>9.0f}s  {entry['key']:<38}"
+          f"{status}")
+  print(f"  total {total_bytes} bytes")
+  if args.verify and bad:
+    print(f"graftcache: {len(bad)} bad entr"
+          f"{'y' if len(bad) == 1 else 'ies'} "
+          "(evict with --evict --key <key>, or rely on the automatic "
+          "quarantine-on-load)", file=sys.stderr)
+    return 1
+  return 0
+
+
+def _main_forge(argv: List[str]) -> int:
+  parser = argparse.ArgumentParser(
+      prog=f"{_PROG} forge",
+      description="graftforge: enumerate the compiled steps a config "
+                  "deploys and warm the graftcache for all of them "
+                  "before any process starts (obs.forge). --plan prints "
+                  "the enumeration without building anything; the "
+                  "default runs the compile farm; --verify checks an "
+                  "existing cache against the plan without compiling. "
+                  "Exit codes match `graftscope cache`: 0 ok, 1 bad/"
+                  "missing entries or farm errors, 2 usage.")
+  parser.add_argument("config_files", nargs="+",
+                      help="config (.gin) files, e.g. "
+                           "tensor2robot_tpu_torch/configs/serve_fleet.gin")
+  parser.add_argument("--binding", action="append", default=[],
+                      help="extra binding strings, applied last "
+                           "(repeatable)")
+  parser.add_argument("--cache-dir", default=os.environ.get(
+      "GRAFTCACHE_DIR", ".graftcache"),
+                      help="graftcache directory to populate/verify "
+                           "(default $GRAFTCACHE_DIR or .graftcache)")
+  parser.add_argument("--jobs", type=int, default=2,
+                      help="compile-farm worker processes at once (one "
+                           "fresh process per target)")
+  parser.add_argument("--plan", action="store_true",
+                      help="dry-run: print the enumeration and exit "
+                           "(torch-free)")
+  parser.add_argument("--verify", action="store_true",
+                      help="check the cache against the plan without "
+                           "compiling (exit 1 on missing/corrupt)")
+  parser.add_argument("--model", default=None,
+                      help="model source for serving-only configs: a "
+                           "registered configurable name, or 'flagship' "
+                           "(the QT-Opt critic)")
+  parser.add_argument("--export-dir", default=None,
+                      help="serve the model from this export-bundle "
+                           "root instead of a configurable ctor")
+  parser.add_argument("--model-dir", default=None,
+                      help="deployment model_dir: predictors restore "
+                           "its checkpoints when present (else random-"
+                           "init: keys are value-independent), and "
+                           "'--cache-dir auto' resolves to its excache/")
+  parser.add_argument("--device", default="cuda",
+                      help="the workers' device (default cuda; cpu for a "
+                           "CPU deployment): a cache-key component")
+  parser.add_argument("--runs", default=None,
+                      help="runs.jsonl to append the forge manifest to "
+                           "(default $GRAFTSCOPE_RUNS or ./runs.jsonl; "
+                           "'' disables)")
+  args = parser.parse_args(argv)
+  missing = [p for p in args.config_files if not os.path.isfile(p)]
+  if missing:
+    print(f"graftscope forge: no such config: {', '.join(missing)}",
+          file=sys.stderr)
+    return 2
+  from tensor2robot_tpu_torch.obs import forge as forge_lib
+
+  cache_dir = args.cache_dir
+  if cache_dir == "auto":
+    if not args.model_dir:
+      print("graftscope forge: --cache-dir auto needs --model-dir",
+            file=sys.stderr)
+      return 2
+    cache_dir = os.path.join(args.model_dir, "excache")
+  try:
+    plan = forge_lib.plan_from_config(
+        args.config_files, args.binding, model=args.model,
+        export_dir=args.export_dir, model_dir=args.model_dir)
+  except Exception as e:  # noqa: BLE001 - a config error is a usage error
+    print(f"graftscope forge: cannot enumerate {args.config_files}: "
+          f"{type(e).__name__}: {e}", file=sys.stderr)
+    return 2
+  print(forge_lib.format_plan(plan))
+  if args.plan:
+    return 0
+  forgeable = [t for t in plan["targets"] if t["forgeable"]]
+  if forgeable and plan.get("model") is None:
+    print("graftscope forge: the plan has forgeable serving/train "
+          "targets but no model source — pass --model/--export-dir or "
+          "bind graftforge.model in the config", file=sys.stderr)
+    return 2
+  if args.verify:
+    report = forge_lib.verify_plan(plan, cache_dir, device=args.device)
+    print(f"graftforge verify: {cache_dir}: "
+          f"{len(report['present'])} present, "
+          f"{len(report['missing'])} missing, "
+          f"{len(report['corrupt'])} corrupt, "
+          f"{len(report['errors'])} error(s)")
+    for entry in report["present"]:
+      print(f"  HIT     {entry.get('name')}  {entry.get('key')}")
+    for entry in report["missing"]:
+      print(f"  MISSING {entry.get('name')}  {entry.get('key')}")
+    for entry in report["corrupt"]:
+      print(f"  CORRUPT {entry.get('name')}  {entry.get('key')}")
+    for entry in report["errors"]:
+      print(f"  ERROR   {entry.get('name')}: {entry.get('error')}",
+            file=sys.stderr)
+    return 1 if (report["missing"] or report["corrupt"]
+                 or report["errors"]) else 0
+  runs_path = args.runs
+  if runs_path is None:
+    runs_path = os.environ.get("GRAFTSCOPE_RUNS", "runs.jsonl")
+  manifest = forge_lib.run_forge(plan, cache_dir, jobs=args.jobs,
+                                 device=args.device,
+                                 runs_path=runs_path or None)
+  counts = manifest["counts"]
+  print(f"graftforge: {counts['forged']} compiled + {counts['cached']} "
+        f"already-cached executable(s) into {cache_dir} in "
+        f"{manifest['wall_s']:.1f}s ({manifest['jobs']} job(s); "
+        f"{counts['unforgeable']} unforgeable, {counts['fallback']} "
+        f"fallback(s), {counts['errors']} error(s))")
+  for entry in manifest["executables"]:
+    print(f"  {entry.get('action', '?'):<9}{entry.get('name'):<28}"
+          f"compile_s={entry.get('compile_s')}  {entry.get('key')}")
+  for entry in manifest["errors"]:
+    print(f"  ERROR   {entry.get('name')}: {entry.get('error')}",
+          file=sys.stderr)
+  if counts["fallback"]:
+    print(f"graftscope forge: {counts['fallback']} step(s) failed to "
+          "compile and ran eagerly: nothing was stored for them",
+          file=sys.stderr)
+  return 1 if (manifest["errors"] or counts["fallback"]) else 0
 
 
 def _main_timeline(argv: List[str]) -> int:
@@ -945,8 +1147,8 @@ def _main_watch(argv: List[str]) -> int:
 _SUBCOMMANDS = {"report": _main_report, "history": _main_history,
                 "diff": _main_diff, "postmortem": _main_postmortem,
                 "timeline": _main_timeline, "watch": _main_watch,
-                **{name: _not_ported(name)
-                   for name in ("cache", "forge", "audit")}}
+                "cache": _main_cache, "forge": _main_forge,
+                "audit": _main_audit}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

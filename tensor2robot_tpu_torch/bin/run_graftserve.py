@@ -20,10 +20,12 @@ engines' warm counts and the shed and SLO counters.
 every visible CUDA card. One card listed twice serves two replicas on
 it. The single-engine mode serves on the first device.
 
-The JAX CLI's `--executable_cache_dir` and its `compile_sec` and
-`engine_compiles` keys describe compiled executables, which eager
-PyTorch does not have (ROADMAP item 15.3): the flag raises if set, and
-the line reports `engine_warms` (each engine's `warm_count`) instead.
+`--executable_cache_dir` compiles every engine rung (`BucketedEngine(
+cache=..., cache_namespace='serve/engine')`), loading and storing the
+compiler's artifacts there; the line reports `engine_compiles` (fresh
+compiles per engine) and `compile_sec` (each compiled rung's first-call
+wall), as the JAX CLI does, beside `engine_warms`. Without the flag the
+rungs run eagerly and both are 0 / empty.
 """
 
 from __future__ import annotations
@@ -62,7 +64,9 @@ def _parse(argv):
                       help="Comma-separated devices the replicas are "
                       "carved from (default: every visible CUDA card).")
   parser.add_argument("--executable_cache_dir", default=None,
-                      help="Not available in the port (ROADMAP item 15.3).")
+                      help="graftcache directory: compile every engine rung "
+                      "and keep the compiler's artifacts there (replicas "
+                      "share the 'serve/engine' cache namespace).")
   return parser.parse_args(argv)
 
 
@@ -70,10 +74,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
   args = _parse(argv)
   logging.basicConfig(level=logging.INFO,
                       format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-  if args.executable_cache_dir:
-    raise ValueError(
-        "--executable_cache_dir (the JAX package's executable cache) has no "
-        "port yet: it is ROADMAP item 15.3.")
   if not args.export_dir:
     raise SystemExit("--export_dir is required.")
   config.parse_config_files_and_bindings(args.config_files, args.config)
@@ -110,7 +110,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
       if index > 0 and not p.restore():
         raise RuntimeError(f"replica {index}: export restore failed")
       p.place_on_device(group[0])
-      return serving.BucketedEngine(predictor=p)
+      return serving.BucketedEngine(predictor=p,
+                                    cache=args.executable_cache_dir,
+                                    cache_namespace="serve/engine")
 
     with serving.ServingFleet(replica_factory=make_replica,
                               num_replicas=args.replicas,
@@ -121,15 +123,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
           requests_per_thread=args.requests_per_thread,
           deadline_ms=deadline_ms)
       warms = fleet.warm_counts()
+      engine_compiles = fleet.compile_counts()
+      compile_records = [r for i in range(fleet.num_replicas)
+                         for r in fleet.replica(i).compile_records]
       buckets = fleet.replica(0).buckets
   else:
-    engine = serving.BucketedEngine(predictor=predictor).warmup()
+    engine = serving.BucketedEngine(
+        predictor=predictor, cache=args.executable_cache_dir,
+        cache_namespace="serve/engine").warmup()
     with serving.MicroBatcher(backend=engine) as batcher:
       result = loadgen.run_load(
           batcher.predict, lambda i: request, concurrency=args.concurrency,
           requests_per_thread=args.requests_per_thread,
           deadline_ms=deadline_ms)
     warms = engine.warm_count
+    engine_compiles = engine.compile_count
+    compile_records = engine.compile_records
     buckets = engine.buckets
   snap = obs_metrics.snapshot(prefix="serve/")
   print(json.dumps({
@@ -143,6 +152,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                      for k, v in loadgen.latency_percentiles().items()},
       "buckets": buckets,
       "engine_warms": warms,
+      "engine_compiles": engine_compiles,
+      "compile_sec": [round(float(r.get("compile_s") or 0.0), 3)
+                      for r in compile_records],
       "shed_deadline": snap.get("counter/serve/batcher/shed_deadline", 0.0),
       "shed_queue_full": snap.get("counter/serve/batcher/shed_queue_full",
                                   0.0),

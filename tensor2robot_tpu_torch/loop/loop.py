@@ -108,10 +108,20 @@ class GraftLoop:
                trainer_kwargs: Optional[Dict[str, Any]] = None,
                input_generator_factory: Optional[Callable[[str], Any]] = None,
                device=None,
-               seed: int = 0):
+               seed: int = 0,
+               executable_cache_dir: Optional[str] = None):
     self._model_factory = model_factory
     self._model_dir = os.path.abspath(model_dir)
     os.makedirs(self._model_dir, exist_ok=True)
+    # One executable cache for the loop ("auto" = <model_dir>/excache):
+    # the default replicas compile their rungs under one 'serve/loop'
+    # namespace (the first stores, the rest load) and every learner
+    # round compiles its train step against it (the learner's later
+    # rounds load). None (the default, unlike the JAX loop's "auto")
+    # keeps both eager, as `train_eval_model` does.
+    if executable_cache_dir == "auto":
+      executable_cache_dir = os.path.join(self._model_dir, "excache")
+    self._executable_cache_dir = executable_cache_dir or None
     self._device = device
     # BEFORE any replica is built: CheckpointPredictor resolves its
     # polling directory at construction — if `<model_dir>/checkpoints`
@@ -201,7 +211,9 @@ class GraftLoop:
     if devices:
       predictor.place_on_device(devices[0])
     return engine_lib.BucketedEngine(predictor=predictor,
-                                     max_batch_size=self._max_batch_size)
+                                     max_batch_size=self._max_batch_size,
+                                     cache=self._executable_cache_dir,
+                                     cache_namespace="serve/loop")
 
   def _build_fleet(self) -> None:
     from tensor2robot_tpu_torch import specs as specs_lib
@@ -391,7 +403,8 @@ class GraftLoop:
           log_every_n_steps=1,
           reset_run_telemetry=False,
           device=self._device,
-          seed=self._seed)
+          seed=self._seed,
+          executable_cache_dir=self._executable_cache_dir)
       kwargs.update(self._trainer_kwargs)
       # The beat hook matters: the round is otherwise a heartbeat-silent
       # stretch, and any heartbeat_timeout_s shorter than a full round
@@ -588,13 +601,16 @@ def run_graftloop(model_ctor=config.REQUIRED,
                   heartbeat_timeout_s: Optional[float] = None,
                   wall_timeout_s: float = 600.0,
                   device=None,
-                  seed: int = 0) -> Dict[str, Any]:
+                  seed: int = 0,
+                  executable_cache_dir: Optional[str] = None
+                  ) -> Dict[str, Any]:
   """Config-engine entry point (`configs/loop_qtopt.gin`,
   `bin/run_graftloop.py`): builds a `GraftLoop` from configurable
   constructors — `model_ctor()` per consumer, `env_ctor()` per actor,
   `policy_ctor(predictor=fleet)` per actor — runs it to the training
   target on `device` (CUDA unless 'cpu'), and returns the loop
-  summary."""
+  summary. `executable_cache_dir` ("auto" or a path) compiles the
+  replicas' rungs and the learner's step against one cache."""
   loop = GraftLoop(
       model_factory=lambda: model_ctor(),
       model_dir=model_dir,
@@ -614,7 +630,8 @@ def run_graftloop(model_ctor=config.REQUIRED,
       actor_pause_s=actor_pause_s,
       heartbeat_timeout_s=heartbeat_timeout_s,
       device=device,
-      seed=seed)
+      seed=seed,
+      executable_cache_dir=executable_cache_dir)
   summary = loop.run(wall_timeout_s=wall_timeout_s)
   _log.info("graftloop summary: %s", summary)
   return summary

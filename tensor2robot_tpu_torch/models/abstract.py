@@ -148,6 +148,8 @@ class T2RModel(abc.ABC):
 
   @property
   def module(self) -> nn.Module:
+    if self._module is not None:  # built: a compiled graph reads it here
+      return self._module
     with self._module_lock:
       if self._module is None:
         self._module = self.create_module()
@@ -306,10 +308,16 @@ class T2RModel(abc.ABC):
     domain-adaptive model's `inner`). Forwards of one model from several
     threads run one at a time."""
     variables = {**self.params_for_compute(params), **mutable_state}
+    kwargs = {"mode": mode, "train": train, **module_kwargs}
+    if torch.compiler.is_compiling():
+      # Traced into a compiled graph: the graph takes `variables` as its
+      # inputs and never swaps them into the module, so there is nothing
+      # to guard (and a lock cannot be traced).
+      return torch.func.functional_call(self.module, variables, (features,),
+                                        kwargs, strict=True)
     with self._module_lock:
-      return torch.func.functional_call(
-          self.module, variables, (features,),
-          {"mode": mode, "train": train, **module_kwargs}, strict=True)
+      return torch.func.functional_call(self.module, variables, (features,),
+                                        kwargs, strict=True)
 
   @property
   def compute_dtype(self) -> torch.dtype:

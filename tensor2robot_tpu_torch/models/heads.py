@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from tensor2robot_tpu_torch import modes as modes_lib
 from tensor2robot_tpu_torch import specs as specs_lib
 from tensor2robot_tpu_torch.models import abstract as abstract_model
+from tensor2robot_tpu_torch.parallel import collectives
 
 __all__ = ["ClassificationModel", "RegressionModel", "CriticModel",
            "sigmoid_cross_entropy", "softmax_cross_entropy"]
@@ -79,6 +80,13 @@ class ClassificationModel(abstract_model.T2RModel):
     if self._num_classes == 1:
       probs = torch.sigmoid(logits)
       predicted = (probs > 0.5).float()
+      # Precision and recall are ratios of sums over the batch: on a data
+      # split every rank's rows are gathered first, so they are the
+      # global batch's (the means below are the same either way).
+      group = collectives.current_batch_group()
+      probs = collectives.all_gather_batch(probs, group)
+      predicted = collectives.all_gather_batch(predicted, group)
+      y = collectives.all_gather_batch(y, group)
       true_pos = torch.sum(predicted * y)
       return {"loss": loss,
               "accuracy": torch.mean((predicted == y).float()),

@@ -7,9 +7,11 @@ train run appends ONE schema-versioned JSON line — step-stat summary,
 memory watermark, sentinel and recovery blocks — to an append-only
 `runs.jsonl`, and `diff_records` compares two records' canonical metrics
 against direction-aware regression thresholds (throughput regresses
-DOWN, step time / compile time / watermark regress UP). A torch run has
-no compile records (eager PyTorch compiles nothing), so its records
-carry no `compile` block and the compile metrics are simply absent.
+DOWN, step time / compile time / watermark regress UP). A run whose step
+was compiled (`train_eval_model(executable_cache_dir=...)`) carries the
+`compile` block of `obs.xray` records, and `compile_time_s` is its
+train step's first-call wall; an eager run has none, and the compile
+metrics are simply absent.
 
 Readers are tolerant by contract: a torn tail line from a live run or a
 corrupt record is skipped and counted (`runlog/corrupt_lines`), never

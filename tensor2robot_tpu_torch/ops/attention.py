@@ -7,16 +7,23 @@ Counterpart of `tensor2robot_tpu.ops.attention`. All functions take
 * `attention` — plain softmax attention (any device).
 * `cached_attention` — one decode tick against a per-session KV cache.
 * `flash_attention` — the wrapper: pads a sequence that does not tile to
-  the block multiple and masks it, then runs `FlashAttentionFunction`,
-  the `torch.autograd.Function` mirroring the JAX package's `_flash`
-  custom VJP: `flash_forward` forward, `flash_backward` backward.
-* `flash_forward` — (out, lse) over [batch*heads, T, D]: the hand-written
-  CUDA kernel (`csrc/flash_fwd.cu`) on a CUDA tensor, its plain PyTorch
-  version (`_flash_forward_plain`) on a CPU tensor.
-* `flash_backward` — (dq, dk, dv) over [batch*heads, T, D]: the dQ and
-  dK/dV kernels (`csrc/flash_bwd.cu`; in f32 after its split pass) on a
-  CUDA tensor, its plain PyTorch version (`_flash_backward_plain`) on a
-  CPU tensor.
+  the block multiple and masks it, then runs `flash_forward`, whose
+  gradient is `flash_backward` (the JAX package's `_flash` custom VJP).
+* `flash_forward` — (out, lse) over [batch*heads, T, D], the registered
+  operator `t2r::flash_fwd`: the hand-written CUDA kernel
+  (`csrc/flash_fwd.cu`) on a CUDA tensor, its plain PyTorch version
+  (`_flash_forward_plain`) on a CPU tensor. Its autograd formula
+  (`register_autograd`) calls `t2r::flash_bwd`.
+* `flash_backward` — (dq, dk, dv) over [batch*heads, T, D], the
+  registered operator `t2r::flash_bwd`: the dQ and dK/dV kernels
+  (`csrc/flash_bwd.cu`; in f32 after its split pass) on a CUDA tensor,
+  its plain PyTorch version (`_flash_backward_plain`) on a CPU tensor.
+
+Both operators, and `t2r::decode_tick` (`ops.decode_kernels`), are
+opaque to `torch.compile`: a compiled graph holds the call and launches
+the kernel at run time, and each carries a fake implementation and a
+flop formula (`torch.utils.flop_counter`), so a compiled step keeps its
+kernels, its launch counts and its operation count.
 * `ring_attention` — sequence parallelism over a mesh axis: each rank
   keeps its Q block and absorbs one K/V block per hop through the online
   softmax (`_online_block_update`), the blocks passed around the ring by
@@ -39,12 +46,13 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils import flop_counter
 
 from tensor2robot_tpu_torch.ops import _kernels
 from tensor2robot_tpu_torch.parallel import collectives
 
 __all__ = ["attention", "cached_attention", "flash_attention",
-           "flash_forward", "flash_backward", "FlashAttentionFunction",
+           "flash_forward", "flash_backward",
            "ring_attention", "ulysses_attention"]
 
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
@@ -160,9 +168,11 @@ def flash_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
 
   Returns (out [BH, T, D] in the input dtype, lse [BH, T, 1] f32) through
   the registered operator `t2r::flash_fwd`, so a `torch.export` program
-  records the call: a CPU tensor runs the plain version; a CUDA tensor
-  launches `csrc/flash_fwd.cu` or raises (f32 or bf16, head_dim in
-  FLASH_HEAD_DIMS). `flash_forward.launches` counts kernel launches.
+  or a compiled graph records the call: a CPU tensor runs the plain
+  version; a CUDA tensor launches `csrc/flash_fwd.cu` or raises (f32 or
+  bf16, head_dim in FLASH_HEAD_DIMS). `out` is differentiable in q, k and
+  v through `flash_backward`; lse is not. `flash_forward.launches`
+  counts kernel launches.
   """
   _check_flash_operands("flash_forward", (q3, k3, v3), valid_len)
   return torch.ops.t2r.flash_fwd(q3, k3, v3, bool(causal), int(valid_len))
@@ -177,14 +187,16 @@ def _flash_fwd_op(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                   causal: bool, valid_len: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
   """`t2r::flash_fwd` on the CPU: the plain version. Its CUDA
-  implementation, the kernel launch, is registered below."""
-  return _flash_forward_plain(q3, k3, v3, causal, valid_len)
+  implementation, the kernel launch, is registered below. Outputs are
+  contiguous on every device, as the fake implementation says."""
+  out, lse = _flash_forward_plain(q3, k3, v3, causal, valid_len)
+  return out.contiguous(), lse.contiguous()
 
 
 @_flash_fwd_op.register_fake
 def _flash_fwd_fake(q3, k3, v3, causal, valid_len):
   bh, t, _ = q3.shape
-  return (torch.empty_like(q3),
+  return (q3.new_empty(q3.shape),
           q3.new_empty((bh, t, 1), dtype=torch.float32))
 
 
@@ -297,7 +309,8 @@ def flash_backward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
   """Flash attention backward over [batch*heads, T, D]: the forward's
   operands, its out and lse [BH, T, 1] f32, and the cotangent `do` of
-  out. Returns (dq, dk, dv) in the input dtype.
+  out. Returns (dq, dk, dv) in the input dtype, through the registered
+  operator `t2r::flash_bwd`.
 
   delta = rowsum(dO * O) is a torch op, as in the JAX package. A CPU
   tensor runs the plain version; a CUDA tensor launches the dQ and the
@@ -306,9 +319,33 @@ def flash_backward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
   planes. `flash_backward.launches_dq`, `.launches_dkv` and
   `.launches_split` count launches.
   """
-  if _check_flash_operands("flash_backward", (q3, k3, v3, out, do),
-                           valid_len) == "cpu":
-    return _flash_backward_plain(q3, k3, v3, out, lse, do, causal, valid_len)
+  _check_flash_operands("flash_backward", (q3, k3, v3, out, do), valid_len)
+  return torch.ops.t2r.flash_bwd(q3, k3, v3, out, lse, do, bool(causal),
+                                 int(valid_len))
+
+
+@torch.library.custom_op("t2r::flash_bwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_bwd_op(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  causal: bool, valid_len: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """`t2r::flash_bwd` on the CPU: the plain version. Its CUDA
+  implementation, the kernel launches, is registered below. Outputs are
+  contiguous on every device, as the fake implementation says."""
+  return tuple(g.contiguous() for g in _flash_backward_plain(
+      q3, k3, v3, out, lse, do, causal, valid_len))
+
+
+@_flash_bwd_op.register_fake
+def _flash_bwd_fake(q3, k3, v3, out, lse, do, causal, valid_len):
+  return q3.new_empty(q3.shape), k3.new_empty(k3.shape), v3.new_empty(
+      v3.shape)
+
+
+@_flash_bwd_op.register_kernel("cuda")
+def _launch_flash_bwd(q3, k3, v3, out, lse, do, causal, valid_len):
+  _check_flash_operands("flash_backward", (q3, k3, v3, out, do), valid_len)
   bh, t, d = q3.shape
   if lse.shape != (bh, t, 1) or lse.dtype != torch.float32:
     raise ValueError(f"lse must be f32 [{bh}, {t}, 1], got {lse.dtype} "
@@ -322,6 +359,29 @@ def flash_backward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
   dk, dv = _launch_flash_bwd_dkv(q3, k3, v3, do, lse, delta, causal,
                                  valid_len, planes)
   return dq, dk, dv
+
+
+def _flash_fwd_setup_context(ctx, inputs, output):
+  q3, k3, v3, causal, valid_len = inputs
+  out, lse = output
+  ctx.save_for_backward(q3, k3, v3, out, lse)
+  ctx.causal, ctx.valid_len = causal, valid_len
+  ctx.mark_non_differentiable(lse)
+
+
+def _flash_fwd_backward(ctx, dout, dlse):
+  """The gradient of `t2r::flash_fwd`'s out: `t2r::flash_bwd` (lse is not
+  differentiable). No double backward."""
+  del dlse
+  q3, k3, v3, out, lse = ctx.saved_tensors
+  dq, dk, dv = torch.ops.t2r.flash_bwd(q3, k3, v3, out, lse,
+                                       dout.contiguous(), ctx.causal,
+                                       ctx.valid_len)
+  return dq, dk, dv, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_fwd_backward,
+                                setup_context=_flash_fwd_setup_context)
 
 
 def _launch_flash_bwd_split(q3, k3, v3, do):
@@ -389,28 +449,27 @@ flash_backward.launches_dkv = 0
 flash_backward.launches_split = 0
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-  """Flash attention over padded [BH, T, D] operands with the flash
-  backward as its gradient: the counterpart of the JAX package's `_flash`
-  custom VJP. Returns (out, lse); lse is not differentiable. The forward
-  saves (q3, k3, v3, out, lse). No double backward."""
+def _attention_products(q_shape, causal: bool) -> int:
+  """FLOPs of one [T, T] x D product over [BH, T, D] operands: 2·BH·T²·D,
+  halved when causal (the bound column of `PERF.md`'s kernel table)."""
+  bh, t, d = q_shape
+  return 2 * bh * t * t * d // (2 if causal else 1)
 
-  @staticmethod
-  def forward(ctx, q3, k3, v3, causal: bool, valid_len: int):
-    out, lse = flash_forward(q3, k3, v3, causal, valid_len)
-    ctx.save_for_backward(q3, k3, v3, out, lse)
-    ctx.causal, ctx.valid_len = causal, valid_len
-    ctx.mark_non_differentiable(lse)
-    return out, lse
 
-  @staticmethod
-  @torch.autograd.function.once_differentiable
-  def backward(ctx, dout, dlse):
-    del dlse  # lse is not differentiable
-    q3, k3, v3, out, lse = ctx.saved_tensors
-    dq, dk, dv = flash_backward(q3, k3, v3, out, lse, dout, ctx.causal,
-                                ctx.valid_len)
-    return dq, dk, dv, None, None
+@flop_counter.register_flop_formula(torch.ops.t2r.flash_fwd)
+def _flash_fwd_flops(q3_shape, k3_shape, v3_shape, causal, valid_len,
+                     out_shape=None, **kwargs) -> int:
+  """S = QK^T and O = PV: two products."""
+  return 2 * _attention_products(q3_shape, causal)
+
+
+@flop_counter.register_flop_formula(torch.ops.t2r.flash_bwd)
+def _flash_bwd_flops(q3_shape, k3_shape, v3_shape, out_shape_, lse_shape,
+                     do_shape, causal, valid_len, out_shape=None,
+                     **kwargs) -> int:
+  """dQ recomputes S and forms dP and dQ (three products); dK/dV
+  recomputes S and forms dP, dV and dK (four)."""
+  return 7 * _attention_products(q3_shape, causal)
 
 
 def _next_pow2(n: int) -> int:
@@ -434,7 +493,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, block_q: int = _KERNEL_TILE,
                     block_k: int = _KERNEL_TILE) -> torch.Tensor:
   """Flash attention, [B, H, T, D], differentiable on every device through
-  `FlashAttentionFunction` (the flash backward kernels on a CUDA tensor).
+  `flash_forward`'s gradient (the flash backward kernels on a CUDA
+  tensor).
 
   Blocks are normalized to powers of two in [_MIN_BLOCK, next_pow2(T)],
   and a T that does not tile max(block_q, block_k) is padded to the next
@@ -456,7 +516,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q3 = torch.nn.functional.pad(q3, pad)
     k3 = torch.nn.functional.pad(k3, pad)
     v3 = torch.nn.functional.pad(v3, pad)
-  out, _ = FlashAttentionFunction.apply(q3, k3, v3, causal, t)
+  out, _ = flash_forward(q3, k3, v3, causal, t)
   if t_pad != t:
     out = out[:, :t]
   return out.reshape(b, h, t, d)

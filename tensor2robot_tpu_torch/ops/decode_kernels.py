@@ -3,7 +3,9 @@ in place, in one kernel launch per attention block.
 
 Counterpart of `tensor2robot_tpu.ops.decode_kernels`:
 
-* `fused_decode_attention` — on a CUDA tensor, launches
+* `fused_decode_attention` — the registered operator `t2r::decode_tick`
+  (mutating the arenas, opaque to `torch.compile`, with a fake
+  implementation and a flop formula): on a CUDA tensor it launches
   `csrc/decode_tick.cu` once: per lane, an online softmax over the lane's
   own arena rows t < index, split over T into chunks of `DECODE_CHUNK`
   rows (one thread block each) whose partials the lane's last blocks
@@ -29,6 +31,7 @@ import math
 from typing import Dict, Tuple
 
 import torch
+from torch.utils import flop_counter
 
 from tensor2robot_tpu_torch.ops import _kernels
 from tensor2robot_tpu_torch.ops import attention as attention_ops
@@ -161,7 +164,9 @@ def fused_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
   tick position; mask: [B] bool — live lanes.
 
   Returns (out [B, H, D], k_arena, v_arena): the arenas are the SAME
-  tensors that came in.
+  tensors that came in. The call is the registered operator
+  `t2r::decode_tick`, which mutates the arenas and returns `out` only (a
+  custom operator may not return an input), so a compiled graph holds it.
 
   On CUDA: one launch per call, `ceil(T / DECODE_CHUNK)` x B blocks (times
   the head groups), with partials in scratch from `torch.empty` and one
@@ -171,12 +176,39 @@ def fused_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
   not take raises; nothing falls back.
   """
   _check_operands(q, k_new, v_new, k_arena, v_arena, slots, index, mask)
-  if q.device.type == "cpu":
-    return (_decode_tick_plain(q, k_new, v_new, k_arena, v_arena, slots,
-                               index, mask), k_arena, v_arena)
-  if q.device.type != "cuda":
+  if q.device.type not in ("cpu", "cuda"):
     raise ValueError(f"fused_decode_attention: unsupported device "
                      f"{q.device}")
+  out = torch.ops.t2r.decode_tick(q, k_new, v_new, k_arena, v_arena, slots,
+                                  index, mask)
+  return out, k_arena, v_arena
+
+
+fused_decode_attention.launches = 0
+
+
+@torch.library.custom_op("t2r::decode_tick",
+                         mutates_args=("k_arena", "v_arena"),
+                         device_types="cpu")
+def _decode_tick_op(q: torch.Tensor, k_new: torch.Tensor,
+                    v_new: torch.Tensor, k_arena: torch.Tensor,
+                    v_arena: torch.Tensor, slots: torch.Tensor,
+                    index: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+  """`t2r::decode_tick` on the CPU: the plain version. Its CUDA
+  implementation, the kernel launch, is registered below. `out` is
+  contiguous on every device, as the fake implementation says."""
+  return _decode_tick_plain(q, k_new, v_new, k_arena, v_arena, slots, index,
+                            mask).contiguous()
+
+
+@_decode_tick_op.register_fake
+def _decode_tick_fake(q, k_new, v_new, k_arena, v_arena, slots, index, mask):
+  return q.new_empty(q.shape)
+
+
+@_decode_tick_op.register_kernel("cuda")
+def _launch_decode_tick(q, k_new, v_new, k_arena, v_arena, slots, index,
+                        mask):
   b, h, d = q.shape
   if d not in DECODE_HEAD_DIMS:
     raise ValueError(f"decode kernel head_dim must be one of "
@@ -216,7 +248,16 @@ def fused_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
       torch.cuda.current_stream(q.device).cuda_stream)
   _kernels.check("decode_tick", status)
   fused_decode_attention.launches += 1
-  return out, k_arena, v_arena
+  return out
 
 
-fused_decode_attention.launches = 0
+@flop_counter.register_flop_formula(torch.ops.t2r.decode_tick)
+def _decode_tick_flops(q_shape, k_new_shape, v_new_shape, k_arena_shape,
+                       v_arena_shape, slots_shape, index_shape, mask_shape,
+                       out_shape=None, **kwargs) -> int:
+  """4·H·D a position attended (a score and its weighted value), over the
+  arena's T positions for each of the B lanes: the most the tick can need
+  (the bound column counts each lane's index + 1, which its shapes do not
+  carry)."""
+  b, h, d = q_shape
+  return 4 * b * k_arena_shape[1] * h * d

@@ -65,8 +65,10 @@ JAX, and is checked, not used to move data).
 `make_pipelined_train_step` holds this rank's blocks, so with v > 1 it
 needs the interleaved layout (the JAX step permutes a depth-ordered stack
 across devices in every step; the port's ranks hold blocks, not the
-stack). Its `audit_name` and `cache` are compile-time tooling (ROADMAP.md
-item 15.3) and raise.
+stack). Its `cache` goes to `obs.xray.XrayedFunction`, whose mesh gate
+keeps a step of more than one rank eager (`cache/skipped_mesh`); its
+`audit_name` is the static-analysis tooling (ROADMAP.md item 15.4) and
+raises.
 """
 
 from __future__ import annotations
@@ -459,12 +461,14 @@ def make_pipelined_train_step(
   optimizer writes the state's own tensors (`optimizers.in_place`). The
   loss returned is the mean over the mesh's ranks.
 
-  `audit_name` and `cache` (the JAX package's compile audit and
-  executable cache) are ROADMAP.md item 15.3 and raise."""
-  if audit_name is not None or cache is not None:
+  `cache` (an `obs.excache` cache or directory) X-rays the step as the
+  JAX package's does: on a mesh of more than one rank the step is not
+  compiled (`cache/skipped_mesh`) and runs eagerly. `audit_name` (the
+  JAX package's jaxpr audit) is ROADMAP.md item 15.4 and raises."""
+  if audit_name is not None:
     raise NotImplementedError(
-        "make_pipelined_train_step(audit_name=..., cache=...) needs the "
-        "compile audit and executable cache: ROADMAP.md item 15.3")
+        "make_pipelined_train_step(audit_name=...) needs the static "
+        "analysis tooling: ROADMAP.md item 15.4")
   v = int(num_virtual_stages)
   if v > 1 and params_layout == "layer" and mesh.group(axis_name).size > 1:
     raise ValueError(
@@ -492,6 +496,12 @@ def make_pipelined_train_step(
     mean = collectives.all_reduce(loss.detach().reshape(()), world)
     return stage_params, opt_state, mean / mesh.size
 
+  if cache is not None:
+    from tensor2robot_tpu_torch.obs import xray as xray_lib
+
+    return xray_lib.XrayedFunction("pipelined_train_step", step,
+                                   cache=cache, mesh=mesh,
+                                   donate_argnums=(0, 1) if donate else ())
   return step
 
 

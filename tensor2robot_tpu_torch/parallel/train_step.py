@@ -340,8 +340,22 @@ def _leaves(params: Params) -> Params:
   return {k: v.detach().requires_grad_(True) for k, v in params.items()}
 
 
+def forward_loss(model, leaves: Params, features, labels,
+                 mutable_state: Optional[Params] = None):
+  """(loss, scalars, new mutable state) of `model.model_train_fn` on the
+  train-mode forward over `leaves`: the region of the step that
+  `obs.xray` compiles (its backward is compiled with it, by
+  AOTAutograd)."""
+  outputs, new_mutable = _train_forward(model, leaves, features,
+                                        mutable_state)
+  loss, scalars = model.model_train_fn(features, labels, outputs,
+                                       modes_lib.TRAIN)
+  return loss, scalars, new_mutable
+
+
 def loss_and_grads(model, params: Params, features, labels,
-                   mutable_state: Optional[Params] = None):
+                   mutable_state: Optional[Params] = None,
+                   forward_loss_fn: Optional[Callable] = None):
   """(loss, scalars, grads, new mutable state) of `model.model_train_fn`
   on one batch, the forward in train mode on `params` and
   `mutable_state` (default {}), the gradients taken with respect to
@@ -349,13 +363,17 @@ def loss_and_grads(model, params: Params, features, labels,
   to bf16 and the gradients flow back through the cast). loss and scalars
   are detached; the new mutable state is {} for a model without one. A
   parameter the loss does not reach (the domain-adaptive model's learned
-  loss outside MAML) gets a zero gradient, as `jax.grad` gives it."""
+  loss outside MAML) gets a zero gradient, as `jax.grad` gives it.
+  `forward_loss_fn(leaves, features, labels, mutable_state)` replaces
+  `forward_loss` (a compiled copy of it)."""
   names = list(params)
   leaves = _leaves(params)
-  outputs, new_mutable = _train_forward(model, leaves, features,
-                                        mutable_state)
-  loss, scalars = model.model_train_fn(features, labels, outputs,
-                                       modes_lib.TRAIN)
+  if forward_loss_fn is None:
+    loss, scalars, new_mutable = forward_loss(model, leaves, features, labels,
+                                              mutable_state)
+  else:
+    loss, scalars, new_mutable = forward_loss_fn(leaves, features, labels,
+                                                 mutable_state)
   grads = dict(zip(names, torch.autograd.grad(
       loss, [leaves[k] for k in names], allow_unused=True,
       materialize_grads=True)))
@@ -475,10 +493,12 @@ class _MeshOps:
     return {k: stacked[i].to(values[k].dtype) for i, k in enumerate(names)}
 
 
-def _gradients_fn(model, ops: Optional[_MeshOps]) -> Callable:
+def _gradients_fn(model, ops: Optional[_MeshOps],
+                  forward_loss_fn: Optional[Callable] = None) -> Callable:
   """(state, features, labels) -> (loss, scalars, gradients, new mutable
   state) of the step; on a mesh the gradients are this rank's blocks of
-  the global batch's."""
+  the global batch's. `forward_loss_fn` goes to `loss_and_grads` (PCGrad's
+  per-task gradients stay eager)."""
   use_pcgrad = _uses_pcgrad(model)
   mesh = ops.mesh if ops is not None else None
 
@@ -505,7 +525,8 @@ def _gradients_fn(model, ops: Optional[_MeshOps]) -> Callable:
       scalars = {f"task_loss/{k}": v for k, v in task_losses.items()}
     else:
       loss, scalars, grads, new_mutable = loss_and_grads(
-          model, params, features, labels, state.mutable_state)
+          model, params, features, labels, state.mutable_state,
+          forward_loss_fn)
       if ops is not None:
         grads = ops.reduce(grads)
     return loss, scalars, grads, new_mutable
@@ -528,6 +549,37 @@ def make_grad_fn(model, mesh, shardings: TrainState,
     return ops.mean({"loss": loss})["loss"], grads
 
   return grad_fn
+
+
+class CompilableStep:
+  """A train step (or K-step loop) that runs eagerly when called, and
+  that `obs.xray.analyze_jit` compiles region by region:
+  `compile_with(compile)` returns the same step with `forward_loss`
+  (forward, loss and, through AOTAutograd, their backward) compiled by
+  `compile`. The gradients are taken by `torch.autograd.grad` between the
+  compiled forward and the optimizer's update, which stays eager (its
+  counts are Python numbers a graph would specialize on). The compiled
+  step carries its compiled region as `forward_loss`, which goes to
+  `loss_and_grads(forward_loss_fn=...)`."""
+
+  def __init__(self, build: Callable, model):
+    self.build = build
+    self._model = model
+    self._eager = build(None)
+
+  def __call__(self, state: TrainState, features, labels):
+    return self._eager(state, features, labels)
+
+  def compile_with(self, compile_fn: Callable) -> Callable:
+    model = self._model
+
+    def region(leaves, features, labels, mutable_state):
+      return forward_loss(model, leaves, features, labels, mutable_state)
+
+    compiled = compile_fn(region)
+    step = self.build(compiled)
+    step.forward_loss = compiled
+    return step
 
 
 def make_train_step(model, mesh=None, shardings: Optional[TrainState] = None,
@@ -561,44 +613,47 @@ def make_train_step(model, mesh=None, shardings: Optional[TrainState] = None,
   if donate is None:
     donate = mesh is not None
 
-  gradients = _gradients_fn(model, ops)
+  def build(forward_loss_fn: Optional[Callable]) -> Callable:
+    gradients = _gradients_fn(model, ops, forward_loss_fn)
 
-  def step_fn(state: TrainState, features, labels):
-    if ops is None:
-      loss, scalars, grads, new_mutable = gradients(state, features, labels)
-    else:
-      with collectives.batch_group(ops.batch_group):
-        loss, scalars, grads, new_mutable = gradients(state, features,
-                                                      labels)
-    with torch.no_grad(), (optimizers_lib.sharded_norms(ops.sum_of_squares)
-                           if ops is not None else contextlib.nullcontext()), \
-        optimizers_lib.in_place(donate):
-      updates, opt_state = optimizer.update(grads, state.opt_state,
-                                            state.params)
-      applied = optimizers_lib.has_updated(opt_state)
-      params = (optimizers_lib.apply_updates(state.params, updates)
-                if applied else state.params)
-      ema = state.ema_params
-      if ema is not None and applied:
-        if donate:
-          for k, e in ema.items():
-            e.mul_(ema_decay).add_((1.0 - ema_decay) * params[k])
-        else:
-          ema = {k: e * ema_decay + (1.0 - ema_decay) * params[k]
-                 for k, e in ema.items()}
-      metrics = {"loss": loss,
-                 "global_gradient_norm": optimizers_lib.global_norm(grads),
-                 **scalars}
-      if ops is not None:
-        norm = metrics.pop("global_gradient_norm")
-        metrics = ops.mean(metrics)
-        metrics["global_gradient_norm"] = norm
-      new_mutable = new_mutable or state.mutable_state
-    return state.replace(step=state.step + 1, params=params,
-                         opt_state=opt_state, ema_params=ema,
-                         mutable_state=new_mutable), metrics
+    def step_fn(state: TrainState, features, labels):
+      if ops is None:
+        loss, scalars, grads, new_mutable = gradients(state, features, labels)
+      else:
+        with collectives.batch_group(ops.batch_group):
+          loss, scalars, grads, new_mutable = gradients(state, features,
+                                                        labels)
+      with torch.no_grad(), (optimizers_lib.sharded_norms(ops.sum_of_squares)
+                             if ops is not None else contextlib.nullcontext()), \
+          optimizers_lib.in_place(donate):
+        updates, opt_state = optimizer.update(grads, state.opt_state,
+                                              state.params)
+        applied = optimizers_lib.has_updated(opt_state)
+        params = (optimizers_lib.apply_updates(state.params, updates)
+                  if applied else state.params)
+        ema = state.ema_params
+        if ema is not None and applied:
+          if donate:
+            for k, e in ema.items():
+              e.mul_(ema_decay).add_((1.0 - ema_decay) * params[k])
+          else:
+            ema = {k: e * ema_decay + (1.0 - ema_decay) * params[k]
+                   for k, e in ema.items()}
+        metrics = {"loss": loss,
+                   "global_gradient_norm": optimizers_lib.global_norm(grads),
+                   **scalars}
+        if ops is not None:
+          norm = metrics.pop("global_gradient_norm")
+          metrics = ops.mean(metrics)
+          metrics["global_gradient_norm"] = norm
+        new_mutable = new_mutable or state.mutable_state
+      return state.replace(step=state.step + 1, params=params,
+                           opt_state=opt_state, ema_params=ema,
+                           mutable_state=new_mutable), metrics
 
-  return step_fn
+    return step_fn
+
+  return CompilableStep(build, model)
 
 
 def loop_batch_spec(batch_spec=None, batch_axis: str = "data"
@@ -620,20 +675,26 @@ def make_train_loop(model, num_steps: int, mesh=None,
   stacked on a leading axis."""
   if num_steps < 1:
     raise ValueError(f"num_steps must be >= 1, got {num_steps}")
-  step_fn = make_train_step(model, mesh=mesh, shardings=shardings,
-                            batch_axis=batch_axis, batch_spec=batch_spec,
-                            donate=donate)
+  step = make_train_step(model, mesh=mesh, shardings=shardings,
+                         batch_axis=batch_axis, batch_spec=batch_spec,
+                         donate=donate)
 
-  def loop_fn(state: TrainState, features, labels):
-    history = []
-    for i in range(num_steps):
-      state, metrics = step_fn(state, {k: v[i] for k, v in features.items()},
-                               {k: v[i] for k, v in labels.items()})
-      history.append(metrics)
-    return state, {k: torch.stack([m[k] for m in history])
-                   for k in history[0]}
+  def build(forward_loss_fn: Optional[Callable]) -> Callable:
+    step_fn = step.build(forward_loss_fn)
 
-  return loop_fn
+    def loop_fn(state: TrainState, features, labels):
+      history = []
+      for i in range(num_steps):
+        state, metrics = step_fn(state,
+                                 {k: v[i] for k, v in features.items()},
+                                 {k: v[i] for k, v in labels.items()})
+        history.append(metrics)
+      return state, {k: torch.stack([m[k] for m in history])
+                     for k in history[0]}
+
+    return loop_fn
+
+  return CompilableStep(build, model)
 
 
 def eval_outputs(model, state: TrainState, features, mode: str,

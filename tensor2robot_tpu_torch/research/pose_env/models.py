@@ -22,6 +22,7 @@ from tensor2robot_tpu_torch import modes as modes_lib
 from tensor2robot_tpu_torch.layers import vision
 from tensor2robot_tpu_torch.models import heads
 from tensor2robot_tpu_torch.ops.image_norm import normalize_image
+from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.specs import SpecStruct, TensorSpec
 from tensor2robot_tpu_torch.utils import config
 
@@ -114,6 +115,12 @@ class PoseEnvRegressionModel(heads.RegressionModel):
       weights = (labels["reward"]
                  > self._success_reward_threshold).to(predicted.dtype)
       per_example = ((predicted - target) ** 2).mean(dim=-1, keepdim=True)
+      # A ratio of sums over the batch: on a data split every rank's rows
+      # are gathered (differentiably), so both sums are the global
+      # batch's, as in the JAX package's jitted step.
+      group = collectives.current_batch_group()
+      per_example = collectives.all_gather_batch(per_example, group)
+      weights = collectives.all_gather_batch(weights, group)
       loss = (per_example * weights).sum() / torch.clamp(weights.sum(),
                                                          min=1e-6)
       return loss, {"weighted_mse": loss,

@@ -5,12 +5,20 @@ arrives at every batch size; `BucketedEngine` pads each request up a
 small bucket ladder so that a handful of batch shapes, each run once at
 `warmup()`, cover every request size:
 
-* a bucket ladder (default: doubling 1/2/4/.../max_batch_size). The JAX
-  engine AOT-compiles one executable per rung; PyTorch runs eagerly, so
-  here `warmup()` runs every rung once on a batch made from the feature
-  spec, which takes cuDNN's plan selection and the caching allocator's
-  growth off the first live request. `warm_count` counts rungs warmed and
-  stays at `len(buckets)` across any later traffic;
+* a bucket ladder (default: doubling 1/2/4/.../max_batch_size), each
+  rung run once at `warmup()` on a batch made from the feature spec. With
+  `cache` (an `obs.excache.ExecutableCache` or a directory) each rung is
+  compiled, as the JAX engine AOT-compiles one executable per rung:
+  `obs.xray.analyze_jit` under `<cache_namespace>/bucket<rung>`, its
+  artifacts loaded from or stored into the cache. Without one the rungs
+  run eagerly, which takes cuDNN's plan selection and the caching
+  allocator's growth off the first live request. `warm_count` counts
+  rungs warmed and stays at `len(buckets)` across any later traffic;
+  `compile_count` counts fresh compiles, `cache_loads` rungs whose
+  compile found its artifacts in the cache, and `warmup_provenance`,
+  `warmup_load_ms` / `warmup_compile_ms`, `compile_records`,
+  `rung_traces` and `rung_cache_keys` (keys without compiling) describe
+  them as the JAX engine's do;
 * `predict(features)` runs the predictor's preprocess on the REAL rows,
   pads the model-layout batch on the device up to the smallest covering
   rung (pad rows repeat row 0: always in-distribution, never NaN fodder),
@@ -19,7 +27,7 @@ small bucket ladder so that a handful of batch shapes, each run once at
   re-warming), fetches to the host and slices the pad rows off every
   batched output. Requests larger than the top rung are served in
   top-rung chunks and re-joined;
-* no fallback: a rung that fails at warmup or at dispatch raises.
+* no fallback at dispatch: a rung that fails there raises.
 
 `traffic_bucket_ladder` / `ladder_padding_stats` / `observed_request_rows`
 derive a ladder from observed request sizes and price it (pure Python).
@@ -32,27 +40,26 @@ rung) and `device` (the predict call through the end of its host fetch,
 the fetch being the barrier) under the caller's active context
 (`graftrace.current()`: the batcher's batch context), and adds `device`
 to the exact `serve/engine/device_busy_ms` counter. Both stages lie
-inside the batcher's `dispatch` window and are not summed. The JAX
-engine's executable-cache and compile-provenance seams (`cache=`,
-`cache_namespace`, `rung_cache_keys`, `rung_traces`,
-`warmup_provenance`) describe compiled executables, which eager PyTorch
-does not have (ROADMAP Queue A item 15.3); nor does it have JAX's
-`exec_fallbacks` path: a rung that fails raises.
+inside the batcher's `dispatch` window and are not summed. A rung whose
+compile fails runs eagerly (`xray/analyze_failures`, provenance
+'fallback'); a rung that fails at dispatch raises.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Dict, List, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from tensor2robot_tpu_torch import specs as specs_lib
+from tensor2robot_tpu_torch.obs import excache as excache_lib
 from tensor2robot_tpu_torch.obs import graftrace
 from tensor2robot_tpu_torch.obs import metrics as obs_metrics
 from tensor2robot_tpu_torch.obs import trace as obs_trace
+from tensor2robot_tpu_torch.obs import xray as obs_xray
 from tensor2robot_tpu_torch.utils import config
 
 __all__ = ["BucketedEngine", "bucket_ladder", "traffic_bucket_ladder",
@@ -210,7 +217,9 @@ class BucketedEngine:
 
   def __init__(self, predictor=None,
                max_batch_size: int = 8,
-               buckets: Optional[Sequence[int]] = None):
+               buckets: Optional[Sequence[int]] = None,
+               cache=None,
+               cache_namespace: str = "serve/engine"):
     if predictor is None:
       raise ValueError("predictor is required.")
     self._predictor = predictor
@@ -223,7 +232,19 @@ class BucketedEngine:
       buckets = bucket_ladder(max_batch_size)
     self._buckets = buckets
     self._max_batch_size = max_batch_size
+    # `cache_namespace` names the compile records (and so the cache key's
+    # prefix): fleet replicas share one namespace, so one entry set warms
+    # every replica.
+    self._cache = cache
+    self._cache_namespace = cache_namespace
     self._warm: Dict[int, float] = {}  # rung -> warmup ms
+    self._compiled: Dict[int, Any] = {}  # rung -> compiled predict
+    self._records: Dict[int, Dict[str, Any]] = {}
+    self._compile_count = 0
+    self._cache_loads = 0
+    self._warmup_load_ms = 0.0
+    self._warmup_compile_ms = 0.0
+    self._warmup_provenance: List[Dict[str, Any]] = []
     self._bundle = None
     self._lock = threading.Lock()
 
@@ -241,15 +262,52 @@ class BucketedEngine:
 
   @property
   def warmup_ms(self) -> Dict[int, float]:
-    """Host wall of each rung's warmup run (preprocess, forward, fetch)."""
+    """Host wall of each rung's warmup run (preprocess, compile or cache
+    load, forward, fetch)."""
     return dict(self._warm)
 
+  @property
+  def compile_count(self) -> int:
+    """Fresh compiles this process paid (cache loads and eager rungs
+    excluded): `len(buckets)` after a cold compiled warmup, 0 after a
+    fully warm one."""
+    return self._compile_count
+
+  @property
+  def cache_loads(self) -> int:
+    """Rungs whose compile found its artifacts in the cache."""
+    return self._cache_loads
+
+  @property
+  def warmup_load_ms(self) -> float:
+    """Warmup wall of the rungs whose artifacts came from the cache."""
+    return self._warmup_load_ms
+
+  @property
+  def warmup_compile_ms(self) -> float:
+    """Warmup wall of the rungs compiled fresh (misses and fallbacks)."""
+    return self._warmup_compile_ms
+
+  @property
+  def warmup_provenance(self) -> List[Dict[str, Any]]:
+    """Per rung: `{rung, source, ms, key}`, `source` 'cache' (artifacts
+    loaded), 'compile' (fresh), 'fallback' (the compile failed: eager) or
+    'eager' (no cache: not compiled)."""
+    return [dict(p) for p in self._warmup_provenance]
+
+  @property
+  def compile_records(self) -> List[Dict[str, Any]]:
+    """Per-rung xray records (compile time, flops, roofline, ...)."""
+    return [dict(self._records[b]) for b in self._buckets
+            if b in self._records]
+
   def warmup(self) -> "BucketedEngine":
-    """Runs every rung once, eagerly, on a wire-layout batch synthesized
-    from the predictor's feature spec and put through the SAME preprocess
-    the live path uses. Idempotent; after a predictor `restore()` it is a
-    no-op (shapes are stable across restores, only values change, and
-    the engine reads state through the bundle's getter)."""
+    """Runs every rung once on a wire-layout batch synthesized from the
+    predictor's feature spec and put through the SAME preprocess the live
+    path uses, compiling it when the engine has a cache. Idempotent;
+    after a predictor `restore()` it is a no-op (shapes are stable across
+    restores, only values change, and the engine reads state through the
+    bundle's getter, an input of the compiled graph)."""
     with self._lock:
       if self._bundle is None:
         self._bundle = self._predictor.serving_bundle()
@@ -261,24 +319,67 @@ class BucketedEngine:
       if did_work:
         obs_metrics.gauge("serve/engine/warmup_ms").set(
             sum(self._warm.values()))
+        obs_metrics.gauge("serve/engine/warmup_load_ms").set(
+            self._warmup_load_ms)
+        obs_metrics.gauge("serve/engine/warmup_compile_ms").set(
+            self._warmup_compile_ms)
     return self
 
-  def _warm_bucket_locked(self, bucket: int) -> None:
+  def _rung_args(self, bucket: int) -> Tuple[Any, Any]:
+    """(state, model features) a rung runs on at warmup: the one
+    arg-synthesis seam of `warmup`, `rung_traces` and `rung_cache_keys`."""
     bundle = self._bundle
     wire = specs_lib.make_random_numpy(bundle.feature_spec,
                                        batch_size=bucket, seed=0)
+    return bundle.get_state(), bundle.preprocess(wire)
+
+  def _warm_bucket_locked(self, bucket: int) -> None:
+    """Runs (compiles, or cache-loads) ONE rung, with its provenance."""
+    bundle = self._bundle
+    cache = excache_lib.as_cache(self._cache)
     start = time.perf_counter()
-    outputs = bundle.predict_fn(bundle.get_state(), bundle.preprocess(wire))
+    state, features = self._rung_args(bucket)
+    rec_name = f"{self._cache_namespace}/bucket{bucket}"
+    record: Dict[str, Any] = {}
+    if cache is None:
+      source = "eager"
+      outputs = bundle.predict_fn(state, features)
+    else:
+      source = "compile"
+      xf = obs_xray.XrayedFunction(rec_name, bundle.predict_fn, cache=cache,
+                                   model=getattr(self._predictor, "model",
+                                                 None))
+      outputs = xf(state, features)
+      if xf.compiled:
+        self._compiled[bucket] = xf
+        record = xf.record
+        self._records[bucket] = record
+      else:
+        source = "fallback"
     for value in outputs.values():
       value.cpu()  # the fetch is the barrier
-    self._warm[bucket] = (time.perf_counter() - start) * 1e3
+    elapsed_ms = (time.perf_counter() - start) * 1e3
+    self._warm[bucket] = elapsed_ms
     obs_metrics.counter("serve/engine/warmups").inc()
+    cache_block = record.get("cache") or {}
+    if cache_block.get("hit"):
+      source = "cache"
+      self._cache_loads += 1
+      self._warmup_load_ms += elapsed_ms
+      obs_metrics.counter("serve/engine/cache_loads").inc()
+    elif source != "eager":
+      self._compile_count += 1
+      self._warmup_compile_ms += elapsed_ms
+      obs_metrics.counter("serve/engine/compiles").inc()
+    self._warmup_provenance.append(
+        {"rung": bucket, "source": source, "ms": elapsed_ms,
+         "key": cache_block.get("key")})
 
   def reladder(self, buckets: Sequence[int]) -> "BucketedEngine":
-    """Atomically moves the engine onto a new bucket ladder, warming any
-    NEW rungs BEFORE the swap, so a ladder change never puts a cold rung
-    in front of live traffic. Rungs no longer on the ladder stay warm (a
-    reladder back is free)."""
+    """Atomically moves the engine onto a new bucket ladder, warming (and
+    with a cache compiling) any NEW rungs BEFORE the swap, so a ladder
+    change never puts a cold rung in front of live traffic. Rungs no
+    longer on the ladder stay warm (a reladder back is free)."""
     buckets = sorted(set(int(b) for b in buckets))
     if not buckets or buckets[0] < 1:
       raise ValueError(f"buckets must be positive ints, got {buckets}")
@@ -294,6 +395,24 @@ class BucketedEngine:
       self._max_batch_size = buckets[-1]
       obs_metrics.counter("serve/engine/reladders").inc()
     return self
+
+  def rung_traces(self) -> List[Tuple[int, Any, Tuple]]:
+    """`[(rung, predict function, args), ...]` for every ladder rung:
+    what each rung's warmup runs and compiles, without running it (torch
+    has no trace apart from its compile)."""
+    with self._lock:
+      if self._bundle is None:
+        self._bundle = self._predictor.serving_bundle()
+      return [(bucket, self._bundle.predict_fn, self._rung_args(bucket))
+              for bucket in self._buckets]
+
+  def rung_cache_keys(self) -> Dict[int, str]:
+    """The graftcache key of every rung WITHOUT compiling: the key a live
+    warmup with a cache looks up (graftforge `--verify`)."""
+    model = getattr(self._predictor, "model", None)
+    return {bucket: obs_xray.step_cache_key(
+        f"{self._cache_namespace}/bucket{bucket}", args, model)[0]
+            for bucket, _, args in self.rung_traces()}
 
   def _bucket_for(self, rows: int) -> int:
     for bucket in self._buckets:
@@ -366,8 +485,9 @@ class BucketedEngine:
           "pad", (time.perf_counter_ns() - pad_ns) / 1e6,
           ctx=graftrace.current(), start_ns=pad_ns)
     state = bundle.get_state()
+    predict_fn = self._compiled.get(bucket, bundle.predict_fn)
     device_ns = time.perf_counter_ns()
-    outputs = bundle.predict_fn(state, model_features)
+    outputs = predict_fn(state, model_features)
     # The fetch is the barrier; pad rows are sliced off AFTER it so the
     # device sees only full-rung shapes. Only outputs whose leading dim
     # IS the padded batch get sliced.

@@ -47,10 +47,11 @@ its own weights and session arenas):
   rungs stay warm), probe it directly, re-admit. The canary's probe
   outputs are the reference for every later replica; a canary that fails
   verification aborts the rollout with the rest of the fleet on the old
-  checkpoint. The JAX package pins "no fresh compile" across a rollout;
-  eager PyTorch compiles nothing, and the port pins the engines'
-  `warm_count` instead: a rollout warms no new rung (`fresh_warms` 0)
-  unless it is given a new `ladder`.
+  checkpoint. As in the JAX package a rollout pays no fresh compile
+  (`fresh_compiles` 0, from the engines' `compile_count`) and warms no
+  new rung (`fresh_warms` 0, from their `warm_count`) unless it is given
+  a new `ladder`, whose rungs `reladder` compiles (or loads) before the
+  swap.
 
 `derived_ladder()` gives the traffic-derived bucket ladder for the
 request sizes seen; `recommended_replicas()` is the advisory replica
@@ -59,9 +60,11 @@ backed by the `obs.usage.UsageLedger` utilization of the window);
 `utilization_summary()` is the ledger's per-replica busy and idle
 device-seconds. With `latency_slo_ms=` every routed predict's wall time
 feeds `serve/slo_breaches` through `obs.sentinel.observe_serving_latency`.
-The compile provenance of the JAX fleet (`warmup_provenance`) describes
-compiled executables, which eager PyTorch does not have (ROADMAP item
-15.3).
+A replica factory that gives its engines a `cache` (and one
+`cache_namespace`) compiles the rungs once: the first replica stores the
+compiler's artifacts and every later one loads them.
+`warmup_provenance()` and `compile_counts()` read the replicas' compile
+provenance, as the JAX fleet's do.
 
 Telemetry: serve/fleet/{replicas,healthy,outstanding,version_skew,
 warmup_ms,recommended_replicas,window_utilization} gauges;
@@ -332,6 +335,21 @@ class ServingFleet:
   def outstanding(self) -> int:
     with self._lock:
       return sum(r.outstanding for r in self._replicas)
+
+  def compile_counts(self) -> List[Optional[int]]:
+    """Each replica engine's `compile_count` (None for an engine
+    without)."""
+    return [getattr(r.engine, "compile_count", None)
+            for r in self._replicas]
+
+  def warmup_provenance(self) -> List[Dict[str, Any]]:
+    """Every replica engine's `warmup_provenance` entries, each stamped
+    with its `replica` index."""
+    out = []
+    for replica in self._replicas:
+      for entry in getattr(replica.engine, "warmup_provenance", []) or []:
+        out.append({"replica": replica.index, **entry})
+    return out
 
   def warm_counts(self) -> List[Optional[int]]:
     """Each replica engine's `warm_count` (None for an engine without)."""
@@ -989,6 +1007,7 @@ class ServingFleet:
     """
     obs_metrics.counter("serve/fleet/rollouts").inc()
     report: Dict[str, Any] = {"swapped": 0, "fresh_warms": 0,
+                              "fresh_compiles": 0,
                               "parity_ok": True, "aborted": None,
                               "replicas": []}
     canary_outputs: Optional[Dict[str, np.ndarray]] = None
@@ -1011,6 +1030,7 @@ class ServingFleet:
       try:
         entry["drained"] = self._wait_drained(replica, drain_timeout_s)
         warms_before = getattr(replica.engine, "warm_count", None)
+        compiles_before = getattr(replica.engine, "compile_count", None)
         if ladder is not None:
           # Warm the new rungs while the router steers around this
           # replica; the ladder swap itself is atomic under the engine's
@@ -1057,6 +1077,10 @@ class ServingFleet:
         if warms_before is not None and warms_after is not None:
           entry["fresh_warms"] = warms_after - warms_before
           report["fresh_warms"] += entry["fresh_warms"]
+        compiles_after = getattr(replica.engine, "compile_count", None)
+        if compiles_before is not None and compiles_after is not None:
+          entry["fresh_compiles"] = compiles_after - compiles_before
+          report["fresh_compiles"] += entry["fresh_compiles"]
         entry["model_version"] = getattr(replica.engine, "model_version",
                                          None)
         report["swapped"] += 1

@@ -44,15 +44,22 @@ JAX package's request tracing (`obs.graftrace`): a context per tick at
 admission, a `serve/session/batch` span per dispatch whose `links` name
 its ticks, the `queue_wait` and `dispatch` stages per tick, a
 `usage=(busy_s, ticks)` call per dispatch, and a shard flush when its
-worker ends. The JAX engine's compile records and provenance
-(`rung_traces`, `compile_records`, `warmup_provenance`) describe
-compiled executables, which eager PyTorch does not have (ROADMAP Queue
-A item 15.3).
+worker ends.
+
+With `cache` (an `obs.excache.ExecutableCache` or a directory) every
+decode rung and the slot reset are compiled (`obs.xray.analyze_jit` under
+`<cache_namespace>/decode<rung>` and `<cache_namespace>/reset_slot`; the
+arena is an input the graph updates in place, through the registered
+operator `t2r::decode_tick` on the KV path), their artifacts loaded from
+or stored into the cache; `rung_traces`, `rung_cache_keys`,
+`compile_records` and `warmup_provenance` describe them as the JAX
+engine's do. Without one the rungs and the reset run eagerly.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import itertools
 import threading
 import time
@@ -62,9 +69,11 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch.obs import excache as excache_lib
 from tensor2robot_tpu_torch.obs import graftrace
 from tensor2robot_tpu_torch.obs import metrics as obs_metrics
 from tensor2robot_tpu_torch.obs import trace as obs_trace
+from tensor2robot_tpu_torch.obs import xray as obs_xray
 from tensor2robot_tpu_torch.serving import batcher as batcher_lib
 from tensor2robot_tpu_torch.serving import engine as engine_lib
 from tensor2robot_tpu_torch.utils import config
@@ -114,6 +123,35 @@ class SessionHorizonError(SessionError):
 _TERMINAL_IDS_CAP = 4096
 
 
+# The arena's position among the arguments of a tick and of the reset:
+# the graph updates it in place.
+_ARENA_ARGNUMS = {False: (1,), True: (0,)}
+
+
+def _tick(bundle, state, arena: Dict[str, torch.Tensor], slots: torch.Tensor,
+          features, mask: torch.Tensor):
+  """One tick of the lanes `slots` (mask False on pad lanes, which ride
+  the null slot) against `arena`, in place; returns the outputs: the KV
+  path's `decode_arena_fn`, or gather, `decode_fn` and a masked scatter
+  for any other session state."""
+  if bundle.decode_arena_fn is not None:
+    return bundle.decode_arena_fn(state, arena, slots, features, mask)[1]
+  slots = slots.long()
+  gathered = {k: leaf[slots] for k, leaf in arena.items()}
+  new_state, outputs = bundle.decode_fn(state, gathered, features)
+  for key, leaf in arena.items():
+    keep = mask.reshape(mask.shape + (1,) * (leaf.ndim - 1))
+    leaf.index_copy_(0, slots, torch.where(
+        keep, new_state[key].to(leaf.dtype), gathered[key]))
+  return outputs
+
+
+def _reset_slot(arena: Dict[str, torch.Tensor], slot: torch.Tensor) -> None:
+  """Zeroes the arena rows of `slot` ([1] int64) in place."""
+  for leaf in arena.values():
+    leaf.index_fill_(0, slot, 0)
+
+
 @config.configurable
 class SessionEngine:
   """Stateful session serving over a predictor's decode bundle (module
@@ -125,7 +163,9 @@ class SessionEngine:
                max_tick_batch: int = 8,
                buckets: Optional[Sequence[int]] = None,
                admission: str = "evict_lru",
-               device=None):
+               device=None,
+               cache=None,
+               cache_namespace: str = "serve/session"):
     if predictor is None:
       raise ValueError("predictor is required.")
     if max_sessions < 1:
@@ -175,6 +215,12 @@ class SessionEngine:
     self._arena: Optional[Dict[str, torch.Tensor]] = None
     self._bundle = None
     self._max_ticks: Optional[int] = None
+    self._cache = cache
+    self._cache_namespace = cache_namespace
+    # Compiled per rung ('reset' for the slot reset), with provenance.
+    self._compiled: Dict[Any, Any] = {}
+    self._records: Dict[Any, Dict[str, Any]] = {}
+    self._warmup_provenance: List[Dict[str, Any]] = []
 
   @property
   def buckets(self) -> List[int]:
@@ -217,24 +263,66 @@ class SessionEngine:
   def _dispatch(self, bundle, state, slots: torch.Tensor, features,
                 mask: torch.Tensor):
     """One tick of the lanes `slots` (mask False on pad lanes, which ride
-    the null slot) against the arena, in place; returns the outputs. The
-    caller holds _arena_lock."""
-    if bundle.decode_arena_fn is not None:
-      return bundle.decode_arena_fn(state, self._arena, slots, features,
-                                    mask)[1]
-    slots = slots.long()
-    gathered = {k: leaf[slots] for k, leaf in self._arena.items()}
-    new_state, outputs = bundle.decode_fn(state, gathered, features)
-    for key, leaf in self._arena.items():
-      keep = mask.reshape(mask.shape + (1,) * (leaf.ndim - 1))
-      leaf.index_copy_(0, slots, torch.where(
-          keep, new_state[key].to(leaf.dtype), gathered[key]))
-    return outputs
+    the null slot) against the arena, in place, on the bucket's compiled
+    rung where there is one; returns the outputs. The caller holds
+    _arena_lock."""
+    tick = self._compiled.get(int(slots.shape[0]))
+    if tick is None:
+      return _tick(bundle, state, self._arena, slots, features, mask)
+    return tick(state, self._arena, slots, features, mask)
+
+  def rung_traces(self) -> List[Tuple[Any, Callable, Tuple]]:
+    """`[(rung, function, args), ...]` for every decode rung and the slot
+    reset ('reset'): what warmup runs and compiles, without running it.
+    Needs `warmup()` (the args hold the arena)."""
+    if self._arena is None:
+      raise RuntimeError("rung_traces needs the arena: call warmup() first")
+    traces = [(bucket, functools.partial(_tick, self._bundle),
+               self._rung_args(bucket)) for bucket in self._buckets]
+    traces.append(("reset", _reset_slot,
+                   (self._arena, torch.zeros((1,), dtype=torch.int64,
+                                             device=self._device))))
+    return traces
+
+  def _rung_args(self, bucket: int) -> Tuple:
+    """An all-pad tick of `bucket` lanes on the null slot (it writes
+    nothing)."""
+    features = {k: torch.zeros((bucket,) + tuple(spec.shape),
+                               dtype=torch.float32, device=self._device)
+                for k, spec in self._bundle.observation_spec.items()}
+    slots = torch.zeros((bucket,), dtype=torch.int32, device=self._device)
+    mask = torch.zeros((bucket,), dtype=torch.bool, device=self._device)
+    return (self._bundle.get_state(), self._arena, slots, features, mask)
+
+  def _rung_name(self, rung) -> str:
+    return (f"{self._cache_namespace}/reset_slot" if rung == "reset"
+            else f"{self._cache_namespace}/decode{rung}")
+
+  def rung_cache_keys(self) -> Dict[Any, str]:
+    """The graftcache key of every rung and the reset WITHOUT compiling
+    (graftforge `--verify`)."""
+    model = getattr(self._predictor, "model", None)
+    return {rung: obs_xray.step_cache_key(
+        self._rung_name(rung), args, model,
+        _ARENA_ARGNUMS[rung == "reset"])[0]
+            for rung, _, args in self.rung_traces()}
+
+  @property
+  def compile_records(self) -> List[Dict[str, Any]]:
+    """The xray records of the compiled rungs and reset."""
+    return [dict(r) for r in self._records.values()]
+
+  @property
+  def warmup_provenance(self) -> List[Dict[str, Any]]:
+    """Per rung and the reset: `{rung, source, ms, key}` (the sources of
+    `BucketedEngine.warmup_provenance`)."""
+    return [dict(p) for p in self._warmup_provenance]
 
   def warmup(self) -> "SessionEngine":
     """Builds the arena on the device and runs one all-pad tick per
-    bucket on the null slot (which writes nothing), so the kernels are
-    built and loaded before the first real tick. Idempotent."""
+    bucket on the null slot (which writes nothing), and with a cache
+    compiles each rung and the slot reset, so the kernels are built and
+    loaded before the first real tick. Idempotent."""
     with self._arena_lock:
       if self._bundle is None:
         self._bundle = self._load_bundle()
@@ -244,15 +332,31 @@ class SessionEngine:
       self._arena = self._bundle.init_session_state(self._max_sessions + 1)
       obs_metrics.gauge("serve/session/cache_bytes").set(
           float(self.cache_bytes))
-      state = self._bundle.get_state()
-      for bucket in self._buckets:
-        features = {k: torch.zeros((bucket,) + tuple(spec.shape),
-                                   dtype=torch.float32, device=self._device)
-                    for k, spec in self._bundle.observation_spec.items()}
-        slots = torch.zeros((bucket,), dtype=torch.int32, device=self._device)
-        mask = torch.zeros((bucket,), dtype=torch.bool, device=self._device)
+      cache = excache_lib.as_cache(self._cache)
+      model = getattr(self._predictor, "model", None)
+      for rung, fn, args in self.rung_traces():
+        start = time.perf_counter()
+        source, record = "eager", {}
         with torch.no_grad():
-          self._dispatch(self._bundle, state, slots, features, mask)
+          if cache is None:
+            if rung != "reset":
+              fn(*args)
+          else:
+            xf = obs_xray.XrayedFunction(
+                self._rung_name(rung), fn, cache=cache, model=model,
+                donate_argnums=_ARENA_ARGNUMS[rung == "reset"])
+            xf(*args)
+            if xf.compiled:
+              self._compiled[rung] = xf
+              record = self._records[rung] = xf.record
+              source = ("cache" if (record.get("cache") or {}).get("hit")
+                        else "compile")
+            else:
+              source = "fallback"
+        self._warmup_provenance.append(
+            {"rung": rung, "source": source,
+             "ms": (time.perf_counter() - start) * 1e3,
+             "key": (record.get("cache") or {}).get("key")})
     return self
 
   # -- lifecycle ------------------------------------------------------------
@@ -306,9 +410,12 @@ class SessionEngine:
     return sid
 
   def _reset_slot(self, slot: int) -> None:
-    """Zeroes one arena slot in place (caller holds _arena_lock)."""
-    for leaf in self._arena.values():
-      leaf[slot].zero_()
+    """Zeroes one arena slot in place, on the compiled reset where there
+    is one (caller holds _arena_lock)."""
+    reset = self._compiled.get("reset", _reset_slot)
+    with torch.no_grad():  # as at warmup: a compiled graph guards on it
+      reset(self._arena, torch.full((1,), slot, dtype=torch.int64,
+                                    device=self._device))
 
   def _pick_victim_locked(self) -> Optional[int]:
     candidates = [sid for sid in self._slots if sid not in self._in_flight]

@@ -27,7 +27,6 @@ dtype is mapped onto the same scale before it is compared with a spec.
 
 from __future__ import annotations
 
-import bisect
 import dataclasses
 import json
 import math
@@ -199,6 +198,19 @@ class TensorSpec:
 _PATH_SEP = "/"
 
 
+def _bisect_left(keys: List[str], key: str) -> int:
+  """`bisect.bisect_left` in Python: the C builtin cannot be traced into
+  a compiled graph, and a model's forward builds SpecStructs."""
+  lo, hi = 0, len(keys)
+  while lo < hi:
+    mid = (lo + hi) // 2
+    if keys[mid] < key:
+      lo = mid + 1
+    else:
+      hi = mid
+  return lo
+
+
 def _normalize_key(key: str) -> str:
   if not isinstance(key, str):
     raise TypeError(f"SpecStruct keys must be str, got {type(key)}")
@@ -235,7 +247,7 @@ class SpecStruct(MutableMapping):
     return view
 
   def _children(self, child_prefix: str) -> list:
-    i = bisect.bisect_left(self._index, child_prefix)
+    i = _bisect_left(self._index, child_prefix)
     out = []
     while i < len(self._index) and self._index[i].startswith(child_prefix):
       out.append(self._index[i])
@@ -244,12 +256,12 @@ class SpecStruct(MutableMapping):
 
   def _insert(self, full: str, value: Any) -> None:
     if full not in self._store:
-      bisect.insort(self._index, full)
+      self._index.insert(_bisect_left(self._index, full), full)
     self._store[full] = value
 
   def _remove(self, full: str) -> None:
     del self._store[full]
-    self._index.pop(bisect.bisect_left(self._index, full))
+    self._index.pop(_bisect_left(self._index, full))
 
   def __getitem__(self, key: str) -> Any:
     full = self._prefix + _normalize_key(key)

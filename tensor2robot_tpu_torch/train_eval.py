@@ -110,8 +110,17 @@ bundle first), the ranks agree on it at the step's end, and the run
 saves that step's checkpoint, waits for it and raises `SystemExit(42)`;
 the next run resumes from it.
 
-The JAX package's executable cache and its compile records are not
-ported (ROADMAP.md, Queue A item 15).
+The compiled step (the JAX package's `executable_cache_dir`): with
+`executable_cache_dir` set ("auto" is `<model_dir>/excache`, or a path),
+the train step runs through `obs.xray.XrayedFunction`: its forward, loss
+and backward compiled by `torch.compile` (Inductor on the card), X-rayed
+into the run record's `compile` block, its compiler artifacts stored in
+and loaded from `obs.excache` under that directory, and Inductor's own
+on-disk cache pointed at `<dir>/inductor`. The default, None, runs the
+eager step, where the JAX package's default is "auto" (ROADMAP.md,
+"Restrictions that raise by design"). A step on a mesh of more than one
+rank is not compiled (`cache/skipped_mesh`). The run record carries the
+`cache/*` counters either way.
 """
 
 from __future__ import annotations
@@ -131,6 +140,7 @@ import torch.distributed as dist
 from tensor2robot_tpu_torch import checkpoints as checkpoints_lib
 from tensor2robot_tpu_torch import modes as modes_lib
 from tensor2robot_tpu_torch.hooks import core as hooks_lib
+from tensor2robot_tpu_torch.obs import excache as excache_lib
 from tensor2robot_tpu_torch.obs import faultlab as faultlab_lib
 from tensor2robot_tpu_torch.obs import flightrec as flightrec_lib
 from tensor2robot_tpu_torch.obs import metrics as metrics_lib
@@ -269,6 +279,7 @@ def train_eval_model(
     mesh_shape: Optional[Sequence[int]] = None,
     mesh_axis_names: Optional[Sequence[str]] = None,
     partition_rules=None,
+    executable_cache_dir: Optional[str] = None,
 ) -> dict:
   """Trains `model` to `max_train_steps` (with evals in
   'train_and_evaluate'), evaluates the newest checkpoint ('evaluate'),
@@ -297,7 +308,11 @@ def train_eval_model(
   `mesh` (or one built by `parallel.mesh.create_mesh(mesh_shape,
   mesh_axis_names)`; every rank when the world has several) and
   `partition_rules` (e.g. `train_step.fsdp_rules()`) train over a mesh
-  (module docstring); the mesh's device is the run's."""
+  (module docstring); the mesh's device is the run's.
+
+  `executable_cache_dir` ("auto" or a directory; None, the default,
+  keeps the eager step) compiles, X-rays and caches the train step
+  (module docstring)."""
   if mode not in _MODES:
     raise ValueError(f"Unknown train_eval mode {mode!r}")
   needs_train = mode in ("train", "train_and_evaluate")
@@ -451,6 +466,14 @@ def train_eval_model(
 
     train_step = ts.make_train_step(model, mesh=mesh, shardings=shardings,
                                     batch_spec=batch_spec)
+    if executable_cache_dir:
+      cache_dir = (os.path.join(model_dir, "excache")
+                   if executable_cache_dir == "auto" else executable_cache_dir)
+      excache_lib.enable_inductor_cache(cache_dir)
+      train_step = xray_lib.XrayedFunction(
+          "train_step", train_step,
+          cache=excache_lib.ExecutableCache(cache_dir), model=model,
+          donate_argnums=(0,) if mesh is not None else (), mesh=mesh)
     loop_k = max(1, int(iterations_per_loop))
 
     def group_size(step: int) -> int:
@@ -709,10 +732,11 @@ def _append_run_record(model_dir: str, run_memory: dict,
                        num_devices: int = 1) -> None:
   """Appends this run's schema-versioned record to
   `<model_dir>/runs.jsonl` (`obs.runlog`): the step-stat summary from
-  the registry, the memory accounting with the allocator's counters and
-  the watermark estimate, the finite final metrics, the heartbeat block,
-  the sentinel's totals, the rewinds and the active fault plan's
-  injections. No compile records: eager PyTorch compiles nothing.
+  the registry, the compile records of a compiled step (`obs.xray`), the
+  memory accounting with the allocator's counters and the watermark
+  estimate (fed the compile records' `temp_bytes`), the finite final
+  metrics, the heartbeat block, the `cache/*` counters, the sentinel's
+  totals, the rewinds and the active fault plan's injections.
   Best-effort: the run's result never depends on its telemetry."""
   try:
     memory = dict(run_memory)
@@ -733,7 +757,8 @@ def _append_run_record(model_dir: str, run_memory: dict,
     extra = {"model_dir": model_dir, "final_step": int(final_step),
              "final_metrics": finite_metrics,
              "clock": stamped["clock"],
-             "tunnel_health": backend.tunnel_health()}
+             "tunnel_health": backend.tunnel_health(),
+             "cache": excache_lib.cache_stats()}
     if sentinel is not None:
       extra["sentinel"] = sentinel.summary()
     extra["graftguard"] = {"rewinds": int(rewinds),

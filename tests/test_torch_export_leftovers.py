@@ -15,8 +15,9 @@ the profiler hook, the pickled-assets converter, the image aliases,
 * `place_on_device` moves a restored state and keeps it there across a
   `restore()`.
 * `run_graftserve`, single engine and `--replicas 2` on ['cpu', 'cpu']:
-  every request succeeds, the rungs warm once; `--executable_cache_dir`
-  raises naming ROADMAP item 15.3.
+  every request succeeds, the rungs warm once, none compiled; with
+  `--executable_cache_dir` every rung compiles (`engine_compiles`,
+  `compile_sec`) into the cache, and a second run loads them all.
 """
 
 import json
@@ -249,13 +250,32 @@ def test_graftserve_serves_every_request(mock_export, replicas, devices):
   assert line["buckets"] == [1, 2, 4, 8, 16]
   warms = [5] * replicas if replicas > 1 else 5
   assert line["engine_warms"] == warms
-  assert "compile_sec" not in line and "engine_compiles" not in line
+  # No cache directory: the rungs run eagerly, none is compiled.
+  assert line["compile_sec"] == []
+  assert line["engine_compiles"] == ([0] * replicas if replicas > 1 else 0)
   assert line["latency_ms"]["count"] == 40.0
   assert line["fleet_shed"] == 0.0
 
 
-def test_graftserve_refuses_the_executable_cache(mock_export):
-  result = _graftserve("--export_dir", mock_export, "--devices", "cpu",
-                       "--executable_cache_dir", "/tmp/cache")
-  assert result.returncode != 0
-  assert "15.3" in result.stderr
+def test_graftserve_refuses_the_executable_cache(mock_export, tmp_path):
+  """The flag was refused until the executable cache was ported (item
+  15.3); now it compiles every rung into the cache, and a second run
+  loads each rung's entry instead of storing it."""
+  cache_dir = str(tmp_path / "excache")
+  lines = []
+  for _ in range(2):
+    result = _graftserve("--export_dir", mock_export, "--devices", "cpu",
+                         "--concurrency", "2", "--requests_per_thread", "5",
+                         "--executable_cache_dir", cache_dir)
+    assert result.returncode == 0, result.stderr[-3000:]
+    lines.append(json.loads(result.stdout.strip().splitlines()[-1]))
+  rungs = len(lines[0]["buckets"])  # the default ladder, 1 to 8
+  for line in lines:
+    assert line["ok"] == 10 and line["errors"] == {}
+    assert line["buckets"] == [1, 2, 4, 8] and line["engine_warms"] == 4
+    assert len(line["compile_sec"]) == rungs
+    assert all(s > 0 for s in line["compile_sec"])
+  # Fresh compiles: every rung cold, none warm (each loads its entry).
+  assert [line["engine_compiles"] for line in lines] == [rungs, 0]
+  assert len([n for n in os.listdir(cache_dir)
+              if n.endswith(".json")]) == rungs

@@ -3,7 +3,7 @@
 The same numpy q, k, v go through `flash_attention` in both packages
 (the JAX one with its Pallas kernels interpreted, blocks of 16), and the
 gradients of sum(out * cos(out)) — non-uniform cotangents — are compared:
-through the port's `FlashAttentionFunction` (whose backward on a CPU
+through the port's `flash_forward` gradient (whose backward on a CPU
 tensor is `_flash_backward_plain`), and through `flash_backward` called
 on the padded operands directly. Also against torch autograd through the
 plain `attention`, which is the repair of a CUDA `flash_attention` that
@@ -152,10 +152,13 @@ def _graph_nodes(fn):
 def test_flash_attention_goes_through_the_autograd_function(t):
   q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv(t, 0))
   out = attention.flash_attention(q, k, v, causal=True)
-  assert "FlashAttentionFunctionBackward" in _graph_nodes(out.grad_fn)
-  q3 = q.detach().reshape(2, t, 8)
-  out3, lse = attention.FlashAttentionFunction.apply(q3, q3, q3, True, t)
-  assert not lse.requires_grad
+  # The gradient of the registered operator `t2r::flash_fwd`
+  # (`register_autograd`), which calls `t2r::flash_bwd`.
+  assert ("GeneratedBackwardFor_t2r_flash_fwd_defaultBackward"
+          in _graph_nodes(out.grad_fn))
+  q3 = q.detach().reshape(2, t, 8).requires_grad_(True)
+  out3, lse = attention.flash_forward(q3, q3, q3, True, t)
+  assert out3.requires_grad and not lse.requires_grad
 
 
 def test_flash_module_trains_its_projections():

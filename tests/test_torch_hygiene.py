@@ -847,3 +847,73 @@ def test_pipeline_and_moe_configs_bind_the_jax_configs(name):
     assert all(isinstance(rule, tuple) for rule in rules)
   finally:
     config.clear_config()
+
+
+# The compiler tooling's slice: every module the scans above (no jax, no
+# tensor2robot_tpu; importable with both blocked) must cover.
+SLICE_20_MODULES = (
+    "tensor2robot_tpu_torch.obs.excache",
+    "tensor2robot_tpu_torch.obs.forge",
+    "tensor2robot_tpu_torch.obs.xray",
+    "tensor2robot_tpu_torch.utils.backend",
+    "tensor2robot_tpu_torch.serving.engine",
+    "tensor2robot_tpu_torch.serving.session",
+    "tensor2robot_tpu_torch.bin.graftscope",
+)
+
+
+def test_the_scans_cover_the_compile_modules():
+  assert set(SLICE_20_MODULES) <= set(_port_modules())
+
+
+@pytest.mark.parametrize("rel", ["obs/excache.py", "obs/forge.py"])
+def test_cache_and_forge_import_torch_only_inside_functions(rel):
+  """AST scan: no module-level import of torch or of a JAX module (the
+  readers, the keys and the plan run beside a job that owns the card)."""
+  tree = ast.parse((PORT / rel).read_text())
+  roots = set()
+  for node in tree.body:
+    if isinstance(node, ast.Import):
+      roots |= {alias.name.split(".")[0] for alias in node.names}
+    elif isinstance(node, ast.ImportFrom) and node.level == 0:
+      roots.add((node.module or "").split(".")[0])
+  assert not roots & ({"torch", "triton"} | set(FORBIDDEN)), (rel, roots)
+
+
+def test_cache_readers_and_forge_plan_run_with_torch_and_jax_blocked(
+    tmp_path):
+  """With torch and jax unimportable: a key from component strings, the
+  cache's sidecar readers and `graftscope cache`; with jax unimportable,
+  `forge --plan` (a config's own imports load the port's modules, so
+  torch with them)."""
+  code = (
+      "import json, os, sys\n"
+      "for name in ('torch', 'jax', 'tensor2robot_tpu', 'triton'):\n"
+      "  sys.modules[name] = None\n"
+      "from tensor2robot_tpu_torch.obs import excache, forge\n"
+      "from tensor2robot_tpu_torch.bin import graftscope\n"
+      "key = excache.cache_key('k', args='a', model='m', donation='-',\n"
+      "                        device='cpu', mesh='none', versions='v',\n"
+      "                        kernels=excache.kernel_fingerprint())\n"
+      "d = sys.argv[1]\n"
+      "cache = excache.ExecutableCache(d)\n"
+      "assert cache.store(key, b'', record={'name': 'k'})\n"
+      "assert [e['key'] for e in cache.entries()] == [key]\n"
+      "assert graftscope.main(['cache', d, '--verify']) == 0\n"
+      "print('COMPILE_TOOLING_FRAMEWORK_FREE_OK')\n")
+  result = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO_ROOT, capture_output=True, text=True,
+                          timeout=120)
+  assert result.returncode == 0, result.stderr[-3000:]
+  assert "COMPILE_TOOLING_FRAMEWORK_FREE_OK" in result.stdout
+  plan = (
+      "import sys\n"
+      "for name in ('jax', 'tensor2robot_tpu'):\n"
+      "  sys.modules[name] = None\n"
+      "from tensor2robot_tpu_torch.bin import graftscope\n"
+      "sys.exit(graftscope.main(['forge', 'tensor2robot_tpu_torch/configs/'\n"
+      "                          'serve_session.gin', '--plan']))\n")
+  result = subprocess.run([sys.executable, "-c", plan], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=120)
+  assert result.returncode == 0, result.stderr[-3000:]
+  assert "serve/session" in result.stdout

@@ -372,11 +372,28 @@ class TestVirtualStageSharpEdges:
     assert placed["count"] == 7 and placed["scalar"].shape == ()
     assert tuple(placed["odd"].shape) == (6, 3)
 
-  def test_train_step_audit_waits_for_item_15_3(self):
-    mesh = types.SimpleNamespace(group=lambda axes: None, axis_names=())
-    for kwargs in ({"audit_name": "pp/step"}, {"cache": object()}):
-      with pytest.raises(NotImplementedError, match="15.3"):
-        pp.make_pipelined_train_step(None, None, None, mesh, **kwargs)
+  def test_train_step_audit_waits_for_item_15_3(self, tmp_path):
+    """`audit_name` (the static-analysis half of the compiler tooling,
+    item 15.4 since item 15.3 landed) raises; `cache` X-rays the step,
+    whose mesh gate keeps a step of more than one rank eager."""
+    from tensor2robot_tpu_torch.obs import metrics as metrics_lib
+    from tensor2robot_tpu_torch.obs import xray
+
+    mesh = types.SimpleNamespace(group=lambda axes: None, axis_names=(),
+                                 size=2)
+    with pytest.raises(NotImplementedError, match="15.4"):
+      pp.make_pipelined_train_step(None, None, None, mesh,
+                                   audit_name="pp/step")
+    step = pp.make_pipelined_train_step(None, None, None, mesh,
+                                        cache=str(tmp_path))
+    assert isinstance(step, xray.XrayedFunction)
+    with metrics_lib.isolated():
+      gated = xray.XrayedFunction("pp/step", lambda x: x + 1,
+                                  cache=str(tmp_path), mesh=mesh)
+      assert gated(torch.ones(2)).tolist() == [2.0, 2.0]
+      assert not gated.compiled
+      assert metrics_lib.snapshot()["counter/cache/skipped_mesh"] == 1
+    assert os.listdir(tmp_path) == []
 
 
 # -- the pipelined research towers, single process --------------------------------
