@@ -511,6 +511,25 @@ and prints no result):
       timing): held as a, and `cache/hits` >= 2, the train step's
       compile wall below the cold one's, losses and ticks equal to the
       cold run's within the limits above.
+21. The static-analysis half of the compiler tooling (no kernel of its
+    own: the graphs it reads hold the flash and decode operators):
+   a. `graftlint` over `tensor2robot_tpu_torch` (its sources and configs)
+      in a subprocess whose `torch.cuda._lazy_init` raises: exit 0 and
+      no CUDA context.
+   b. Beside a, one process each: `graftscope audit` (default device,
+      the card) of `train_longcontext_flash.gin` and of
+      `serve_session.gin --model SequenceRegressionModel` at full width:
+      exit 0, no finding; the train step's graph holds `t2r.flash_fwd`
+      and `t2r.flash_bwd`, every decode rung's `t2r.decode_tick` and
+      writes its 2 x blocks arenas in place; each worker counts 0 kernel
+      launches while it traces; the Inductor and Triton cache
+      directories the three processes are given hold no file after.
+   c. In this process, on the card's tensors: a step that closes over a
+      4 MiB table gives `audit-baked-constant`, an undonated 1 MiB state
+      twin `audit-undonated-state` (the CLI's exit 1), the same step
+      donated nothing; strict `torch.export` of the closed-over table
+      lifts it as a tensor constant; no kernel counter moves.
+   The phase's wall is recorded against AUDIT_BUDGET_S.
 
 Output: a `train` JSON line, a `slice` JSON line, a `qtopt` JSON line
 (the critic's checks, its step ms and grasps/s under each policy with
@@ -536,7 +555,9 @@ finding, the phase wall, with the card and its power limit), a
 rank, losses, serving checks, the phase wall, with the card and its
 power limit), a `compile` line (phase 20's compile walls, entry bytes,
 step and tick times, critic rungs and forge hits, with the card and its
-power limit), a
+power limit), an `audit` line (phase 21's walls, targets, each graph's
+nodes and operator counts, findings and the seeded violations, with the
+card and its power limit), a
 `kernels`
 JSON line
 (one row per kernel, with its `design`: "wgmma+tma" for the bf16
@@ -8377,6 +8398,200 @@ def _compile_line(report: dict) -> dict:
           "critic_rows": report["critic_rows"], "forge": report["forge"]}
 
 
+# -- phase 21: the static-analysis half of the compiler tooling ------------
+
+# Phase 21's time budget: recorded against its wall, not enforced.
+AUDIT_BUDGET_S = 60.0
+# 21b: the audited configs and the extra argv each needs (the session
+# config deploys no model of its own).
+AUDIT_CONFIGS = (("train", TRAIN_CONFIG, []),
+                 ("session", SESSION_CONFIG,
+                  ["--model", "SequenceRegressionModel"]))
+# 21a: graftlint over the port in a process whose CUDA context cannot be
+# made (`torch.cuda._lazy_init` raises).
+LINT_TRAP = """
+import sys
+import torch
+import torch.cuda
+
+def _trap(*args, **kwargs):
+  raise RuntimeError("graftlint created a CUDA context")
+
+torch.cuda._lazy_init = _trap
+from tensor2robot_tpu_torch.analysis import lint
+rc = lint.main(["tensor2robot_tpu_torch"])
+assert not torch.cuda.is_initialized()
+print("NO_CUDA_CONTEXT_OK")
+sys.exit(rc)
+"""
+_AUDIT_GRAPH_RE = re.compile(r"^    (\S+)\s+(\d+) nodes  (.*)$")
+_AUDIT_TARGET_RE = re.compile(
+    r"^  (\w+)\s+(\S+)\s+(\w+)  (\d+) finding\(s\), (\d+) kernel "
+    r"launch\(es\), ([\d.]+) s$")
+
+
+def _parse_audit(stdout: str) -> dict:
+  """`graftscope audit`'s report: per target its status, kernel launches
+  and wall; per graph its nodes, `t2r.*` operator counts and the inputs
+  it writes in place."""
+  targets, graphs = {}, {}
+  for line in stdout.splitlines():
+    m = _AUDIT_TARGET_RE.match(line)
+    if m:
+      targets[m.group(2)] = {"family": m.group(1), "status": m.group(3),
+                             "findings": int(m.group(4)),
+                             "launches": int(m.group(5)),
+                             "wall_s": float(m.group(6))}
+      continue
+    m = _AUDIT_GRAPH_RE.match(line)
+    if m:
+      ops_part, _, in_place = m.group(3).partition("; in place: ")
+      ops = {}
+      for item in ops_part.split(", "):
+        if " x" in item:
+          op, count = item.rsplit(" x", 1)
+          ops[op] = int(count)
+      graphs[m.group(1)] = {"nodes": int(m.group(2)), "ops": ops,
+                            "in_place": [x for x in in_place.split(", ")
+                                         if x]}
+  return {"targets": targets, "graphs": graphs}
+
+
+def run_audit(torch, np, custom_launches, card: str, directory: str) -> dict:
+  """Phase 21 (module docstring): the lint under a CUDA trap and the two
+  config audits, three processes at once; then the seeded violations on
+  the card in this process."""
+  from tensor2robot_tpu_torch.analysis import graph_audit
+
+  started = time.perf_counter()
+  env = dict(os.environ,
+             TORCHINDUCTOR_CACHE_DIR=os.path.join(directory, "inductor"),
+             TRITON_CACHE_DIR=os.path.join(directory, "triton"))
+  scope = [sys.executable, "-m", "tensor2robot_tpu_torch.bin.graftscope",
+           "audit"]
+  commands = {"lint": [sys.executable, "-c", LINT_TRAP]}
+  for name, config_path, extra in AUDIT_CONFIGS:
+    commands[name] = scope + [os.path.join(REPO_DIR, config_path)] + extra
+  procs = {name: subprocess.Popen(
+      argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+      cwd=REPO_DIR, env=env) for name, argv in commands.items()}
+  done, walls = {}, {}
+  for name, proc in procs.items():
+    try:
+      stdout, stderr = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+      proc.kill()
+      stdout, stderr = proc.communicate()
+    walls[name] = time.perf_counter() - started
+    done[name] = (proc.returncode, stdout, stderr)
+  out = {"card": card, "walls_s": walls}
+  rc, stdout, stderr = done["lint"]
+  out["lint"] = {"rc": rc, "trap_unsprung": "NO_CUDA_CONTEXT_OK" in stdout}
+  if rc != 0 or not out["lint"]["trap_unsprung"]:
+    raise RuntimeError(f"21a: graftlint rc {rc}:\n{stdout[-4000:]}\n"
+                       f"{stderr[-4000:]}")
+  for name, _, _ in AUDIT_CONFIGS:
+    rc, stdout, stderr = done[name]
+    parsed = _parse_audit(stdout)
+    out[name] = dict(parsed, rc=rc)
+    if rc != 0 or "0 finding(s) after suppressions" not in stdout or not (
+        parsed["targets"]) or any(
+            t["status"] != "ok" or t["findings"] or t["launches"]
+            for t in parsed["targets"].values()):
+      raise RuntimeError(f"21b: graftscope audit of {name} rc {rc}:\n"
+                         f"{stdout[-4000:]}\n{stderr[-4000:]}")
+  train = out["train"]["graphs"].get("train_step", {})
+  if not (train.get("ops", {}).get("t2r.flash_fwd")
+          and train.get("ops", {}).get("t2r.flash_bwd")):
+    raise RuntimeError(f"21b: the train step's graph lacks the flash "
+                       f"operators: {train}")
+  decode = {k: g for k, g in out["session"]["graphs"].items()
+            if "/decode" in k}
+  if len(decode) != 4 or any(
+      not g["ops"].get("t2r.decode_tick")
+      or sum(1 for x in g["in_place"] if "/k_" in x or "/v_" in x)
+      != 2 * WIDTHS["num_blocks"] for g in decode.values()):
+    raise RuntimeError(f"21b: decode rungs {out['session']['graphs']}")
+  # Importing the compiler may create its cache directory; nothing
+  # compiled leaves no file in it.
+  written = sorted(os.path.join(root, name)
+                   for cache in ("inductor", "triton")
+                   for root, _, names in os.walk(os.path.join(directory,
+                                                              cache))
+                   for name in names)
+  if written:
+    raise RuntimeError(f"21b: the audits wrote compile caches: {written}")
+  out["caches_written"] = written
+  out["processes_s"] = time.perf_counter() - started
+
+  # 21c: seeded violations, traced on the card's tensors in this process.
+  before = custom_launches()
+  device = torch.device("cuda", 0)
+  table = torch.zeros(1024, 1024, device=device)  # 4 MiB
+  x = torch.ones(8, 1024, device=device)
+  state = torch.ones(512, 512, device=device)  # 1 MiB
+  batch = torch.ones(8, 8, device=device)
+
+  def state_step(s, b):
+    return s + b.sum(), (s * s).sum()
+
+  seeded = {}
+  for name, rule, entries in (
+      ("baked_4mib_table", "audit-baked-constant",
+       graph_audit.audit_callable("21c/baked", lambda v: v @ table, [x])),
+      ("undonated_1mib_state", "audit-undonated-state",
+       graph_audit.audit_callable("21c/undonated", state_step,
+                                  [state, batch])),
+      ("donated_control", None,
+       graph_audit.audit_callable("21c/donated", state_step, [state, batch],
+                                  donate_argnums=(0,)))):
+    rules = sorted({e["rule"] for e in entries})
+    # The CLI's exit code for these findings (1 on any finding).
+    seeded[name] = {"rules": rules, "exit": 1 if entries else 0,
+                    "message": entries[0]["message"] if entries else None}
+    if rules != ([rule] if rule else []):
+      raise RuntimeError(f"21c: {name} gave {rules}")
+
+  class Closed(torch.nn.Module):
+    def forward(self, v):
+      return v @ table
+
+  exported = torch.export.export(Closed(), (x,), strict=True)
+  lifted = exported.graph_signature.inputs_to_lifted_tensor_constants
+  seeded["dynamo_closed_over_cuda"] = {
+      "lifted_tensor_constants": len(lifted),
+      "shapes": [list(exported.constants[k].shape) for k in lifted.values()],
+      "devices": [str(exported.constants[k].device) for k in
+                  lifted.values()]}
+  if [now - b for now, b in zip(custom_launches(), before)] != [0] * len(
+      before):
+    raise RuntimeError("21c: the audit launched a kernel")
+  out["seeded"] = seeded
+  out["phase_s"] = time.perf_counter() - started
+  out["within_budget"] = out["phase_s"] <= AUDIT_BUDGET_S
+  log(f"21: lint {walls['lint']:.1f} s, audits "
+      f"{walls['train']:.1f} / {walls['session']:.1f} s, phase "
+      f"{out['phase_s']:.1f} s; train ops {train['ops']}; decode ops "
+      f"{ {k: g['ops'] for k, g in decode.items()} }")
+  return out
+
+
+def _audit_line(report: dict) -> dict:
+  """The `audit` line: walls, targets, the three operators' node counts
+  per graph, findings."""
+  graphs = {**report["train"]["graphs"], **report["session"]["graphs"]}
+  return {"card": report["card"], "phase_s": report["phase_s"],
+          "within_budget": report["within_budget"],
+          "walls_s": report["walls_s"], "lint": report["lint"],
+          "targets": {**report["train"]["targets"],
+                      **report["session"]["targets"]},
+          "graphs": {k: {"nodes": g["nodes"], "ops": g["ops"],
+                         "in_place": len(g["in_place"])}
+                     for k, g in graphs.items()},
+          "findings": 0, "seeded": report["seeded"],
+          "caches_written": report["caches_written"]}
+
+
 def main() -> int:
   import torch
 
@@ -8795,6 +9010,14 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   finally:
     shutil.rmtree(compile_dir, ignore_errors=True)
   torch.cuda.empty_cache()
+  log("phase 21")
+  # Phase 21: the static-analysis half (graftlint under a CUDA trap, the
+  # graph audit of the served and trained configs, seeded violations).
+  audit_dir = tempfile.mkdtemp(dir=os.path.join(REPO_DIR, RUNS_DIR))
+  try:
+    audit_report = run_audit(torch, np, custom_launches, card, audit_dir)
+  finally:
+    shutil.rmtree(audit_dir, ignore_errors=True)
   compiled_launches = compile_report["cold"]["launches"]
   ulysses_bf16 = mesh_report["nccl_one_rank"]["launches"]
   ulysses_f32 = mesh_report["sequence_parallel"]["ulysses"]["launches"][0]
@@ -8891,7 +9114,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
             "vrgripper": vr_reports, "telemetry": telemetry_report,
             "observe": observe_report, "fleet": fleet_report,
             "mesh": mesh_report, "pipeline": pipeline_report,
-            "compile": compile_report}
+            "compile": compile_report, "audit": audit_report}
   os.makedirs(os.path.dirname(REPORT), exist_ok=True)
   with open(REPORT, "w") as f:
     json.dump(report, f, indent=1)
@@ -8915,6 +9138,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   print(json.dumps({"mesh": _mesh_line(mesh_report)}))
   print(json.dumps({"pipeline": pipeline_report}))
   print(json.dumps({"compile": _compile_line(compile_report)}))
+  print(json.dumps({"audit": _audit_line(audit_report)}))
   print(json.dumps({"kernels": kernels}))
   print(card_line(), flush=True)
   print(json.dumps({"ok": True, "device": {

@@ -55,9 +55,11 @@ heartbeat keeps the JAX package's name, `tunnel heartbeat`:
       `--verify` checks a cache against the plan without compiling;
       exit 0 ok, 1 missing or bad entries or farm errors, 2 usage.
 
-The JAX package's `audit` subcommand runs its static analysis, which the
-port has not yet (ROADMAP.md, Queue A item 15.4): it exits 2 naming
-that item.
+  python -m tensor2robot_tpu_torch.bin.graftscope audit <config.gin>
+      graftaudit (`analysis.graph_audit`): trace every compiled step the
+      config deploys on fake tensors in a worker (on `--device`, default
+      cuda) and audit the FX graphs; exit 0 clean, 1 findings or target
+      errors, 2 usage (a missing config: "no such config").
 
 Robustness contract: a torn tail line of a live run, a truncated trace
 JSON, or binary garbage in any telemetry file is skipped with a warning
@@ -690,11 +692,93 @@ def _main_postmortem(argv: List[str]) -> int:
 
 
 def _main_audit(argv: List[str]) -> int:
-  del argv
-  print("graftscope audit: not ported yet; it runs the JAX package's "
-        "static analysis (its lint rules and jaxpr audit), which the port "
-        "has not yet (ROADMAP.md, Queue A item 15.4)", file=sys.stderr)
-  return 2
+  parser = argparse.ArgumentParser(
+      prog=f"{_PROG} audit",
+      description="graftaudit: trace every compiled step a research "
+                  "config deploys (train step, serving bucket rungs, "
+                  "session decode ticks and the slot reset) on fake "
+                  "tensors in a worker and audit the FX graphs — baked "
+                  "constants, undonated state, host ops inside "
+                  "while_loop bodies (analysis.graph_audit; rules "
+                  "catalogued by `graftlint --list-rules`, suppressible "
+                  "with a trailing `# graftlint: disable=<rule>` in the "
+                  "config). Exit codes: 0 clean, 1 findings or target "
+                  "errors, 2 usage.")
+  parser.add_argument("config_files", nargs="+",
+                      help="research config (.gin) files, e.g. "
+                           "tensor2robot_tpu_torch/configs/"
+                           "train_longcontext_flash.gin")
+  parser.add_argument("--binding", action="append", default=[],
+                      help="extra binding strings, applied last "
+                           "(repeatable)")
+  parser.add_argument("--model", default=None,
+                      help="model source for serving-only configs: a "
+                           "registered configurable name, or 'flagship' "
+                           "(the QT-Opt smoke critic)")
+  parser.add_argument("--export-dir", default=None,
+                      help="audit the model served from this export-"
+                           "bundle root instead of a configurable ctor")
+  parser.add_argument("--model-dir", default=None,
+                      help="deployment model_dir (predictors restore "
+                           "its checkpoints when present; the audit is "
+                           "value-independent either way)")
+  parser.add_argument("--device", default="cuda",
+                      help="device the worker builds the targets on "
+                           "(default cuda; the tracing itself runs on "
+                           "fake tensors)")
+  parser.add_argument("--device-count", type=int, default=None,
+                      help="the number of cards the worker sees "
+                           "(CUDA_VISIBLE_DEVICES)")
+  parser.add_argument("--json", action="store_true", dest="as_json",
+                      help="emit findings as JSON lines (the lint "
+                           "--json schema)")
+  parser.add_argument("--timeout", type=float, default=600.0,
+                      help="audit worker wall-clock budget in seconds")
+  args = parser.parse_args(argv)
+  missing = [p for p in args.config_files if not os.path.isfile(p)]
+  if missing:
+    print(f"graftscope audit: no such config: {', '.join(missing)}",
+          file=sys.stderr)
+    return 2
+  from tensor2robot_tpu_torch.analysis import engine as lint_engine
+  from tensor2robot_tpu_torch.analysis import graph_audit
+  from tensor2robot_tpu_torch.obs import forge as forge_lib
+
+  try:
+    plan = forge_lib.plan_from_config(args.config_files, args.binding,
+                                      model=args.model,
+                                      export_dir=args.export_dir,
+                                      model_dir=args.model_dir)
+  except Exception as e:  # noqa: BLE001 - a config error is a usage error
+    print(f"graftscope audit: cannot enumerate {args.config_files}: "
+          f"{type(e).__name__}: {e}", file=sys.stderr)
+    return 2
+  auditable = [t for t in plan["targets"]
+               if t["family"] in ("serve", "session", "train")]
+  if auditable and plan.get("model") is None:
+    print("graftscope audit: the plan has traceable serving/train "
+          "targets but no model source — pass --model/--export-dir or "
+          "bind graftforge.model in the config", file=sys.stderr)
+    return 2
+  results = graph_audit.run_targets(plan, auditable, device=args.device,
+                                    device_count=args.device_count,
+                                    timeout_s=args.timeout)
+  findings = graph_audit.report_findings(plan, results)
+  print(graph_audit.format_report(plan, results, findings))
+  for finding in findings:
+    if args.as_json:
+      print(json.dumps({
+          "path": finding.path, "line": finding.line,
+          "rule": finding.rule,
+          "severity": lint_engine.severity_of(finding.rule),
+          "message": finding.message, "suppressed": False}))
+    else:
+      print(finding)
+  errors = [r for r in results if r["status"] == "error"]
+  for entry in errors:
+    print(f"  ERROR   {entry.get('name')}: {entry.get('error')}",
+          file=sys.stderr)
+  return 1 if (findings or errors) else 0
 
 
 def _main_cache(argv: List[str]) -> int:

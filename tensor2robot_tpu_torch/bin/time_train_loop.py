@@ -51,6 +51,7 @@ import sys
 import tempfile
 import threading
 import time
+import weakref
 
 _THIS_ROOT = pathlib.Path(__file__).resolve().parents[2]
 REPORT = "chiprun_out/time_train_loop.json"
@@ -92,6 +93,9 @@ class _StackSampler:
     self.samples = 0
     self._thread = threading.Thread(target=self._run, daemon=True,
                                     name="stack-sampler")
+    # Backstop: a sampler never stopped (a run that fails before its
+    # last step) stops at interpreter exit at the latest.
+    weakref.finalize(self, self._stop.set)
 
   @staticmethod
   def _site(frame) -> str:
@@ -114,9 +118,15 @@ class _StackSampler:
   def start(self):
     self._thread.start()
 
-  def stop(self) -> dict:
+  def close(self) -> None:
+    """Stops the sampling thread and joins it (idempotent)."""
     self._stop.set()
-    self._thread.join()
+    if self._thread.is_alive():
+      self._thread.join()
+
+  def stop(self) -> dict:
+    """`close()`, then the samples' summary."""
+    self.close()
     n = max(self.samples, 1)
     return {"samples": self.samples,
             "leaf": [(s, c / n) for s, c in self.leaf.most_common(12)],

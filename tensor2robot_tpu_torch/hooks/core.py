@@ -315,8 +315,12 @@ class ExportHook(Hook):
         self._worker_running = True
         # A daemon, as in the JAX package: `close`/`end` join it on every
         # train-loop exit, and a bundle is renamed into place only whole.
-        self._worker = threading.Thread(target=self._drain,
-                                        name="export-worker", daemon=True)
+        # Backstop exemption (the JAX package's): the drain worker
+        # self-terminates as soon as the latest-wins pending slot empties
+        # (there is no stop event for a finalizer to set).
+        self._worker = threading.Thread(
+            target=self._drain, name="export-worker",
+            daemon=True)  # graftlint: disable=thread-stage-missing-backstop
         try:
           self._worker.start()
         except BaseException:

@@ -40,6 +40,7 @@ from tensor2robot_tpu_torch import modes as modes_lib
 from tensor2robot_tpu_torch import specs as specs_lib
 from tensor2robot_tpu_torch.meta_learning import batch_utils
 from tensor2robot_tpu_torch.models import abstract as abstract_model
+from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.utils import config
 
 __all__ = ["MAMLModel", "create_maml_feature_spec",
@@ -250,10 +251,15 @@ class MAMLModel(abstract_model.T2RModel):
       return (base_forward(adapted, inf_f), base_forward(base_params, inf_f),
               torch.stack(losses))
 
-    conditioned, unconditioned, inner_losses = torch.func.vmap(task_learn)(
-        _plain(features["condition/features"]),
-        _plain(features["condition/labels"]),
-        _plain(features["inference/features"]))
+    # Each task adapts on its own condition rows: a loss that would read
+    # the whole batch on a data split (TEC's triplet term) stays inside
+    # the task here, as under the JAX package's vmap over tasks.
+    with collectives.batch_group(None):
+      conditioned, unconditioned, inner_losses = torch.func.vmap(
+          task_learn)(
+              _plain(features["condition/features"]),
+              _plain(features["condition/labels"]),
+              _plain(features["inference/features"]))
     out = specs_lib.SpecStruct()
     out["conditioned_output"] = conditioned
     out["unconditioned_output"] = unconditioned

@@ -65,10 +65,10 @@ JAX, and is checked, not used to move data).
 `make_pipelined_train_step` holds this rank's blocks, so with v > 1 it
 needs the interleaved layout (the JAX step permutes a depth-ordered stack
 across devices in every step; the port's ranks hold blocks, not the
-stack). Its `cache` goes to `obs.xray.XrayedFunction`, whose mesh gate
-keeps a step of more than one rank eager (`cache/skipped_mesh`); its
-`audit_name` is the static-analysis tooling (ROADMAP.md item 15.4) and
-raises.
+stack). Its `audit_name` (and its `cache`) wrap the step in
+`obs.xray.XrayedFunction`, as the JAX package's `audit_name` does; the
+X-ray's mesh gate keeps a step of more than one rank eager
+(`cache/skipped_mesh`).
 """
 
 from __future__ import annotations
@@ -461,14 +461,12 @@ def make_pipelined_train_step(
   optimizer writes the state's own tensors (`optimizers.in_place`). The
   loss returned is the mean over the mesh's ranks.
 
-  `cache` (an `obs.excache` cache or directory) X-rays the step as the
-  JAX package's does: on a mesh of more than one rank the step is not
-  compiled (`cache/skipped_mesh`) and runs eagerly. `audit_name` (the
-  JAX package's jaxpr audit) is ROADMAP.md item 15.4 and raises."""
-  if audit_name is not None:
-    raise NotImplementedError(
-        "make_pipelined_train_step(audit_name=...) needs the static "
-        "analysis tooling: ROADMAP.md item 15.4")
+  `audit_name` wraps the step in `obs.xray.XrayedFunction(audit_name,
+  ...)`, as the JAX package's does (graftlint's `pp-schedule-unaudited`
+  asks every call site for one), with `cache` (an `obs.excache` cache or
+  directory) as its cache; a `cache` alone X-rays the step under the name
+  `pipelined_train_step`. On a mesh of more than one rank the X-ray does
+  not compile the step (`cache/skipped_mesh`): it runs eagerly."""
   v = int(num_virtual_stages)
   if v > 1 and params_layout == "layer" and mesh.group(axis_name).size > 1:
     raise ValueError(
@@ -496,11 +494,11 @@ def make_pipelined_train_step(
     mean = collectives.all_reduce(loss.detach().reshape(()), world)
     return stage_params, opt_state, mean / mesh.size
 
-  if cache is not None:
+  if audit_name is not None or cache is not None:
     from tensor2robot_tpu_torch.obs import xray as xray_lib
 
-    return xray_lib.XrayedFunction("pipelined_train_step", step,
-                                   cache=cache, mesh=mesh,
+    return xray_lib.XrayedFunction(audit_name or "pipelined_train_step",
+                                   step, cache=cache, mesh=mesh,
                                    donate_argnums=(0, 1) if donate else ())
   return step
 

@@ -570,13 +570,24 @@ class CompilableStep:
   def __call__(self, state: TrainState, features, labels):
     return self._eager(state, features, labels)
 
-  def compile_with(self, compile_fn: Callable) -> Callable:
+  def _region_fn(self) -> Callable:
     model = self._model
 
     def region(leaves, features, labels, mutable_state):
       return forward_loss(model, leaves, features, labels, mutable_state)
 
-    compiled = compile_fn(region)
+    return region
+
+  def region(self, state: TrainState, features, labels):
+    """(function, args): the region `compile_with` compiles and the
+    arguments the step's first call on (state, features, labels) hands
+    it, without running it (`analysis.graph_audit` traces this; one
+    device, where the step's gradients are `loss_and_grads`')."""
+    return self._region_fn(), (_leaves(state.params), features, labels,
+                               state.mutable_state)
+
+  def compile_with(self, compile_fn: Callable) -> Callable:
+    compiled = compile_fn(self._region_fn())
     step = self.build(compiled)
     step.forward_loss = compiled
     return step

@@ -412,8 +412,11 @@ class ExportedModelPredictor(_TorchPredictorBase):
 
   def restore_async(self) -> threading.Thread:
     """`restore()` on a thread (returned; `close()` joins it)."""
-    thread = threading.Thread(target=self.restore, name="export-restore",
-                              daemon=True)
+    # Backstop exemption (the JAX package's): a one-shot restore worker
+    # with no loop — it terminates by itself after one bundle load.
+    thread = threading.Thread(
+        target=self.restore, name="export-restore",
+        daemon=True)  # graftlint: disable=thread-stage-missing-backstop
     thread.start()
     self._restore_thread = thread
     return thread

@@ -54,6 +54,7 @@ from tensor2robot_tpu_torch.meta_learning import batch_utils
 from tensor2robot_tpu_torch.meta_learning import maml as maml_lib
 from tensor2robot_tpu_torch.meta_learning import preprocessors as meta_pre
 from tensor2robot_tpu_torch.models import abstract as abstract_model
+from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.ops.image_norm import normalize_image
 from tensor2robot_tpu_torch.preprocessors import base as preprocessors_lib
 from tensor2robot_tpu_torch.preprocessors import image_ops
@@ -307,9 +308,16 @@ class VRGripperTECModel(abstract_model.T2RModel):
     scalars = {"bc_mse": bc}
     loss = bc
     if "task_id" in labels and labels["task_id"] is not None:
+      # Semihard mining compares every row with every other, so on a data
+      # split the triplet term reads the whole batch (gathered
+      # differentiably), as the global batch's loss does; the BC term is
+      # a mean over equal blocks.
+      group = collectives.current_batch_group()
       emb_loss = tec_lib.triplet_semihard_loss(
-          inference_outputs["task_embedding"],
-          labels["task_id"].to(torch.int32))
+          collectives.all_gather_batch(inference_outputs["task_embedding"],
+                                       group),
+          collectives.all_gather_batch(labels["task_id"].to(torch.int32),
+                                       group))
       scalars["embedding_triplet"] = emb_loss
       loss = loss + self._embedding_loss_weight * emb_loss
     return loss, scalars

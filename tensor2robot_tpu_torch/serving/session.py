@@ -271,12 +271,30 @@ class SessionEngine:
       return _tick(bundle, state, self._arena, slots, features, mask)
     return tick(state, self._arena, slots, features, mask)
 
+  def _build_arena_locked(self) -> bool:
+    """Loads the decode bundle and builds the arena on the device, once
+    (caller holds _arena_lock); True when this call built it. Runs no
+    tick."""
+    if self._bundle is None:
+      self._bundle = self._load_bundle()
+      self._max_ticks = self._bundle.max_ticks
+    if self._arena is not None:
+      return False
+    self._arena = self._bundle.init_session_state(self._max_sessions + 1)
+    obs_metrics.gauge("serve/session/cache_bytes").set(
+        float(self.cache_bytes))
+    return True
+
   def rung_traces(self) -> List[Tuple[Any, Callable, Tuple]]:
     """`[(rung, function, args), ...]` for every decode rung and the slot
-    reset ('reset'): what warmup runs and compiles, without running it.
-    Needs `warmup()` (the args hold the arena)."""
-    if self._arena is None:
-      raise RuntimeError("rung_traces needs the arena: call warmup() first")
+    reset ('reset'): what warmup runs and compiles, without running it
+    (the arena, which the args hold, is built here when absent; no tick
+    runs)."""
+    with self._arena_lock:
+      self._build_arena_locked()
+      return self._rung_traces_locked()
+
+  def _rung_traces_locked(self) -> List[Tuple[Any, Callable, Tuple]]:
     traces = [(bucket, functools.partial(_tick, self._bundle),
                self._rung_args(bucket)) for bucket in self._buckets]
     traces.append(("reset", _reset_slot,
@@ -324,17 +342,11 @@ class SessionEngine:
     compiles each rung and the slot reset, so the kernels are built and
     loaded before the first real tick. Idempotent."""
     with self._arena_lock:
-      if self._bundle is None:
-        self._bundle = self._load_bundle()
-        self._max_ticks = self._bundle.max_ticks
-      if self._arena is not None:
+      if not self._build_arena_locked():
         return self
-      self._arena = self._bundle.init_session_state(self._max_sessions + 1)
-      obs_metrics.gauge("serve/session/cache_bytes").set(
-          float(self.cache_bytes))
       cache = excache_lib.as_cache(self._cache)
       model = getattr(self._predictor, "model", None)
-      for rung, fn, args in self.rung_traces():
+      for rung, fn, args in self._rung_traces_locked():
         start = time.perf_counter()
         source, record = "eager", {}
         with torch.no_grad():

@@ -127,24 +127,20 @@ def test_error_paths_exit_alike(capsys, tmp_path, model_dirs):
 @pytest.mark.parametrize("name", ["cache", "forge", "audit", "timeline",
                                   "watch"])
 def test_subcommands_not_ported_exit_2_naming_the_item(capsys, name):
-  """`audit` exits 2 naming the item that ports it (15.4); `timeline`,
-  `watch`, `cache` (item 15.3) and `forge` (15.3) are ported and exit 2
-  only on a usage error, a missing directory or config, with the JAX
-  CLI's code (`tests/test_torch_graftrace.py`,
-  `tests/test_torch_graftwatch.py` and
-  `tests/test_torch_compile_serving.py` hold the rest)."""
+  """Every subcommand is ported: `timeline`, `watch`, `cache`, `forge`
+  and `audit` exit 2 only on a usage error, a missing directory or
+  config, with the JAX CLI's code (`tests/test_torch_graftrace.py`,
+  `tests/test_torch_graftwatch.py`, `tests/test_torch_compile_serving.py`
+  and `tests/test_torch_graph_audit.py` hold the rest)."""
   assert graftscope.main([name, "x"]) == 2
   err = capsys.readouterr().err
   if name in ("timeline", "watch"):
     assert f"graftscope {name}: no such directory: x" in err
   elif name == "cache":
     assert "no cache directory at x" in err
-  elif name == "forge":
-    assert "no such config: x" in err
   else:
-    assert "Queue A item 15.4" in err
-  if name != "audit":
-    assert jax_graftscope.main([name, "x"]) == 2
+    assert f"graftscope {name}: no such config: x" in err
+  assert jax_graftscope.main([name, "x"]) == 2
 
 
 def test_obs_and_the_cli_run_with_torch_and_jax_blocked(model_dirs):

@@ -91,6 +91,23 @@ def test_the_scans_cover_the_telemetry_modules():
     assert "tensor2robot_tpu_torch." + rel[:-3].replace("/", ".") in modules
 
 
+def test_the_scans_cover_the_analysis_modules():
+  """The import scans walk the static-analysis subpackage and its CLI:
+  none of its modules imports jax or the JAX package, and each imports
+  with them blocked."""
+  analysis = sorted((PORT / "analysis").glob("*.py"))
+  assert len(analysis) >= 18
+  files = set(_port_files())
+  modules = set(_port_modules())
+  for path in analysis + [PORT / "bin" / "graftlint.py"]:
+    assert path in files, path
+    module = ".".join(path.relative_to(REPO_ROOT).with_suffix("").parts)
+    assert module.removesuffix(".__init__") in modules
+  for name in ("graph_audit", "tracer_check", "config_check", "engine",
+               "lint"):
+    assert PORT / "analysis" / f"{name}.py" in files
+
+
 def test_no_port_module_names_a_path_in_the_jax_package():
   offenders = []
   for path in sorted(PORT.rglob("*.py")):

@@ -373,17 +373,19 @@ class TestVirtualStageSharpEdges:
     assert tuple(placed["odd"].shape) == (6, 3)
 
   def test_train_step_audit_waits_for_item_15_3(self, tmp_path):
-    """`audit_name` (the static-analysis half of the compiler tooling,
-    item 15.4 since item 15.3 landed) raises; `cache` X-rays the step,
-    whose mesh gate keeps a step of more than one rank eager."""
+    """`audit_name` wraps the step in an `XrayedFunction` under that
+    name, as the JAX package's does; `cache` alone X-rays it too, and the
+    X-ray's mesh gate keeps a step of more than one rank eager."""
     from tensor2robot_tpu_torch.obs import metrics as metrics_lib
     from tensor2robot_tpu_torch.obs import xray
 
     mesh = types.SimpleNamespace(group=lambda axes: None, axis_names=(),
                                  size=2)
-    with pytest.raises(NotImplementedError, match="15.4"):
-      pp.make_pipelined_train_step(None, None, None, mesh,
-                                   audit_name="pp/step")
+    audited = pp.make_pipelined_train_step(None, None, None, mesh,
+                                           audit_name="pp/step")
+    assert isinstance(audited, xray.XrayedFunction)
+    assert audited._name == "pp/step" and audited._mesh is mesh
+    assert audited._donate_argnums == (0, 1)
     step = pp.make_pipelined_train_step(None, None, None, mesh,
                                         cache=str(tmp_path))
     assert isinstance(step, xray.XrayedFunction)

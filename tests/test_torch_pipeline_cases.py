@@ -223,7 +223,8 @@ def _hetero_cases(mesh, payload):
 
 def _pipelined_train_step_cases(mesh, payload):
   """`make_pipelined_train_step`: one SGD step against the sequential
-  gradient, then Adam fitting the target."""
+  gradient, then Adam fitting the target; both audited (`audit_name`),
+  which on a mesh of more than one rank runs the step eagerly."""
   out = {}
   loss_fn = lambda y, t: ((y - t) ** 2).mean()
   x, target = _tensor(payload["step_x"]), _tensor(payload["step_y"])
@@ -233,7 +234,8 @@ def _pipelined_train_step_cases(mesh, payload):
     stacked = _tree(payload["stacks"][1])
     params = pp.shard_pipeline_tree(stacked, mesh, "pp")
     opt_state = pp.shard_pipeline_tree(optimizer.init(stacked), mesh, "pp")
-    step = pp.make_pipelined_train_step(_stage_fn, loss_fn, optimizer, mesh)
+    step = pp.make_pipelined_train_step(_stage_fn, loss_fn, optimizer, mesh,
+                                        audit_name=f"pp/{name}_step")
     losses = []
     for _ in range(steps):
       params, opt_state, loss = step(params, opt_state, x, target)
