@@ -31,12 +31,14 @@ the input's dtype.
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensor2robot_tpu_torch.obs import trace as obs_trace
 from tensor2robot_tpu_torch.parallel import collectives
 
 __all__ = ["same_padding", "conv2d", "conv1d_same", "max_pool", "dense",
@@ -166,6 +168,25 @@ def _global_moments(x: torch.Tensor, dims: Sequence[int], group
   return mean, var
 
 
+def _backward_span(x: torch.Tensor, y: torch.Tensor, name: str) -> None:
+  """Records span `name` on the thread that runs the backward (the
+  autograd engine's, on CUDA): from the moment `y`'s gradient is ready to
+  the moment `x`'s is."""
+  started = []
+
+  def begin(grad):
+    started.append(time.perf_counter_ns())
+
+  def end(grad):
+    if started:
+      begun = started.pop()
+      obs_trace.add_complete(name, begun, time.perf_counter_ns() - begun,
+                             cat="model")
+
+  y.register_hook(begin)
+  x.register_hook(end)
+
+
 class BatchNorm(nn.Module):
   """flax `nn.BatchNorm` over dim 1 of [N, C] or [N, C, H, W].
 
@@ -177,6 +198,12 @@ class BatchNorm(nn.Module):
   stats): with `train`, y uses the batch statistics and the new stats
   are `momentum * running + (1 - momentum) * batch`; without, y uses the
   running stats and the dict is empty.
+
+  While the tracer (`obs.trace`) is on, a training forward is a
+  `model/batch_norm` span, and one whose input has a gradient also
+  registers two tensor hooks that record its backward as a
+  `model/batch_norm.backward` span. With the tracer off, or under
+  `torch.compile`, neither is recorded and no hook is registered.
   """
 
   def __init__(self, num_features: int, use_scale: bool = True,
@@ -199,6 +226,17 @@ class BatchNorm(nn.Module):
       return normalize(x, self.running_mean.reshape(shape),
                        self.running_var.reshape(shape), self.weight,
                        self.bias, self.epsilon), {}
+    if torch.compiler.is_compiling() or not obs_trace.get_tracer().enabled:
+      return self._train_forward(x)
+    with obs_trace.span("model/batch_norm", cat="model"):
+      y, new = self._train_forward(x)
+      if (x.grad_fn is not None and y.requires_grad
+          and not torch._C._are_functorch_transforms_active()):
+        _backward_span(x, y, "model/batch_norm.backward")
+    return y, new
+
+  def _train_forward(self, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     dims = (0,) + tuple(range(2, x.ndim))
     group = collectives.current_batch_group()
     mean, var = (moments(x, dims) if group is None

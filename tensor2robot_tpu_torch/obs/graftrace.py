@@ -43,7 +43,6 @@ import contextlib
 import json
 import os
 import threading
-import time
 from typing import Any, Dict, Iterable, Optional
 
 from tensor2robot_tpu_torch.obs import metrics as obs_metrics
@@ -316,8 +315,8 @@ def flush() -> Optional[str]:
     # back-to-back. Event `ts` values are perf_counter microseconds;
     # the aggregator maps them onto the epoch timeline as
     # ts + (epoch_ns - perf_ns)/1e3.
-    perf_ns = time.perf_counter_ns()
-    epoch_ns = time.time_ns() + skew_ns
+    perf_ns, epoch_ns = obs_trace.clock_stamp()
+    epoch_ns += skew_ns
     payload = {"graftrace": "v1", "role": role, "pid": pid, "gen": gen,
                "clock": {"perf_ns": perf_ns, "epoch_ns": epoch_ns},
                "traceEvents": events, "displayTimeUnit": "ms"}

@@ -8,6 +8,14 @@ oldest events dropped), thread-aware (per-thread `tid` + thread-name
 metadata), exported in the Chrome trace-event format that
 `chrome://tracing` and https://ui.perfetto.dev load directly.
 
+Every event also carries its OS thread id (`os_tid`), the id
+`torch.profiler` records beside each CUDA launch, read from the thread's
+object, which caches it (`threading.get_native_id()` is a syscall on
+every call). `clock_stamp()` pairs the monotonic clock with the epoch
+clock that `torch.profiler` stamps its events with; `epoch_ns(ts_us,
+stamp)` maps an event's `ts` onto it, so a span can be laid against a
+device trace.
+
 Stdlib only: a disabled tracer costs a single attribute check per span.
 """
 
@@ -19,11 +27,11 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
-__all__ = ["Tracer", "Span", "get_tracer", "enable", "disable", "span",
-           "traced", "instant", "add_complete", "save", "clear",
-           "set_context_provider"]
+__all__ = ["Tracer", "Span", "Phases", "get_tracer", "enable", "disable",
+           "span", "phases", "traced", "instant", "add_complete", "save",
+           "clear", "set_context_provider", "clock_stamp", "epoch_ns"]
 
 # Optional trace-context hook (a request tracer may install it): a zero-arg
 # callable returning the active request/causality ids as an args dict
@@ -42,6 +50,21 @@ def set_context_provider(provider) -> None:
 # Chrome trace events use microsecond timestamps; perf_counter_ns is the
 # monotonic source (wall clocks can step backwards mid-span).
 _NS_PER_US = 1000.0
+
+
+def clock_stamp() -> Tuple[int, int]:
+  """(perf_ns, epoch_ns): the monotonic clock spans are stamped with and
+  the epoch clock (`time.time_ns`, the clock `torch.profiler` stamps its
+  events with), read back to back. The one place that reads the pair."""
+  perf_ns = time.perf_counter_ns()
+  return perf_ns, time.time_ns()
+
+
+def epoch_ns(ts_us: float, stamp: Tuple[int, int]) -> int:
+  """An event's `ts` (perf_counter microseconds) on the epoch clock of
+  `stamp`: ts + (epoch_ns - perf_ns)."""
+  perf_ns, epoch = stamp
+  return round(ts_us * _NS_PER_US) + epoch - perf_ns
 
 
 class Span:
@@ -75,6 +98,47 @@ class Span:
 
 
 _NULL_SPAN = Span(None, "", "", None)
+
+
+class Phases:
+  """A parent span cut into consecutive children: `next(name)` ends the
+  running child and starts `name` at the same clock read, so the
+  children tile the parent; `end()` records the last child and the
+  parent. Allocate via `Tracer.phases`; while the tracer is disabled it
+  is the shared no-op instance."""
+
+  __slots__ = ("_tracer", "_name", "_cat", "_start_ns", "_child",
+               "_child_args", "_child_ns")
+
+  def __init__(self, tracer: Optional["Tracer"], name: str, cat: str,
+               first: str):
+    self._tracer = tracer
+    self._name = name
+    self._cat = cat
+    self._child = first
+    self._child_args: Optional[Dict[str, Any]] = None
+    self._start_ns = self._child_ns = (
+        time.perf_counter_ns() if tracer is not None else 0)
+
+  def next(self, name: str, **args: Any) -> None:
+    if self._tracer is None:
+      return
+    now = time.perf_counter_ns()
+    self._tracer._record(self._child, self._cat, self._child_ns,
+                         now - self._child_ns, self._child_args)
+    self._child, self._child_args, self._child_ns = name, args or None, now
+
+  def end(self) -> None:
+    if self._tracer is None:
+      return
+    now = time.perf_counter_ns()
+    self._tracer._record(self._child, self._cat, self._child_ns,
+                         now - self._child_ns, self._child_args)
+    self._tracer._record(self._name, self._cat, self._start_ns,
+                         now - self._start_ns, None)
+
+
+_NULL_PHASES = Phases(None, "", "", "")
 
 
 def _event_size(event: Dict[str, Any]) -> int:
@@ -156,6 +220,13 @@ class Tracer:
       return _NULL_SPAN
     return Span(self, name, cat, args or None)
 
+  def phases(self, name: str, first: str, cat: str = "span") -> Phases:
+    """A span `name` whose first child `first` starts with it; see
+    `Phases`."""
+    if not self._enabled:
+      return _NULL_PHASES
+    return Phases(self, name, cat, first)
+
   def traced(self, name: Optional[str] = None, cat: str = "span"):
     """Decorator form of `span` (one event per call)."""
 
@@ -179,6 +250,7 @@ class Tracer:
     self._append({"name": name, "cat": cat, "ph": "i",
                   "ts": now / _NS_PER_US, "s": "t",
                   "pid": self._pid, "tid": threading.get_ident(),
+                  "os_tid": threading.current_thread().native_id,
                   **({"args": args} if args else {})})
 
   def add_complete(self, name: str, start_ns: int, dur_ns: int,
@@ -196,6 +268,7 @@ class Tracer:
                   "ts": start_ns / _NS_PER_US,
                   "dur": max(dur_ns, 0) / _NS_PER_US,
                   "pid": self._pid, "tid": threading.get_ident(),
+                  "os_tid": threading.current_thread().native_id,
                   **({"args": args} if args else {})})
 
   def _append(self, event: Dict[str, Any]) -> None:
@@ -273,6 +346,10 @@ def disable() -> None:
 
 def span(name: str, cat: str = "span", **args: Any) -> Span:
   return _GLOBAL.span(name, cat=cat, **args)
+
+
+def phases(name: str, first: str, cat: str = "span") -> Phases:
+  return _GLOBAL.phases(name, first, cat=cat)
 
 
 def traced(name: Optional[str] = None, cat: str = "span"):

@@ -83,6 +83,7 @@ import torch.utils.checkpoint
 
 from tensor2robot_tpu_torch import modes as modes_lib
 from tensor2robot_tpu_torch.models import optimizers as optimizers_lib
+from tensor2robot_tpu_torch.obs import trace as obs_trace
 from tensor2robot_tpu_torch.ops import pcgrad as pcgrad_lib
 from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
@@ -614,7 +615,11 @@ def make_train_step(model, mesh=None, shardings: Optional[TrainState] = None,
   (default: True on a mesh, as the JAX package's default; False without
   one, where the port's single-device step has always left the state it
   was given as it was) updates the state's tensors in place (module
-  docstring): the caller's old state then holds the new values."""
+  docstring): the caller's old state then holds the new values.
+
+  Each call is a `train/step` span (`obs.trace`, recorded while the
+  tracer is on) tiled by `train/gradients` (forward, loss and their
+  gradients) and `train/update` (the optimizer, the EMA, the metrics)."""
   optimizer = model.build_optimizer()
   ema_decay = model.ema_decay
   if mesh is not None and shardings is None:
@@ -628,39 +633,48 @@ def make_train_step(model, mesh=None, shardings: Optional[TrainState] = None,
     gradients = _gradients_fn(model, ops, forward_loss_fn)
 
     def step_fn(state: TrainState, features, labels):
-      if ops is None:
-        loss, scalars, grads, new_mutable = gradients(state, features, labels)
-      else:
-        with collectives.batch_group(ops.batch_group):
+      phases = obs_trace.phases("train/step", "train/gradients",
+                                cat="train")
+      try:
+        if ops is None:
           loss, scalars, grads, new_mutable = gradients(state, features,
                                                         labels)
-      with torch.no_grad(), (optimizers_lib.sharded_norms(ops.sum_of_squares)
-                             if ops is not None else contextlib.nullcontext()), \
-          optimizers_lib.in_place(donate):
-        updates, opt_state = optimizer.update(grads, state.opt_state,
-                                              state.params)
-        applied = optimizers_lib.has_updated(opt_state)
-        params = (optimizers_lib.apply_updates(state.params, updates)
-                  if applied else state.params)
-        ema = state.ema_params
-        if ema is not None and applied:
-          if donate:
-            for k, e in ema.items():
-              e.mul_(ema_decay).add_((1.0 - ema_decay) * params[k])
-          else:
-            ema = {k: e * ema_decay + (1.0 - ema_decay) * params[k]
-                   for k, e in ema.items()}
-        metrics = {"loss": loss,
-                   "global_gradient_norm": optimizers_lib.global_norm(grads),
-                   **scalars}
-        if ops is not None:
-          norm = metrics.pop("global_gradient_norm")
-          metrics = ops.mean(metrics)
-          metrics["global_gradient_norm"] = norm
-        new_mutable = new_mutable or state.mutable_state
-      return state.replace(step=state.step + 1, params=params,
-                           opt_state=opt_state, ema_params=ema,
-                           mutable_state=new_mutable), metrics
+        else:
+          with collectives.batch_group(ops.batch_group):
+            loss, scalars, grads, new_mutable = gradients(state, features,
+                                                          labels)
+        phases.next("train/update")
+        with torch.no_grad(), (
+            optimizers_lib.sharded_norms(ops.sum_of_squares)
+            if ops is not None else contextlib.nullcontext()), \
+            optimizers_lib.in_place(donate):
+          updates, opt_state = optimizer.update(grads, state.opt_state,
+                                                state.params)
+          applied = optimizers_lib.has_updated(opt_state)
+          params = (optimizers_lib.apply_updates(state.params, updates)
+                    if applied else state.params)
+          ema = state.ema_params
+          if ema is not None and applied:
+            if donate:
+              for k, e in ema.items():
+                e.mul_(ema_decay).add_((1.0 - ema_decay) * params[k])
+            else:
+              ema = {k: e * ema_decay + (1.0 - ema_decay) * params[k]
+                     for k, e in ema.items()}
+          metrics = {
+              "loss": loss,
+              "global_gradient_norm": optimizers_lib.global_norm(grads),
+              **scalars}
+          if ops is not None:
+            norm = metrics.pop("global_gradient_norm")
+            metrics = ops.mean(metrics)
+            metrics["global_gradient_norm"] = norm
+          new_mutable = new_mutable or state.mutable_state
+        return state.replace(step=state.step + 1, params=params,
+                             opt_state=opt_state, ema_params=ema,
+                             mutable_state=new_mutable), metrics
+      finally:
+        phases.end()
 
     return step_fn
 

@@ -38,12 +38,16 @@ session appears at most once per dispatch).
 
 Telemetry (`obs.metrics`): serve/session/active, slot_occupancy,
 cache_bytes (gauges); tick_ms (histogram); opens, closes, evictions,
-shed, ticks, dispatches, padded_lanes, shed_queue_full (counters). Each
-dispatch is a `serve/session/dispatch` span. `SessionBatcher` adds the
-JAX package's request tracing (`obs.graftrace`): a context per tick at
-admission, a `serve/session/batch` span per dispatch whose `links` name
-its ticks, the `queue_wait` and `dispatch` stages per tick, a
-`usage=(busy_s, ticks)` call per dispatch, and a shard flush when its
+shed, ticks, dispatches, padded_lanes, shed_queue_full, fetched_bytes
+(counters). Each `step_many` is a `serve/session/step` span (`obs.trace`)
+tiled by six children: admit (the lifecycle and horizon guards, the
+slots), stack (the feature stack), h2d (the three copies in), dispatch
+(the tick), fetch (each output's copy back, which waits for the device)
+and book (the bookkeeping and the per-session results). `SessionBatcher`
+adds the JAX package's request tracing (`obs.graftrace`): a context per
+tick at admission, a `serve/session/batch` span per dispatch whose
+`links` name its ticks, the `queue_wait` and `dispatch` stages per tick,
+a `usage=(busy_s, ticks)` call per dispatch, and a shard flush when its
 worker ends.
 
 With `cache` (an `obs.excache.ExecutableCache` or a directory) every
@@ -513,6 +517,18 @@ class SessionEngine:
     """
     if not items:
       return []
+    phases = obs_trace.phases("serve/session/step", "serve/session/admit",
+                              cat="serve")
+    try:
+      return self._step_many(items, phases)
+    finally:
+      phases.end()
+
+  def _step_many(self, items: Sequence[Tuple[int, Mapping[str, Any]]],
+                 phases: obs_trace.Phases) -> List[Dict[str, np.ndarray]]:
+    """`step_many`'s body, cut into the children of its
+    `serve/session/step` span: admit, stack, h2d, dispatch, fetch,
+    book."""
     if len(items) > self._max_tick_batch:
       raise ValueError(f"{len(items)} session steps exceed "
                        f"max_tick_batch {self._max_tick_batch}")
@@ -541,6 +557,7 @@ class SessionEngine:
       self._in_flight.update(sids)
     ticked = False
     try:
+      phases.next("serve/session/stack")
       n = len(items)
       bucket = self._bucket_for(n)
       if bucket != n:
@@ -552,19 +569,24 @@ class SessionEngine:
       features = self._stack_features([f for _, f in items], bucket)
       bundle = self._bundle
       state = bundle.get_state()
-      with self._arena_lock, torch.no_grad(), \
-          obs_trace.span("serve/session/dispatch", cat="serve",
-                         sessions=n, bucket=bucket):
-        outputs = self._dispatch(
-            bundle, state, torch.from_numpy(slot_arr).to(self._device),
-            {k: torch.from_numpy(v).to(self._device)
-             for k, v in features.items()},
-            torch.from_numpy(mask).to(self._device))
+      with self._arena_lock, torch.no_grad():
+        phases.next("serve/session/h2d")
+        device_slots = torch.from_numpy(slot_arr).to(self._device)
+        device_features = {k: torch.from_numpy(v).to(self._device)
+                           for k, v in features.items()}
+        device_mask = torch.from_numpy(mask).to(self._device)
+        phases.next("serve/session/dispatch", sessions=n, bucket=bucket)
+        outputs = self._dispatch(bundle, state, device_slots,
+                                 device_features, device_mask)
         # The arena has advanced: the bookkeeping advances with it even if
         # the fetch below fails, or a retry would append twice and the
         # horizon guard would under-count.
         ticked = True
+        phases.next("serve/session/fetch")
         fetched = {k: v.cpu().numpy() for k, v in outputs.items()}
+        obs_metrics.counter("serve/session/fetched_bytes").inc(
+            sum(v.nbytes for v in fetched.values()))
+      phases.next("serve/session/book")
       return [{k: v[i] for k, v in fetched.items()} for i in range(n)]
     finally:
       now = time.monotonic()
