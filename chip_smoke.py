@@ -30,7 +30,12 @@ and prints no result):
    1088 (each kernel must launch once per call; in f32 the split pass too,
    and its planes must equal `_flash_bwd_split_plain`'s bit for bit); then,
    in f32 at T = 1000, the gradients through `flash_attention`'s autograd
-   Function against torch autograd through the plain `attention`.
+   Function against torch autograd through the plain `attention`; then
+   the fused batch norm (`check_batch_norm`, BN_CHECKS): forward and
+   backward against their plain versions at the critic's batch-256
+   shapes and in every layout and vector path, 3 launches each way, and
+   a `BatchNorm` training forward's gradients through autograd against
+   the `moments` / `normalize` chain.
 3. The serving slice: the causal sequence policy at the long-context widths of
    `tensor2robot_tpu_torch/configs/serve_session.gin`, random weights
    from seed 0, served CheckpointPredictor -> SessionEngine ->
@@ -59,13 +64,17 @@ and prints no result):
    `torch.autograd.grad` for the backward, with the device kernels a
    yardstick call runs); each kernel's bound: max(bytes
    / 3.35 TB/s, flops / peak rate of the dtype) with the H100 SXM
-   data-sheet peaks (f32: the faster of the CUDA cores and 3xTF32); and
+   data-sheet peaks (f32: the faster of the CUDA cores and 3xTF32); the
+   fused batch norm at the critic's shapes (`time_batch_norm`, against
+   `F.batch_norm` and its backward as the yardstick); and
    the median full-width train step, bf16 and f32.
 6. The QT-Opt critic, `tensor2robot_tpu_torch/configs/train_qtopt.gin`
    (Grasping44 at 472x472, filters 64, convs (6, 6, 3), batch norm, the
-   named grasp-param blocks), weights from seed 0. No custom kernel is on
-   its path: convolutions go to cuDNN and products to cuBLAS, as the JAX
-   package leaves them to XLA.
+   named grasp-param blocks), weights from seed 0. Its convolutions go to
+   cuDNN and its products to cuBLAS, as the JAX package leaves them to
+   XLA; its training batch norms to the fused kernels of
+   `csrc/batch_norm.cu` (phase 2). No flash or decode kernel is on its
+   path ("custom kernel" below means those, `custom_launches`).
    a. Strict parity, card against the port's CPU path, with
       `cudnn.allow_tf32` and `cuda.matmul.allow_tf32` False (restored
       after): one train step at batch 2 in float64 on both — loss 1e-5
@@ -92,7 +101,8 @@ and prints no result):
       synchronize, fresh state, one batch) at batch 32: bf16 (the
       config), and f32 with and without TF32 convolutions; grasps/s =
       32 / step seconds; the bound from the step's products as
-      `torch.utils.flop_counter` counts them.
+      `torch.utils.flop_counter` counts them; the fused batch norm's
+      launches and forwards in one step, which must be above 0.
 7. The critic served: the step-30 checkpoint of phase 6b through
    `CheckpointPredictor(model_dir=...)` -> `BucketedEngine` ->
    `MicroBatcher` at the bindings of
@@ -1690,6 +1700,18 @@ def time_qtopt_step(torch, train_step, input_generators, flagship, device,
   with FlopCounterMode(display=False) as counter:
     state, _ = step_fn(state, features, labels)
   flops = counter.get_total_flops()
+  # The fused batch norm's kernel launches and forwards in one step.
+  from tensor2robot_tpu_torch.obs import metrics as obs_metrics
+  from tensor2robot_tpu_torch.ops import batch_norm as bn_ops
+  launches = bn_ops.batch_norm_train.launches
+  fused = obs_metrics.counter("model/batch_norm/fused").value
+  state, _ = step_fn(state, features, labels)
+  torch.cuda.synchronize()
+  launches = bn_ops.batch_norm_train.launches - launches
+  fused = obs_metrics.counter("model/batch_norm/fused").value - fused
+  if not launches or not fused:
+    raise RuntimeError(f"the critic's step ran no fused batch norm: "
+                       f"{launches} launches, {fused} forwards")
   times = []
   for i in range(steps + 3):
     torch.cuda.synchronize()
@@ -1716,6 +1738,7 @@ def time_qtopt_step(torch, train_step, input_generators, flagship, device,
           "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                    "matmul": torch.backends.cuda.matmul.allow_tf32},
           "flops_per_step": flops, "bytes_per_step": moved,
+          "batch_norm_launches": launches, "batch_norm_fused": fused,
           **bound(moved, flops, rate)}
 
 
@@ -2704,6 +2727,247 @@ def time_flash_bwd(torch, attention_ops, device, gen, timer, b, dtype):
             iters=5),
         **bound(moved, 0, name), "library_ms": None, "shape": shape}
   return out_rows
+
+
+# -- the fused batch norm (phases 2, 5 and 6) --------------------------------
+
+# Against the plain version on the card, each output's max |err| over
+# max(1, max |ref|). Both sides compute in float32; the kernels sum each
+# block in float32 and the blocks in float64, the plain version in
+# PyTorch's float32 reduction order, so the statistics differ by ~1e-6
+# relative and every float32 output by less than BN_F32_TOL. A bf16
+# output (y, dx; dscale and dbias for bf16 parameters) may round the
+# other way: one bf16 step of a value is at most 2^-7 of it. A kernel that
+# skips or repeats a block, or mixes channels, reads O(1).
+BN_F32_TOL = 1e-4
+BN_BF16_TOL = 2.0 ** -7
+# (name, shape, dtype, layout, use_scale, parameters' dtype): the critic's
+# norms at batch 256 (the channels-last stem and a stage-0 conv, the dense
+# norms with and without scale), float32 and NCHW cases (the planes
+# layout, planes that start off a 16-byte boundary), scalar paths (C not a
+# multiple of the vector, a misaligned base), a row wider than 32 lanes.
+BN_CHECKS = (
+    ("stem", (256, 64, 236, 236), "bfloat16", "channels_last", True,
+     "bfloat16"),
+    ("stage0", (256, 64, 79, 79), "bfloat16", "channels_last", True,
+     "bfloat16"),
+    ("dense", (256, 256), "bfloat16", "rows", False, "bfloat16"),
+    ("dense_scaled", (256, 64), "bfloat16", "rows", True, "float32"),
+    ("stage0_f32", (64, 64, 79, 79), "float32", "channels_last", True,
+     "float32"),
+    ("stage0_nchw", (64, 64, 79, 79), "bfloat16", "nchw", True, "bfloat16"),
+    ("stage2_nchw_f32", (64, 64, 12, 12), "float32", "nchw", False,
+     "float32"),
+    ("c3_scalar", (16, 3, 30, 30), "bfloat16", "channels_last", True,
+     "bfloat16"),
+    ("misaligned", (16, 24, 27, 27), "bfloat16", "nchw_offset", True,
+     "float32"),
+    ("misaligned_rows", (16, 24, 9, 9), "float32", "channels_last_offset",
+     True, "float32"),
+    ("wide_rows", (300, 1000), "float32", "rows", True, "bfloat16"),
+)
+# The timed shapes of phase 5: the critic's stem, a stage-0 conv and a
+# dense norm at batch 256 in bf16 (the training policy), and the stage-0
+# conv in float32.
+BN_TIMED = (
+    ((256, 64, 236, 236), "bfloat16"), ((256, 64, 79, 79), "bfloat16"),
+    ((256, 256), "bfloat16"), ((256, 64, 79, 79), "float32"))
+
+
+def _bn_operands(torch, gen, device, shape, dtype, layout, use_scale,
+                 param_dtype):
+  """x (offset from 0), scale, bias, float32 running statistics and a
+  cotangent dy in x's layout."""
+  dt, pdt = getattr(torch, dtype), getattr(torch, param_dtype)
+  numel = 1
+  for s in shape:
+    numel *= s
+  nhwc = "channels_last" in layout
+  stored = (shape[0], *shape[2:], shape[1]) if nhwc else shape
+
+  def make(scale, offset):
+    flat = torch.randn(numel + 1, generator=gen, device=device) * scale
+    flat = (flat + offset).to(dt)
+    if not layout.endswith("offset"):
+      flat = flat[:numel].clone()
+    else:
+      flat = flat[1:]  # a 2-byte (bf16) or 4-byte (f32) misaligned base
+    t = flat.view(stored)
+    return t.permute(0, 3, 1, 2) if nhwc else t
+
+  c = shape[1]
+  x, dy = make(2.0, 0.7), make(1.0, 0.0)
+  weight = ((torch.randn(c, generator=gen, device=device) * 0.3 + 1.0)
+            .to(pdt) if use_scale else None)
+  bias = (torch.randn(c, generator=gen, device=device) * 0.3).to(pdt)
+  running = (torch.randn(c, generator=gen, device=device),
+             torch.rand(c, generator=gen, device=device) + 0.5)
+  return x, weight, bias, running, dy
+
+
+def _bn_err(got, want) -> float:
+  got, want = got.detach(), want.detach()
+  return max_abs(got, want) / max(1.0, float(want.float().abs().max()))
+
+
+def check_batch_norm(torch, bn_ops, flax_layers, device, gen) -> dict:
+  """Each of BN_CHECKS: the forward (y, the new running statistics) and
+  the backward (dx, dscale, dbias) against their plain versions on the
+  same card, the forward 3 launches and the backward 3, y and dx in x's
+  layout; then a `BatchNorm` training forward and its autograd gradients
+  through the fused operator against autograd through `moments` and
+  `normalize`, with a cotangent in another layout than x. Raises past the
+  tolerances; returns each case's errors."""
+  out = {}
+  momentum, eps = 0.9997, 1e-3
+  for name, shape, dtype, layout, use_scale, param_dtype in BN_CHECKS:
+    x, weight, bias, running, dy = _bn_operands(
+        torch, gen, device, shape, dtype, layout, use_scale, param_dtype)
+    kind = bn_ops.layout(x)[0]
+    width = bn_ops._vector_width(kind, shape[1], x, (x,))
+    before = bn_ops.batch_norm_train.launches
+    got_f = torch.ops.t2r.batch_norm_fwd(x, weight, bias, *running,
+                                         momentum, eps)
+    pdt = getattr(torch, param_dtype)
+    got_b = torch.ops.t2r.batch_norm_bwd(dy, x, weight, got_f[3], got_f[4],
+                                         pdt)
+    torch.cuda.synchronize()
+    launches = bn_ops.batch_norm_train.launches - before
+    want_f = bn_ops._batch_norm_forward_plain(x, weight, bias, *running,
+                                              momentum, eps)
+    want_b = bn_ops._batch_norm_backward_plain(dy, x, weight, want_f[3],
+                                               want_f[4], pdt)
+    errs = {k: _bn_err(g, w) for k, g, w in zip(
+        ("y", "running_mean", "running_var", "mean", "rstd"), got_f, want_f)}
+    errs.update({k: _bn_err(g, w) for k, g, w in zip(
+        ("dx", "dscale", "dbias"), got_b, want_b)})
+    if not use_scale:
+      del errs["dscale"]
+    bf16_outputs = {"y", "dx"} if dtype == "bfloat16" else set()
+    if param_dtype == "bfloat16":
+      bf16_outputs |= {"dscale", "dbias"}
+    bad = {k: v for k, v in errs.items() if not v <= (
+        BN_BF16_TOL if k in bf16_outputs else BN_F32_TOL)}
+    if (launches != 6 or got_f[0].stride() != x.stride()
+        or got_b[0].stride() != x.stride()):
+      bad["launches_or_layout"] = (launches, got_f[0].stride(),
+                                   got_b[0].stride(), x.stride())
+    out[name] = {"shape": list(shape), "dtype": dtype, "layout": layout,
+                 "kernel_layout": "rows" if kind == bn_ops.ROWS else "planes",
+                 "vector": width, "errors": errs}
+    if bad:
+      raise RuntimeError(f"batch norm {name} {shape} {dtype} {layout}: "
+                         f"{bad} (all: {errs})")
+    del x, dy, got_f, got_b, want_f, want_b
+    torch.cuda.empty_cache()
+
+  # Through the module and autograd, dy in NCHW against a channels-last x.
+  layer = flax_layers.BatchNorm(64, momentum=momentum, epsilon=eps).to(device)
+  x, weight, bias, running, dy = _bn_operands(
+      torch, gen, device, (32, 64, 79, 79), "bfloat16", "channels_last",
+      True, "bfloat16")
+  dy = dy.contiguous()
+  leaves = [t.detach().requires_grad_(True) for t in (x, weight, bias)]
+  params = {"weight": leaves[1], "bias": leaves[2],
+            "running_mean": running[0], "running_var": running[1]}
+  fused = torch.func.functional_call(layer, params, (leaves[0], True))
+  got = torch.autograd.grad(fused[0], leaves, dy)
+  chain = [t.detach().requires_grad_(True) for t in (x, weight, bias)]
+  dims = (0, 2, 3)
+  mean, var = flax_layers.moments(chain[0], dims)
+  y = flax_layers.normalize(chain[0], mean, var, chain[1], chain[2], eps)
+  want = torch.autograd.grad(y, chain, dy)
+  errs = {"y": _bn_err(fused[0], y),
+          "running_var": _bn_err(fused[1]["running_var"], momentum * running[1]
+                                 + (1 - momentum) * var.detach().reshape(-1)),
+          **{k: _bn_err(g, w) for k, g, w in zip(("dx", "dscale", "dbias"),
+                                                 got, want)}}
+  out["module_autograd"] = errs
+  bad = {k: v for k, v in errs.items()
+         if not v <= (BN_F32_TOL if k == "running_var" else BN_BF16_TOL)}
+  if bad:
+    raise RuntimeError(f"batch norm through autograd: {bad} (all: {errs})")
+  # Nothing falls back to the chain on the card: a bf16 training forward
+  # in a layout or rank the kernels do not take raises.
+  for refused in (leaves[0].detach().transpose(2, 3),
+                  leaves[0].detach()[:, :, 0]):
+    try:
+      layer(refused, True)
+    except ValueError:
+      continue
+    raise RuntimeError(f"batch norm trained on {tuple(refused.shape)} "
+                       f"strides {refused.stride()} without raising")
+  log(f"batch norm against its plain version: "
+      f"{ {k: max(v['errors'].values()) for k, v in out.items() if 'errors' in v} }"
+      f"; through autograd {errs}")
+  return out
+
+
+def time_batch_norm(torch, bn_ops, device, gen, timer) -> list:
+  """Each of BN_TIMED: the forward and backward kernels, their plain
+  versions, and `F.batch_norm` with its `torch.autograd.grad` (the
+  library yardstick, float32 scale and bias) at the critic's shapes,
+  channels-last as its convolutions hand them over. Bound: the design's
+  traffic, 16 bytes an element in bf16 (forward: x read twice, y written;
+  backward: x and dy read twice, dx written), and, as `bound_once_ms`,
+  each input read once and each output written once (10 bytes)."""
+  F = torch.nn.functional
+  rows = []
+  for shape, dtype in BN_TIMED:
+    layout = "channels_last" if len(shape) == 4 else "rows"
+    x, weight, bias, running, dy = _bn_operands(
+        torch, gen, device, shape, dtype, layout, True, dtype)
+    pdt = getattr(torch, dtype)
+    mean, rstd = torch.ops.t2r.batch_norm_fwd(x, weight, bias, *running,
+                                              0.9997, 1e-3)[3:]
+    fwd = lambda: torch.ops.t2r.batch_norm_fwd(x, weight, bias, *running,
+                                               0.9997, 1e-3)
+    bwd = lambda: torch.ops.t2r.batch_norm_bwd(dy, x, weight, mean, rstd, pdt)
+    iters = 10 if x.numel() > 2**28 else 20
+    fwd_ms, bwd_ms = timer.ms(fwd, iters=iters), timer.ms(bwd, iters=iters)
+    plain_fwd_ms = timer.ms(lambda: bn_ops._batch_norm_forward_plain(
+        x, weight, bias, *running, 0.9997, 1e-3), iters=5)
+    plain_bwd_ms = timer.ms(lambda: bn_ops._batch_norm_backward_plain(
+        dy, x, weight, mean, rstd, pdt), iters=5)
+    w32, b32 = (t.float().requires_grad_(True) for t in (weight, bias))
+    xg = x.detach().requires_grad_(True)
+
+    def library():
+      y = F.batch_norm(xg, None, None, w32, b32, True, 0.0003, 1e-3)
+      return torch.autograd.grad(y, (xg, w32, b32), dy)
+
+    library_ms = timer.ms(library, iters=iters)
+    with torch.no_grad():
+      library_fwd_ms = timer.ms(lambda: F.batch_norm(
+          x, None, None, w32, b32, True, 0.0003, 1e-3), iters=iters)
+    elem = x.numel() * x.element_size()
+    design = {"forward": 3 * elem, "backward": 5 * elem}
+    once = {"forward": 2 * elem, "backward": 3 * elem}
+    row = {"shape": f"{list(shape)} {dtype} {layout}", "elements": x.numel(),
+           "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+           "ms": fwd_ms + bwd_ms, "plain_forward_ms": plain_fwd_ms,
+           "plain_backward_ms": plain_bwd_ms,
+           "plain_ms": plain_fwd_ms + plain_bwd_ms,
+           "library_ms": library_ms, "library_forward_ms": library_fwd_ms,
+           "library_kernels": library_kernels(torch, library),
+           **bound(sum(design.values()), 0, dtype),
+           "bound_once_ms": bound(sum(once.values()), 0, dtype)["bound_ms"],
+           "bound_forward_ms": bound(design["forward"], 0, dtype)["bound_ms"],
+           "bound_backward_ms": bound(design["backward"], 0,
+                                      dtype)["bound_ms"]}
+    # The share of the design's bound, and of the function's own minimum:
+    # the second read of x and dy is what a further fusion would remove.
+    row["roofline"] = row["bound_ms"] / row["ms"]
+    row["roofline_once"] = row["bound_once_ms"] / row["ms"]
+    log(f"batch norm {row['shape']}: forward {fwd_ms:.4f} + backward "
+        f"{bwd_ms:.4f} ms (bound {row['bound_forward_ms']:.4f} + "
+        f"{row['bound_backward_ms']:.4f}; {row['roofline']:.1%} of the "
+        f"design's, {row['roofline_once']:.1%} of each byte once), plain "
+        f"{row['plain_ms']:.3f}, F.batch_norm {library_ms:.4f}")
+    rows.append(row)
+    del x, dy, mean, rstd, xg
+    torch.cuda.empty_cache()
+  return rows
 
 
 # -- phase 9: the deployment path ------------------------------------------
@@ -8639,6 +8903,8 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   from tensor2robot_tpu_torch.models import sequence_model
   from tensor2robot_tpu_torch.ops import _kernels
   from tensor2robot_tpu_torch.ops import attention as attention_ops
+  from tensor2robot_tpu_torch.ops import batch_norm as bn_ops
+  from tensor2robot_tpu_torch.layers import flax_layers
   from tensor2robot_tpu_torch import serving
   from tensor2robot_tpu_torch.obs import device_profile
   from tensor2robot_tpu_torch.obs import aggregate
@@ -8704,6 +8970,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   bwd_err, bwd_scaled, bwd_rel = check_flash_bwd(torch, attention_ops, device,
                                                  gen)
   torch.cuda.empty_cache()
+  bn_check = check_batch_norm(torch, bn_ops, flax_layers, device, gen)
 
   log("phase 3")
   # Phase 3: the slice.
@@ -8738,6 +9005,7 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
   bwd_f32_t = time_flash_bwd(torch, attention_ops, device, gen, timer, 2,
                              torch.float32)
   torch.cuda.empty_cache()
+  bn_t = time_batch_norm(torch, bn_ops, device, gen, timer)
   train_report["step"] = time_train_step(torch, train_step, sequence_model,
                                          input_generators, device)
   log(f"train step: {train_report['step']}")
@@ -9104,6 +9372,21 @@ def run_phases(torch, sequence_dir: str, critic_dir: str) -> int:
       "launches_ulysses": ulysses_f32["flash_bwd_split"],
       "max_abs_err": bwd_err["split"]["float32"],
       **bwd_f32_t["flash_bwd_split"]})
+  # The fused batch norm (no TPU kernel: XLA fuses flax's nn.BatchNorm),
+  # forward and backward, at the critic's shapes; its launches through one
+  # critic training step at batch 32 (phase 6c).
+  bn_src = "tensor2robot_tpu_torch/csrc/batch_norm.cu"
+  for timed in bn_t:
+    kernels.append({
+        "name": "batch_norm", "route": "cuda",
+        "design": "rows / planes passes, 16-byte vectors, float64 finalise",
+        "source": bn_src, "replaces": "none (XLA's fusion of flax "
+        "nn.BatchNorm; layers/flax_layers.py moments and normalize)",
+        "launches": qtopt_report["step"]["batch_norm_launches"],
+        "fused_per_step": qtopt_report["step"]["batch_norm_fused"],
+        "max_err": {k: max(v["errors"].values())
+                    for k, v in bn_check.items() if "errors" in v},
+        **timed})
   report = {"card": card, "build_s": build_s, "kernels": kernels,
             "extra_timings": extra, "slice": slice_report,
             "train": train_report, "qtopt": qtopt_report,

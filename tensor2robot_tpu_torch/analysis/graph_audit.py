@@ -461,13 +461,15 @@ def audit_callable(name: str, fn, args: Sequence[Any],
 def _launch_count() -> int:
   """Kernel launches counted by the port's kernel wrappers so far."""
   from tensor2robot_tpu_torch.ops import attention
+  from tensor2robot_tpu_torch.ops import batch_norm
   from tensor2robot_tpu_torch.ops import decode_kernels
 
   return (attention.flash_forward.launches
           + attention.flash_backward.launches_dq
           + attention.flash_backward.launches_dkv
           + attention.flash_backward.launches_split
-          + decode_kernels.fused_decode_attention.launches)
+          + decode_kernels.fused_decode_attention.launches
+          + batch_norm.batch_norm_train.launches)
 
 
 def _model_tensors(model) -> List[Any]:

@@ -38,7 +38,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensor2robot_tpu_torch.obs import metrics as obs_metrics
 from tensor2robot_tpu_torch.obs import trace as obs_trace
+from tensor2robot_tpu_torch.ops import batch_norm as batch_norm_ops
 from tensor2robot_tpu_torch.parallel import collectives
 
 __all__ = ["same_padding", "conv2d", "conv1d_same", "max_pool", "dense",
@@ -187,6 +189,21 @@ def _backward_span(x: torch.Tensor, y: torch.Tensor, name: str) -> None:
   x.register_hook(end)
 
 
+def _fusable(x: torch.Tensor) -> bool:
+  """Whether a training forward of `BatchNorm` on x outside a batch group
+  goes through the fused operator (`ops.batch_norm`). Off the CPU, every
+  float32 or bf16 one, the kernels' dtypes: the operator runs them or
+  raises on a rank or layout they do not take (float64, a reference
+  precision the kernels do not have, keeps the chain). On the CPU, a
+  float32 or bf16 [N, C] or [N, C, H, W] in a layout the kernels read
+  without a copy, outside functorch's transforms, which the operator has
+  no rule for."""
+  if x.device.type != "cpu":
+    return x.dtype in batch_norm_ops.KERNEL_DTYPES
+  return (batch_norm_ops.takes(x)
+          and not torch._C._are_functorch_transforms_active())
+
+
 class BatchNorm(nn.Module):
   """flax `nn.BatchNorm` over dim 1 of [N, C] or [N, C, H, W].
 
@@ -198,6 +215,14 @@ class BatchNorm(nn.Module):
   stats): with `train`, y uses the batch statistics and the new stats
   are `momentum * running + (1 - momentum) * batch`; without, y uses the
   running stats and the dict is empty.
+
+  A float32 or bf16 training forward outside a batch group (`_fusable`:
+  on the card every one, on the CPU an [N, C] or [N, C, H, W] in a layout
+  the kernels read) is one call of the fused operator
+  `ops.batch_norm.batch_norm_train` (the CUDA kernels, which raise on an
+  input they do not take; on the CPU their plain version) and bumps the
+  counter `model/batch_norm/fused`; any other goes through `moments` and
+  `normalize` (under a batch group, `_global_moments`).
 
   While the tracer (`obs.trace`) is on, a training forward is a
   `model/batch_norm` span, and one whose input has a gradient also
@@ -239,6 +264,13 @@ class BatchNorm(nn.Module):
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     dims = (0,) + tuple(range(2, x.ndim))
     group = collectives.current_batch_group()
+    if group is None and _fusable(x):
+      y, new_mean, new_var = batch_norm_ops.batch_norm_train(
+          x, self.weight, self.bias, self.running_mean, self.running_var,
+          self.momentum, self.epsilon)
+      if not torch.compiler.is_compiling():
+        obs_metrics.counter("model/batch_norm/fused").inc()
+      return y, {"running_mean": new_mean, "running_var": new_var}
     mean, var = (moments(x, dims) if group is None
                  else _global_moments(x, dims, group))
     decay = self.momentum

@@ -29,11 +29,12 @@ from typing import Dict, List, Optional
 _PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
-SOURCES = ("decode_tick", "flash_fwd", "flash_bwd")
+SOURCES = ("decode_tick", "flash_fwd", "flash_bwd", "batch_norm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
 # The launch functions of each library. Every pointer and the stream as
 # c_void_p: ctypes would otherwise pass a Python int as a 32-bit int and
 # cut the pointer. Each library also exports `t2r_<name>_error_string`.
@@ -43,6 +44,10 @@ _SIGNATURES = {
     "flash_bwd": {"t2r_flash_bwd_split": [_P] * 6 + [_I] * 3 + [_P],
                   "t2r_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [_P],
                   "t2r_flash_bwd_dkv": [_P] * 10 + [_I] * 6 + [_P]},
+    "batch_norm": {
+        "t2r_batch_norm_fwd": [_P] * 12 + [_I] * 8 + [_L] * 2 + [_F] * 3
+                              + [_P],
+        "t2r_batch_norm_bwd": [_P] * 10 + [_I] * 8 + [_L] * 2 + [_P]},
 }
 
 _lock = threading.Lock()
